@@ -1,0 +1,241 @@
+"""Fused int8 serving ops: GEMM + epilogue (port of ``qat_vit_tpu/ops/fused_serve.py``).
+
+    int8_dense              x_q @ W  -> float             (K2a, PLAIN)
+    int8_dense_gelu_q       x_q @ W  -> GELU -> int8      (K2b, GELU_Q)
+    int8_dense_resid_ln_q   x_q @ W + residual -> (y, LN(y) -> int8)   (K2c)
+    ln_quantize             LN(x) -> int8                 (K2d)
+
+On CUDA the first three launch the ``int8_gemm`` kernel
+(``csrc/int8_gemm.cu``) with the named epilogue and the last the
+``ln_quantize`` kernel (``csrc/ln_quantize.cu``); on the CPU each runs its
+plain version (``*_plain``, same signature), which ``chip_smoke.py`` also
+runs on the card to check the kernels. Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
+
+Activations are shifted int8; ``in_q``/``out_q`` are ``{"scale",
+"zero_point"}`` dicts of the export. Quantizing multiplies by ``1/scale``
+(f32), as the TPU kernels do. ``W`` stays ``[K, N]`` as exported: the
+kernel transposes its tiles in shared memory, so no transposed copy exists.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from qat_vit_tpu_torch import _build
+from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, ptr, require, stream_of, use_plain
+from qat_vit_tpu_torch.ops.quantized_matmul import f32, int8_matmul, is_per_channel
+
+EPI_PLAIN, EPI_GELU_Q, EPI_RESID_LN_Q = 0, 1, 2
+_ACTS = {"gelu": 0, "quick_gelu": 1}
+# the kernel stages K in 64-byte tiles
+GEMM_K_MULTIPLE = 64
+# RESID_LN_Q keeps 32 rows x N f32 in shared memory beside 96 x 80 B of tiles
+RESID_LN_MAX_N = (SMEM_LIMIT - 96 * 80) // (32 * 4)
+
+
+def gemm_shapes_ok(k: int, n: int, resid_ln: bool = False) -> bool:
+    """The int8_gemm kernel's shape gate."""
+    return k > 0 and k % GEMM_K_MULTIPLE == 0 and n >= 1 and (not resid_ln or n <= RESID_LN_MAX_N)
+
+
+def inv_scale(scale) -> float:
+    """``1/scale`` in f32, as the JAX package computes the kernels' ``inv_s``."""
+    return float(np.float32(1.0) / np.float32(f32(scale)))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def quantize_mul(y: torch.Tensor, inv_s: float, zp: float, qmax: float) -> torch.Tensor:
+    """``clamp(round(y * inv_s + zp), 0, qmax) - 128`` → int8 (the kernels' quantize)."""
+    return (torch.clamp(torch.round(y * inv_s + zp), 0.0, qmax) - 128.0).to(torch.int8)
+
+
+def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(y, approximate=True)``, in its operation order."""
+    k = float(np.float32(np.sqrt(2.0 / np.pi)))
+    return y * (0.5 * (1.0 + torch.tanh(k * (y + 0.044715 * (y * y * y)))))
+
+
+def layernorm_f32(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float):
+    """LN over the last axis, f32 in and out: ``(y − μ)·rstd·γ + β``.
+
+    μ and ``rstd = 1/sqrt(var + eps)`` (var = mean((y − μ)²)) are summed in
+    f64 and rounded to f32 once, as the kernels' ``warp_row_stats`` does, so
+    they do not depend on the summation order and kernel and plain version
+    agree bit for bit; they stay within f32 rounding of the JAX kernels'
+    f32 statistics."""
+    y = y.to(torch.float32)
+    y64 = y.to(torch.float64)
+    mean = y64.mean(dim=-1, keepdim=True)
+    var = torch.square(y64 - mean).mean(dim=-1, keepdim=True)
+    rstd = (1.0 / torch.sqrt(var + float(np.float32(eps)))).to(torch.float32)
+    return (y - mean.to(torch.float32)) * rstd * gamma.to(y.device) + beta.to(y.device)
+
+
+def _dense_f32(x_q, layer, in_q) -> torch.Tensor:
+    return int8_matmul(
+        x_q, layer["w_int8"], x_scale=in_q["scale"], x_zero_point=in_q["zero_point"],
+        w_scale=layer["w_scale"], w_colsum=layer["w_colsum"], bias=layer.get("bias"),
+        out_dtype=torch.float32,
+    )
+
+
+def int8_dense_plain(x_q, layer, in_q, *, out_dtype=torch.bfloat16):
+    return _dense_f32(x_q, layer, in_q).to(out_dtype)
+
+
+def int8_dense_gelu_q_plain(x_q, layer, in_q, gelu_out_q, *, act="gelu", quant_max=255.0):
+    y = _dense_f32(x_q, layer, in_q)
+    g = y * torch.sigmoid(1.702 * y) if act == "quick_gelu" else gelu_tanh(y)
+    return quantize_mul(g, inv_scale(gelu_out_q["scale"]), f32(gelu_out_q["zero_point"]),
+                        f32(quant_max))
+
+
+def int8_dense_resid_ln_q_plain(x_q, layer, in_q, residual, ln, ln_out_q, *, eps=1e-6,
+                                out_dtype=torch.bfloat16, quant_max=255.0):
+    y = _dense_f32(x_q, layer, in_q) + residual.to(torch.float32)
+    z = layernorm_f32(y, ln["scale"], ln["bias"], eps)
+    q = quantize_mul(z, inv_scale(ln_out_q["scale"]), f32(ln_out_q["zero_point"]),
+                     f32(quant_max))
+    return y.to(out_dtype), q
+
+
+def ln_quantize_plain(x, ln, out_q, *, eps=1e-6, quant_max=255.0):
+    z = layernorm_f32(x, ln["scale"], ln["bias"], eps)
+    return quantize_mul(z, inv_scale(out_q["scale"]), f32(out_q["zero_point"]), f32(quant_max))
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
+                 y_dtype: Optional[torch.dtype] = None,
+                 residual: Optional[torch.Tensor] = None, ln: Optional[dict] = None,
+                 out_q: Optional[dict] = None, act: str = "gelu", eps: float = 0.0,
+                 quant_max=255.0) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    dev = x_q.device
+    w = layer["w_int8"]
+    if w.ndim != 2:
+        raise ValueError(f"w_int8: expected [K, N], got {tuple(w.shape)}")
+    k, n = w.shape
+    if not gemm_shapes_ok(k, n, epi == EPI_RESID_LN_Q):
+        raise ValueError(f"int8_gemm: unsupported K={k}, N={n} (K % {GEMM_K_MULTIPLE}, "
+                         f"N <= {RESID_LN_MAX_N} for RESID_LN_Q)")
+    require(x_q, "x_q", torch.int8, dev, tuple(x_q.shape[:-1]) + (k,), align=16)
+    m = x_q.numel() // k
+    require(w, "w_int8", torch.int8, dev, (k, n), align=16)
+    colsum = layer["w_colsum"]
+    require(colsum, "w_colsum", torch.int32, dev, (n,))
+    bias = layer.get("bias")
+    if bias is not None:
+        require(bias, "bias", torch.float32, dev, (n,))
+    ws = layer["w_scale"]
+    if is_per_channel(ws):
+        require(ws, "w_scale", torch.float32, dev, (n,))
+        ws_ptr, ws0, per_channel = ws.data_ptr(), 0.0, 1
+    else:
+        ws_ptr, ws0, per_channel = None, f32(ws), 0
+    if y_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"int8_gemm writes f32 or bf16, not {y_dtype}")
+    y = torch.empty((m, n), dtype=y_dtype, device=dev) if epi != EPI_GELU_Q else None
+    q = torch.empty((m, n), dtype=torch.int8, device=dev) if epi != EPI_PLAIN else None
+    gamma = beta = None
+    res_bf16 = 0
+    if epi == EPI_RESID_LN_Q:
+        if residual is None or residual.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("residual: f32 or bf16 tensor required")
+        require(residual, "residual", residual.dtype, dev, tuple(x_q.shape[:-1]) + (n,))
+        res_bf16 = int(residual.dtype == torch.bfloat16)
+        gamma, beta = ln["scale"], ln["bias"]
+        require(gamma, "ln scale", torch.float32, dev, (n,))
+        require(beta, "ln bias", torch.float32, dev, (n,))
+    inv_s, zp = (inv_scale(out_q["scale"]), f32(out_q["zero_point"])) if out_q else (1.0, 0.0)
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if m:
+        _build.load().call(
+            "qvt_int8_gemm", ptr(x_q), ptr(w), ptr(colsum), ptr(bias), ws_ptr,
+            ptr(residual), ptr(gamma), ptr(beta), ptr(y), ptr(q),
+            m, n, k, epi, int(y_dtype == torch.bfloat16), res_bf16, per_channel, _ACTS[act],
+            ws0, f32(in_q["scale"]), int(f32(in_q["zero_point"])) - 128, inv_s, zp,
+            f32(quant_max), float(eps), stream_of(dev),
+        )
+    lead = tuple(x_q.shape[:-1])
+    return (
+        None if y is None else y.reshape(*lead, n),
+        None if q is None else q.reshape(*lead, n),
+    )
+
+
+# ---------------------------------------------------------------------------
+# public ops (leading dims preserved)
+# ---------------------------------------------------------------------------
+
+def int8_dense(x_q: torch.Tensor, layer: dict, in_q: dict, *,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+    if use_plain(x_q):
+        return int8_dense_plain(x_q, layer, in_q, out_dtype=out_dtype)
+    y, _ = _launch_gemm(EPI_PLAIN, x_q, layer, in_q, y_dtype=out_dtype)
+    int8_dense.launches += int(x_q.numel() > 0)
+    return y
+
+
+def int8_dense_gelu_q(x_q: torch.Tensor, layer: dict, in_q: dict, gelu_out_q: dict, *,
+                      act: str = "gelu", quant_max=255.0) -> torch.Tensor:
+    if use_plain(x_q):
+        return int8_dense_gelu_q_plain(x_q, layer, in_q, gelu_out_q, act=act,
+                                       quant_max=quant_max)
+    _, q = _launch_gemm(EPI_GELU_Q, x_q, layer, in_q, out_q=gelu_out_q, act=act,
+                        quant_max=quant_max)
+    int8_dense_gelu_q.launches += int(x_q.numel() > 0)
+    return q
+
+
+def int8_dense_resid_ln_q(x_q: torch.Tensor, layer: dict, in_q: dict,
+                          residual: torch.Tensor, ln: dict, ln_out_q: dict, *,
+                          eps: float = 1e-6, out_dtype=torch.bfloat16,
+                          quant_max=255.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    if use_plain(x_q):
+        return int8_dense_resid_ln_q_plain(x_q, layer, in_q, residual, ln, ln_out_q,
+                                           eps=eps, out_dtype=out_dtype,
+                                           quant_max=quant_max)
+    y, q = _launch_gemm(EPI_RESID_LN_Q, x_q, layer, in_q, y_dtype=out_dtype,
+                        residual=residual, ln=ln, out_q=ln_out_q, eps=eps,
+                        quant_max=quant_max)
+    int8_dense_resid_ln_q.launches += int(x_q.numel() > 0)
+    return y, q
+
+
+def ln_quantize(x: torch.Tensor, ln: dict, out_q: dict, *, eps: float = 1e-6,
+                quant_max=255.0) -> torch.Tensor:
+    if use_plain(x):
+        return ln_quantize_plain(x, ln, out_q, eps=eps, quant_max=quant_max)
+    dev = x.device
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ln_quantize: x must be f32 or bf16, not {x.dtype}")
+    n = x.shape[-1]
+    require(x, "x", x.dtype, dev, tuple(x.shape))
+    require(ln["scale"], "ln scale", torch.float32, dev, (n,))
+    require(ln["bias"], "ln bias", torch.float32, dev, (n,))
+    m = x.numel() // n
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    if m:
+        _build.load().call(
+            "qvt_ln_quantize", ptr(x), ptr(ln["scale"]), ptr(ln["bias"]), ptr(q), m, n,
+            int(x.dtype == torch.bfloat16), inv_scale(out_q["scale"]),
+            f32(out_q["zero_point"]), f32(quant_max), float(eps), stream_of(dev),
+        )
+        ln_quantize.launches += 1
+    return q
+
+
+for _wrapper in (int8_dense, int8_dense_gelu_q, int8_dense_resid_ln_q, ln_quantize):
+    _wrapper.launches = 0
+del _wrapper

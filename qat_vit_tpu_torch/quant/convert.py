@@ -1,0 +1,121 @@
+"""Convert: fold observer statistics into a true-int8 export (port of
+``qat_vit_tpu/quant/convert.py``).
+
+Convert-time qparams use the observer formulas (symmetric ``amax/127.5``),
+not the fused train-time kernel's, as torch and the JAX package do.
+
+Dense weights come in as ``[K, N]`` (the JAX layout, ``nn.Linear.weight.T``)
+and leave as ``w_int8 [K, N]`` with ``w_colsum [N]`` int32, so the export
+has the JAX package's layout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from qat_vit_tpu_torch.quant.fake_quant import quantize_to_int
+from qat_vit_tpu_torch.quant.observers import (
+    finite_or_zero,
+    qparams_affine,
+    qparams_symmetric,
+    qparams_symmetric_per_channel,
+)
+from qat_vit_tpu_torch.quant.qconfig import QConfig
+
+
+def convert_weight(
+    w: torch.Tensor, min_val, max_val, qcfg: QConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weight → (int8 values, scale) with observer symmetric qparams."""
+    scale, zp = qparams_symmetric(min_val, max_val, qcfg.weight.quant_min, qcfg.weight.quant_max)
+    scale, zp = scale.to(w.device), zp.to(w.device)
+    w_q = quantize_to_int(w, scale, zp, qcfg.weight.quant_min, qcfg.weight.quant_max)
+    return w_q, scale
+
+
+def act_qparams(min_val, max_val, qcfg: QConfig) -> Dict[str, torch.Tensor]:
+    """Activation observer state → {scale, zero_point, quant_max} (0-d f32)."""
+    scale, zp = qparams_affine(
+        min_val, max_val, qcfg.activation.quant_min, qcfg.activation.quant_max
+    )
+    return {
+        "scale": scale,
+        "zero_point": zp,
+        "quant_max": torch.tensor(float(qcfg.activation.quant_max)),
+    }
+
+
+def _gelu_erf(v: torch.Tensor) -> torch.Tensor:
+    return v * 0.5 * (1.0 + torch.erf(v / math.sqrt(2.0)))
+
+
+def gelu_transform_qparams(min_val, max_val, qcfg: QConfig) -> Dict[str, torch.Tensor]:
+    """Static qparams for a GELU output given its input observer range
+    ``[a, b]``: ``[min(gelu(a), gelu(b), gmin if a < -0.7518), max(gelu(b), 0)]``
+    with GELU's global minimum gmin ≈ -0.17, erf-GELU in f32."""
+    a, b = finite_or_zero(min_val).cpu(), finite_or_zero(max_val).cpu()
+    gmin = torch.tensor(-0.17000000, dtype=torch.float32)
+    ga, gb = _gelu_erf(a), _gelu_erf(b)
+    lo = torch.minimum(torch.minimum(ga, gb), torch.where(a < -0.7518, gmin, ga))
+    hi = torch.clamp(gb, min=0.0)
+    return act_qparams(lo, hi, qcfg)
+
+
+def act_output_qparams(min_val, max_val, qcfg: QConfig, act: str = "gelu") -> Dict[str, torch.Tensor]:
+    """Static qparams for an activation's output given its input range:
+    exact for GELU, a 1025-point scan of the interval for quick-GELU."""
+    if act == "gelu":
+        return gelu_transform_qparams(min_val, max_val, qcfg)
+    if act != "quick_gelu":
+        raise ValueError(f"unknown activation {act!r} for int8 conversion")
+    a, b = finite_or_zero(min_val).cpu(), finite_or_zero(max_val).cpu()
+    ts = torch.linspace(0.0, 1.0, 1025, dtype=torch.float32)
+    v = a + (b - a) * ts
+    ys = v * torch.sigmoid(1.702 * v)
+    lo = torch.clamp(ys.min(), max=0.0)
+    hi = torch.clamp(ys.max(), min=0.0)
+    return act_qparams(lo, hi, qcfg)
+
+
+def dense_int8(
+    kernel: torch.Tensor,  # [K, N] float
+    bias: Optional[torch.Tensor],
+    stats: Dict[str, Any],  # {"weight_fq": {min_val, max_val}, "act_fq": {...}?}
+    qcfg: QConfig,
+    per_channel: bool = False,
+) -> Dict[str, Any]:
+    """One QuantDense → int8 bundle: values, weight scale, bias, column sums
+    (for the zero-point correction in the int8 GEMM) and its output qparams."""
+    w = kernel.to(torch.float32)
+    if per_channel:
+        w_scale, _ = qparams_symmetric_per_channel(
+            w, axis=1, quant_min=qcfg.weight.quant_min, quant_max=qcfg.weight.quant_max
+        )
+        w_q = quantize_to_int(
+            w, w_scale[None, :], 0.0, qcfg.weight.quant_min, qcfg.weight.quant_max
+        )
+    else:
+        w_q, w_scale = convert_weight(
+            w, stats["weight_fq"]["min_val"], stats["weight_fq"]["max_val"], qcfg
+        )
+    out: Dict[str, Any] = {
+        "w_int8": w_q.contiguous(),
+        "w_scale": w_scale,
+        "w_colsum": w_q.to(torch.int32).sum(dim=0, dtype=torch.int32),
+        "bias": bias.to(torch.float32) if bias is not None else None,
+    }
+    if "act_fq" in stats:
+        out["out_q"] = act_qparams(stats["act_fq"]["min_val"], stats["act_fq"]["max_val"], qcfg)
+    return out
+
+
+def ln_params(weight: torch.Tensor, bias: torch.Tensor, stats: Dict[str, Any], qcfg: QConfig) -> Dict[str, Any]:
+    """QuantLayerNorm → float LN params + its output qparams."""
+    return {
+        "scale": weight.to(torch.float32),
+        "bias": bias.to(torch.float32),
+        "out_q": act_qparams(stats["act_fq"]["min_val"], stats["act_fq"]["max_val"], qcfg),
+    }
