@@ -9,12 +9,21 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    versions, and the time to build the kernels from ``qat_vit_tpu_torch/csrc``;
 2. kernels against their plain PyTorch versions on the card, at ViT-S/16
    shapes with batch 32, each timed (CUDA events, median of 30 runs after
-   warm-up) beside its plain version;
-3. end to end: a random-init ViT-S/16 student (224 px, 10 classes), PTQ over
+   warm-up, 5 for the slow plain attention backward) beside its plain
+   version;
+3. serving: a random-init ViT-S/16 student (224 px, 10 classes), PTQ over
    4 calibration batches of 32, then ``Int8Predictor`` on 512 uint8 32x32
    images at batch 256 through the kernels; checks the kernels' launch
    counts, finite logits, agreement with the same chain through the plain
-   versions and with the exact f32 path, and prints the serving img/s.
+   versions and with the exact f32 path, and prints the serving img/s;
+4. training: ``KDQATTrainer`` at full ViT-S/16 geometry under the trainer's
+   defaults (bf16, fast_math, fq_in_kernel) with a random-init ViT-B/16
+   teacher, on 1,024 synthetic CIFAR-10 images: the same 3 float steps, QAT
+   switch and 3 QAT steps at batch 32 through the attention kernels and
+   through their plain versions (losses and parameters must agree), then at
+   batch 256 (teacher logits cached, launch counts of both attention kernels
+   in both phases, finite losses, train img/s per phase), QAT eval, int8
+   convert and int8 eval through the serving kernels.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; with none it exits 2.
@@ -42,6 +51,16 @@ CHAIN_REL_L2 = 2e-2
 # megamodel chain (bf16 stream, tanh-GELU, multiply-quantize) vs the exact
 # f32 path (erf-GELU, divide-quantize): ~2.5e-2 on the micro model
 EXACT_REL_L2 = 0.2
+N_TRAIN, N_TEST = 1024, 512
+TRAIN_B, REPLAY_B, TRAIN_STEPS = 256, 32, 3
+# training through the attention kernels vs through their plain versions, at
+# batch 32: every kernel is bit-identical to its plain version and the rest
+# of the step is the same PyTorch code, so the losses and parameters should
+# be identical; the bound allows bf16 noise (one bf16 step, 2^-8, in a few
+# activations moves a KD loss of ~1 by < 1e-3) should a library kernel
+# outside this repository not repeat itself exactly
+REPLAY_LOSS_REL = 1e-3
+REPLAY_PARAM_REL_L2 = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -96,7 +115,7 @@ def compare_float(name, got, want, rtol):
     return float(err.max())
 
 
-def phase_kernels(torch, np, fs, fa):
+def phase_kernels(torch, np, fs, fa, fat):
     """Each kernel against its plain version at ViT-S shapes, batch 32."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -128,6 +147,10 @@ def phase_kernels(torch, np, fs, fa):
     x_bf16 = torch.from_numpy(rng.normal(0, 1.5, (b, n_tok, d)).astype(np.float32)).to(dev).to(bf16)
     x_f32 = torch.from_numpy(rng.normal(0, 1.5, (b, n_tok, d)).astype(np.float32)).to(dev)
     qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n_tok, 3 * d)).astype(np.float32)).to(dev).to(bf16)
+    do = torch.from_numpy(rng.normal(0, 1.0, (b, n_tok, d)).astype(np.float32)).to(dev).to(bf16)
+    # the qkv fake-quant grid of the QAT phase; its ends clip ~3% of N(0, 1)
+    fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=torch.float32, device=dev),
+          "in_fq": (0, 255)}
     cases = [
         # name, wrapper, plain, args, kwargs, replaces
         ("int8_gemm:plain qkv [6304x384]@[384x1152]", fs.int8_dense, fs.int8_dense_plain,
@@ -155,6 +178,15 @@ def phase_kernels(torch, np, fs, fa):
         ("attention_q [32x197x1152] 6 heads", fa.fused_attention_qkv,
          fa.fused_attention_qkv_plain, (qkv, heads, hd), {"out_q": out_q},
          "qat_vit_tpu/ops/flash_attention.py:125"),
+        ("attention_fwd [32x197x1152] 6 heads", fa.attention_fwd, fa.attention_fwd_plain,
+         (qkv, heads, hd), {}, "qat_vit_tpu/ops/flash_attention.py:125"),
+        ("attention_fwd:in_fq [32x197x1152] 6 heads", fa.attention_fwd, fa.attention_fwd_plain,
+         (qkv, heads, hd), fq, "qat_vit_tpu/ops/flash_attention.py:125"),
+        ("attention_bwd [32x197x1152] 6 heads", fat.attention_bwd, fat.attention_bwd_plain,
+         (qkv, do, heads, hd), {}, "qat_vit_tpu/ops/flash_attention_train.py:48"),
+        ("attention_bwd:in_fq+ste [32x197x1152] 6 heads", fat.attention_bwd,
+         fat.attention_bwd_plain, (qkv, do, heads, hd), fq,
+         "qat_vit_tpu/ops/flash_attention_train.py:48"),
     ]
     results = []
     for name, kernel, plain, args, kwargs, replaces in cases:
@@ -175,7 +207,8 @@ def phase_kernels(torch, np, fs, fa):
                 # f32 out: same f32 ops in the same order; bf16 out: one bf16 ulp
                 errs.append(compare_float(name, g, w, 2 ** -7 if g.dtype == bf16 else 1e-5))
         ms = median_ms(lambda: kernel(*args, **kwargs))
-        plain_ms = median_ms(lambda: plain(*args, **kwargs))
+        plain_ms = median_ms(lambda: plain(*args, **kwargs),
+                             runs=5 if plain is fat.attention_bwd_plain else TIMING_RUNS)
         print(f"phase 2 {name}: max|diff| {max(errs):.3e} {' '.join(exact)}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
         results.append({"name": name, "wrapper": kernel, "replaces": replaces,
@@ -183,7 +216,7 @@ def phase_kernels(torch, np, fs, fa):
     return results
 
 
-def phase_end_to_end(torch, np, fs, fa):
+def phase_serving(torch, np, fs, fa):
     from qat_vit_tpu_torch.data.pipeline import preprocess_fn
     from qat_vit_tpu_torch.models.registry import create_student
     from qat_vit_tpu_torch.serve.calibrate import ptq_convert
@@ -261,6 +294,112 @@ def phase_end_to_end(torch, np, fs, fa):
     return launches
 
 
+def phase_training(torch, np, fs, fa, fat):
+    """KD + QAT training of ViT-S/16 through the attention kernels."""
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+    from qat_vit_tpu_torch.models.registry import create_student, create_teacher
+    from qat_vit_tpu_torch.serve.predictor import Int8Predictor
+    from qat_vit_tpu_torch.train.config import load_hparams
+    from qat_vit_tpu_torch.train.trainer import KDQATTrainer
+
+    dev = torch.device("cuda")
+    data = synthetic_cifar10(n_train=N_TRAIN, n_test=N_TEST, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    teacher = create_teacher("vit", dtype=torch.bfloat16, generator=gen)
+    student = create_student("vit", generator=gen)
+    scfg, tcfg = student.cfg, teacher.cfg
+    if ((scfg.embed_dim, scfg.depth, scfg.num_heads, scfg.mlp_dim, scfg.seq_len)
+            != (384, 12, 6, 1536, 197) or (tcfg.embed_dim, tcfg.depth, tcfg.num_heads) != (768, 12, 12)):
+        fail(f"unexpected geometry: student {scfg}, teacher {tcfg}")
+
+    def trainer(batch):
+        hp = load_hparams(None)
+        hp.update(batch_size=batch, eval_batch_size=256, epochs=2, seed=SEED)
+        t = KDQATTrainer(hp, device=dev, data=data, student=student, teacher=teacher)
+        qc = t.student_qat_cfg
+        if not (t.student_float_cfg.fast_math and qc.fast_math and qc.fq_in_kernel
+                and qc.dtype == torch.bfloat16 and t.cache_teacher):
+            fail(f"the trainer's defaults changed: {t.student_float_cfg} / {qc}")
+        return t
+
+    def run(t, counts=None):
+        """3 float steps, the QAT switch, 3 QAT steps; the kernels' launches per phase."""
+        out = []
+        for epoch in (0, 1):
+            if epoch:
+                t.enable_qat()
+            fa.attention_fwd.launches = fat.attention_bwd.launches = 0
+            m = t.train_epoch(epoch, limit_batches=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            if counts is not None:
+                counts.append((fa.attention_fwd.launches, fat.attention_bwd.launches))
+            if m["n_batches"] != TRAIN_STEPS or not np.isfinite(m["train_loss"]):
+                fail(f"training epoch {epoch}: {m}")
+            out.append(m)
+        return out
+
+    # the same steps through the kernels and through their plain versions
+    replay = []
+    for plain in (False, True):
+        t = trainer(REPLAY_B)
+        if plain:
+            with fat.reference_impl():
+                ms = run(t)
+        else:
+            ms = run(t)
+        replay.append((ms, torch.cat([p.detach().float().flatten()
+                                      for p in t.student_qat.parameters()])))
+    for phase, (mk, mp) in enumerate(zip(replay[0][0], replay[1][0])):
+        rel = abs(mk["train_loss"] - mp["train_loss"]) / abs(mp["train_loss"])
+        print(f"phase 4 replay at batch {REPLAY_B}, {('float', 'QAT')[phase]} steps: loss "
+              f"kernels {mk['train_loss']!r} plain {mp['train_loss']!r} (rel {rel:.3e}, "
+              f"bound {REPLAY_LOSS_REL})", flush=True)
+        if rel > REPLAY_LOSS_REL:
+            fail(f"kernel vs plain training loss rel {rel:.3e} > {REPLAY_LOSS_REL}")
+    pk, pp = replay[0][1], replay[1][1]
+    prel = float((pk - pp).norm() / pp.norm())
+    print(f"phase 4 replay: student parameters after {2 * TRAIN_STEPS} steps, kernels vs "
+          f"plain rel L2 {prel:.3e} (bound {REPLAY_PARAM_REL_L2})", flush=True)
+    if prel > REPLAY_PARAM_REL_L2:
+        fail(f"kernel vs plain parameters rel L2 {prel:.3e} > {REPLAY_PARAM_REL_L2}")
+
+    # the main path: batch 256
+    t = trainer(TRAIN_B)
+    t0 = time.perf_counter()
+    t._ensure_teacher_logits()
+    torch.cuda.synchronize()
+    print(f"phase 4 teacher logits cached for {N_TRAIN} images: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    counts = []
+    ms = run(t, counts)
+    card = card_line()
+    for name, m, (nf, nb) in zip(("float (bf16, fast_math)", "QAT (bf16, fq_in_kernel)"),
+                                 ms, counts):
+        print(f"phase 4 {name}: {TRAIN_STEPS} steps at batch {TRAIN_B}, mean loss "
+              f"{m['train_loss']:.5f}, {m['imgs_per_sec']:.1f} img/s "
+              f"({m['epoch_seconds'] * 1e3:.1f} ms, first step included) on {card}; "
+              f"launches attention_fwd {nf} attention_bwd {nb}", flush=True)
+        if nf == 0 or nb == 0:
+            fail(f"the {name} steps did not launch both attention kernels: fwd {nf} bwd {nb}")
+    acc = t.evaluate(limit_batches=1)
+    export = t.convert_int8()
+    serve = (fs.int8_dense, fs.int8_dense_gelu_q, fs.int8_dense_resid_ln_q, fs.ln_quantize,
+             fa.fused_attention_qkv)
+    for w in serve:
+        w.launches = 0
+    acc8 = t.evaluate_int8(export, limit_batches=1)
+    torch.cuda.synchronize()
+    if any(w.launches == 0 for w in serve):
+        fail(f"int8 eval did not launch every serving kernel: {[w.launches for w in serve]}")
+    logits = Int8Predictor(export, t.student_qat_cfg, batch_size=TRAIN_B,
+                           device=dev).logits(data["test_images"][:TRAIN_B])
+    if logits.shape != (TRAIN_B, 10) or not np.isfinite(logits).all():
+        fail(f"int8 logits after training: {logits.shape}, finite {np.isfinite(logits).all()}")
+    print(f"phase 4 QAT eval top-1 {acc:.4f}, int8 eval top-1 {acc8:.4f} (random-init "
+          f"teacher: a record, not a gate); int8 logits finite", flush=True)
+    return {fa.attention_fwd: sum(c[0] for c in counts), fat.attention_bwd: sum(c[1] for c in counts)}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -275,6 +414,7 @@ def main() -> None:
     sys.path.insert(0, root)
     from qat_vit_tpu_torch import _build
     from qat_vit_tpu_torch.ops import flash_attention as fa
+    from qat_vit_tpu_torch.ops import flash_attention_train as fat
     from qat_vit_tpu_torch.ops import fused_serve as fs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -289,14 +429,17 @@ def main() -> None:
     lib = _build.load()
     print(f"phase 1 kernels built in {lib.build_seconds:.1f} s: {lib.path.name}", flush=True)
 
-    kernels = phase_kernels(torch, np, fs, fa)
-    launches = phase_end_to_end(torch, np, fs, fa)
+    kernels = phase_kernels(torch, np, fs, fa, fat)
+    launches = phase_serving(torch, np, fs, fa)
+    launches.update(phase_training(torch, np, fs, fa, fat))
 
     sources = {fs.int8_dense: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_gelu_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_resid_ln_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.ln_quantize: "qat_vit_tpu_torch/csrc/ln_quantize.cu",
-               fa.fused_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q.cu"}
+               fa.fused_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q.cu",
+               fa.attention_fwd: "qat_vit_tpu_torch/csrc/attention_q.cu",
+               fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd.cu"}
     record = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": sources[k["wrapper"]],
          "replaces": k["replaces"], "launches": launches[k["wrapper"]],

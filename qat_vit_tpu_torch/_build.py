@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: that
-build takes minutes, this one seconds). The library is built at the first
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc``, all started
+together, and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers: that build takes
+minutes, this one seconds). The library is built at the first
 kernel launch and again whenever a source, a header or the flags change:
 its file name carries a hash of all of them. Builds land in
 ``qat_vit_tpu_torch/_build/`` (ignored by git).
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "qvt_int8_gemm": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _F, _F, _F, _F, _P],
     "qvt_ln_quantize": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P],
     "qvt_attention_q": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],
+    "qvt_attention_fwd": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _P],
+    "qvt_attention_bwd": [_P] * 4 + [_I] * 5 + [_F, _I, _F, _F, _P],
 }
 
 
@@ -97,23 +100,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libqvt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"kernel build failed ({' '.join(cmd)}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the library unless it is already built."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in sorted(CSRC.glob("*.cu"))]
+        _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", obj]
+              for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

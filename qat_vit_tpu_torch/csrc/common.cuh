@@ -1,4 +1,4 @@
-// Shared device helpers of the int8 serving kernels (sm_90a).
+// Shared device helpers of the port's kernels (sm_90a).
 //
 // Activations travel as "shifted int8": the uint8 grid value minus 128.
 // Every quantize here is clamp(rint(v * inv_s + zp), 0, qmax) - 128 with
@@ -17,6 +17,39 @@ __device__ __forceinline__ int8_t quantize_shifted(float v, float inv_s, float z
   float q = rintf(__fadd_rn(__fmul_rn(v, inv_s), zp));
   q = fminf(fmaxf(q, 0.0f), qmax);
   return static_cast<int8_t>(static_cast<int>(q) - 128);
+}
+
+// Fake-quant of one value, the arithmetic of quant/fake_quant.fake_quantize:
+// q = rint(x / s + zp) in f32 (half to even), clipped to [qmin, qmax], then
+// (q - zp) * s; every operation rounded on its own (no contraction).
+__device__ __forceinline__ float fq_grid(float x, float s, float zp) {
+  return rintf(__fadd_rn(__fdiv_rn(x, s), zp));
+}
+
+__device__ __forceinline__ float fake_quant(float x, float s, float zp, float qmin,
+                                            float qmax) {
+  const float q = fminf(fmaxf(fq_grid(x, s, zp), qmin), qmax);
+  return __fmul_rn(__fsub_rn(q, zp), s);
+}
+
+// The straight-through estimator's mask: the gradient passes where the
+// unclipped grid value lies in [qmin, qmax].
+__device__ __forceinline__ bool ste_keep(float x, float s, float zp, float qmin, float qmax) {
+  const float q = fq_grid(x, s, zp);
+  return q >= qmin && q <= qmax;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Fake-quant both bf16 halves of a 32-bit word, back to bf16.
+__device__ __forceinline__ uint32_t fake_quant_pair(uint32_t w, float s, float zp, float qmin,
+                                                    float qmax) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+  __nv_bfloat162 r = __floats2bfloat162_rn(fake_quant(f.x, s, zp, qmin, qmax),
+                                           fake_quant(f.y, s, zp, qmin, qmax));
+  return *reinterpret_cast<uint32_t*>(&r);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,1 +1,1 @@
-"""Data: on-device preprocessing."""
+"""Data: CIFAR-10 sources, the index sampler and loader, on-device preprocessing."""

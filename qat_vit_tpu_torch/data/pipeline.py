@@ -1,6 +1,9 @@
-"""On-device preprocessing (port of ``preprocess_fn`` in
-``qat_vit_tpu/data/pipeline.py``).
+"""Input pipeline (port of ``qat_vit_tpu/data/pipeline.py``): the
+DistributedSampler-parity index shards (:func:`epoch_indices`), a
+single-process loader over in-memory arrays (:class:`ArrayLoader`), and
+on-device preprocessing (:func:`preprocess_fn`).
 
+Preprocessing:
 uint8 ``[B, h, w, 3]`` → f32 ``[B, size, size, 3]``: /255, bicubic resize as
 two small GEMMs, ImageNet normalization. The resize matrix is built in numpy
 (float64, then f32) as ``jax.image.resize`` builds it: Keys cubic a = -0.5,
@@ -10,12 +13,81 @@ half-pixel centres, each output row renormalized over the in-range taps.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Iterator
+
 import numpy as np
 import torch
 
-# ImageNet statistics, as qat_vit_tpu/data/cifar10.py (the reference's transform)
-CIFAR10_MEAN = (0.485, 0.456, 0.406)
-CIFAR10_STD = (0.229, 0.224, 0.225)
+from qat_vit_tpu_torch.data.cifar10 import CIFAR10_MEAN, CIFAR10_STD
+
+
+def epoch_indices(
+    n: int,
+    *,
+    epoch: int,
+    seed: int = 0,
+    shuffle: bool = True,
+    rank: int = 0,
+    world_size: int = 1,
+    drop_last: bool = False,
+) -> np.ndarray:
+    """Per-epoch, per-rank index shard with torch DistributedSampler
+    semantics: epoch-seeded numpy permutation (the JAX package's, so both
+    packages visit the same images in the same order), pad by wraparound to
+    a common length, rank-strided slice."""
+    if shuffle:
+        indices = np.random.default_rng(seed + epoch).permutation(n)
+    else:
+        indices = np.arange(n)
+    if drop_last:
+        total = (n // world_size) * world_size
+        indices = indices[:total]
+    else:
+        total = -(-n // world_size) * world_size
+        if total > n:
+            indices = np.concatenate([indices, indices[: total - n]])
+    return indices[rank:total:world_size]
+
+
+@dataclasses.dataclass
+class ArrayLoader:
+    """Batches over in-memory arrays, in this process and on one rank: each
+    batch is one numpy fancy-index (microseconds), so no worker processes or
+    prefetch thread are needed. Yields ``{"image", "label", "index"}`` numpy
+    arrays."""
+
+    images: np.ndarray  # [N, 32, 32, 3] uint8
+    labels: np.ndarray  # [N] int32
+    batch_size: int
+    shuffle: bool = True
+    seed: int = 0
+    drop_last: bool = True
+
+    def __post_init__(self):
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """The sampler's reshuffle hook."""
+        self._epoch = epoch
+
+    def _indices(self, epoch: int, shuffle: bool) -> np.ndarray:
+        return epoch_indices(len(self.images), epoch=epoch, seed=self.seed, shuffle=shuffle,
+                             drop_last=self.drop_last)
+
+    def __len__(self) -> int:
+        per_rank = len(self._indices(0, False))
+        if self.drop_last:
+            return per_rank // self.batch_size
+        return -(-per_rank // self.batch_size)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = self._indices(self._epoch, self.shuffle)
+        for b in range(len(self)):
+            sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
+            yield {"image": self.images[sel],
+                   "label": np.asarray(self.labels[sel], np.int32),
+                   "index": np.asarray(sel, np.int64)}
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:

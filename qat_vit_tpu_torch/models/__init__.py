@@ -4,6 +4,7 @@ from qat_vit_tpu_torch.models.registry import (
     ModelBundle,
     create_model,
     create_student,
+    create_teacher,
     list_available_models,
 )
 from qat_vit_tpu_torch.models.vit import (
@@ -19,5 +20,6 @@ __all__ = [
     "count_fake_quant_sites",
     "create_model",
     "create_student",
+    "create_teacher",
     "list_available_models",
 ]

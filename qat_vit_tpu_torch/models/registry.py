@@ -101,6 +101,15 @@ def create_model(name: str, num_classes: int = 10, qat_wrapper: bool = False,
     return _MODEL_REGISTRY[name](num_classes=num_classes, qat_wrapper=qat_wrapper, **kwargs)
 
 
+def create_teacher(family: str = "vit", **kwargs) -> ModelBundle:
+    """The frozen ViT-B/16 teacher. The trainer builds it with
+    ``dtype=torch.bfloat16`` and no fast_math: bf16 GEMMs, the einsum
+    attention with an f32 softmax, erf-GELU, as the JAX package builds it."""
+    if family == "vit":
+        return create_model("vit_base_patch16_224_teacher", **kwargs)
+    raise ValueError(f"unknown model family: {family!r}")
+
+
 def create_student(family: str = "vit", qat_wrapper: bool = True, **kwargs) -> ModelBundle:
     if family == "vit":
         return create_model("vit_small_patch16_224_student", qat_wrapper=qat_wrapper, **kwargs)

@@ -7,10 +7,13 @@ extraction + one GEMM with patch rows in (ph, pw, c) order. With
 on a timm ViT, as in the JAX package: every dense weight, the output of
 every dense layer and LayerNorm, and the input stub.
 
-Attention is the einsum path of the JAX module (``vit.py:373-388``), in
-f32 as the JAX model computes under QAT; the training-only options
-(``dtype``, ``fast_math``, the Pallas training kernels) and the OWLv2 ones
-(``pre_norm``, bias-free patches, ``num_classes=0``) come with their slices.
+Training options, as the JAX module: ``dtype`` (the compute dtype; params
+stay f32, fake-quant math stays f32, matmuls, bias adds and LayerNorm
+outputs in ``dtype``, logits f32), ``fast_math`` (softmax in the compute
+dtype, tanh-GELU), ``attn_kernel`` and ``fq_in_kernel`` (the attention
+dispatch in :class:`Attention`: the hand-written attention kernels of
+``ops/flash_attention_train.py``, or the einsum path). The OWLv2 options
+(``pre_norm``, bias-free patches, ``num_classes=0``) come with their slice.
 """
 
 from __future__ import annotations
@@ -22,6 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from qat_vit_tpu_torch.ops.flash_attention_train import (
+    attention_train,
+    attention_train_available,
+    attention_train_fq,
+)
 from qat_vit_tpu_torch.quant.modules import FakeQuantizer
 from qat_vit_tpu_torch.quant.qconfig import QConfig
 
@@ -41,6 +49,22 @@ class ViTConfig:
     act: str = "gelu"  # MLP activation: "gelu" (timm) or "quick_gelu" (CLIP)
     quant: Optional[QConfig] = None
     qat_wrapper: bool = True
+    # compute dtype (params stay f32): bf16 in the trainer's amp / qat_amp phases
+    dtype: torch.dtype = torch.float32
+    # softmax in the compute dtype and tanh-GELU (the trainer's bf16 phases)
+    fast_math: bool = False
+    # permit the hand-written attention kernels (with fast_math, where they fit)
+    attn_kernel: bool = True
+    # per-block rematerialization: only "none" is ported
+    remat: str = "none"
+    # the qkv activation fake-quant inside the attention kernels (training trace)
+    fq_in_kernel: bool = False
+
+    def __post_init__(self):
+        if self.remat != "none":
+            raise NotImplementedError(
+                f"remat={self.remat!r} is not ported: ROADMAP.md Queue 1, item 11"
+            )
 
     @property
     def num_patches(self) -> int:
@@ -65,9 +89,11 @@ VIT_BASE = dict(embed_dim=768, depth=12, num_heads=12)
 VIT_MICRO = dict(embed_dim=128, depth=2, num_heads=2, image_size=32, patch_size=8)
 
 
-def apply_act(x: torch.Tensor, act: str) -> torch.Tensor:
+def apply_act(x: torch.Tensor, act: str, fast: bool = False) -> torch.Tensor:
+    """MLP activation by name; ``fast=True`` is the tanh approximation in
+    the compute dtype (``jax.nn.gelu(approximate=True)``)."""
     if act == "gelu":
-        return F.gelu(x)
+        return F.gelu(x, approximate="tanh" if fast else "none")
     if act == "quick_gelu":
         return x * torch.sigmoid(1.702 * x)
     raise ValueError(f"unknown activation {act!r}")
@@ -89,12 +115,18 @@ def extract_patches(x: torch.Tensor, patch: int) -> torch.Tensor:
 
 class QuantDense(nn.Module):
     """``nn.Linear`` with weight fake-quant and output activation fake-quant
-    (the ``torch.ao.nn.qat.Linear`` + ``activation_post_process`` pair)."""
+    (the ``torch.ao.nn.qat.Linear`` + ``activation_post_process`` pair).
+
+    Fake-quant math runs in f32; the matmul and the bias add run in
+    ``dtype``. ``defer_output_fq=True`` returns ``(y_raw, scale, zp)`` with
+    the output observer updated, for a kernel that applies the fake-quant."""
 
     def __init__(self, in_features: int, features: int, quant: Optional[QConfig],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.quant = quant
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         _trunc_normal_(self.weight, 0.02, generator)
         self.bias = nn.Parameter(torch.zeros(features))
@@ -102,13 +134,14 @@ class QuantDense(nn.Module):
             self.weight_fq = FakeQuantizer(quant.weight)
             self.act_fq = FakeQuantizer(quant.activation)
 
-    def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, observe: bool = False,
+                defer_output_fq: bool = False):
         w = self.weight
         if self.quant is not None:
             w = self.weight_fq(w, observe=observe)
-        y = F.linear(x, w, self.bias)
+        y = F.linear(x.to(self.dtype), w.to(self.dtype)) + self.bias.to(self.dtype)
         if self.quant is not None:
-            y = self.act_fq(y, observe=observe)
+            return self.act_fq(y, observe=observe, apply_fq=not defer_output_fq)
         return y
 
 
@@ -118,10 +151,13 @@ class QuantLayerNorm(nn.Module):
     Normalizes as flax's ``nn.LayerNorm`` does in the JAX model, so observer
     statistics match it: f32 statistics with the fast variance
     ``E[x²] − E[x]²`` (floored at 0) and the scale folded into the
-    ``rsqrt`` factor, ``(x − μ)·(rsqrt(var + eps)·γ) + β``."""
+    ``rsqrt`` factor, ``(x − μ)·(rsqrt(var + eps)·γ) + β``, all in f32; the
+    result is cast to ``dtype``, then fake-quantized."""
 
-    def __init__(self, dim: int, quant: Optional[QConfig], eps: float = 1e-6):
+    def __init__(self, dim: int, quant: Optional[QConfig], eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.ln = nn.LayerNorm(dim, eps=eps)
         self.act_fq = FakeQuantizer(quant.activation) if quant is not None else None
 
@@ -130,7 +166,7 @@ class QuantLayerNorm(nn.Module):
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.ln.eps) * self.ln.weight
-        y = (x - mean) * mul + self.ln.bias
+        y = ((x - mean) * mul + self.ln.bias).to(self.dtype)
         if self.act_fq is not None:
             y = self.act_fq(y, observe=observe)
         return y
@@ -141,28 +177,57 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.patch_size = cfg.patch_size
         self.proj = QuantDense(cfg.patch_size * cfg.patch_size * 3, cfg.embed_dim,
-                               cfg.quant, generator)
+                               cfg.quant, generator, cfg.dtype)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
         return self.proj(extract_patches(x, self.patch_size), observe=observe)
 
 
 class Attention(nn.Module):
+    """timm-geometry MHA with quantizable qkv / proj GEMMs and the JAX
+    module's dispatch (``vit.py:312-388``):
+
+    - the qkv fake-quant inside the attention kernels
+      (:func:`attention_train_fq`) when ``quant`` is set, ``fq_in_kernel``
+      is on, the forward observes (the training trace) and the kernels fit;
+    - :func:`attention_train` (kernels A + B) under ``fast_math`` and
+      ``attn_kernel`` where they fit;
+    - otherwise the einsum path: scores in the compute dtype, softmax in it
+      under ``fast_math`` and in f32 otherwise.
+
+    The JAX module's long-sequence branch (``long_attention_train``, K5)
+    is not here: its gate is False at N = 197, where every model of this
+    slice runs; longer sequences take the einsum path until K5 is ported
+    (ROADMAP.md Queue 2)."""
+
     def __init__(self, cfg: ViTConfig, generator=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
-        self.qkv = QuantDense(d, 3 * d, cfg.quant, generator)
-        self.proj = QuantDense(d, d, cfg.quant, generator)
+        self.qkv = QuantDense(d, 3 * d, cfg.quant, generator, cfg.dtype)
+        self.proj = QuantDense(d, d, cfg.quant, generator, cfg.dtype)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
         cfg = self.cfg
         b, n, d = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
-        qkv = self.qkv(x, observe=observe).reshape(b, n, 3, h, hd)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q * hd**-0.5, k), dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, d)
+        kernel_ok = (cfg.fast_math and cfg.attn_kernel
+                     and attention_train_available(h, hd, n, cfg.dtype))
+        if cfg.quant is not None and cfg.fq_in_kernel and observe and kernel_ok:
+            qkv, scale, zp = self.qkv(x, observe=observe, defer_output_fq=True)
+            qs = torch.stack([scale.to(torch.float32).reshape(()),
+                              zp.to(torch.float32).reshape(())])
+            act = cfg.quant.activation
+            out = attention_train_fq(qkv, qs, h, hd, act.quant_min, act.quant_max)
+        elif kernel_ok:
+            out = attention_train(self.qkv(x, observe=observe), h, hd)
+        else:
+            qkv = self.qkv(x, observe=observe).reshape(b, n, 3, h, hd)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            attn = torch.einsum("bqhd,bkhd->bhqk", q * hd**-0.5, k)
+            sm_dtype = q.dtype if cfg.fast_math else torch.float32
+            attn = torch.softmax(attn.to(sm_dtype), dim=-1).to(q.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, d)
         return self.proj(out, observe=observe)
 
 
@@ -170,11 +235,11 @@ class Mlp(nn.Module):
     def __init__(self, cfg: ViTConfig, generator=None):
         super().__init__()
         self.cfg = cfg
-        self.fc1 = QuantDense(cfg.embed_dim, cfg.mlp_dim, cfg.quant, generator)
-        self.fc2 = QuantDense(cfg.mlp_dim, cfg.embed_dim, cfg.quant, generator)
+        self.fc1 = QuantDense(cfg.embed_dim, cfg.mlp_dim, cfg.quant, generator, cfg.dtype)
+        self.fc2 = QuantDense(cfg.mlp_dim, cfg.embed_dim, cfg.quant, generator, cfg.dtype)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
-        y = apply_act(self.fc1(x, observe=observe), self.cfg.act)
+        y = apply_act(self.fc1(x, observe=observe), self.cfg.act, fast=self.cfg.fast_math)
         return self.fc2(y, observe=observe)
 
 
@@ -184,9 +249,9 @@ class Block(nn.Module):
     def __init__(self, cfg: ViTConfig, generator=None):
         super().__init__()
         eps, q = cfg.layer_norm_eps, cfg.quant
-        self.norm1 = QuantLayerNorm(cfg.embed_dim, q, eps)
+        self.norm1 = QuantLayerNorm(cfg.embed_dim, q, eps, cfg.dtype)
         self.attn = Attention(cfg, generator)
-        self.norm2 = QuantLayerNorm(cfg.embed_dim, q, eps)
+        self.norm2 = QuantLayerNorm(cfg.embed_dim, q, eps, cfg.dtype)
         self.mlp = Mlp(cfg, generator)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
@@ -196,7 +261,7 @@ class Block(nn.Module):
 
 class VisionTransformer(nn.Module):
     """Quantizable ViT for classification: NHWC f32 images (preprocessed)
-    → [B, num_classes] f32 logits.
+    → [B, num_classes] f32 logits; the token stream runs in ``cfg.dtype``.
 
     Random init from ``generator``: truncated normals (std 0.02, cls token
     1e-6) cut at ±2 std, zero biases, unit LayerNorm scales, as the JAX
@@ -214,8 +279,8 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.seq_len, d))
         _trunc_normal_(self.pos_embed, 0.02, generator)
         self.blocks = nn.ModuleList(Block(cfg, generator) for _ in range(cfg.depth))
-        self.norm = QuantLayerNorm(d, q, cfg.layer_norm_eps)
-        self.head = QuantDense(d, cfg.num_classes, q, generator)
+        self.norm = QuantLayerNorm(d, q, cfg.layer_norm_eps, cfg.dtype)
+        self.head = QuantDense(d, cfg.num_classes, q, generator, cfg.dtype)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
         cfg = self.cfg
@@ -223,11 +288,12 @@ class VisionTransformer(nn.Module):
             x = self.input_fq(x, observe=observe)
         x = self.patch_embed(x, observe=observe)
         b = x.shape[0]
-        x = torch.cat([self.cls_token.expand(b, 1, cfg.embed_dim), x], dim=1) + self.pos_embed
+        cls = self.cls_token.to(x.dtype).expand(b, 1, cfg.embed_dim)
+        x = (torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)).to(cfg.dtype)
         for blk in self.blocks:
             x = blk(x, observe=observe)
         x = self.norm(x, observe=observe)
-        return self.head(x[:, 0], observe=observe)
+        return self.head(x[:, 0], observe=observe).to(torch.float32)
 
 
 def count_fake_quant_sites(cfg: ViTConfig) -> dict:

@@ -16,6 +16,7 @@ import torch
 
 from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops import flash_attention as fa
+from qat_vit_tpu_torch.ops import flash_attention_train as fat
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -110,6 +111,85 @@ def test_attention_q(dev, b, n, heads, hd, n_valid):
     qkv = qkv.to(dev).to(torch.bfloat16)
     _same(fa.fused_attention_qkv(qkv, heads, hd, out_q=OUT_Q, n_valid=n_valid),
           fa.fused_attention_qkv_plain(qkv, heads, hd, out_q=OUT_Q, n_valid=n_valid))
+
+
+def _qkv_case(dev, b, n, heads, hd, seed):
+    """Packed bf16 qkv, bf16 do, and qs = [scale, zp] on a grid whose ends
+    clip part of the N(0, 1) qkv (|x| > ~2.1), so the STE mask is not all ones."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
+    do = torch.from_numpy(rng.normal(0, 1, (b, n, heads * hd)).astype(np.float32))
+    qs = torch.tensor([4.2 / 255, 127.0], dtype=torch.float32, device=dev)
+    return qkv.to(dev).to(torch.bfloat16), do.to(dev).to(torch.bfloat16), qs
+
+
+ATTN_SHAPES = [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17), (2, 197, 12, 64, 197),
+               (2, 50, 4, 32, 50)]
+
+
+@pytest.mark.parametrize("fq", [False, True])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", ATTN_SHAPES)
+def test_attention_fwd(dev, b, n, heads, hd, n_valid, fq):
+    """Kernel A (float output, with and without the in-kernel fake-quant)."""
+    qkv, _, qs = _qkv_case(dev, b, n, heads, hd, n + heads)
+    kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
+    _same(fa.attention_fwd(qkv, heads, hd, n_valid=n_valid, **kw),
+          fa.attention_fwd_plain(qkv, heads, hd, n_valid=n_valid, **kw))
+
+
+@pytest.mark.parametrize("fq", [False, True])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", ATTN_SHAPES)
+def test_attention_bwd(dev, b, n, heads, hd, n_valid, fq):
+    """Kernel B (with and without the STE mask)."""
+    qkv, do, qs = _qkv_case(dev, b, n, heads, hd, 2 * n + heads)
+    kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
+    got = fat.attention_bwd(qkv, do, heads, hd, n_valid=n_valid, **kw)
+    _same(got, fat.attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid, **kw))
+    if fq:
+        assert (got == 0).any() and (got != 0).any()
+
+
+@pytest.mark.parametrize("fq", [False, True])
+def test_attention_train_autograd(dev, fq):
+    """The autograd Functions on the kernels vs the same Functions through
+    the plain versions (``reference_impl``): forward and dqkv identical, and
+    each kernel launches once per direction."""
+    heads, hd = 6, 64
+    qkv, do, qs = _qkv_case(dev, 4, 197, heads, hd, 11)
+
+    def run():
+        x = qkv.clone().requires_grad_(True)
+        out = (fat.attention_train_fq(x, qs, heads, hd, 0, 255) if fq
+               else fat.attention_train(x, heads, hd))
+        (out.float() * do.float()).sum().backward()
+        return out.detach(), x.grad
+
+    fwd0, bwd0 = fa.attention_fwd.launches, fat.attention_bwd.launches
+    out_k, grad_k = run()
+    assert (fa.attention_fwd.launches, fat.attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    with fat.reference_impl():
+        out_p, grad_p = run()
+    assert (fa.attention_fwd.launches, fat.attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    _same(out_k, out_p)
+    _same(grad_k, grad_p)
+
+
+def test_attention_train_wrappers_raise(dev):
+    qkv, do, qs = _qkv_case(dev, 2, 32, 2, 64, 5)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.attention_fwd(qkv.float(), 2, 64)
+    with pytest.raises(ValueError, match="qs: on cpu"):
+        fa.attention_fwd(qkv, 2, 64, qs=qs.cpu(), in_fq=(0, 255))
+    with pytest.raises(ValueError, match="qs: missing"):
+        fat.attention_bwd(qkv, do, 2, 64, in_fq=(0, 255))
+    with pytest.raises(ValueError, match="do: shape"):
+        fat.attention_bwd(qkv, do[:, :16].contiguous(), 2, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.attention_fwd(qkv.transpose(0, 1).contiguous().transpose(0, 1), 2, 64)
+    long = torch.zeros(1, 400, 3 * 64, dtype=torch.bfloat16, device=dev)
+    assert not fat.attention_train_available(1, 64, 400)
+    with pytest.raises(ValueError, match="unsupported"):
+        fat.attention_bwd(long, torch.zeros(1, 400, 64, dtype=torch.bfloat16, device=dev), 1, 64)
 
 
 def test_wrappers_check_inputs_and_never_fall_back(dev):

@@ -175,5 +175,6 @@ def test_kernel_gates():
     assert fs.gemm_shapes_ok(384, 1152) and fs.gemm_shapes_ok(1536, 384, resid_ln=True)
     assert fs.gemm_shapes_ok(384, 10)  # the head's ragged N
     assert not fs.gemm_shapes_ok(100, 384)
-    with pytest.raises(NotImplementedError):
-        fused_attention_qkv(torch.zeros(1, 4, 3 * 64, dtype=torch.bfloat16), 1, 64)
+    # without out_q: the float-output form (kernel A; its plain version here)
+    out = fused_attention_qkv(torch.zeros(1, 4, 3 * 64, dtype=torch.bfloat16), 1, 64)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 4, 64)

@@ -181,12 +181,14 @@ def test_serving_preset_gates():
 
 
 def test_port_imports_without_jax():
-    """The port never imports jax, flax or qat_vit_tpu, and importing it
-    builds nothing and does not initialize CUDA."""
+    """The port never imports jax, flax or qat_vit_tpu (nor pyyaml, which
+    the card's machine may lack), and importing it builds nothing and does
+    not initialize CUDA."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["flax"] = None
+        sys.modules["yaml"] = None
         import importlib, pkgutil
         import qat_vit_tpu_torch
         for m in pkgutil.walk_packages(qat_vit_tpu_torch.__path__, "qat_vit_tpu_torch."):
