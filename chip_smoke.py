@@ -23,7 +23,16 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    through their plain versions (losses and parameters must agree), then at
    batch 256 (teacher logits cached, launch counts of both attention kernels
    in both phases, finite losses, train img/s per phase), QAT eval, int8
-   convert and int8 eval through the serving kernels.
+   convert and int8 eval through the serving kernels;
+5. detection: a random-init OWLv2-pruned detector (768 px, D 576, depth 9,
+   9 heads, 2,305 tokens, quick-GELU) calibrated on 2 seeded images and
+   converted; the long attention kernel's two entry points and the GEMM
+   kernels against their plain versions at its shapes (batch 2); then
+   int8 detection at batch 8 with 4 queries through the serving preset
+   (``megamodel_long``: the K6 chain), with its launch counts, the outputs
+   against the same chain through the plain versions (batch 2) and against
+   the exact f32 path, and the median ms per forward; last, the exact path
+   with ``attn_impl="pallas_long"`` (K5a) at batch 2.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; with none it exits 2.
@@ -61,6 +70,12 @@ TRAIN_B, REPLAY_B, TRAIN_STEPS = 256, 32, 3
 # outside this repository not repeat itself exactly
 REPLAY_LOSS_REL = 1e-3
 REPLAY_PARAM_REL_L2 = 1e-2
+# int8 detection: the preset's batch and queries (the reference's detection
+# bench), calibration images, the plain chain's batch, timing runs
+DET_B, DET_Q, DET_CALIB, DET_REF_B, DET_TIMING_RUNS = 8, 4, 2, 2, 10
+# against the exact f32 path: the JAX package's int8-vs-fake-quant detection
+# bounds (tests/test_owlv2_detect.py)
+DET_BOX_MEAN_ERR, DET_CORR = 0.03, 0.97
 
 
 def fail(msg: str) -> None:
@@ -115,6 +130,29 @@ def compare_float(name, got, want, rtol):
     return float(err.max())
 
 
+def rand_int8(torch, np, rng, dev, *shape):
+    return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
+
+
+def rand_layer(torch, np, rng, dev, k, n, per_channel=False, bias=True):
+    """A random int8 GEMM layer of the export's layout (w_int8 [K, N])."""
+    w = np.clip(np.round(rng.normal(0, 20, (k, n))), -128, 127).astype(np.int8)
+    ws = (torch.from_numpy(rng.uniform(1e-3, 3e-3, n).astype(np.float32)).to(dev)
+          if per_channel else torch.tensor(0.002))
+    return {
+        "w_int8": torch.from_numpy(w).to(dev),
+        "w_colsum": torch.from_numpy(w.astype(np.int32).sum(0, dtype=np.int32)).to(dev),
+        "bias": (torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32)).to(dev)
+                 if bias else None),
+        "w_scale": ws,
+    }
+
+
+def rand_ln(torch, np, rng, dev, n):
+    return {"scale": torch.from_numpy(rng.normal(1, 0.2, n).astype(np.float32)).to(dev),
+            "bias": torch.from_numpy(rng.normal(0, 0.2, n).astype(np.float32)).to(dev)}
+
+
 def phase_kernels(torch, np, fs, fa, fat):
     """Each kernel against its plain version at ViT-S shapes, batch 32."""
     dev = torch.device("cuda")
@@ -122,22 +160,13 @@ def phase_kernels(torch, np, fs, fa, fat):
     n_tok, d, mlp, heads, hd = 197, 384, 1536, 6, 64
 
     def act_int8(*shape):
-        return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
+        return rand_int8(torch, np, rng, dev, *shape)
 
     def layer(k, n, per_channel=False):
-        w = np.clip(np.round(rng.normal(0, 20, (k, n))), -128, 127).astype(np.int8)
-        ws = (torch.from_numpy(rng.uniform(1e-3, 3e-3, n).astype(np.float32)).to(dev)
-              if per_channel else torch.tensor(0.002))
-        return {
-            "w_int8": torch.from_numpy(w).to(dev),
-            "w_colsum": torch.from_numpy(w.astype(np.int32).sum(0, dtype=np.int32)).to(dev),
-            "bias": torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32)).to(dev),
-            "w_scale": ws,
-        }
+        return rand_layer(torch, np, rng, dev, k, n, per_channel)
 
     def ln(n):
-        return {"scale": torch.from_numpy(rng.normal(1, 0.2, n).astype(np.float32)).to(dev),
-                "bias": torch.from_numpy(rng.normal(0, 0.2, n).astype(np.float32)).to(dev)}
+        return rand_ln(torch, np, rng, dev, n)
 
     in_q = {"scale": torch.tensor(0.02), "zero_point": torch.tensor(121.0)}
     out_q = {"scale": torch.tensor(8.0 / 255), "zero_point": torch.tensor(128.0)}
@@ -188,6 +217,14 @@ def phase_kernels(torch, np, fs, fa, fat):
          fat.attention_bwd_plain, (qkv, do, heads, hd), fq,
          "qat_vit_tpu/ops/flash_attention_train.py:48"),
     ]
+    return check_kernels(torch, cases, "phase 2", slow_plain=(fat.attention_bwd_plain,))
+
+
+def check_kernels(torch, cases, label, slow_plain=()):
+    """Each (name, kernel, plain, args, kwargs, replaces) case: the kernel's
+    output against its plain version's on the same inputs, then both timed
+    (the plain versions in ``slow_plain`` over 5 runs)."""
+    bf16 = torch.bfloat16
     results = []
     for name, kernel, plain, args, kwargs, replaces in cases:
         got = kernel(*args, **kwargs)
@@ -208,8 +245,8 @@ def phase_kernels(torch, np, fs, fa, fat):
                 errs.append(compare_float(name, g, w, 2 ** -7 if g.dtype == bf16 else 1e-5))
         ms = median_ms(lambda: kernel(*args, **kwargs))
         plain_ms = median_ms(lambda: plain(*args, **kwargs),
-                             runs=5 if plain is fat.attention_bwd_plain else TIMING_RUNS)
-        print(f"phase 2 {name}: max|diff| {max(errs):.3e} {' '.join(exact)}  "
+                             runs=5 if plain in slow_plain else TIMING_RUNS)
+        print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(exact)}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
         results.append({"name": name, "wrapper": kernel, "replaces": replaces,
                         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms})
@@ -400,6 +437,169 @@ def phase_training(torch, np, fs, fa, fat):
     return {fa.attention_fwd: sum(c[0] for c in counts), fat.attention_bwd: sum(c[1] for c in counts)}
 
 
+def det_inputs(torch, np, seed, b, dev):
+    """Seeded preprocessed 768 px images and 4 query embeddings per image."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (b, 768, 768, 3)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(0, 1, (b, DET_Q, 512)).astype(np.float32)).to(dev)
+    return x, q
+
+
+def phase_detection(torch, np, fs, la):
+    """int8 OWLv2-pruned detection serving through the long-sequence chain."""
+    from qat_vit_tpu_torch.models.registry import create_model
+    from qat_vit_tpu_torch.serve.calibrate import calibrate_detector
+    from qat_vit_tpu_torch.serve.int8_detect import (
+        convert_detector,
+        int8_detect_apply,
+        make_int8_detect_forward,
+    )
+    from qat_vit_tpu_torch.serve.int8_vit import export_to_device
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    bundle = create_model("owlv2_pruned_detector", qat_wrapper=True,
+                          generator=torch.Generator().manual_seed(SEED), device=dev)
+    cfg = bundle.cfg
+    if ((cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.mlp_dim, cfg.seq_len, cfg.act, cfg.pre_norm,
+         cfg.patch_bias, cfg.num_classes) != (576, 9, 9, 3072, 2305, "quick_gelu", True, False, 0)):
+        fail(f"unexpected OWLv2-pruned geometry {cfg}")
+    params = {k: v for k, v in bundle.module.state_dict().items()
+              if not k.endswith(("min_val", "max_val"))}
+    calib = [det_inputs(torch, np, SEED + 10 + i, 1, dev)[0] for i in range(DET_CALIB)]
+    stats = calibrate_detector(params, calib, cfg, device=dev)
+    export = export_to_device(convert_detector(params, stats, cfg), dev)
+    torch.cuda.synchronize()
+    print(f"phase 5 OWLv2-pruned detector built, calibrated on {DET_CALIB} images and "
+          f"converted: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the kernels against their plain versions at the shapes this path gives them
+    rng = np.random.default_rng(SEED + 5)
+    d, mlp, heads, hd, n = 576, 3072, 9, 64, 2305
+    b = DET_REF_B
+    bf16 = torch.bfloat16
+    in_q = {"scale": torch.tensor(0.02), "zero_point": torch.tensor(121.0)}
+    out_q = {"scale": torch.tensor(8.0 / 255), "zero_point": torch.tensor(128.0)}
+    gelu_q = {"scale": torch.tensor(4.0 / 255), "zero_point": torch.tensor(11.0)}
+    qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n, 3 * d)).astype(np.float32)).to(dev).to(bf16)
+    x_bf16 = torch.from_numpy(rng.normal(0, 1.5, (b, n, d)).astype(np.float32)).to(dev).to(bf16)
+    x_f32 = torch.from_numpy(rng.normal(0, 1.5, (b, n, d)).astype(np.float32)).to(dev)
+
+    def act_int8(*shape):
+        return rand_int8(torch, np, rng, dev, *shape)
+
+    def layer(k, n_out, bias=True):
+        return rand_layer(torch, np, rng, dev, k, n_out, bias=bias)
+
+    m = b * n
+    cases = [
+        (f"attention_long [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_qkv,
+         la.long_attention_qkv_plain, (qkv, heads, hd), {},
+         "qat_vit_tpu/ops/long_attention.py:63"),
+        (f"attention_long_q [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_q,
+         la.long_attention_qkv_plain, (qkv, heads, hd), {"out_q": out_q},
+         "qat_vit_tpu/ops/long_block_kernel.py:262"),
+        (f"int8_gemm:plain qkv [{m}x{d}]@[{d}x{3 * d}]", fs.int8_dense, fs.int8_dense_plain,
+         (act_int8(b, n, d), layer(d, 3 * d), in_q), {"out_dtype": bf16},
+         "qat_vit_tpu/ops/fused_serve.py:57"),
+        (f"int8_gemm:plain patch_embed no bias [{m - b}x768]@[768x{d}]", fs.int8_dense,
+         fs.int8_dense_plain, (act_int8(b, n - 1, 768), layer(768, d, bias=False), in_q),
+         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:57"),
+        (f"int8_gemm:resid_ln_q proj [{m}x{d}]@[{d}x{d}]", fs.int8_dense_resid_ln_q,
+         fs.int8_dense_resid_ln_q_plain,
+         (act_int8(b, n, d), layer(d, d), in_q, x_bf16, rand_ln(torch, np, rng, dev, d), out_q),
+         {"out_dtype": torch.float32, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87"),
+        (f"int8_gemm:gelu_q quick-GELU fc1 [{m}x{d}]@[{d}x{mlp}]", fs.int8_dense_gelu_q,
+         fs.int8_dense_gelu_q_plain, (act_int8(b, n, d), layer(d, mlp), in_q, gelu_q),
+         {"act": "quick_gelu"}, "qat_vit_tpu/ops/fused_serve.py:70"),
+        (f"int8_gemm:resid_ln_q fc2 [{m}x{mlp}]@[{mlp}x{d}]", fs.int8_dense_resid_ln_q,
+         fs.int8_dense_resid_ln_q_plain,
+         (act_int8(b, n, mlp), layer(mlp, d), in_q, x_f32, rand_ln(torch, np, rng, dev, d), out_q),
+         {"out_dtype": bf16, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87"),
+        (f"ln_quantize [{m}x{d}] bf16", fs.ln_quantize, fs.ln_quantize_plain,
+         (x_bf16, rand_ln(torch, np, rng, dev, d), out_q), {"eps": 1e-5},
+         "qat_vit_tpu/ops/fused_serve.py:105"),
+    ]
+    kernels = check_kernels(torch, cases, "phase 5", slow_plain=(la.long_attention_qkv_plain,))
+    del qkv, x_bf16, x_f32, cases
+
+    # the main path: the preset (megamodel_long) at batch 8 with 4 queries
+    fwd = make_int8_detect_forward(cfg, dev)
+    if fwd.options.get("fused") != "megamodel_long":
+        fail(f"detection preset on CUDA is {fwd.options}, expected the megamodel_long chain")
+    x, q = det_inputs(torch, np, SEED + 20, DET_B, dev)
+    wrappers = (fs.int8_dense, fs.int8_dense_resid_ln_q, fs.int8_dense_gelu_q, fs.ln_quantize,
+                la.long_attention_q, la.long_attention_qkv)
+    for w in wrappers:
+        w.launches = 0
+    out = fwd(export, x, q)
+    torch.cuda.synchronize()
+    launches = {w: w.launches for w in wrappers}
+    depth = cfg.depth
+    want = {fs.int8_dense: 1 + depth, fs.int8_dense_resid_ln_q: 2 * depth,
+            fs.int8_dense_gelu_q: depth, fs.ln_quantize: 1, la.long_attention_q: depth,
+            la.long_attention_qkv: 0}
+    print(f"phase 5 launches per batch-{DET_B} forward: {sum(launches.values())} = "
+          f"{depth} blocks x 5 + patch GEMM + entry LN ("
+          f"{', '.join(f'{w.__name__} {launches[w]}' for w in wrappers)})", flush=True)
+    if launches != want:
+        fail(f"the detection path's launches {launches}, expected {want}")
+    p = cfg.num_patches
+    shapes = {"pred_boxes": (DET_B, p, 4), "logits": (DET_B, p, DET_Q),
+              "objectness_logits": (DET_B, p), "class_embeds": (DET_B, p, 512),
+              "image_embeds": (DET_B, p, cfg.embed_dim)}
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
+            fail(f"{k}: {tuple(out[k].shape)} (expected {shape}), finite "
+                 f"{bool(torch.isfinite(out[k]).all())}")
+
+    # the same chain through the plain versions, at batch DET_REF_B
+    plain = int8_detect_apply(export, x[:DET_REF_B], cfg, q[:DET_REF_B],
+                              **{**fwd.options, "fused": "megamodel_long_plain"})
+    for k in shapes:
+        got, ref = out[k][:DET_REF_B].float(), plain[k].float()
+        rel = float((got - ref).norm() / ref.norm())
+        print(f"phase 5 {k} vs the plain chain at batch {DET_REF_B}: rel L2 {rel:.3e} "
+              f"(bound {CHAIN_REL_L2})", flush=True)
+        if rel > CHAIN_REL_L2:
+            fail(f"detection: kernel chain vs plain chain {k} rel L2 {rel:.3e} > {CHAIN_REL_L2}")
+    # against the exact f32 path (f32 stream and attention, divide-quantize)
+    exact = int8_detect_apply(export, x, cfg, q)
+    box_err = float((out["pred_boxes"] - exact["pred_boxes"]).abs().mean())
+    corr = {k: float(np.corrcoef(out[k].flatten().cpu().numpy(),
+                                 exact[k].flatten().cpu().numpy())[0, 1])
+            for k in ("logits", "objectness_logits")}
+    print(f"phase 5 vs the exact f32 path: pred_boxes mean |err| {box_err:.3e} (bound "
+          f"{DET_BOX_MEAN_ERR}), corr logits {corr['logits']:.5f} objectness "
+          f"{corr['objectness_logits']:.5f} (bound > {DET_CORR})", flush=True)
+    if box_err > DET_BOX_MEAN_ERR or min(corr.values()) <= DET_CORR:
+        fail(f"detection vs the exact path: box err {box_err:.3e}, corr {corr}")
+
+    ms = median_ms(lambda: fwd(export, x, q), runs=DET_TIMING_RUNS)
+    print(f"phase 5 int8 detection: {ms:.2f} ms per batch-{DET_B} forward with {DET_Q} queries "
+          f"(median of {DET_TIMING_RUNS}, warm-up excluded) on {card_line()}", flush=True)
+    del out, plain
+
+    # the exact path with its attention on the long attention kernel (K5a)
+    k5a = make_int8_detect_forward(cfg, dev, preset=False, attn_impl="pallas_long",
+                                   attn_dtype=torch.bfloat16)
+    for w in wrappers:
+        w.launches = 0
+    out = k5a(export, x[:DET_REF_B], q[:DET_REF_B])
+    torch.cuda.synchronize()
+    k5a_launches = {w: w.launches for w in wrappers}
+    box_err = float((out["pred_boxes"] - exact["pred_boxes"][:DET_REF_B]).abs().mean())
+    print(f"phase 5 exact path with attn_impl=pallas_long at batch {DET_REF_B}: "
+          f"attention_long launches {k5a_launches[la.long_attention_qkv]}, pred_boxes mean "
+          f"|err| vs the f32 attention {box_err:.3e}", flush=True)
+    if k5a_launches[la.long_attention_qkv] != depth or box_err > DET_BOX_MEAN_ERR:
+        fail(f"the pallas_long path: launches {k5a_launches}, box err {box_err:.3e}")
+    for k in kernels:
+        path = k5a_launches if k["wrapper"] is la.long_attention_qkv else launches
+        k["launches"] = path[k["wrapper"]]
+    return kernels
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -416,6 +616,7 @@ def main() -> None:
     from qat_vit_tpu_torch.ops import flash_attention as fa
     from qat_vit_tpu_torch.ops import flash_attention_train as fat
     from qat_vit_tpu_torch.ops import fused_serve as fs
+    from qat_vit_tpu_torch.ops import long_attention as la
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -432,6 +633,9 @@ def main() -> None:
     kernels = phase_kernels(torch, np, fs, fa, fat)
     launches = phase_serving(torch, np, fs, fa)
     launches.update(phase_training(torch, np, fs, fa, fat))
+    for k in kernels:
+        k["launches"] = launches[k["wrapper"]]
+    kernels += phase_detection(torch, np, fs, la)
 
     sources = {fs.int8_dense: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_gelu_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
@@ -439,10 +643,12 @@ def main() -> None:
                fs.ln_quantize: "qat_vit_tpu_torch/csrc/ln_quantize.cu",
                fa.fused_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q.cu",
                fa.attention_fwd: "qat_vit_tpu_torch/csrc/attention_q.cu",
-               fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd.cu"}
+               fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd.cu",
+               la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long.cu",
+               la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long.cu"}
     record = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": sources[k["wrapper"]],
-         "replaces": k["replaces"], "launches": launches[k["wrapper"]],
+         "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
         for k in kernels
     ]}

@@ -5,12 +5,16 @@ package's ``params`` and ``quant_stats`` trees (and its ``convert_vit``
 export), and never imports JAX:
 
 - :func:`params_to_state_dict`: JAX ``params`` → this package's
-  ``VisionTransformer`` parameters (dense kernels ``[K, N]`` become
-  ``nn.Linear``-style ``weight [N, K]``; LayerNorm ``scale`` → ``weight``);
+  ``VisionTransformer`` or ``Owlv2Detector`` parameters (dense kernels
+  ``[K, N]`` become ``nn.Linear``-style ``weight [N, K]``; LayerNorm
+  ``scale`` → ``weight``; a detector's tower sits under ``vision``, its
+  ``norm_pre`` like any LayerNorm);
 - :func:`quant_stats_to_buffers` / :func:`buffers_to_quant_stats`: the
   ``quant_stats`` tree ↔ the observer buffers (``...min_val``/``...max_val``);
 - :func:`export_from_numpy`: a ``convert_vit`` tree → the same tree of torch
-  tensors (``str(i)`` block keys, ``w_int8 [K, N]``).
+  tensors (``str(i)`` block keys, ``w_int8 [K, N]``);
+  :func:`detector_export_from_numpy`: a ``convert_detector`` export (int8
+  tower + float head params) → the port's.
 
 Module paths map as ``blocks_{i}`` ↔ ``blocks.{i}``; every other name is the
 same in both packages.
@@ -44,7 +48,7 @@ def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(np.array(v, dtype=np.float32))
         if name.endswith(".kernel"):
             sd[name[: -len("kernel")] + "weight"] = t.T.contiguous()
-        elif name.endswith(".ln.scale"):
+        elif name.endswith(".scale"):  # LayerNorm (the tower's .ln, merged_ln)
             sd[name[: -len("scale")] + "weight"] = t
         else:
             sd[name] = t
@@ -100,3 +104,11 @@ def export_from_numpy(tree: Any) -> Any:
     if np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a))
+
+
+def detector_export_from_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX ``convert_detector`` export → the port's: the tower as
+    :func:`export_from_numpy` gives it, the heads as ``Owlv2Detector``
+    parameters."""
+    return {"tower": export_from_numpy(tree["tower"]),
+            "heads": params_to_state_dict(tree["heads"])}

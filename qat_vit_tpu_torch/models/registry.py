@@ -1,10 +1,11 @@
-"""Model registry and factories (port of the ViT entries of
-``qat_vit_tpu/models/registry.py``).
+"""Model registry and factories (port of ``qat_vit_tpu/models/registry.py``).
 
 A factory returns a :class:`ModelBundle` whose ``module`` is already built
 and initialized (PyTorch modules own their parameters), from a
-``torch.Generator`` when one is given. The OWLv2 entries come with the
-detection slice.
+``torch.Generator`` when one is given. The OWLv2 entries are the vision
+tower as a classifier (teacher and pruned student) and the detectors
+(``task="detection"``: tower + float heads). The two HuggingFace entries
+(``*_torch``) need ``transformers`` and wait (ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch import nn
 
+from qat_vit_tpu_torch.models.owlv2 import owlv2_vision_vit_kwargs
+from qat_vit_tpu_torch.models.owlv2_detect import create_detector
 from qat_vit_tpu_torch.models.vit import (
     VIT_BASE,
     VIT_MICRO,
@@ -44,7 +48,7 @@ class ModelBundle:
     """What a factory returns: the module and its config."""
 
     name: str
-    module: VisionTransformer
+    module: nn.Module  # a VisionTransformer, or an Owlv2Detector for detection
     cfg: ViTConfig
     task: str = "classification"
 
@@ -94,11 +98,56 @@ def _create_vit_micro(**kw) -> ModelBundle:
     return _vit_factory(VIT_MICRO, "vit_micro_test")(**kw)
 
 
+@register_model("owlv2_base_teacher", input_size=(3, 960, 960),
+                description="OWLv2-base vision tower (CLIP-style ViT-B/16 at 960 px) "
+                            "as a classifier: KD teacher")
+def _create_owlv2_teacher(**kw) -> ModelBundle:
+    return _vit_factory(owlv2_vision_vit_kwargs(pruned=False), "owlv2_base_teacher")(**kw)
+
+
+@register_model("owlv2_student_pruned", input_size=(3, 768, 768),
+                description="pruned OWLv2 vision tower (depth/width/head ratios, floors "
+                            "6/384/6) as a classifier: KD + QAT student")
+def _create_owlv2_student(depth_ratio: float = 0.75, width_ratio: float = 0.75,
+                          head_ratio: float = 0.75, **kw) -> ModelBundle:
+    arch = owlv2_vision_vit_kwargs(pruned=True, depth_ratio=depth_ratio,
+                                   width_ratio=width_ratio, head_ratio=head_ratio)
+    return _vit_factory(arch, "owlv2_student_pruned")(**kw)
+
+
+def _detector_factory(pruned: bool, name: str):
+    def build(qat_wrapper: bool = False, quant: Optional[QConfig] = None,
+              text_dim: int = 512, **kwargs) -> ModelBundle:
+        module, cfg = create_detector(pruned=pruned, qat_wrapper=qat_wrapper, quant=quant,
+                                      text_dim=text_dim, **kwargs)
+        return ModelBundle(name=name, module=module, cfg=cfg, task="detection")
+
+    return build
+
+
+@register_model("owlv2_base_detector", task="detection", input_size=(3, 960, 960),
+                description="OWLv2 open-vocabulary detector: quantizable vision tower + "
+                            "float box/class/objectness heads")
+def _create_owlv2_detector(**kw) -> ModelBundle:
+    return _detector_factory(False, "owlv2_base_detector")(**kw)
+
+
+@register_model("owlv2_pruned_detector", task="detection", input_size=(3, 768, 768),
+                description="pruned OWLv2 detector (surgery geometry); quantizable tower, "
+                            "float heads")
+def _create_owlv2_pruned_detector(**kw) -> ModelBundle:
+    return _detector_factory(True, "owlv2_pruned_detector")(**kw)
+
+
 def create_model(name: str, num_classes: int = 10, qat_wrapper: bool = False,
                  **kwargs) -> ModelBundle:
+    """Registry lookup and construction; ``num_classes`` reaches the
+    classification entries only (a detector's tower is a feature extractor)."""
     if name not in _MODEL_REGISTRY:
         raise ValueError(f"unknown model {name!r}; available: {sorted(_MODEL_REGISTRY)}")
-    return _MODEL_REGISTRY[name](num_classes=num_classes, qat_wrapper=qat_wrapper, **kwargs)
+    if _MODEL_INFO[name]["task"] == "classification":
+        kwargs["num_classes"] = num_classes
+    return _MODEL_REGISTRY[name](qat_wrapper=qat_wrapper, **kwargs)
 
 
 def create_teacher(family: str = "vit", **kwargs) -> ModelBundle:
@@ -107,12 +156,16 @@ def create_teacher(family: str = "vit", **kwargs) -> ModelBundle:
     attention with an f32 softmax, erf-GELU, as the JAX package builds it."""
     if family == "vit":
         return create_model("vit_base_patch16_224_teacher", **kwargs)
+    if family == "owlv2":
+        return create_model("owlv2_base_teacher", **kwargs)
     raise ValueError(f"unknown model family: {family!r}")
 
 
 def create_student(family: str = "vit", qat_wrapper: bool = True, **kwargs) -> ModelBundle:
     if family == "vit":
         return create_model("vit_small_patch16_224_student", qat_wrapper=qat_wrapper, **kwargs)
+    if family == "owlv2":
+        return create_model("owlv2_student_pruned", qat_wrapper=qat_wrapper, **kwargs)
     raise ValueError(f"unknown model family: {family!r}")
 
 

@@ -12,8 +12,10 @@ stay f32, fake-quant math stays f32, matmuls, bias adds and LayerNorm
 outputs in ``dtype``, logits f32), ``fast_math`` (softmax in the compute
 dtype, tanh-GELU), ``attn_kernel`` and ``fq_in_kernel`` (the attention
 dispatch in :class:`Attention`: the hand-written attention kernels of
-``ops/flash_attention_train.py``, or the einsum path). The OWLv2 options
-(``pre_norm``, bias-free patches, ``num_classes=0``) come with their slice.
+``ops/flash_attention_train.py``, or the einsum path). The CLIP-style
+options of the OWLv2 vision tower, as the JAX module: ``pre_norm`` (a
+LayerNorm after the position embedding), ``patch_bias=False`` and
+``num_classes=0`` (feature mode: the f32 final-LN token stream, no head).
 """
 
 from __future__ import annotations
@@ -46,7 +48,10 @@ class ViTConfig:
     num_heads: int = 6
     mlp_ratio: float = 4.0
     layer_norm_eps: float = 1e-6
+    # CLIP-style options (the OWLv2 vision tower)
+    pre_norm: bool = False  # LN between the embeddings and the first block
     act: str = "gelu"  # MLP activation: "gelu" (timm) or "quick_gelu" (CLIP)
+    patch_bias: bool = True  # timm's patch conv has a bias, CLIP's does not
     quant: Optional[QConfig] = None
     qat_wrapper: bool = True
     # compute dtype (params stay f32): bf16 in the trainer's amp / qat_amp phases
@@ -89,6 +94,17 @@ VIT_BASE = dict(embed_dim=768, depth=12, num_heads=12)
 VIT_MICRO = dict(embed_dim=128, depth=2, num_heads=2, image_size=32, patch_size=8)
 
 
+def flax_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` in f32: the fast variance ``E[x²] − E[x]²``
+    (floored at 0) and the scale folded into the ``rsqrt`` factor,
+    ``(x − μ)·(rsqrt(var + eps)·γ) + β``."""
+    x = x.to(torch.float32)
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
 def apply_act(x: torch.Tensor, act: str, fast: bool = False) -> torch.Tensor:
     """MLP activation by name; ``fast=True`` is the tanh approximation in
     the compute dtype (``jax.nn.gelu(approximate=True)``)."""
@@ -123,13 +139,13 @@ class QuantDense(nn.Module):
 
     def __init__(self, in_features: int, features: int, quant: Optional[QConfig],
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
         super().__init__()
         self.quant = quant
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         _trunc_normal_(self.weight, 0.02, generator)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         if quant is not None:
             self.weight_fq = FakeQuantizer(quant.weight)
             self.act_fq = FakeQuantizer(quant.activation)
@@ -139,7 +155,9 @@ class QuantDense(nn.Module):
         w = self.weight
         if self.quant is not None:
             w = self.weight_fq(w, observe=observe)
-        y = F.linear(x.to(self.dtype), w.to(self.dtype)) + self.bias.to(self.dtype)
+        y = F.linear(x.to(self.dtype), w.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
         if self.quant is not None:
             return self.act_fq(y, observe=observe, apply_fq=not defer_output_fq)
         return y
@@ -148,11 +166,9 @@ class QuantDense(nn.Module):
 class QuantLayerNorm(nn.Module):
     """LayerNorm (float params and compute) with output fake-quant.
 
-    Normalizes as flax's ``nn.LayerNorm`` does in the JAX model, so observer
-    statistics match it: f32 statistics with the fast variance
-    ``E[x²] − E[x]²`` (floored at 0) and the scale folded into the
-    ``rsqrt`` factor, ``(x − μ)·(rsqrt(var + eps)·γ) + β``, all in f32; the
-    result is cast to ``dtype``, then fake-quantized."""
+    Normalizes as flax's ``nn.LayerNorm`` does in the JAX model
+    (:func:`flax_layer_norm`), so observer statistics match it; the result
+    is cast to ``dtype``, then fake-quantized."""
 
     def __init__(self, dim: int, quant: Optional[QConfig], eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32):
@@ -162,11 +178,7 @@ class QuantLayerNorm(nn.Module):
         self.act_fq = FakeQuantizer(quant.activation) if quant is not None else None
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
-        x = x.to(torch.float32)
-        mean = x.mean(dim=-1, keepdim=True)
-        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.ln.eps) * self.ln.weight
-        y = ((x - mean) * mul + self.ln.bias).to(self.dtype)
+        y = flax_layer_norm(x, self.ln.weight, self.ln.bias, self.ln.eps).to(self.dtype)
         if self.act_fq is not None:
             y = self.act_fq(y, observe=observe)
         return y
@@ -177,7 +189,7 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.patch_size = cfg.patch_size
         self.proj = QuantDense(cfg.patch_size * cfg.patch_size * 3, cfg.embed_dim,
-                               cfg.quant, generator, cfg.dtype)
+                               cfg.quant, generator, cfg.dtype, use_bias=cfg.patch_bias)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
         return self.proj(extract_patches(x, self.patch_size), observe=observe)
@@ -195,10 +207,9 @@ class Attention(nn.Module):
     - otherwise the einsum path: scores in the compute dtype, softmax in it
       under ``fast_math`` and in f32 otherwise.
 
-    The JAX module's long-sequence branch (``long_attention_train``, K5)
-    is not here: its gate is False at N = 197, where every model of this
-    slice runs; longer sequences take the einsum path until K5 is ported
-    (ROADMAP.md Queue 2)."""
+    The JAX module's long-sequence training branch (``long_attention_train``,
+    K5 with its backward) is not here: it comes with detection training
+    (ROADMAP.md Queue 1, item 10); longer sequences take the einsum path."""
 
     def __init__(self, cfg: ViTConfig, generator=None):
         super().__init__()
@@ -262,6 +273,8 @@ class Block(nn.Module):
 class VisionTransformer(nn.Module):
     """Quantizable ViT for classification: NHWC f32 images (preprocessed)
     → [B, num_classes] f32 logits; the token stream runs in ``cfg.dtype``.
+    With ``num_classes=0`` (feature mode) there is no head and the output
+    is the final-LN token stream ``[B, N, D]`` in f32.
 
     Random init from ``generator``: truncated normals (std 0.02, cls token
     1e-6) cut at ±2 std, zero biases, unit LayerNorm scales, as the JAX
@@ -278,9 +291,10 @@ class VisionTransformer(nn.Module):
         _trunc_normal_(self.cls_token, 1e-6, generator)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.seq_len, d))
         _trunc_normal_(self.pos_embed, 0.02, generator)
+        self.norm_pre = QuantLayerNorm(d, q, cfg.layer_norm_eps, cfg.dtype) if cfg.pre_norm else None
         self.blocks = nn.ModuleList(Block(cfg, generator) for _ in range(cfg.depth))
         self.norm = QuantLayerNorm(d, q, cfg.layer_norm_eps, cfg.dtype)
-        self.head = QuantDense(d, cfg.num_classes, q, generator, cfg.dtype)
+        self.head = QuantDense(d, cfg.num_classes, q, generator, cfg.dtype) if cfg.num_classes else None
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
         cfg = self.cfg
@@ -290,17 +304,25 @@ class VisionTransformer(nn.Module):
         b = x.shape[0]
         cls = self.cls_token.to(x.dtype).expand(b, 1, cfg.embed_dim)
         x = (torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)).to(cfg.dtype)
+        if self.norm_pre is not None:
+            x = self.norm_pre(x, observe=observe)
         for blk in self.blocks:
             x = blk(x, observe=observe)
         x = self.norm(x, observe=observe)
+        if self.head is None:
+            return x.to(torch.float32)
         return self.head(x[:, 0], observe=observe).to(torch.float32)
 
 
 def count_fake_quant_sites(cfg: ViTConfig) -> dict:
     """Expected observer sites: 10 weight + 16 activation on a 2-block ViT,
-    as torch ``prepare_qat`` creates them."""
-    weights = 1 + 4 * cfg.depth + 1  # patch + (qkv, proj, fc1, fc2) per block + head
+    as torch ``prepare_qat`` creates them; one activation site more with
+    ``pre_norm``, one of each fewer in feature mode (no head)."""
+    head = 1 if cfg.num_classes else 0
+    weights = 1 + 4 * cfg.depth + head  # patch + (qkv, proj, fc1, fc2) per block + head
     acts = weights + 2 * cfg.depth + 1  # dense outputs + LN1/LN2 per block + final LN
+    if cfg.pre_norm:
+        acts += 1
     if cfg.qat_wrapper:
         acts += 1
     return {"weight": weights, "activation": acts}

@@ -3,12 +3,12 @@
 On the TPU the whole stack is ONE Pallas kernel (K4, ``_model_kernel``).
 On Hopper it is a chain of five launches per block, keeping K4's per-block
 contract (bf16 ``x`` and int8 ``zq`` in and out) and ``_block_tile_body``'s
-numerics:
+numerics (:func:`block_forward` is one block, :func:`model_forward` the stack):
 
     qkv   int8_dense (PLAIN, bf16 out)                    K2a
     attn  fused_attention_qkv(out_q=qkv.out_q)            K3
     proj  int8_dense_resid_ln_q (+x, LN2 → int8), x_mid f32 out    K2c
-    fc1   int8_dense_gelu_q (tanh-GELU → int8)            K2b
+    fc1   int8_dense_gelu_q (tanh-GELU or quick-GELU → int8)   K2b
     fc2   int8_dense_resid_ln_q (+x_mid, next LN → int8), x bf16 out  K2c
 
 The residual ``x_mid`` stays f32 between proj and fc2 and ``x`` is rounded
@@ -53,6 +53,36 @@ def _recip_scale_q(out_q: Dict[str, Any]) -> Dict[str, float]:
     return {"scale": float(np.float32(1.0) / inv), "zero_point": f32(out_q["zero_point"])}
 
 
+def block_forward(
+    zq: torch.Tensor,  # [B, N, D] shifted-int8 LN1 output of this block
+    x: torch.Tensor,  # [B, N, D] residual stream (bf16)
+    blk: Dict[str, Any],  # one entry of the convert_vit "blocks" tree
+    next_ln: Dict[str, Any],  # the next block's norm1, or the final norm
+    *,
+    num_heads: int,
+    head_dim: int,
+    act: str = "gelu",
+    eps: float = 1e-6,
+    n_valid: int,
+    quant_max: float = 255.0,
+    ops: SimpleNamespace = KERNEL_OPS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block's five launches → (x', the next LN's int8 rows)."""
+    qkv = ops.int8_dense(zq, blk["qkv"], blk["norm1"]["out_q"], out_dtype=torch.bfloat16)
+    o_q = ops.attention(qkv, num_heads, head_dim, out_q=blk["qkv"]["out_q"],
+                        quant_max=quant_max, n_valid=n_valid)
+    x_mid, zq2 = ops.int8_dense_resid_ln_q(
+        o_q, blk["proj"], blk["qkv"]["out_q"], x, blk["norm2"], blk["norm2"]["out_q"],
+        eps=eps, out_dtype=torch.float32, quant_max=quant_max,
+    )
+    g_q = ops.int8_dense_gelu_q(zq2, blk["fc1"], _recip_scale_q(blk["norm2"]["out_q"]),
+                                blk["gelu_q"], act=act, quant_max=quant_max)
+    return ops.int8_dense_resid_ln_q(
+        g_q, blk["fc2"], _recip_scale_q(blk["gelu_q"]), x_mid, next_ln, next_ln["out_q"],
+        eps=eps, out_dtype=x.dtype, quant_max=quant_max,
+    )
+
+
 def model_forward(
     zq: torch.Tensor,  # [B, N, D] shifted-int8 LN1 output of block 0
     x: torch.Tensor,  # [B, N, D] residual stream (bf16)
@@ -62,6 +92,7 @@ def model_forward(
     num_heads: int,
     head_dim: int,
     depth: int,
+    act: str = "gelu",
     eps: float = 1e-6,
     n_valid: int,
     quant_max: float = 255.0,
@@ -71,19 +102,8 @@ def model_forward(
 
     ``n_valid`` < N marks padded rows: their keys are masked in attention."""
     for i in range(depth):
-        blk = blocks[str(i)]
         nxt = blocks[str(i + 1)]["norm1"] if i + 1 < depth else final_ln
-        qkv = ops.int8_dense(zq, blk["qkv"], blk["norm1"]["out_q"], out_dtype=torch.bfloat16)
-        o_q = ops.attention(qkv, num_heads, head_dim, out_q=blk["qkv"]["out_q"],
-                            quant_max=quant_max, n_valid=n_valid)
-        x_mid, zq2 = ops.int8_dense_resid_ln_q(
-            o_q, blk["proj"], blk["qkv"]["out_q"], x, blk["norm2"], blk["norm2"]["out_q"],
-            eps=eps, out_dtype=torch.float32, quant_max=quant_max,
-        )
-        g_q = ops.int8_dense_gelu_q(zq2, blk["fc1"], _recip_scale_q(blk["norm2"]["out_q"]),
-                                    blk["gelu_q"], act="gelu", quant_max=quant_max)
-        x, zq = ops.int8_dense_resid_ln_q(
-            g_q, blk["fc2"], _recip_scale_q(blk["gelu_q"]), x_mid, nxt, nxt["out_q"],
-            eps=eps, out_dtype=x.dtype, quant_max=quant_max,
-        )
+        x, zq = block_forward(zq, x, blocks[str(i)], nxt, num_heads=num_heads,
+                              head_dim=head_dim, act=act, eps=eps, n_valid=n_valid,
+                              quant_max=quant_max, ops=ops)
     return x, zq

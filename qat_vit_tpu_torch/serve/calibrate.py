@@ -4,6 +4,8 @@
 Running the fake-quant model with ``observe=True`` and frozen weights is
 torch's PTQ prepare → calibrate → convert flow, with this package's
 observers (EMA min/max, c = 0.01, identity until observed).
+:func:`calibrate_detector` calibrates a detector's tower, the feature-mode
+``VisionTransformer`` under ``vision``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,20 @@ def calibrate(
         raise ValueError("calibration requires at least one batch")
     logger.info("calibrated observers over %d batches", n)
     return _observer_buffers(model)
+
+
+def calibrate_detector(
+    params: Dict[str, torch.Tensor],  # the Owlv2Detector's state_dict
+    batches: Iterable[torch.Tensor],
+    cfg: ViTConfig,  # the tower's config (num_classes=0)
+    qconfig: Optional[QConfig] = None,
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """:func:`calibrate` on the detector's tower → its observer buffers,
+    named as in the detector (``vision.…min_val`` / ``…max_val``)."""
+    tower = {k[len("vision."):]: v for k, v in params.items() if k.startswith("vision.")}
+    stats = calibrate(tower, batches, cfg, qconfig, device=device)
+    return {f"vision.{k}": v for k, v in stats.items()}
 
 
 def ptq_convert(

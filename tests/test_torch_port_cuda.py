@@ -233,3 +233,110 @@ def test_megamodel_chain_matches_plain_chain(dev):
     out = pred.logits(np.random.default_rng(5).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8))
     assert out.shape == (6, 10) and np.isfinite(out).all()
     assert fa.fused_attention_qkv.launches == before + 2 * m.cfg.depth
+
+
+# ---------------------------------------------------------------------------
+# the long-sequence attention kernel (K5a, K6's attention stage) and the K6 chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("out", ["bf16", "int8"])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(2, 197, 6, 64, 197), (2, 1000, 4, 32, 1000),
+                                                  (1, 2305, 9, 64, 2305), (2, 2305, 3, 32, 2001)])
+def test_long_attention(dev, b, n, heads, hd, n_valid, out):
+    """Both entry points of csrc/attention_long.cu against their plain
+    version: identical, bf16 and int8."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    rng = np.random.default_rng(n + hd)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
+    qkv = qkv.to(dev).to(torch.bfloat16)
+    out_q = OUT_Q if out == "int8" else None
+    wrapper = la.long_attention_q if out_q else la.long_attention_qkv
+    before = wrapper.launches
+    got = la.long_attention_qkv(qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+    assert wrapper.launches == before + 1
+    _same(got, la.long_attention_qkv_plain(qkv, heads, hd, out_q=out_q, n_valid=n_valid))
+
+
+def test_long_attention_gate_raises(dev):
+    """Beyond the shared-memory plan (one f32 score row per query of a
+    block) the wrapper raises instead of falling back."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    assert la.long_attention_shapes_ok(6048, 64) and not la.long_attention_shapes_ok(6049, 64)
+    qkv = torch.zeros(1, 7000, 3 * 64, dtype=torch.bfloat16, device=dev)
+    before = la.long_attention_qkv.launches, la.long_attention_q.launches
+    with pytest.raises(ValueError, match="unsupported"):
+        la.long_attention_qkv(qkv, 1, 64)
+    with pytest.raises(ValueError, match="unsupported"):
+        la.long_attention_qkv(qkv, 1, 64, out_q=OUT_Q)
+    with pytest.raises(ValueError, match="dtype"):
+        la.long_attention_qkv(torch.zeros(1, 64, 3 * 64, device=dev), 1, 64)
+    assert (la.long_attention_qkv.launches, la.long_attention_q.launches) == before
+
+
+@pytest.fixture(scope="module")
+def owlv2_export(dev):
+    """OWLv2-pruned at full width (D 576, 9 heads, MLP 3072, 2,305 tokens),
+    depth cut to 2, random init from seed 0, PTQ on one seeded image."""
+    from qat_vit_tpu_torch.models.owlv2_detect import create_detector
+    from qat_vit_tpu_torch.serve.calibrate import calibrate_detector
+    from qat_vit_tpu_torch.serve.int8_detect import convert_detector
+    from qat_vit_tpu_torch.serve.int8_vit import export_to_device
+
+    det, cfg = create_detector(pruned=True, qat_wrapper=True, depth=2,
+                               generator=torch.Generator().manual_seed(0), device=dev)
+    x = torch.from_numpy(np.random.default_rng(7).normal(0, 1, (1, 768, 768, 3))
+                         .astype(np.float32)).to(dev)
+    params = {k: v for k, v in det.state_dict().items() if not k.endswith(("min_val", "max_val"))}
+    export = convert_detector(params, calibrate_detector(params, [x], cfg), cfg)
+    return cfg, export_to_device(export, dev), x
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_long_chain_matches_plain(dev, owlv2_export, depth):
+    """One K6 block (long_block_forward) and a 2-block long_model_forward
+    through the kernels against the same chain through the plain versions:
+    identical x and zq."""
+    from qat_vit_tpu_torch.ops import long_block_kernel as lbk
+    from qat_vit_tpu_torch.serve.int8_vit import _embed
+
+    cfg, export, x_img = owlv2_export
+    qp = export["tower"]
+    x = _embed(qp, x_img, cfg, torch.bfloat16, fs.int8_dense)
+    blk0 = qp["blocks"]["0"]
+    zq = fs.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps)
+    kw = dict(num_heads=9, head_dim=64, act="quick_gelu", eps=cfg.layer_norm_eps, n_valid=2305)
+    outs = []
+    for ops in (lbk.LONG_KERNEL_OPS, lbk.LONG_PLAIN_OPS):
+        if depth == 1:
+            outs.append(lbk.long_block_forward(zq, x, blk0, qp["blocks"]["1"]["norm1"], ops=ops,
+                                               **kw))
+        else:
+            outs.append(lbk.long_model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, ops=ops,
+                                               **kw))
+    _same(outs[0], outs[1])
+
+
+def test_detection_preset_runs_the_kernels(dev, owlv2_export):
+    """The CUDA preset of a detector is the megamodel_long chain: five
+    launches per block plus the entry patch GEMM and LN, and the output
+    equals the plain chain's."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+    from qat_vit_tpu_torch.serve.int8_detect import make_int8_detect_forward
+
+    cfg, qp, x = owlv2_export
+    fwd = make_int8_detect_forward(cfg, dev)
+    assert fwd.options["fused"] == "megamodel_long"
+    q = torch.from_numpy(np.random.default_rng(8).normal(0, 1, (1, 4, 512))
+                         .astype(np.float32)).to(dev)
+    wrappers = (fs.int8_dense, fs.int8_dense_resid_ln_q, fs.int8_dense_gelu_q, fs.ln_quantize,
+                la.long_attention_q)
+    before = [w.launches for w in wrappers]
+    out = fwd(qp, x, q)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1 + 2, 2 * 2, 2, 1, 2]
+    plain = make_int8_detect_forward(cfg, dev, fused="megamodel_long_plain")(qp, x, q)
+    assert out.keys() == plain.keys()
+    for k in out:
+        _same(out[k], plain[k])

@@ -162,7 +162,8 @@ def test_predictor_cpu(export):
 
 def test_serving_preset_gates():
     """CPU: the exact defaults. CUDA: the megamodel chain for GELU ViTs the
-    kernels accept; other geometries raise instead of running plain code."""
+    kernels accept, the megamodel_long chain for 2,305-token ones; other
+    geometries raise instead of running plain code."""
     import dataclasses
 
     from qat_vit_tpu_torch.models.vit import ViTConfig
@@ -173,8 +174,10 @@ def test_serving_preset_gates():
     assert _preset_kernel_opts(ViTConfig(embed_dim=768, num_heads=12)) == {"fused": "megamodel"}
     assert _preset_kernel_opts(ViTConfig(embed_dim=128, depth=2, num_heads=2, image_size=32,
                                          patch_size=8)) == {"fused": "megamodel"}
+    assert _preset_kernel_opts(dataclasses.replace(vit_s, image_size=768)) == {
+        "fused": "megamodel_long"}  # 2305 tokens: K6
     for bad in (dataclasses.replace(vit_s, act="quick_gelu"),  # K3 + mixed_none
-                dataclasses.replace(vit_s, image_size=768),  # 2305 tokens: K6
+                dataclasses.replace(vit_s, image_size=480),  # 901 tokens: under the K6 rung
                 ViTConfig(embed_dim=360, num_heads=6)):  # K % 64 != 0
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _preset_kernel_opts(bad)
