@@ -32,9 +32,25 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    (``megamodel_long``: the K6 chain), with its launch counts, the outputs
    against the same chain through the plain versions (batch 2) and against
    the exact f32 path, and the median ms per forward; last, the exact path
-   with ``attn_impl="pallas_long"`` (K5a) at batch 2.
+   with ``attn_impl="pallas_long"`` (K5a) at batch 2;
+6. detection training: the long attention forward (K5a) and backward (K5b)
+   against their plain versions at the shapes the main path below gives
+   them (``[16, 2305, 1728]``); ``DetectKDTrainer`` (the OWLv2-pruned
+   student from a random-init bf16 OWLv2-base teacher, 768 px, 4 queries
+   per image, the trainer's defaults) with depth cut to 2 at batch 2: 2
+   float steps, the QAT switch and 2 QAT steps through the kernels and
+   through their plain versions (losses and parameters must agree); then
+   the main path at full depth and batch 16: the teacher-output cache over
+   64 synthetic CIFAR-10 images, 3 float steps, the switch, 3 QAT steps
+   (launches of K5a and K5b per step, ms per step and img/s with the first
+   step apart, peak device memory, and one more step of each phase under
+   torch.profiler: device time by kernel group and the idle share), int8
+   convert and int8 eval against the fake-quant detector.
 
-The last two lines are the kernels' JSON record and
+Every kernel check also records the kernel's bound (the larger of its
+operations over the H100's peak for their type and its bytes over 3.35
+TB/s) and, where one PyTorch call computes the same function, that call's
+time. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; with none it exits 2.
 """
 
@@ -76,6 +92,16 @@ DET_B, DET_Q, DET_CALIB, DET_REF_B, DET_TIMING_RUNS = 8, 4, 2, 2, 10
 # against the exact f32 path: the JAX package's int8-vs-fake-quant detection
 # bounds (tests/test_owlv2_detect.py)
 DET_BOX_MEAN_ERR, DET_CORR = 0.03, 0.97
+# detection training: the batch of the detection QAT step (ROADMAP.md Queue 1
+# item 10), steps per phase, the replay's batch, steps and depth, the
+# synthetic images behind the teacher cache, the eval batch and batches
+DT_B, DT_STEPS, DT_REPLAY_B, DT_REPLAY_STEPS, DT_REPLAY_DEPTH = 16, 3, 2, 2, 2
+DT_N_TRAIN, DT_EVAL_B, DT_EVAL_BATCHES = 64, 16, 2
+
+# H100 SXM dense peaks (NVIDIA's H100 datasheet): operations per second by
+# type, and the device memory's bytes per second
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -106,6 +132,47 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_group(name: str) -> str:
+    """The bucket of a device kernel in the detection training breakdown."""
+    n = name.lower()
+    for key, group in (("long_bwd_rows", "K5b pass 1 (rows)"),
+                       ("long_bwd_keys", "K5b pass 2 (keys)"),
+                       ("long_attention_kernel", "K5a")):
+        if key in n:
+            return group
+    if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90", "nvjet")):
+        return "GEMMs (cuBLAS)"
+    return "other (elementwise, reductions, copies)"
+
+
+def device_breakdown(torch, fn):
+    """``fn()`` under torch.profiler: (device ms by kernel group, device busy
+    ms, host wall ms, kernel launches); empty groups where the profiler saw
+    no device activity."""
+    import collections
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, spans = collections.Counter(), []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            groups[kernel_group(e.name)] += e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for s, e in sorted(spans):  # the union of the kernels' intervals
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return groups, busy / 1e3, wall * 1e3, len(spans)
 
 
 def compare_int8(name, got, want):
@@ -153,6 +220,88 @@ def rand_ln(torch, np, rng, dev, n):
             "bias": torch.from_numpy(rng.normal(0, 0.2, n).astype(np.float32)).to(dev)}
 
 
+# The work of each kernel, from its shapes: operations by type and bytes (each
+# input read once, each output written once).
+
+def gemm_work(m, k, n, out_bytes, extra_bytes=0):
+    """An int8 GEMM [m, k] @ [k, n] with its int32 column sums, f32 bias and
+    outputs of ``out_bytes`` per element (more inputs in ``extra_bytes``)."""
+    return {"ops": 2 * m * k * n, "type": "int8",
+            "bytes": m * k + k * n + 8 * n + m * n * out_bytes + extra_bytes}
+
+
+def ln_work(m, n, in_bytes):
+    """LayerNorm of [m, n] (~8 f32 operations per element) → int8."""
+    return {"ops": 8 * m * n, "type": "f32", "bytes": m * n * in_bytes + m * n + 8 * n}
+
+
+def attention_work(b, n, heads, hd, out_bytes=2, backward=False):
+    """Attention over the packed bf16 qkv: 2 products forward (4·N²·hd per
+    head), 5 backward (s, dp, dq, dk, dv: 10·N²·hd), at the bf16 rate."""
+    d = heads * hd
+    if backward:  # qkv and do in, dqkv out
+        return {"ops": 10 * b * heads * n * n * hd, "type": "bf16",
+                "bytes": 2 * b * n * 3 * d + 2 * b * n * d + 2 * b * n * 3 * d}
+    return {"ops": 4 * b * heads * n * n * hd, "type": "bf16",
+            "bytes": 2 * b * n * 3 * d + out_bytes * b * n * d}
+
+
+def roofline(*works):
+    """(bound_ms, bound_by): the least time the card could take for the
+    ``works`` together (operations of each type at its peak, one after
+    another, against all their bytes)."""
+    t_ops = sum(w["ops"] / PEAK_OPS[w["type"]] for w in works)
+    t_bytes = sum(w["bytes"] for w in works) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def chain_works(b, n, d, mlp, heads, hd, depth, patch_k, head_n=0):
+    """The launches of one int8 forward through a K4 / K6 chain: the patch
+    GEMM and entry LN, per block the qkv GEMM (bf16 out), the int8-out
+    attention, proj and fc2 RESID_LN_Q and fc1 GELU_Q, and the head GEMM."""
+    m = b * n
+    block = [gemm_work(m, d, 3 * d, 2), attention_work(b, n, heads, hd, 1),
+             gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), gemm_work(m, d, mlp, 1),
+             gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d)]
+    works = [gemm_work(m - b, patch_k, d, 2), ln_work(m, d, 2)] + block * depth
+    return works + ([gemm_work(b, d, head_n, 4)] if head_n else [])
+
+
+# One PyTorch call computing the same function, timed beside the kernel as a
+# yardstick (the port never calls it).
+
+def int_mm(torch, x, layer):
+    """``torch._int_mm`` on the GEMM's int8 operands (the product alone, no
+    epilogue), or None where its shape rules (M > 16, K and N multiples of
+    8) refuse them."""
+    a = x.reshape(-1, x.shape[-1])
+    w = layer["w_int8"]
+    if a.shape[0] <= 16 or a.shape[1] % 8 or w.shape[1] % 8:
+        return None
+    w = w.t().contiguous().t()  # column-major [K, N]
+    return lambda: torch._int_mm(a, w)
+
+
+def _heads(qkv, heads, hd):
+    b, n, _ = qkv.shape
+    return qkv.view(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)  # q, k, v: [B, H, N, hd]
+
+
+def sdpa_forward(torch, qkv, heads, hd):
+    """``F.scaled_dot_product_attention`` forward on the heads of ``qkv``."""
+    q, k, v = _heads(qkv, heads, hd)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
+def sdpa_backward(torch, qkv, do, heads, hd):
+    """The autograd backward of ``F.scaled_dot_product_attention`` on the
+    heads of ``qkv`` for the output gradient ``do`` (dq, dk, dv)."""
+    q, k, v = (t.contiguous().requires_grad_(True) for t in _heads(qkv, heads, hd))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    g = do.view(do.shape[0], do.shape[1], heads, hd).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
 def phase_kernels(torch, np, fs, fa, fat):
     """Each kernel against its plain version at ViT-S shapes, batch 32."""
     dev = torch.device("cuda")
@@ -180,53 +329,72 @@ def phase_kernels(torch, np, fs, fa, fat):
     # the qkv fake-quant grid of the QAT phase; its ends clip ~3% of N(0, 1)
     fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=torch.float32, device=dev),
           "in_fq": (0, 255)}
+    m = b * n_tok
+    x_qkv, l_qkv = act_int8(b, n_tok, d), layer(d, 3 * d)
+    x_proj, l_proj = act_int8(b, n_tok, d), layer(d, d)
+    x_fc1, l_fc1 = act_int8(b, n_tok, d), layer(d, mlp)
+    x_fc2, l_fc2 = act_int8(b, n_tok, mlp), layer(mlp, d)
+    x_patch, l_patch = act_int8(b, n_tok - 1, 768), layer(768, d)
+    attn_fwd, attn_bwd = attention_work(b, n_tok, heads, hd), attention_work(
+        b, n_tok, heads, hd, backward=True)
     cases = [
-        # name, wrapper, plain, args, kwargs, replaces
+        # name, wrapper, plain, args, kwargs, replaces, work, library call
         ("int8_gemm:plain qkv [6304x384]@[384x1152]", fs.int8_dense, fs.int8_dense_plain,
-         (act_int8(b, n_tok, d), layer(d, 3 * d), in_q), {"out_dtype": bf16},
-         "qat_vit_tpu/ops/fused_serve.py:57"),
+         (x_qkv, l_qkv, in_q), {"out_dtype": bf16},
+         "qat_vit_tpu/ops/fused_serve.py:57", gemm_work(m, d, 3 * d, 2),
+         int_mm(torch, x_qkv, l_qkv)),
         ("int8_gemm:resid_ln_q proj [6304x384]@[384x384]", fs.int8_dense_resid_ln_q,
-         fs.int8_dense_resid_ln_q_plain,
-         (act_int8(b, n_tok, d), layer(d, d), in_q, x_bf16, ln(d), out_q),
-         {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:87"),
+         fs.int8_dense_resid_ln_q_plain, (x_proj, l_proj, in_q, x_bf16, ln(d), out_q),
+         {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:87",
+         gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), int_mm(torch, x_proj, l_proj)),
         ("int8_gemm:gelu_q fc1 [6304x384]@[384x1536]", fs.int8_dense_gelu_q,
-         fs.int8_dense_gelu_q_plain, (act_int8(b, n_tok, d), layer(d, mlp), in_q, gelu_q), {},
-         "qat_vit_tpu/ops/fused_serve.py:70"),
+         fs.int8_dense_gelu_q_plain, (x_fc1, l_fc1, in_q, gelu_q), {},
+         "qat_vit_tpu/ops/fused_serve.py:70", gemm_work(m, d, mlp, 1),
+         int_mm(torch, x_fc1, l_fc1)),
         ("int8_gemm:resid_ln_q fc2 [6304x1536]@[1536x384]", fs.int8_dense_resid_ln_q,
-         fs.int8_dense_resid_ln_q_plain,
-         (act_int8(b, n_tok, mlp), layer(mlp, d), in_q, x_f32, ln(d), out_q),
-         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:87"),
+         fs.int8_dense_resid_ln_q_plain, (x_fc2, l_fc2, in_q, x_f32, ln(d), out_q),
+         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:87",
+         gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d), int_mm(torch, x_fc2, l_fc2)),
         ("int8_gemm:plain patch_embed [6272x768]@[768x384]", fs.int8_dense, fs.int8_dense_plain,
-         (act_int8(b, n_tok - 1, 768), layer(768, d), in_q), {"out_dtype": bf16},
-         "qat_vit_tpu/ops/fused_serve.py:57"),
+         (x_patch, l_patch, in_q), {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:57",
+         gemm_work(m - b, 768, d, 2), int_mm(torch, x_patch, l_patch)),
         ("int8_gemm:plain head [32x384]@[384x10] per-channel", fs.int8_dense,
          fs.int8_dense_plain, (act_int8(b, d), layer(d, 10, per_channel=True), in_q),
-         {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:57"),
+         {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:57",
+         gemm_work(b, d, 10, 4), None),
         ("ln_quantize [6304x384] bf16", fs.ln_quantize, fs.ln_quantize_plain,
-         (x_bf16, ln(d), out_q), {}, "qat_vit_tpu/ops/fused_serve.py:105"),
+         (x_bf16, ln(d), out_q), {}, "qat_vit_tpu/ops/fused_serve.py:105", ln_work(m, d, 2),
+         None),
         ("attention_q [32x197x1152] 6 heads", fa.fused_attention_qkv,
          fa.fused_attention_qkv_plain, (qkv, heads, hd), {"out_q": out_q},
-         "qat_vit_tpu/ops/flash_attention.py:125"),
+         "qat_vit_tpu/ops/flash_attention.py:125", attention_work(b, n_tok, heads, hd, 1),
+         sdpa_forward(torch, qkv, heads, hd)),
         ("attention_fwd [32x197x1152] 6 heads", fa.attention_fwd, fa.attention_fwd_plain,
-         (qkv, heads, hd), {}, "qat_vit_tpu/ops/flash_attention.py:125"),
+         (qkv, heads, hd), {}, "qat_vit_tpu/ops/flash_attention.py:125", attn_fwd,
+         sdpa_forward(torch, qkv, heads, hd)),
         ("attention_fwd:in_fq [32x197x1152] 6 heads", fa.attention_fwd, fa.attention_fwd_plain,
-         (qkv, heads, hd), fq, "qat_vit_tpu/ops/flash_attention.py:125"),
+         (qkv, heads, hd), fq, "qat_vit_tpu/ops/flash_attention.py:125", attn_fwd,
+         sdpa_forward(torch, qkv, heads, hd)),
         ("attention_bwd [32x197x1152] 6 heads", fat.attention_bwd, fat.attention_bwd_plain,
-         (qkv, do, heads, hd), {}, "qat_vit_tpu/ops/flash_attention_train.py:48"),
+         (qkv, do, heads, hd), {}, "qat_vit_tpu/ops/flash_attention_train.py:48", attn_bwd,
+         sdpa_backward(torch, qkv, do, heads, hd)),
         ("attention_bwd:in_fq+ste [32x197x1152] 6 heads", fat.attention_bwd,
          fat.attention_bwd_plain, (qkv, do, heads, hd), fq,
-         "qat_vit_tpu/ops/flash_attention_train.py:48"),
+         "qat_vit_tpu/ops/flash_attention_train.py:48", attn_bwd,
+         sdpa_backward(torch, qkv, do, heads, hd)),
     ]
     return check_kernels(torch, cases, "phase 2", slow_plain=(fat.attention_bwd_plain,))
 
 
 def check_kernels(torch, cases, label, slow_plain=()):
-    """Each (name, kernel, plain, args, kwargs, replaces) case: the kernel's
-    output against its plain version's on the same inputs, then both timed
-    (the plain versions in ``slow_plain`` over 5 runs)."""
+    """Each (name, kernel, plain, args, kwargs, replaces, work, library) case:
+    the kernel's output against its plain version's on the same inputs, then
+    both timed (the plain versions in ``slow_plain`` over 5 runs), the
+    library call (None: no single call computes it) and the bound of
+    ``work``."""
     bf16 = torch.bfloat16
     results = []
-    for name, kernel, plain, args, kwargs, replaces in cases:
+    for name, kernel, plain, args, kwargs, replaces, work, library in cases:
         got = kernel(*args, **kwargs)
         want = plain(*args, **kwargs)
         torch.cuda.synchronize()
@@ -246,10 +414,15 @@ def check_kernels(torch, cases, label, slow_plain=()):
         ms = median_ms(lambda: kernel(*args, **kwargs))
         plain_ms = median_ms(lambda: plain(*args, **kwargs),
                              runs=5 if plain in slow_plain else TIMING_RUNS)
+        library_ms = median_ms(library) if library is not None else None
+        bound_ms, bound_by = roofline(work)
+        lib = f"{library_ms:.4f} ms" if library is not None else "none"
         print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(exact)}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         results.append({"name": name, "wrapper": kernel, "replaces": replaces,
-                        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
     return results
 
 
@@ -326,8 +499,12 @@ def phase_serving(torch, np, fs, fa):
     n = sum(len(out) for out in pred.serve_stream(batches))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    bound_ms, bound_by = roofline(*chain_works(SERVE_B, cfg.seq_len, cfg.embed_dim, cfg.mlp_dim,
+                                               cfg.num_heads, cfg.head_dim, cfg.depth,
+                                               3 * cfg.patch_size ** 2, cfg.num_classes))
     print(f"phase 3 serving: {n / dt:.1f} img/s at batch {SERVE_B} "
-          f"({n} images in {dt * 1e3:.1f} ms) on {card_line()}", flush=True)
+          f"({n} images in {dt * 1e3:.1f} ms, {dt * 1e3 * SERVE_B / n:.2f} ms per batch; the "
+          f"K4 chain's bound {bound_ms:.4f} ms ({bound_by})) on {card_line()}", flush=True)
     return launches
 
 
@@ -335,6 +512,7 @@ def phase_training(torch, np, fs, fa, fat):
     """KD + QAT training of ViT-S/16 through the attention kernels."""
     from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
     from qat_vit_tpu_torch.models.registry import create_student, create_teacher
+    from qat_vit_tpu_torch.ops._cuda import reference_impl
     from qat_vit_tpu_torch.serve.predictor import Int8Predictor
     from qat_vit_tpu_torch.train.config import load_hparams
     from qat_vit_tpu_torch.train.trainer import KDQATTrainer
@@ -380,7 +558,7 @@ def phase_training(torch, np, fs, fa, fat):
     for plain in (False, True):
         t = trainer(REPLAY_B)
         if plain:
-            with fat.reference_impl():
+            with reference_impl():
                 ms = run(t)
         else:
             ms = run(t)
@@ -492,33 +670,44 @@ def phase_detection(torch, np, fs, la):
         return rand_layer(torch, np, rng, dev, k, n_out, bias=bias)
 
     m = b * n
+    x_qkv, l_qkv = act_int8(b, n, d), layer(d, 3 * d)
+    x_patch, l_patch = act_int8(b, n - 1, 768), layer(768, d, bias=False)
+    x_proj, l_proj = act_int8(b, n, d), layer(d, d)
+    x_fc1, l_fc1 = act_int8(b, n, d), layer(d, mlp)
+    x_fc2, l_fc2 = act_int8(b, n, mlp), layer(mlp, d)
     cases = [
         (f"attention_long [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_qkv,
          la.long_attention_qkv_plain, (qkv, heads, hd), {},
-         "qat_vit_tpu/ops/long_attention.py:63"),
+         "qat_vit_tpu/ops/long_attention.py:63", attention_work(b, n, heads, hd),
+         sdpa_forward(torch, qkv, heads, hd)),
         (f"attention_long_q [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_q,
          la.long_attention_qkv_plain, (qkv, heads, hd), {"out_q": out_q},
-         "qat_vit_tpu/ops/long_block_kernel.py:262"),
+         "qat_vit_tpu/ops/long_block_kernel.py:262", attention_work(b, n, heads, hd, 1),
+         sdpa_forward(torch, qkv, heads, hd)),
         (f"int8_gemm:plain qkv [{m}x{d}]@[{d}x{3 * d}]", fs.int8_dense, fs.int8_dense_plain,
-         (act_int8(b, n, d), layer(d, 3 * d), in_q), {"out_dtype": bf16},
-         "qat_vit_tpu/ops/fused_serve.py:57"),
+         (x_qkv, l_qkv, in_q), {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:57",
+         gemm_work(m, d, 3 * d, 2), int_mm(torch, x_qkv, l_qkv)),
         (f"int8_gemm:plain patch_embed no bias [{m - b}x768]@[768x{d}]", fs.int8_dense,
-         fs.int8_dense_plain, (act_int8(b, n - 1, 768), layer(768, d, bias=False), in_q),
-         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:57"),
+         fs.int8_dense_plain, (x_patch, l_patch, in_q), {"out_dtype": bf16},
+         "qat_vit_tpu/ops/fused_serve.py:57", gemm_work(m - b, 768, d, 2, -4 * d),
+         int_mm(torch, x_patch, l_patch)),
         (f"int8_gemm:resid_ln_q proj [{m}x{d}]@[{d}x{d}]", fs.int8_dense_resid_ln_q,
          fs.int8_dense_resid_ln_q_plain,
-         (act_int8(b, n, d), layer(d, d), in_q, x_bf16, rand_ln(torch, np, rng, dev, d), out_q),
-         {"out_dtype": torch.float32, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87"),
+         (x_proj, l_proj, in_q, x_bf16, rand_ln(torch, np, rng, dev, d), out_q),
+         {"out_dtype": torch.float32, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87",
+         gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), int_mm(torch, x_proj, l_proj)),
         (f"int8_gemm:gelu_q quick-GELU fc1 [{m}x{d}]@[{d}x{mlp}]", fs.int8_dense_gelu_q,
-         fs.int8_dense_gelu_q_plain, (act_int8(b, n, d), layer(d, mlp), in_q, gelu_q),
-         {"act": "quick_gelu"}, "qat_vit_tpu/ops/fused_serve.py:70"),
+         fs.int8_dense_gelu_q_plain, (x_fc1, l_fc1, in_q, gelu_q), {"act": "quick_gelu"},
+         "qat_vit_tpu/ops/fused_serve.py:70", gemm_work(m, d, mlp, 1),
+         int_mm(torch, x_fc1, l_fc1)),
         (f"int8_gemm:resid_ln_q fc2 [{m}x{mlp}]@[{mlp}x{d}]", fs.int8_dense_resid_ln_q,
          fs.int8_dense_resid_ln_q_plain,
-         (act_int8(b, n, mlp), layer(mlp, d), in_q, x_f32, rand_ln(torch, np, rng, dev, d), out_q),
-         {"out_dtype": bf16, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87"),
+         (x_fc2, l_fc2, in_q, x_f32, rand_ln(torch, np, rng, dev, d), out_q),
+         {"out_dtype": bf16, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87",
+         gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d), int_mm(torch, x_fc2, l_fc2)),
         (f"ln_quantize [{m}x{d}] bf16", fs.ln_quantize, fs.ln_quantize_plain,
          (x_bf16, rand_ln(torch, np, rng, dev, d), out_q), {"eps": 1e-5},
-         "qat_vit_tpu/ops/fused_serve.py:105"),
+         "qat_vit_tpu/ops/fused_serve.py:105", ln_work(m, d, 2), None),
     ]
     kernels = check_kernels(torch, cases, "phase 5", slow_plain=(la.long_attention_qkv_plain,))
     del qkv, x_bf16, x_f32, cases
@@ -576,8 +765,12 @@ def phase_detection(torch, np, fs, la):
         fail(f"detection vs the exact path: box err {box_err:.3e}, corr {corr}")
 
     ms = median_ms(lambda: fwd(export, x, q), runs=DET_TIMING_RUNS)
+    bound_ms, bound_by = roofline(*chain_works(DET_B, cfg.seq_len, cfg.embed_dim, cfg.mlp_dim,
+                                               cfg.num_heads, cfg.head_dim, depth,
+                                               3 * cfg.patch_size ** 2))
     print(f"phase 5 int8 detection: {ms:.2f} ms per batch-{DET_B} forward with {DET_Q} queries "
-          f"(median of {DET_TIMING_RUNS}, warm-up excluded) on {card_line()}", flush=True)
+          f"(median of {DET_TIMING_RUNS}, warm-up excluded; the K6 chain's bound "
+          f"{bound_ms:.4f} ms ({bound_by})) on {card_line()}", flush=True)
     del out, plain
 
     # the exact path with its attention on the long attention kernel (K5a)
@@ -597,6 +790,184 @@ def phase_detection(torch, np, fs, la):
     for k in kernels:
         path = k5a_launches if k["wrapper"] is la.long_attention_qkv else launches
         k["launches"] = path[k["wrapper"]]
+    return kernels
+
+
+def phase_detect_training(torch, np, fs, la):
+    """OWLv2 detection KD + QAT training through the long attention pair (K5a, K5b)."""
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+    from qat_vit_tpu_torch.train.config import load_hparams
+    from qat_vit_tpu_torch.train.detect_trainer import DetectKDTrainer
+
+    from qat_vit_tpu_torch.ops._cuda import reference_impl
+
+    dev = torch.device("cuda")
+    # K5a and K5b against their plain versions at the shapes the student's
+    # main path gives them (batch 16)
+    rng = np.random.default_rng(SEED + 6)
+    b, n, heads, hd = DT_B, 2305, 9, 64
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
+    qkv = qkv.to(dev).to(torch.bfloat16)
+    do = torch.from_numpy(rng.normal(0, 1, (b, n, heads * hd)).astype(np.float32))
+    do = do.to(dev).to(torch.bfloat16)
+    cases = [(f"attention_long [{b}x{n}x{3 * heads * hd}] {heads} heads", la.long_attention_qkv,
+              la.long_attention_qkv_plain, (qkv, heads, hd), {},
+              "qat_vit_tpu/ops/long_attention.py:63", attention_work(b, n, heads, hd),
+              sdpa_forward(torch, qkv, heads, hd)),
+             (f"attention_long_bwd [{b}x{n}x{3 * heads * hd}] {heads} heads",
+              la.long_attention_bwd, la.long_attention_bwd_plain, (qkv, do, heads, hd), {},
+              "qat_vit_tpu/ops/long_attention.py:173",
+              attention_work(b, n, heads, hd, backward=True),
+              sdpa_backward(torch, qkv, do, heads, hd))]
+    kernels = check_kernels(torch, cases, "phase 6", slow_plain=(la.long_attention_qkv_plain,
+                                                                 la.long_attention_bwd_plain))
+    del qkv, do, cases
+
+    data = synthetic_cifar10(n_train=DT_N_TRAIN, n_test=DT_EVAL_B * DT_EVAL_BATCHES, seed=SEED)
+
+    def trainer(batch, depth=None):
+        hp = load_hparams(None)
+        hp.update(task="detection", image_size=768, batch_size=batch, eval_batch_size=DT_EVAL_B,
+                  epochs=2, seed=SEED)
+        if depth is not None:
+            hp["depth"] = depth  # teacher and student
+        t = DetectKDTrainer(hp, device=dev, data=data)
+        sc, qc, tc = t.student_float_cfg, t.student_qat_cfg, t.teacher.cfg
+        if ((sc.embed_dim, sc.num_heads, sc.mlp_dim, sc.seq_len, sc.act, sc.pre_norm)
+                != (576, 9, 3072, 2305, "quick_gelu", True)
+                or (tc.embed_dim, tc.num_heads, tc.seq_len, tc.dtype, tc.fast_math)
+                != (768, 12, 2305, torch.bfloat16, False)
+                or sc.depth != (depth or 9) or tc.depth != (depth or 12)):
+            fail(f"unexpected detection geometry: student {sc}, teacher {tc}")
+        if not (sc.fast_math and qc.fast_math and sc.dtype == qc.dtype == torch.bfloat16
+                and t.cache_teacher):
+            fail(f"the detection trainer's defaults changed: {sc} / {qc}")
+        return t
+
+    def run(t, steps, counts=None, times=None, profiles=None):
+        """``steps`` float steps, the QAT switch, ``steps`` QAT steps; per
+        phase the K5a/K5b launches, (``times``) each step's host time ending
+        in a synchronize and (``profiles``) the device breakdown of one more
+        step, taken after the phase's counts are read."""
+        if times is not None:
+            def timed(step, out):
+                def call(state, batch, loss_hp):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    metrics = step(state, batch, loss_hp)
+                    torch.cuda.synchronize()
+                    out.append(time.perf_counter() - t0)
+                    return metrics
+                return call
+            times.extend(([], []))
+            t.train_step_float = timed(t.train_step_float, times[0])
+            t.train_step_qat = timed(t.train_step_qat, times[1])
+        out = []
+        for epoch in (0, 1):
+            if epoch:
+                t.enable_qat()
+            la.long_attention_qkv.launches = la.long_attention_bwd.launches = 0
+            m = t.train_epoch(epoch, limit_batches=steps)
+            torch.cuda.synchronize()
+            if counts is not None:
+                counts.append((la.long_attention_qkv.launches, la.long_attention_bwd.launches))
+            if m["n_batches"] != steps or not np.isfinite(m["train_loss"]):
+                fail(f"detection training epoch {epoch}: {m}")
+            out.append(m)
+            if profiles is not None:
+                profiles.append(device_breakdown(
+                    torch, lambda: t.train_epoch(epoch, limit_batches=1)))
+        return out
+
+    # the same steps through the kernels and through their plain versions
+    replay = []
+    for plain in (False, True):
+        t = trainer(DT_REPLAY_B, DT_REPLAY_DEPTH)
+        if plain:
+            with reference_impl():
+                ms = run(t, DT_REPLAY_STEPS)
+        else:
+            ms = run(t, DT_REPLAY_STEPS)
+        replay.append((ms, torch.cat([p.detach().float().flatten()
+                                      for p in t.student_qat.parameters()])))
+        del t
+    for phase, (mk, mp) in enumerate(zip(replay[0][0], replay[1][0])):
+        rel = abs(mk["train_loss"] - mp["train_loss"]) / abs(mp["train_loss"])
+        print(f"phase 6 replay at batch {DT_REPLAY_B}, depth {DT_REPLAY_DEPTH}, "
+              f"{('float', 'QAT')[phase]} steps: loss kernels {mk['train_loss']!r} plain "
+              f"{mp['train_loss']!r} (rel {rel:.3e}, bound {REPLAY_LOSS_REL})", flush=True)
+        if rel > REPLAY_LOSS_REL:
+            fail(f"detection: kernel vs plain training loss rel {rel:.3e} > {REPLAY_LOSS_REL}")
+    pk, pp = replay[0][1], replay[1][1]
+    prel = float((pk - pp).norm() / pp.norm())
+    print(f"phase 6 replay: student parameters after {2 * DT_REPLAY_STEPS} steps, kernels vs "
+          f"plain rel L2 {prel:.3e} (bound {REPLAY_PARAM_REL_L2})", flush=True)
+    if prel > REPLAY_PARAM_REL_L2:
+        fail(f"detection: kernel vs plain parameters rel L2 {prel:.3e} > {REPLAY_PARAM_REL_L2}")
+    del replay, pk, pp
+
+    # the main path: full depth, batch 16
+    t = trainer(DT_B)
+    t0 = time.perf_counter()
+    t._ensure_teacher_outputs()
+    torch.cuda.synchronize()
+    card = card_line()
+    print(f"phase 6 teacher outputs cached for {DT_N_TRAIN} images (OWLv2-base, 768 px, "
+          f"{t.num_queries} queries, chunks of {DT_EVAL_B}): {time.perf_counter() - t0:.2f} s "
+          f"on {card}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    counts, times, profiles = [], [], []
+    ms = run(t, DT_STEPS, counts, times, profiles)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    depth = t.student_qat_cfg.depth
+    for name, m, (nf, nb), ts, (groups, busy, wall, n_kernels) in zip(
+            ("float (bf16, fast_math)", "QAT (bf16, qat_amp)"), ms, counts, times, profiles):
+        steady = ts[1:DT_STEPS]  # the profiled step after them is not timed here
+        step_ms = 1e3 * statistics.median(steady)
+        print(f"phase 6 {name}: {DT_STEPS} steps at batch {DT_B}, mean loss "
+              f"{m['train_loss']:.5f}; first step {1e3 * ts[0]:.1f} ms, then "
+              f"{', '.join(f'{1e3 * s:.1f}' for s in steady)} ms (median {step_ms:.1f} ms, "
+              f"{DT_B / statistics.mean(steady):.2f} img/s; epoch {m['imgs_per_sec']:.2f} img/s "
+              f"first step included) on {card}; launches attention_long {nf} "
+              f"attention_long_bwd {nb} ({nf / DT_STEPS:g} and {nb / DT_STEPS:g} per step; "
+              f"K5b is two kernels per layer)", flush=True)
+        if nf != depth * DT_STEPS or nb != 2 * depth * DT_STEPS:
+            fail(f"the {name} steps launched K5a {nf} and K5b {nb} times, expected "
+                 f"{depth} and {2 * depth} per step")
+        if groups:
+            print(f"phase 6 {name}, one more step under torch.profiler: host {wall:.1f} ms, "
+                  f"device busy {busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%), "
+                  f"{n_kernels} kernels; " + ", ".join(
+                      f"{g} {v:.1f} ms" for g, v in groups.most_common()) + f" on {card}",
+                  flush=True)
+        else:
+            print(f"phase 6 {name}: torch.profiler saw no device activity (breakdown not "
+                  f"measured)", flush=True)
+    print(f"phase 6 peak device memory over the 6 steps: {peak_gb:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+
+    ev = t.evaluate(limit_batches=DT_EVAL_BATCHES)
+    export = t.convert_int8()
+    serve = (fs.int8_dense, fs.int8_dense_gelu_q, fs.int8_dense_resid_ln_q, fs.ln_quantize,
+             la.long_attention_q)
+    for w in serve:
+        w.launches = 0
+    i8 = t.evaluate_int8(export, limit_batches=DT_EVAL_BATCHES)
+    torch.cuda.synchronize()
+    if any(w.launches == 0 for w in serve):
+        fail(f"int8 detection eval did not launch every serving kernel: "
+             f"{[w.launches for w in serve]}")
+    print(f"phase 6 QAT eval vs the teacher: box err {ev['box_err']:.5f}, top-box agreement "
+          f"{ev['teacher_agreement']:.4f} (random-init teacher: a record); int8 vs the "
+          f"fake-quant detector over {DT_EVAL_BATCHES}x{DT_EVAL_B} images: |Δbox| "
+          f"{i8['int8_box_err']:.3e} (bound {DET_BOX_MEAN_ERR}), top-box agreement "
+          f"{i8['int8_top_box_agreement']:.4f}", flush=True)
+    if not (np.isfinite(ev["box_err"]) and i8["int8_box_err"] <= DET_BOX_MEAN_ERR):
+        fail(f"detection eval after training: {ev}, int8 {i8}")
+    launches = {la.long_attention_qkv: sum(c[0] for c in counts),
+                la.long_attention_bwd: sum(c[1] for c in counts)}
+    for k in kernels:
+        k["launches"] = launches[k["wrapper"]]
     return kernels
 
 
@@ -636,6 +1007,7 @@ def main() -> None:
     for k in kernels:
         k["launches"] = launches[k["wrapper"]]
     kernels += phase_detection(torch, np, fs, la)
+    kernels += phase_detect_training(torch, np, fs, la)
 
     sources = {fs.int8_dense: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_gelu_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
@@ -645,11 +1017,13 @@ def main() -> None:
                fa.attention_fwd: "qat_vit_tpu_torch/csrc/attention_q.cu",
                fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd.cu",
                la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long.cu",
-               la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long.cu"}
+               la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long.cu",
+               la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd.cu"}
     record = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": sources[k["wrapper"]],
          "replaces": k["replaces"], "launches": k["launches"],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         for k in kernels
     ]}
     print(card, flush=True)

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "qvt_attention_bwd": [_P] * 4 + [_I] * 5 + [_F, _I, _F, _F, _P],
     "qvt_attention_long": [_P, _P] + [_I] * 5 + [_F, _P],
     "qvt_attention_long_q": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],
+    "qvt_attention_long_bwd": [_P] * 4 + [_I] * 5 + [_F, _F, _P],
 }
 
 

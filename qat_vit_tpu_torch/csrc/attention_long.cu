@@ -61,28 +61,10 @@ constexpr int KT = 128;                 // keys per shared-memory tile
 constexpr int KPL = KT / 32;            // keys per lane in a tile
 constexpr int MAX_WORDS_PER_LANE = 2;   // hd <= 128: hd/2 <= 64 bf16 pairs
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t x = words[i];
-    const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
+using qvt::cp_async16;
+using qvt::cp_async_commit;
+using qvt::cp_async_wait;
+using qvt::unpack8;
 
 template <bool QUANT_OUT>
 __global__ void __launch_bounds__(WARPS * 32)

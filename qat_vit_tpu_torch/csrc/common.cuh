@@ -82,6 +82,31 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// 16-byte asynchronous copies from global to shared memory (cp.async)
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// the 8 bf16 values of a 16-byte chunk as f32
+__device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t x = words[i];
+    const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
 // (mean, rsqrt(var + eps)) of one row held by a warp, as f32. The sums run
 // in f64 and the two results are rounded to f32 once, so they do not depend
 // on the summation order: the plain version (ops/fused_serve.layernorm_f32)

@@ -12,7 +12,8 @@ stay f32, fake-quant math stays f32, matmuls, bias adds and LayerNorm
 outputs in ``dtype``, logits f32), ``fast_math`` (softmax in the compute
 dtype, tanh-GELU), ``attn_kernel`` and ``fq_in_kernel`` (the attention
 dispatch in :class:`Attention`: the hand-written attention kernels of
-``ops/flash_attention_train.py``, or the einsum path). The CLIP-style
+``ops/flash_attention_train.py`` and, for long sequences,
+``ops/long_attention.py``, or the einsum path). The CLIP-style
 options of the OWLv2 vision tower, as the JAX module: ``pre_norm`` (a
 LayerNorm after the position embedding), ``patch_bias=False`` and
 ``num_classes=0`` (feature mode: the f32 final-LN token stream, no head).
@@ -31,6 +32,10 @@ from qat_vit_tpu_torch.ops.flash_attention_train import (
     attention_train,
     attention_train_available,
     attention_train_fq,
+)
+from qat_vit_tpu_torch.ops.long_attention import (
+    long_attention_train,
+    long_attention_train_available,
 )
 from qat_vit_tpu_torch.quant.modules import FakeQuantizer
 from qat_vit_tpu_torch.quant.qconfig import QConfig
@@ -204,12 +209,12 @@ class Attention(nn.Module):
       is on, the forward observes (the training trace) and the kernels fit;
     - :func:`attention_train` (kernels A + B) under ``fast_math`` and
       ``attn_kernel`` where they fit;
+    - past their gates (long sequences: OWLv2's 2,305 tokens), the
+      long-sequence pair :func:`long_attention_train` (K5a forward, K5b
+      backward) under ``fast_math`` and ``attn_kernel`` where it fits, with
+      the qkv fake-quant outside the kernels, as the JAX module's branch;
     - otherwise the einsum path: scores in the compute dtype, softmax in it
-      under ``fast_math`` and in f32 otherwise.
-
-    The JAX module's long-sequence training branch (``long_attention_train``,
-    K5 with its backward) is not here: it comes with detection training
-    (ROADMAP.md Queue 1, item 10); longer sequences take the einsum path."""
+      under ``fast_math`` and in f32 otherwise."""
 
     def __init__(self, cfg: ViTConfig, generator=None):
         super().__init__()
@@ -232,6 +237,9 @@ class Attention(nn.Module):
             out = attention_train_fq(qkv, qs, h, hd, act.quant_min, act.quant_max)
         elif kernel_ok:
             out = attention_train(self.qkv(x, observe=observe), h, hd)
+        elif (cfg.fast_math and cfg.attn_kernel
+              and long_attention_train_available(h, hd, n, cfg.dtype)):
+            out = long_attention_train(self.qkv(x, observe=observe), h, hd)
         else:
             qkv = self.qkv(x, observe=observe).reshape(b, n, 3, h, hd)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]

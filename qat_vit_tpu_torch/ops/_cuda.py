@@ -2,16 +2,45 @@
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises, and for any other device it raises.
+The training attentions' ``autograd.Function``\\ s (``flash_attention_train``,
+``long_attention``) also read :func:`reference_on`: inside
+:func:`reference_impl` they call the plain versions on any device (the
+card's reference run for the kernels, never the main path).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 
 # H100: the dynamic shared memory one block may opt into (bytes)
 SMEM_LIMIT = 232448
+
+_PLAIN = {"on": False}
+
+
+@contextlib.contextmanager
+def reference_impl():
+    """Run the training attentions through the kernels' plain versions on
+    every device."""
+    _PLAIN["on"] = True
+    try:
+        yield
+    finally:
+        _PLAIN["on"] = False
+
+
+def reference_on() -> bool:
+    """True inside :func:`reference_impl`."""
+    return _PLAIN["on"]
+
+
+def bwd_scale_f32(head_dim: int, device) -> torch.Tensor:
+    """``hd**-0.5`` in f32: the attention backwards scale in f32 after their
+    dots (the forwards scale q in the qkv dtype before)."""
+    return torch.tensor(head_dim ** -0.5, dtype=torch.float32, device=device)
 
 
 def use_plain(t: torch.Tensor) -> bool:

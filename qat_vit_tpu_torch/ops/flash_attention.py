@@ -74,13 +74,15 @@ def ordered_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def ordered_matmul(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``p @ v``, accumulated in f32 one row of ``v`` at a time."""
-    o = torch.zeros(p.shape[:-1] + v.shape[-1:], dtype=torch.float32, device=p.device)
+def ordered_matmul(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor = None) -> torch.Tensor:
+    """``p @ v`` (``acc + p @ v`` with an f32 ``acc``), accumulated in f32
+    one row of ``v`` at a time."""
+    if acc is None:
+        acc = torch.zeros(p.shape[:-1] + v.shape[-1:], dtype=torch.float32, device=p.device)
     p, v = p.to(torch.float32), v.to(torch.float32)
     for j in range(v.shape[-2]):
-        o = o + p[..., j : j + 1] * v[..., j : j + 1, :]
-    return o
+        acc = acc + p[..., j : j + 1] * v[..., j : j + 1, :]
+    return acc
 
 
 def softmax_pinned(s: torch.Tensor) -> torch.Tensor:

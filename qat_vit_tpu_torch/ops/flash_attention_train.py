@@ -16,18 +16,24 @@
 
 On the CPU the kernels' plain versions run (that is how the CPU tests reach
 this branch); on CUDA the kernels launch or the wrappers raise. Under
-:func:`reference_impl` the two Functions call the plain versions on any
+``_cuda.reference_impl()`` the two Functions call the plain versions on any
 device: the card's reference run for the kernels, never the main path.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from qat_vit_tpu_torch import _build
-from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, ptr, require, stream_of, use_plain
+from qat_vit_tpu_torch.ops._cuda import (
+    SMEM_LIMIT,
+    bwd_scale_f32,
+    ptr,
+    reference_on,
+    require,
+    stream_of,
+    use_plain,
+)
 from qat_vit_tpu_torch.ops.flash_attention import (
     _check_attention,
     attention_fwd,
@@ -66,11 +72,6 @@ def attention_train_available(num_heads: int, head_dim: int, seq_len: int = None
             and attention_bwd_smem_bytes(seq_len, head_dim) <= SMEM_LIMIT)
 
 
-def _scale_f32(head_dim: int, device) -> torch.Tensor:
-    # the backward scales in f32 after its dots (the forward scales q in bf16)
-    return torch.tensor(head_dim ** -0.5, dtype=torch.float32, device=device)
-
-
 def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim: int, *,
                         qs=None, in_fq=None, n_valid: int = None) -> torch.Tensor:
     """Kernel B's arithmetic, rounding for rounding → dqkv in the qkv dtype.
@@ -87,7 +88,7 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, hea
     dt = qkv.dtype
     q, k, v = split_heads(qkv, num_heads, head_dim, qs, in_fq)
     g = do.to(dt).reshape(b, n, num_heads, head_dim).transpose(1, 2)
-    scale = _scale_f32(head_dim, qkv.device)
+    scale = bwd_scale_f32(head_dim, qkv.device)
     s = (ordered_dot(q, k) * scale).masked_fill(torch.arange(n, device=qkv.device) >= n_valid,
                                                 -1e30)
     p = softmax_pinned(s)
@@ -124,7 +125,7 @@ def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim:
         _build.load().call(
             "qvt_attention_bwd", ptr(qkv), ptr(do), ptr(qs) if in_fq is not None else None,
             ptr(dqkv), b, n, num_heads, head_dim, n_valid,
-            float(_scale_f32(head_dim, "cpu")), int(in_fq is not None), float(lo), float(hi),
+            float(bwd_scale_f32(head_dim, "cpu")), int(in_fq is not None), float(lo), float(hi),
             stream_of(qkv.device),
         )
         attention_bwd.launches += 1
@@ -133,22 +134,9 @@ def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim:
 
 attention_bwd.launches = 0
 
-_PLAIN = {"on": False}
-
-
-@contextlib.contextmanager
-def reference_impl():
-    """Run :func:`attention_train` / :func:`attention_train_fq` through the
-    kernels' plain versions on every device (the card's reference run)."""
-    _PLAIN["on"] = True
-    try:
-        yield
-    finally:
-        _PLAIN["on"] = False
-
 
 def _impls():
-    if _PLAIN["on"]:
+    if reference_on():
         return attention_fwd_plain, attention_bwd_plain
     return attention_fwd, attention_bwd
 

@@ -25,6 +25,26 @@ and V at 2,305 × 64 bf16 are 295 KB each, over the 227 KB a block may use),
 so the gate is on that plan: hd a multiple of 8 and at most 128, and
 :func:`long_attention_smem_bytes` within the limit (N <= 6,048 at hd 64).
 The TPU's lane and VMEM rules do not apply.
+
+Training (K5 with its backward, K5b):
+
+- :func:`long_attention_bwd`: dqkv ``[B, N, 3·H·hd]`` for the output
+  gradient ``do``; on CUDA it calls ``qvt_attention_long_bwd``
+  (``csrc/attention_long_bwd.cu``), which launches two kernels, the
+  deterministic rows and keys passes: ``long_attention_bwd.launches`` counts
+  both, 2 per call; on the CPU
+  :func:`long_attention_bwd_plain`, the TPU backward's numerics (q scaled in
+  bf16 before the score dot; dq and dk scaled in f32 after their dots, dk
+  with the unscaled q; ds rounded to bf16 from the f32 p, p rounded only for
+  dv; dk and dv summed in f32 over every query and rounded once), one image
+  and one query stripe at a time.
+- :func:`long_attention_train`: the differentiable pair, a
+  ``torch.autograd.Function`` that saves only ``qkv``; forward
+  :func:`long_attention_qkv`, backward :func:`long_attention_bwd`; through
+  the plain versions under ``_cuda.reference_impl()``.
+- :func:`long_attention_train_available`: both kernels' gates and the JAX
+  package's cap on the pair (N rounded up to 256 at most 4,096), so that
+  both packages take the long-sequence branch at the same N.
 """
 
 from __future__ import annotations
@@ -32,7 +52,15 @@ from __future__ import annotations
 import torch
 
 from qat_vit_tpu_torch import _build
-from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, ptr, require, stream_of, use_plain
+from qat_vit_tpu_torch.ops._cuda import (
+    SMEM_LIMIT,
+    bwd_scale_f32,
+    ptr,
+    reference_on,
+    require,
+    stream_of,
+    use_plain,
+)
 from qat_vit_tpu_torch.ops.flash_attention import (
     _q_scale,
     ordered_dot,
@@ -45,8 +73,13 @@ from qat_vit_tpu_torch.ops.quantized_matmul import f32
 
 # the layout of csrc/attention_long.cu: query rows per block, keys per tile
 Q_TILE, KEY_TILE = 8, 128
-# query rows per step of the plain version
+# query rows per block of pass 1 of csrc/attention_long_bwd.cu
+BWD_ROWS = 4
+# query rows per step of the plain versions
 PLAIN_Q_STRIPE = 1024
+# the JAX package's cap on the training pair (qat_vit_tpu/ops/long_attention.py:
+# _MAX_N_PAD at its q_tile 256)
+TRAIN_MAX_N_PAD, TRAIN_Q_TILE = 4096, 256
 
 
 def long_attention_smem_bytes(n: int, head_dim: int) -> int:
@@ -62,6 +95,37 @@ def long_attention_shapes_ok(n: int, head_dim: int) -> bool:
     shared-memory plan."""
     return (head_dim % 8 == 0 and 0 < head_dim <= 128 and n > 0
             and long_attention_smem_bytes(n, head_dim) <= SMEM_LIMIT)
+
+
+def long_attention_bwd_smem_bytes(n: int, head_dim: int) -> int:
+    """Shared memory pass 1 of the backward asks for: the block's f32 score
+    and dp rows (row stride rounded up to 4), its scaled q and do rows
+    (f32), and two key tiles of 16-byte chunks (rows padded by one chunk).
+    Pass 2 needs at most ~93 KB at any N."""
+    n4 = -(-n // 4) * 4
+    return (4 * (2 * BWD_ROWS * n4 + 2 * BWD_ROWS * head_dim)
+            + 16 * 2 * KEY_TILE * (head_dim // 8 + 1))
+
+
+def long_attention_bwd_shapes_ok(n: int, head_dim: int) -> bool:
+    """The backward kernel's gate: hd a multiple of 8 and <= 128, n within
+    pass 1's shared-memory plan (N <= 6,048 at hd 64, 4,960 at hd 128)."""
+    return (head_dim % 8 == 0 and 0 < head_dim <= 128 and n > 0
+            and long_attention_bwd_smem_bytes(n, head_dim) <= SMEM_LIMIT)
+
+
+def long_attention_train_available(num_heads: int, head_dim: int, seq_len: int,
+                                   dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The training pair's gate: bf16, both kernels' shapes, and the JAX
+    package's cap (N rounded up to 256 at most 4,096), so that both packages
+    take the long-sequence branch at the same N. True on the CPU as well,
+    where the plain versions run."""
+    if dtype != torch.bfloat16 or num_heads < 1:
+        return False
+    if -(-seq_len // TRAIN_Q_TILE) * TRAIN_Q_TILE > TRAIN_MAX_N_PAD:
+        return False
+    return (long_attention_shapes_ok(seq_len, head_dim)
+            and long_attention_bwd_shapes_ok(seq_len, head_dim))
 
 
 def _long_attention_f32(qkv, num_heads, head_dim, n_valid) -> torch.Tensor:
@@ -151,3 +215,97 @@ def long_attention_q(qkv: torch.Tensor, num_heads: int, head_dim: int, *, out_q:
 
 long_attention_qkv.launches = 0
 long_attention_q.launches = 0
+
+
+def long_attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+                             head_dim: int, *, n_valid: int = None) -> torch.Tensor:
+    """The backward kernel's arithmetic, rounding for rounding → dqkv in the
+    qkv dtype: scores of the bf16-scaled q and ``dp = do·vᵀ`` in f32 in index
+    order, :func:`softmax_pinned`, ``rowsum(dp·p)`` of f32 products in f64;
+    ``ds = p·(dp − rowsum)`` rounded to the qkv dtype; ``dq = (ds·k)·scale``
+    per row, ``dk = (dsᵀ·q)·scale`` with the unscaled q and ``dv = pᵀ·do``
+    (p rounded) summed in f32 over every query in index order, rounded once.
+    Query rows ``>= n_valid`` are padding: their ``do`` is taken as zero."""
+    b, n, _ = qkv.shape
+    d = num_heads * head_dim
+    n_valid = n if n_valid is None else n_valid
+    dt, dev = qkv.dtype, qkv.device
+    padded = torch.arange(n, device=dev) >= n_valid
+    qscale = _q_scale(head_dim, dt).to(dev)
+    scale = bwd_scale_f32(head_dim, dev)
+    dqkv = torch.empty((b, n, 3 * d), dtype=dt, device=dev)
+
+    def packed(t):  # [1, H, rows, hd] -> [rows, H·hd]
+        return t[0].transpose(0, 1).reshape(t.shape[2], d).to(dt)
+
+    for i in range(b):
+        q, k, v = split_heads(qkv[i : i + 1], num_heads, head_dim)  # [1, H, N, hd]
+        g = do[i : i + 1].to(dt).reshape(1, n, num_heads, head_dim).transpose(1, 2)
+        g = g.masked_fill(padded[:, None], 0)
+        qs = q * qscale
+        dk = torch.zeros((1, num_heads, n, head_dim), dtype=torch.float32, device=dev)
+        dv = torch.zeros_like(dk)
+        for r0 in range(0, n, PLAIN_Q_STRIPE):
+            r1 = min(r0 + PLAIN_Q_STRIPE, n)
+            p = softmax_pinned(ordered_dot(qs[:, :, r0:r1], k).masked_fill(padded, -1e30))
+            dp = ordered_dot(g[:, :, r0:r1], v)
+            rowsum = (dp * p).to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
+            ds = (p * (dp - rowsum)).to(dt)
+            dqkv[i, r0:r1, :d] = packed(ordered_matmul(ds, k) * scale)
+            dk = ordered_matmul(ds.transpose(-1, -2), q[:, :, r0:r1], dk)
+            dv = ordered_matmul(p.to(dt).transpose(-1, -2), g[:, :, r0:r1], dv)
+        dqkv[i, :, d : 2 * d] = packed(dk * scale)
+        dqkv[i, :, 2 * d :] = packed(dv)
+    return dqkv
+
+
+def long_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim: int, *,
+                       n_valid: int = None) -> torch.Tensor:
+    """dqkv ``[B, N, 3·H·hd]`` of :func:`long_attention_qkv` for the output
+    gradient ``do`` (K5b on CUDA, its plain version on the CPU)."""
+    if use_plain(qkv):
+        return long_attention_bwd_plain(qkv, do, num_heads, head_dim, n_valid=n_valid)
+    n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long_bwd")
+    b, n, three_d = qkv.shape
+    if not long_attention_bwd_shapes_ok(n, head_dim):
+        raise ValueError(f"attention_long_bwd: unsupported n={n}, head_dim={head_dim} "
+                         f"({long_attention_bwd_smem_bytes(n, head_dim)} bytes of shared memory "
+                         f"> {SMEM_LIMIT})")
+    require(do, "do", torch.bfloat16, qkv.device, (b, n, num_heads * head_dim), align=16)
+    dqkv = torch.empty((b, n, three_d), dtype=torch.bfloat16, device=qkv.device)
+    if b:
+        # pass 1 -> pass 2: each row's max, f64 softmax sum and rowsum
+        stats = torch.empty((b, num_heads, n, 4), dtype=torch.float64, device=qkv.device)
+        _build.load().call(
+            "qvt_attention_long_bwd", ptr(qkv), ptr(do), ptr(dqkv), ptr(stats), b, n, num_heads,
+            head_dim, n_valid, float(_q_scale(head_dim, torch.bfloat16)),
+            float(bwd_scale_f32(head_dim, "cpu")), stream_of(qkv.device),
+        )
+        long_attention_bwd.launches += 2  # the rows pass and the keys pass
+    return dqkv
+
+
+long_attention_bwd.launches = 0
+
+
+class _LongAttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_heads, head_dim):
+        plain = reference_on()
+        ctx.bwd = long_attention_bwd_plain if plain else long_attention_bwd
+        ctx.save_for_backward(qkv)
+        ctx.geom = (num_heads, head_dim)
+        fwd = long_attention_qkv_plain if plain else long_attention_qkv
+        return fwd(qkv, num_heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        return ctx.bwd(qkv, do.to(qkv.dtype).contiguous(), *ctx.geom), None, None
+
+
+def long_attention_train(qkv: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    """Long-sequence MHA over the packed qkv ``[B, N, 3·H·hd]`` → ``[B, N,
+    H·hd]``, differentiable (K5a forward, K5b backward); only ``qkv`` is
+    saved, so the ``[B, H, N, N]`` probabilities never exist in memory."""
+    return _LongAttentionTrain.apply(qkv, num_heads, head_dim)

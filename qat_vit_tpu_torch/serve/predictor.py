@@ -37,7 +37,8 @@ class Int8Predictor:
     preset: bool = True
     # data-parallel serving over several devices comes with the DDP slice
     mesh: Optional[Any] = None
-    device: Any = "cpu"
+    # the card unless the caller asks for the CPU; no fallback
+    device: Any = "cuda"
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -45,6 +46,9 @@ class Int8Predictor:
                 "multi-device serving (mesh) is not ported yet: ROADMAP.md Queue 1, item 5"
             )
         self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Int8Predictor: no CUDA device; pass device='cpu' to serve on "
+                               "the CPU")
         opts: Dict[str, Any] = {"attn_dtype": torch.bfloat16, "compute_dtype": torch.bfloat16}
         if self.preset:
             opts.update(serving_preset(self.cfg, self.device))

@@ -64,6 +64,9 @@ DEFAULT_HPARAMS: Dict[str, Any] = {
     "det_obj_weight": 0.25,
     "num_queries": 4,
     "text_dim": 512,
+    # the detection queries' seed (-1: the run's seed); the JAX detection
+    # trainer reads it with the same default
+    "query_seed": -1,
 }
 
 _TYPES = {k: type(v) for k, v in DEFAULT_HPARAMS.items()}

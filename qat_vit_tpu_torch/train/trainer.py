@@ -8,6 +8,10 @@ enable_qat`: fresh observers, fresh optimizer moments at LR ×
 into the int8 export and :meth:`evaluate_int8` runs it through the serving
 preset (the hand-written int8 kernels on CUDA).
 
+``student_family="owlv2"`` trains the OWLv2 vision towers as classifiers
+(``owlv2_base_teacher`` into ``owlv2_student_pruned``), as the JAX trainer
+does; at 768 px their attention takes the long-sequence kernels.
+
 Configs, as the JAX trainer builds them under its defaults: the float
 student in bf16 with fast_math, the QAT student in bf16 (``qat_amp``) with
 fast_math and ``fq_in_kernel``, so every training step's attention runs
@@ -54,7 +58,7 @@ logger = logging.getLogger(__name__)
 _NOT_PORTED = "is not ported yet: ROADMAP.md Queue 1, item {}"
 
 
-def _refuse(hp: Dict[str, Any]) -> None:
+def refuse_unported(hp: Dict[str, Any]) -> None:
     """Raise on options the port does not run yet, rather than ignore them."""
     checks = [
         (int(hp.get("model_parallel", 1)) != 1, "model_parallel > 1 (tensor parallelism)", 11),
@@ -63,7 +67,6 @@ def _refuse(hp: Dict[str, Any]) -> None:
         (bool(hp.get("teacher_ckpt")), "teacher_ckpt (weights from a file)", 6),
         (bool(hp.get("student_ckpt")), "student_ckpt (weights from a file)", 6),
         (bool(hp.get("resume")), "resume", 6),
-        (hp.get("student_family", "vit") != "vit", "student_family other than 'vit'", 10),
     ]
     for bad, what, item in checks:
         if bad:
@@ -84,7 +87,7 @@ class KDQATTrainer:
         teacher: Optional[ModelBundle] = None,
     ):
         self.hp = dict(hparams)
-        _refuse(self.hp)
+        refuse_unported(self.hp)
         self.device = torch.device(device)
         seed = int(self.hp["seed"])
         image_size = int(self.hp["image_size"])
@@ -93,12 +96,13 @@ class KDQATTrainer:
 
         # ---- models: a frozen bf16 teacher, two student configs ----
         gen = torch.Generator().manual_seed(seed)
+        family = self.hp.get("student_family", "vit")
         self.teacher = teacher if teacher is not None else create_teacher(
-            "vit", num_classes=num_classes, dtype=torch.bfloat16, image_size=image_size,
+            family, num_classes=num_classes, dtype=torch.bfloat16, image_size=image_size,
             generator=gen)
         self.teacher.module.to(device=self.device, dtype=torch.bfloat16).requires_grad_(False)
         base = student if student is not None else create_student(
-            "vit", num_classes=num_classes, image_size=image_size, generator=gen)
+            family, num_classes=num_classes, image_size=image_size, generator=gen)
         dtype = torch.bfloat16 if self.hp.get("amp", True) else torch.float32
         qat_dtype = torch.bfloat16 if self.hp.get("qat_amp", False) else torch.float32
         fast = bool(self.hp.get("amp_fast_math", True))

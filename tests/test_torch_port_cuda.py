@@ -17,6 +17,7 @@ import torch
 from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops import flash_attention as fa
 from qat_vit_tpu_torch.ops import flash_attention_train as fat
+from qat_vit_tpu_torch.ops._cuda import reference_impl
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -167,7 +168,7 @@ def test_attention_train_autograd(dev, fq):
     fwd0, bwd0 = fa.attention_fwd.launches, fat.attention_bwd.launches
     out_k, grad_k = run()
     assert (fa.attention_fwd.launches, fat.attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
-    with fat.reference_impl():
+    with reference_impl():
         out_p, grad_p = run()
     assert (fa.attention_fwd.launches, fat.attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
     _same(out_k, out_p)
@@ -340,3 +341,76 @@ def test_detection_preset_runs_the_kernels(dev, owlv2_export):
     assert out.keys() == plain.keys()
     for k in out:
         _same(out[k], plain[k])
+
+
+# ---------------------------------------------------------------------------
+# the long-sequence attention backward (K5b) and the training pair
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(2, 197, 6, 64, 197), (2, 300, 3, 32, 290),
+                                                  (1, 130, 2, 128, 130), (1, 520, 2, 72, 500),
+                                                  (2, 2305, 9, 64, 2305)])
+def test_long_attention_bwd(dev, b, n, heads, hd, n_valid):
+    """csrc/attention_long_bwd.cu against its plain version: identical dqkv
+    (both passes, both key-block shapes: hd <= 64 and hd up to 128); dq
+    rows of padded queries and dk/dv rows of padded keys are zero."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    rng = np.random.default_rng(n + hd)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
+    do = torch.from_numpy(rng.normal(0, 1, (b, n, heads * hd)).astype(np.float32))
+    qkv, do = qkv.to(dev).to(torch.bfloat16), do.to(dev).to(torch.bfloat16)
+    before = la.long_attention_bwd.launches
+    got = la.long_attention_bwd(qkv, do, heads, hd, n_valid=n_valid)
+    assert la.long_attention_bwd.launches == before + 2  # the rows and keys passes
+    _same(got, la.long_attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid))
+    assert not got[:, n_valid:].any() and got[:, :n_valid].any()
+
+
+def test_long_attention_train_autograd(dev):
+    """The training pair on the kernels vs the same Function through the
+    plain versions (``reference_impl``): forward and dqkv identical; one K5a
+    launch and K5b's two per step, none under the reference."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    heads, hd = 9, 64
+    rng = np.random.default_rng(12)
+    qkv = torch.from_numpy(rng.normal(0, 1, (2, 2305, 3 * heads * hd)).astype(np.float32))
+    qkv = qkv.to(dev).to(torch.bfloat16)
+    do = torch.from_numpy(rng.normal(0, 1, (2, 2305, heads * hd)).astype(np.float32)).to(dev)
+
+    def run():
+        x = qkv.clone().requires_grad_(True)
+        out = la.long_attention_train(x, heads, hd)
+        (out.float() * do).sum().backward()
+        return out.detach(), x.grad
+
+    fwd0, bwd0 = la.long_attention_qkv.launches, la.long_attention_bwd.launches
+    out_k, grad_k = run()
+    assert (la.long_attention_qkv.launches, la.long_attention_bwd.launches) == (fwd0 + 1, bwd0 + 2)
+    with reference_impl():
+        out_p, grad_p = run()
+    assert (la.long_attention_qkv.launches, la.long_attention_bwd.launches) == (fwd0 + 1, bwd0 + 2)
+    _same(out_k, out_p)
+    _same(grad_k, grad_p)
+
+
+def test_long_attention_bwd_raises(dev):
+    """Outside its gate or on bad inputs the backward raises instead of
+    falling back, and launches nothing."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    assert la.long_attention_bwd_shapes_ok(4960, 128) and not la.long_attention_bwd_shapes_ok(4961, 128)
+    qkv = torch.zeros(1, 64, 3 * 64, dtype=torch.bfloat16, device=dev)
+    do = torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=dev)
+    before = la.long_attention_bwd.launches
+    with pytest.raises(ValueError, match="unsupported"):
+        la.long_attention_bwd(torch.zeros(1, 5000, 3 * 128, dtype=torch.bfloat16, device=dev),
+                              torch.zeros(1, 5000, 128, dtype=torch.bfloat16, device=dev), 1, 128)
+    with pytest.raises(ValueError, match="do: dtype"):
+        la.long_attention_bwd(qkv, do.float(), 1, 64)
+    with pytest.raises(ValueError, match="do: shape"):
+        la.long_attention_bwd(qkv, do[:, :32].contiguous(), 1, 64)
+    with pytest.raises(ValueError, match="qkv: dtype"):
+        la.long_attention_bwd(qkv.float(), do, 1, 64)
+    assert la.long_attention_bwd.launches == before

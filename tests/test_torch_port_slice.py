@@ -145,7 +145,7 @@ def test_predictor_cpu(export):
     CPU), up to f32 BLAS blocking that may change with the batch size."""
     _, tcfg, _, qp_t, _ = export
     imgs = np.random.default_rng(2).integers(0, 256, (7, 32, 32, 3), dtype=np.uint8)
-    pred = Int8Predictor(qp_t, tcfg, batch_size=3)
+    pred = Int8Predictor(qp_t, tcfg, batch_size=3, device="cpu")
     assert pred.options == {"attn_dtype": torch.bfloat16, "compute_dtype": torch.bfloat16}
     logits = pred.logits(imgs)
     assert logits.shape == (7, 10) and np.isfinite(logits).all()
@@ -158,6 +158,9 @@ def test_predictor_cpu(export):
     np.testing.assert_array_equal(np.concatenate(streamed[:2]), logits)
     with pytest.raises(NotImplementedError):
         Int8Predictor(qp_t, tcfg, mesh=object())
+    if not torch.cuda.is_available():  # the card is the default: no fallback to the CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Int8Predictor(qp_t, tcfg)
 
 
 def test_serving_preset_gates():
