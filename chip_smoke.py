@@ -45,7 +45,20 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    (launches of K5a and K5b per step, ms per step and img/s with the first
    step apart, peak device memory, and one more step of each phase under
    torch.profiler: device time by kernel group and the idle share), int8
-   convert and int8 eval against the fake-quant detector.
+   convert and int8 eval against the fake-quant detector;
+7. the rest of int8 serving on phase 3's ViT-S/16 export: the fused
+   quantize GEMM (K7) against its plain version at the exact path's batch-32
+   shapes (f32 and bf16 input, per-tensor and per-channel), the
+   scale-after-dot attention (K8) at ``[32, 197, 1152]`` in f32 and bf16,
+   with masked keys, and the whole-block kernels (K9a, K9b) against the
+   chain through the plain ops at batch 32; the exact path with
+   ``use_pallas=True, attn_impl="pallas"`` (49 K7 and 12 K8 launches,
+   identical to the same path through the plain K7/K8, within
+   ``EXACT_REL_L2`` of the exact path); ``mixed_none`` + ``pallas_fused`` and
+   ``mixed`` + ``pallas`` against their ``*_plain`` twins; then
+   ``megablock:4:tight`` and ``megamodel_res:4:tight`` at batch 256 (12 and 1
+   cooperative launches, logits bit-identical to the megamodel chain) with
+   the ms per forward of all three, in turns.
 
 Every kernel check also records the kernel's bound (the larger of its
 operations over the H100's peak for their type and its bytes over 3.35
@@ -97,6 +110,8 @@ DET_BOX_MEAN_ERR, DET_CORR = 0.03, 0.97
 # synthetic images behind the teacher cache, the eval batch and batches
 DT_B, DT_STEPS, DT_REPLAY_B, DT_REPLAY_STEPS, DT_REPLAY_DEPTH = 16, 3, 2, 2, 2
 DT_N_TRAIN, DT_EVAL_B, DT_EVAL_BATCHES = 64, 16, 2
+# phase 7: timing runs of each serving mode's forward
+SERVE_MODE_RUNS = 10
 
 # H100 SXM dense peaks (NVIDIA's H100 datasheet): operations per second by
 # type, and the device memory's bytes per second
@@ -117,10 +132,10 @@ def card_line() -> str:
     return out[0]
 
 
-def median_ms(fn, runs: int = TIMING_RUNS) -> float:
+def median_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
@@ -235,15 +250,16 @@ def ln_work(m, n, in_bytes):
     return {"ops": 8 * m * n, "type": "f32", "bytes": m * n * in_bytes + m * n + 8 * n}
 
 
-def attention_work(b, n, heads, hd, out_bytes=2, backward=False):
-    """Attention over the packed bf16 qkv: 2 products forward (4·N²·hd per
-    head), 5 backward (s, dp, dq, dk, dv: 10·N²·hd), at the bf16 rate."""
+def attention_work(b, n, heads, hd, out_bytes=2, backward=False, in_bytes=2, op_type="bf16"):
+    """Attention over the packed qkv (bf16 unless ``in_bytes`` says f32): 2
+    products forward (4·N²·hd per head), 5 backward (s, dp, dq, dk, dv:
+    10·N²·hd), at the rate of ``op_type`` (f32 products: the f32 rate)."""
     d = heads * hd
     if backward:  # qkv and do in, dqkv out
         return {"ops": 10 * b * heads * n * n * hd, "type": "bf16",
                 "bytes": 2 * b * n * 3 * d + 2 * b * n * d + 2 * b * n * 3 * d}
-    return {"ops": 4 * b * heads * n * n * hd, "type": "bf16",
-            "bytes": 2 * b * n * 3 * d + out_bytes * b * n * d}
+    return {"ops": 4 * b * heads * n * n * hd, "type": op_type,
+            "bytes": in_bytes * b * n * 3 * d + out_bytes * b * n * d}
 
 
 def roofline(*works):
@@ -255,15 +271,22 @@ def roofline(*works):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def block_works(b, n, d, mlp, heads, hd):
+    """The five stages of one K4 block (the chain's launches, or K9's
+    stages): the qkv GEMM (bf16 out), the int8-out attention, proj and fc2
+    RESID_LN_Q and fc1 GELU_Q."""
+    m = b * n
+    return [gemm_work(m, d, 3 * d, 2), attention_work(b, n, heads, hd, 1),
+            gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), gemm_work(m, d, mlp, 1),
+            gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d)]
+
+
 def chain_works(b, n, d, mlp, heads, hd, depth, patch_k, head_n=0):
     """The launches of one int8 forward through a K4 / K6 chain: the patch
-    GEMM and entry LN, per block the qkv GEMM (bf16 out), the int8-out
-    attention, proj and fc2 RESID_LN_Q and fc1 GELU_Q, and the head GEMM."""
+    GEMM and entry LN, the blocks, and the head GEMM."""
     m = b * n
-    block = [gemm_work(m, d, 3 * d, 2), attention_work(b, n, heads, hd, 1),
-             gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), gemm_work(m, d, mlp, 1),
-             gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d)]
-    works = [gemm_work(m - b, patch_k, d, 2), ln_work(m, d, 2)] + block * depth
+    works = [gemm_work(m - b, patch_k, d, 2), ln_work(m, d, 2)]
+    works += block_works(b, n, d, mlp, heads, hd) * depth
     return works + ([gemm_work(b, d, head_n, 4)] if head_n else [])
 
 
@@ -391,7 +414,7 @@ def check_kernels(torch, cases, label, slow_plain=()):
     the kernel's output against its plain version's on the same inputs, then
     both timed (the plain versions in ``slow_plain`` over 5 runs), the
     library call (None: no single call computes it) and the bound of
-    ``work``."""
+    ``work`` (one work, or a list of them done one after another)."""
     bf16 = torch.bfloat16
     results = []
     for name, kernel, plain, args, kwargs, replaces, work, library in cases:
@@ -415,7 +438,7 @@ def check_kernels(torch, cases, label, slow_plain=()):
         plain_ms = median_ms(lambda: plain(*args, **kwargs),
                              runs=5 if plain in slow_plain else TIMING_RUNS)
         library_ms = median_ms(library) if library is not None else None
-        bound_ms, bound_by = roofline(work)
+        bound_ms, bound_by = roofline(*(work if isinstance(work, list) else [work]))
         lib = f"{library_ms:.4f} ms" if library is not None else "none"
         print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(exact)}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
@@ -505,7 +528,8 @@ def phase_serving(torch, np, fs, fa):
     print(f"phase 3 serving: {n / dt:.1f} img/s at batch {SERVE_B} "
           f"({n} images in {dt * 1e3:.1f} ms, {dt * 1e3 * SERVE_B / n:.2f} ms per batch; the "
           f"K4 chain's bound {bound_ms:.4f} ms ({bound_by})) on {card_line()}", flush=True)
-    return launches
+    return launches, {"qp": pred.qparams, "cfg": cfg, "images": images, "prep": prep,
+                      "logits": logits}
 
 
 def phase_training(torch, np, fs, fa, fat):
@@ -752,6 +776,13 @@ def phase_detection(torch, np, fs, la):
               f"(bound {CHAIN_REL_L2})", flush=True)
         if rel > CHAIN_REL_L2:
             fail(f"detection: kernel chain vs plain chain {k} rel L2 {rel:.3e} > {CHAIN_REL_L2}")
+    # the chain and its plain version timed at batch DET_REF_B (K6b's row)
+    ms_k = median_ms(lambda: fwd(export, x[:DET_REF_B], q[:DET_REF_B]), runs=DET_TIMING_RUNS)
+    ms_p = median_ms(lambda: int8_detect_apply(export, x[:DET_REF_B], cfg, q[:DET_REF_B], **{
+        **fwd.options, "fused": "megamodel_long_plain"}), runs=3, warmup=1)
+    print(f"phase 5 the megamodel_long chain at batch {DET_REF_B}: {ms_k:.2f} ms per forward, "
+          f"through the plain versions {ms_p:.2f} ms (medians of {DET_TIMING_RUNS} and 3)",
+          flush=True)
     # against the exact f32 path (f32 stream and attention, divide-quantize)
     exact = int8_detect_apply(export, x, cfg, q)
     box_err = float((out["pred_boxes"] - exact["pred_boxes"]).abs().mean())
@@ -971,6 +1002,179 @@ def phase_detect_training(torch, np, fs, la):
     return kernels
 
 
+def phase_serve_modes(torch, np, fs, fa, ctx):
+    """The rest of int8 ViT-S/16 serving on phase 3's export: K7, K8 and the
+    K9 kernels against their plain versions; the exact path on K7 + K8; the
+    mixed chains; the megablock / megamodel_res modes at batch 256."""
+    import ctypes
+
+    from qat_vit_tpu_torch import _build
+    from qat_vit_tpu_torch.ops import block_kernel as bk
+    from qat_vit_tpu_torch.ops import pallas_gemm as pg
+    from qat_vit_tpu_torch.ops._cuda import reference_impl
+    from qat_vit_tpu_torch.serve.int8_vit import _embed, int8_apply
+
+    dev = torch.device("cuda")
+    qp, cfg, images, prep = ctx["qp"], ctx["cfg"], ctx["images"], ctx["prep"]
+    n_tok, d, mlp, heads, hd, depth = (cfg.seq_len, cfg.embed_dim, cfg.mlp_dim, cfg.num_heads,
+                                       cfg.head_dim, cfg.depth)
+    b = B_KERNEL
+    bf16, f32t = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(SEED + 7)
+    card = card_line()
+
+    # (a) K7 at the exact path's shapes (batch 32), f32 / per-tensor and
+    # bf16 / per-channel at each; (b) K8 at [32, 197, 1152]
+    in_q = {"scale": torch.tensor(4.0 / 255), "zero_point": torch.tensor(100.0)}
+    cases = []
+    for name, m_rows, k, n in (("patch_embed", b * (n_tok - 1), 3 * cfg.patch_size ** 2, d),
+                               ("qkv", b * n_tok, d, 3 * d), ("proj", b * n_tok, d, d),
+                               ("fc1", b * n_tok, d, mlp), ("fc2", b * n_tok, mlp, d)):
+        for x_dt, per_channel in ((f32t, False), (bf16, True)):
+            x = torch.from_numpy(rng.normal(0, 1.5, (m_rows, k)).astype(np.float32)).to(dev)
+            x = x.to(x_dt)
+            layer = rand_layer(torch, np, rng, dev, k, n, per_channel)
+            kw = {"x_scale": in_q["scale"], "x_zero_point": in_q["zero_point"],
+                  "w_scale": layer["w_scale"], "w_colsum": layer["w_colsum"],
+                  "bias": layer["bias"], "out_dtype": f32t}
+            x_q = fs.quantize_mul(x.float(), fs.inv_scale(in_q["scale"]), 100.0, 255.0)
+            in_bytes = 4 if x_dt == f32t else 2
+            cases.append((
+                f"fused_quantize_matmul {name} [{m_rows}x{k}]@[{k}x{n}] "
+                f"{'f32' if x_dt == f32t else 'bf16'} in, "
+                f"{'per-channel' if per_channel else 'per-tensor'}",
+                pg.fused_quantize_matmul, pg.fused_quantize_matmul_plain, (x, layer["w_int8"]),
+                kw, "qat_vit_tpu/ops/pallas_gemm.py:51",
+                gemm_work(m_rows, k, n, 4, (in_bytes - 1) * m_rows * k),
+                int_mm(torch, x_q, layer)))
+    qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n_tok, 3 * d)).astype(np.float32)).to(dev)
+    for dt, n_valid in ((f32t, n_tok), (f32t, 3 * n_tok // 4), (bf16, 3 * n_tok // 4)):
+        t = qkv.to(dt)
+        eb = 4 if dt == f32t else 2
+        cases.append((
+            f"flash_attention [{b}x{n_tok}x{3 * d}] {heads} heads "
+            f"{'f32' if dt == f32t else 'bf16'} n_valid {n_valid}",
+            fa.flash_attention_qkv, fa.flash_attention_qkv_plain, (t, heads, hd),
+            {"n_valid": n_valid}, "qat_vit_tpu/ops/flash_attention.py:36",
+            attention_work(b, n_tok, heads, hd, eb, in_bytes=eb,
+                           op_type="f32" if dt == f32t else "bf16"),
+            sdpa_forward(torch, t, heads, hd)))
+    # K9a (block 0) and K9b (all 12 blocks) at batch 32 on this export's
+    # own activations, against the chain through the plain ops
+    x32 = prep(torch.from_numpy(images[:b]))
+    xe = _embed(qp, x32, cfg, bf16, fs.int8_dense)
+    blk0 = qp["blocks"]["0"]
+    zq = fs.ln_quantize(xe, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps)
+    kw9 = {"num_heads": heads, "head_dim": hd, "eps": cfg.layer_norm_eps, "n_valid": n_tok}
+    one_block = block_works(b, n_tok, d, mlp, heads, hd)
+    cases.append((f"megablock (K9a) one ViT-S block [{b}x{n_tok}x{d}]", bk.megablock_forward,
+                  bk.megablock_forward_plain, (zq, xe, blk0, qp["blocks"]["1"]["norm1"]), kw9,
+                  "qat_vit_tpu/ops/block_kernel.py:202", one_block, None))
+    cases.append((f"megamodel_res (K9b) {depth} ViT-S blocks [{b}x{n_tok}x{d}]",
+                  bk.megamodel_res_forward, bk.megamodel_res_forward_plain,
+                  (zq, xe, qp["blocks"], qp["norm"]), {**kw9, "depth": depth},
+                  "qat_vit_tpu/ops/block_kernel.py:404", one_block * depth, None))
+    kernels = check_kernels(torch, cases, "phase 7", slow_plain=(bk.megamodel_res_forward_plain,))
+    del qkv, cases
+    ms_chain = median_ms(lambda: bk.model_forward(zq, xe, qp["blocks"], qp["norm"], depth=depth,
+                                                  **kw9))
+    print(f"phase 7 the K4 chain over the same {depth} blocks at batch {b}: {ms_chain:.4f} ms "
+          f"({5 * depth} launches; its plain version is K9b's above)", flush=True)
+
+    # (c) the exact path on K7 + K8 (f32 stream and attention) at batch 32
+    launches = {}
+    pg.fused_quantize_matmul.launches = fa.flash_attention_qkv.launches = 0
+    exact_k = int8_apply(qp, x32, cfg, use_pallas=True, attn_impl="pallas")
+    torch.cuda.synchronize()
+    launches[pg.fused_quantize_matmul] = pg.fused_quantize_matmul.launches
+    launches[fa.flash_attention_qkv] = fa.flash_attention_qkv.launches
+    with reference_impl():
+        exact_p = int8_apply(qp, x32, cfg, use_pallas=True, attn_impl="pallas")
+    exact = int8_apply(qp, x32, cfg)
+    torch.cuda.synchronize()
+    rel = float((exact_k - exact).norm() / exact.norm())
+    print(f"phase 7 exact path with use_pallas=True, attn_impl=pallas at batch {b}: launches "
+          f"fused_quantize_matmul {launches[pg.fused_quantize_matmul]} flash_attention "
+          f"{launches[fa.flash_attention_qkv]}; identical to the same path through the plain "
+          f"K7/K8 {torch.equal(exact_k, exact_p)}; vs the exact path rel L2 {rel:.3e} (bound "
+          f"{EXACT_REL_L2}), top-1 agreement "
+          f"{float((exact_k.argmax(-1) == exact.argmax(-1)).float().mean()):.4f}", flush=True)
+    if (launches[pg.fused_quantize_matmul] != 1 + 4 * depth
+            or launches[fa.flash_attention_qkv] != depth):
+        fail(f"the exact path on K7/K8 launched {launches}, expected {1 + 4 * depth} and {depth}")
+    if not torch.equal(exact_k, exact_p) or rel > EXACT_REL_L2:
+        fail(f"the exact path on K7/K8: identical to plain {torch.equal(exact_k, exact_p)}, "
+             f"rel L2 vs exact {rel:.3e}")
+    ms_k = median_ms(lambda: int8_apply(qp, x32, cfg, use_pallas=True, attn_impl="pallas"),
+                     runs=SERVE_MODE_RUNS)
+    ms_e = median_ms(lambda: int8_apply(qp, x32, cfg), runs=SERVE_MODE_RUNS)
+    print(f"phase 7 exact path at batch {b}: {ms_k:.2f} ms per forward on K7 + K8, "
+          f"{ms_e:.2f} ms plain (median of {SERVE_MODE_RUNS}) on {card}", flush=True)
+
+    # (d) the mixed chains at batch 32 against their plain twins
+    preset = {"attn_dtype": bf16, "compute_dtype": bf16, "gelu_approx": True}
+    for mode, attn_impl in (("mixed_none", "pallas_fused"), ("mixed", "pallas")):
+        fa.flash_attention_qkv.launches = fa.fused_attention_qkv.launches = 0
+        fs.int8_dense.launches = fs.int8_dense_gelu_q.launches = 0
+        got = int8_apply(qp, x32, cfg, fused=mode, attn_impl=attn_impl, **preset)
+        torch.cuda.synchronize()
+        counts = (fs.int8_dense.launches, fs.int8_dense_gelu_q.launches,
+                  fa.fused_attention_qkv.launches, fa.flash_attention_qkv.launches)
+        want = int8_apply(qp, x32, cfg, fused=mode + "_plain", attn_impl=attn_impl, **preset)
+        ms = median_ms(lambda: int8_apply(qp, x32, cfg, fused=mode, attn_impl=attn_impl,
+                                          **preset), runs=SERVE_MODE_RUNS)
+        print(f"phase 7 {mode} + {attn_impl} at batch {b}: launches int8_dense {counts[0]} "
+              f"gelu_q {counts[1]} attention_q {counts[2]} flash_attention {counts[3]}; "
+              f"identical to {mode}_plain {torch.equal(got, want)}; {ms:.2f} ms per forward "
+              f"(median of {SERVE_MODE_RUNS})", flush=True)
+        expect = (0, 0, depth, 0) if mode == "mixed_none" else (2 * depth, depth, 0, depth)
+        if counts != expect or not torch.equal(got, want):
+            fail(f"{mode} + {attn_impl}: launches {counts} (expected {expect}), identical "
+                 f"{torch.equal(got, want)}")
+        if mode == "mixed":
+            launches["flash_attention bf16"] = counts[3]
+
+    # (e) K9a / K9b at batch 256: logits bit-identical to the megamodel chain
+    x256 = prep(torch.from_numpy(images[:SERVE_B]))
+    chain = int8_apply(qp, x256, cfg, fused="megamodel", **preset)
+    same_p3 = np.array_equal(chain.cpu().numpy(), ctx["logits"][:SERVE_B])
+    res = (ctypes.c_int * 2)()
+    for mode, wrapper, want in (("megablock:4:tight", bk.megablock_forward, depth),
+                                ("megamodel_res:4:tight", bk.megamodel_res_forward, 1)):
+        wrapper.launches = fa.fused_attention_qkv.launches = 0
+        got = int8_apply(qp, x256, cfg, fused=mode, **preset)
+        torch.cuda.synchronize()
+        n_launch, n_attn = wrapper.launches, fa.fused_attention_qkv.launches
+        launches[wrapper] = n_launch
+        _build.load().call("qvt_megablock_residency", n_tok, heads, hd, 1,
+                           int(wrapper is bk.megamodel_res_forward),
+                           ctypes.addressof(res))
+        print(f"phase 7 {mode} at batch {SERVE_B}: {n_launch} cooperative launches "
+              f"({res[0]} blocks of 256 threads per SM x {res[1]} SMs), logits identical to "
+              f"the megamodel chain {torch.equal(got, chain)} (and to phase 3's {same_p3})",
+              flush=True)
+        if n_launch != want or n_attn or not torch.equal(got, chain) or not same_p3:
+            fail(f"{mode}: {n_launch} launches (expected {want}), chain attention {n_attn}, "
+                 f"identical to the chain {torch.equal(got, chain)}, to phase 3 {same_p3}")
+    times = {}
+    for mode in ("megamodel", "megablock:4:tight", "megamodel_res:4:tight") * 2:
+        ms = median_ms(lambda: int8_apply(qp, x256, cfg, fused=mode, **preset),
+                       runs=SERVE_MODE_RUNS)
+        times.setdefault(mode, []).append(ms)
+    bound_ms, bound_by = roofline(*chain_works(SERVE_B, n_tok, d, mlp, heads, hd, depth,
+                                               3 * cfg.patch_size ** 2, cfg.num_classes))
+    print(f"phase 7 ms per batch-{SERVE_B} forward (CUDA events, median of {SERVE_MODE_RUNS}, "
+          f"two turns each): " + ", ".join(f"{k} {' / '.join(f'{v:.2f}' for v in vs)}"
+                                           for k, vs in times.items())
+          + f"; bound {bound_ms:.4f} ms ({bound_by}) on {card}", flush=True)
+
+    for k in kernels:
+        w = k["wrapper"]
+        k["launches"] = (launches["flash_attention bf16"]
+                         if w is fa.flash_attention_qkv and "bf16" in k["name"] else launches[w])
+    return kernels
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -984,10 +1188,12 @@ def main() -> None:
         fail(f"no qat_vit_tpu_torch/csrc beside {__file__}: run it from a checkout of the repository")
     sys.path.insert(0, root)
     from qat_vit_tpu_torch import _build
+    from qat_vit_tpu_torch.ops import block_kernel as bk
     from qat_vit_tpu_torch.ops import flash_attention as fa
     from qat_vit_tpu_torch.ops import flash_attention_train as fat
     from qat_vit_tpu_torch.ops import fused_serve as fs
     from qat_vit_tpu_torch.ops import long_attention as la
+    from qat_vit_tpu_torch.ops import pallas_gemm as pg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1002,12 +1208,13 @@ def main() -> None:
     print(f"phase 1 kernels built in {lib.build_seconds:.1f} s: {lib.path.name}", flush=True)
 
     kernels = phase_kernels(torch, np, fs, fa, fat)
-    launches = phase_serving(torch, np, fs, fa)
+    launches, serve_ctx = phase_serving(torch, np, fs, fa)
     launches.update(phase_training(torch, np, fs, fa, fat))
     for k in kernels:
         k["launches"] = launches[k["wrapper"]]
     kernels += phase_detection(torch, np, fs, la)
     kernels += phase_detect_training(torch, np, fs, la)
+    kernels += phase_serve_modes(torch, np, fs, fa, serve_ctx)
 
     sources = {fs.int8_dense: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_gelu_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
@@ -1018,7 +1225,11 @@ def main() -> None:
                fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd.cu",
                la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long.cu",
                la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long.cu",
-               la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd.cu"}
+               la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd.cu",
+               pg.fused_quantize_matmul: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
+               fa.flash_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q.cu",
+               bk.megablock_forward: "qat_vit_tpu_torch/csrc/megablock.cu",
+               bk.megamodel_res_forward: "qat_vit_tpu_torch/csrc/megablock.cu"}
     record = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": sources[k["wrapper"]],
          "replaces": k["replaces"], "launches": k["launches"],

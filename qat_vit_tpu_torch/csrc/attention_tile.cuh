@@ -1,0 +1,165 @@
+// The attention tile body over the packed qkv, shared by csrc/attention_q.cu
+// (one tile per block) and csrc/megablock.cu (a grid-stride loop over the
+// tiles of the attention stage inside one cooperative launch).
+//
+// A tile is (64 queries, one head, one image) on 8 warps (256 threads). K
+// and V of that head are staged whole in shared memory (N x hd elements
+// each, fake-quantized on the way in when asked); the K rows are padded by
+// one 32-bit word so that 32 lanes reading 32 different keys hit 32 banks.
+// Each warp takes one query at a time: lanes split the keys for the scores
+// (one f32 score row per warp in shared memory), warp-reduce max and sum,
+// then split the head dims for p @ v. Layout in attention_smem_bytes
+// (ops/flash_attention.py mirrors it).
+//
+// Numerics, as the TPU kernels. T is the qkv (and output) type: bf16, or f32
+// for K8. With IN_FQ (bf16 only) every q/k/v element is first fake-quantized
+// (f32, round half to even, clip, back to bf16). Without SCALE_AFTER (K1,
+// K3) q is scaled by hd^-0.5 in the qkv type before the score dot; with
+// SCALE_AFTER (K8) the f32 score is scaled after it. Keys >= n_valid get
+// -1e30; f32 softmax; p is rounded to T before the value product; o
+// accumulates in f32 and is either quantized with (inv_s, zp, qmax) or
+// rounded to T, into the packed [B, N, H*hd] output at column h*hd.
+//
+// Every rounding is pinned so that the plain versions reproduce it bit for
+// bit: both dots accumulate in f32 in index order (d, then j), exp and the
+// softmax sum run in f64 before one rounding to f32. For bf16 operands the
+// products are exact in f32, so an FMA rounds as a multiply-then-add does;
+// for f32 operands they are not, so the f32 form multiplies and adds with
+// __fmul_rn / __fadd_rn (never a contracted FMA), as ordered_dot's
+// multiply-then-add does.
+#pragma once
+
+#include "common.cuh"
+
+namespace qvt {
+namespace attn {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int Q_TILE = 64;
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) { return round_bf16(v); }
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+
+// acc + a * b in the kernel's pinned order
+template <typename T>
+__device__ __forceinline__ float mac(float a, float b, float acc) {
+  if constexpr (sizeof(T) == 2)
+    return fmaf(a, b, acc);  // exact product: one rounding either way
+  else
+    return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// the elements of one 32-bit word of T as f32
+template <typename T>
+__device__ __forceinline__ void unpack_word(uint32_t w, float (&f)[4 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 2) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+    f[0] = v.x;
+    f[1] = v.y;
+  } else {
+    f[0] = __uint_as_float(w);
+  }
+}
+
+// shared-memory bytes of one tile (words per K row padded by one)
+__host__ __device__ constexpr size_t smem_bytes(int N, int hd, int elem_bytes) {
+  return sizeof(uint32_t) * ((size_t)N * (hd * elem_bytes / 4 + 1) +
+                             (size_t)N * (hd * elem_bytes / 4)) +
+         sizeof(float) * ((size_t)WARPS * N + (size_t)WARPS * hd);
+}
+
+template <typename T, bool QUANT_OUT, bool IN_FQ, bool SCALE_AFTER>
+__device__ __forceinline__ void tile(const T* qkv, const float* qs, void* out, int N, int H,
+                                     int hd, int n_valid, float scale, float inv_s, float zp,
+                                     float qmax, float fq_min, float fq_max, uint8_t* smem,
+                                     int q0, int h, int b) {
+  constexpr int EPW = 4 / sizeof(T);  // elements per 32-bit word
+  const int D = H * hd, hw = hd / EPW, kst = hw + 1;  // words per row; kst is odd
+  uint32_t* Ks = reinterpret_cast<uint32_t*>(smem);  // [N][kst]
+  uint32_t* Vs = Ks + (size_t)N * kst;               // [N][hw]
+  float* Ps = reinterpret_cast<float*>(Vs + (size_t)N * hw);  // [WARPS][N]
+  float* Qs = Ps + (size_t)WARPS * N;                          // [WARPS][hd]
+  const T* img = qkv + (size_t)b * N * 3 * D;
+  float fs = 1.0f, fz = 0.0f;
+  if constexpr (IN_FQ) {
+    fs = qs[0];
+    fz = qs[1];
+  }
+
+  for (int i = threadIdx.x; i < N * hw; i += THREADS) {
+    const int j = i / hw, w2 = i % hw;
+    const T* row = img + (size_t)j * 3 * D + h * hd;
+    uint32_t kw = reinterpret_cast<const uint32_t*>(row + D)[w2];
+    uint32_t vw = reinterpret_cast<const uint32_t*>(row + 2 * D)[w2];
+    if constexpr (IN_FQ) {
+      kw = fake_quant_pair(kw, fs, fz, fq_min, fq_max);
+      vw = fake_quant_pair(vw, fs, fz, fq_min, fq_max);
+    }
+    Ks[j * kst + w2] = kw;
+    Vs[j * hw + w2] = vw;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ps = Ps + (size_t)warp * N;
+  float* qv = Qs + (size_t)warp * hd;
+  const T* vb = reinterpret_cast<const T*>(Vs);
+  const int q_end = min(q0 + Q_TILE, N);
+  for (int i = q0 + warp; i < q_end; i += WARPS) {
+    const T* qrow = img + (size_t)i * 3 * D + h * hd;
+    for (int d = lane; d < hd; d += 32) {
+      float x = to_f32(qrow[d]);
+      if constexpr (IN_FQ) x = round_bf16(fake_quant(x, fs, fz, fq_min, fq_max));
+      qv[d] = SCALE_AFTER ? x : round_to<T>(x * scale);
+    }
+    __syncwarp();
+
+    float mx = -1e30f;  // the mask value: a lane with no keys cannot win the max
+    for (int j = lane; j < N; j += 32) {
+      float s = -1e30f;
+      if (j < n_valid) {
+        s = 0.0f;
+        const uint32_t* kr = Ks + j * kst;
+        for (int w2 = 0; w2 < hw; ++w2) {
+          float kf[EPW];
+          unpack_word<T>(kr[w2], kf);
+#pragma unroll
+          for (int e = 0; e < EPW; ++e) s = mac<T>(qv[EPW * w2 + e], kf[e], s);
+        }
+        if (SCALE_AFTER) s = __fmul_rn(s, scale);
+      }
+      ps[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    double sum = 0.0;
+    for (int j = lane; j < N; j += 32) {
+      const float e = static_cast<float>(exp(static_cast<double>(__fsub_rn(ps[j], mx))));
+      ps[j] = e;
+      sum += static_cast<double>(e);
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < N; j += 32)
+      ps[j] = round_to<T>(static_cast<float>(static_cast<double>(ps[j]) / sum));
+    __syncwarp();
+
+    for (int d = lane; d < hd; d += 32) {
+      float o = 0.0f;
+      for (int j = 0; j < N; ++j) o = mac<T>(ps[j], to_f32(vb[(size_t)j * hd + d]), o);
+      const size_t at = ((size_t)b * N + i) * D + h * hd + d;
+      if (QUANT_OUT)
+        static_cast<int8_t*>(out)[at] = quantize_shifted(o, inv_s, zp, qmax);
+      else
+        static_cast<T*>(out)[at] = from_f32<T>(o);
+    }
+    __syncwarp();
+  }
+}
+
+}  // namespace attn
+}  // namespace qvt

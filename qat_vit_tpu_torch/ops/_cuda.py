@@ -3,9 +3,11 @@
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises, and for any other device it raises.
 The training attentions' ``autograd.Function``\\ s (``flash_attention_train``,
-``long_attention``) also read :func:`reference_on`: inside
-:func:`reference_impl` they call the plain versions on any device (the
-card's reference run for the kernels, never the main path).
+``long_attention``) and the exact serving path's K7 and K8 wrappers
+(``pallas_gemm.fused_quantize_matmul``, ``flash_attention.flash_attention_qkv``)
+also read :func:`reference_on`: inside :func:`reference_impl` they call the
+plain versions on any device (the card's reference run for the kernels,
+never the main path).
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ _PLAIN = {"on": False}
 
 @contextlib.contextmanager
 def reference_impl():
-    """Run the training attentions through the kernels' plain versions on
-    every device."""
+    """Run the training attentions, K7 and K8 through the kernels' plain
+    versions on every device."""
     _PLAIN["on"] = True
     try:
         yield

@@ -16,22 +16,42 @@ to the stream dtype only at the block boundary, as in the TPU kernel. The
 12-entry qparams table of each block is computed as the JAX package does
 (``block_kernel.py:593-606``), including the fc1/fc2 input scales recomputed
 as ``1/(1/s)`` in f32.
+
+The same five stages also run inside ONE cooperative launch
+(``csrc/megablock.cu``), the port of the TPU's whole-block kernels:
+
+- :func:`megablock_forward` (K9a, ``_block_kernel``): one block per launch;
+- :func:`megamodel_res_forward` (K9b, ``_model_resident_kernel``): every
+  block in one launch, weights kept in L2 (:func:`model_forward` with
+  ``resident=True``); gated on the stacked int8 weight bytes.
+
+Both call the chain's own tile bodies, so their x and zq are bit-identical
+to the chain's; their plain versions are the chain through the plain ops.
+The TPU's ``block_b`` (images per grid step) and sequence padding change
+nothing here: the kernels take the unpadded N, and padded keys would get
+exactly zero probability, so valid rows are the same either way.
 """
 
 from __future__ import annotations
 
+import struct
 from types import SimpleNamespace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from qat_vit_tpu_torch import _build
 from qat_vit_tpu_torch.ops import fused_serve as fs
+from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, ptr, require, stream_of, use_plain
 from qat_vit_tpu_torch.ops.flash_attention import (
+    _q_scale,
+    attention_shapes_ok,
+    attention_smem_bytes,
     fused_attention_qkv,
     fused_attention_qkv_plain,
 )
-from qat_vit_tpu_torch.ops.quantized_matmul import f32
+from qat_vit_tpu_torch.ops.quantized_matmul import f32, is_per_channel
 
 # the ops model_forward chains: the kernel wrappers, or their plain versions
 KERNEL_OPS = SimpleNamespace(
@@ -66,8 +86,11 @@ def block_forward(
     n_valid: int,
     quant_max: float = 255.0,
     ops: SimpleNamespace = KERNEL_OPS,
+    block_b: int = 4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One block's five launches → (x', the next LN's int8 rows)."""
+    """One block's five launches → (x', the next LN's int8 rows).
+    ``block_b`` (the TPU's images per grid step) changes nothing here."""
+    del block_b
     qkv = ops.int8_dense(zq, blk["qkv"], blk["norm1"]["out_q"], out_dtype=torch.bfloat16)
     o_q = ops.attention(qkv, num_heads, head_dim, out_q=blk["qkv"]["out_q"],
                         quant_max=quant_max, n_valid=n_valid)
@@ -97,13 +120,215 @@ def model_forward(
     n_valid: int,
     quant_max: float = 255.0,
     ops: SimpleNamespace = KERNEL_OPS,
+    block_b: int = 4,
+    resident: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All ``depth`` blocks → (x_final, the final-LN'd int8 rows for the head).
 
-    ``n_valid`` < N marks padded rows: their keys are masked in attention."""
+    ``n_valid`` < N marks padded rows: their keys are masked in attention.
+    ``resident=True`` runs the stack as ONE launch (K9b,
+    :func:`megamodel_res_forward`; through ``PLAIN_OPS``, its plain
+    version, the chain); tanh-GELU only, as on the TPU. ``block_b`` changes
+    nothing here."""
+    if resident:
+        if act != "gelu":
+            raise NotImplementedError(f"megamodel_res computes tanh-GELU in-kernel (act={act!r})")
+        fn = megamodel_res_forward_plain if ops is PLAIN_OPS else megamodel_res_forward
+        return fn(zq, x, blocks, final_ln, num_heads=num_heads, head_dim=head_dim, depth=depth,
+                  eps=eps, n_valid=n_valid, quant_max=quant_max)
     for i in range(depth):
         nxt = blocks[str(i + 1)]["norm1"] if i + 1 < depth else final_ln
         x, zq = block_forward(zq, x, blocks[str(i)], nxt, num_heads=num_heads,
                               head_dim=head_dim, act=act, eps=eps, n_valid=n_valid,
                               quant_max=quant_max, ops=ops)
     return x, zq
+
+
+# ---------------------------------------------------------------------------
+# K9a / K9b: the five stages in one cooperative launch (csrc/megablock.cu)
+# ---------------------------------------------------------------------------
+
+# K9b keeps the stacked int8 weights in the H100's 50 MB L2 (ViT-S: 21.2 MB);
+# above this, the stack takes the megamodel chain
+MEGAMODEL_RES_MAX_WEIGHT_BYTES = 40 * 2 ** 20
+# csrc/megablock.cu BlockTable: 20 pointers, then ws0[4], ws_pc[4], s_x[4],
+# z_s[4] and the 8 output grids (inv_so, zp_o, inv_s2, zp_2, inv_sg, zp_g,
+# inv_sn, zp_n)
+_BLOCK_TABLE = struct.Struct("<20Q4f4i4f4i8f")
+
+
+def megablock_smem_bytes(n: int, d: int, head_dim: int) -> int:
+    """Shared memory of one K9 block: two GEMM groups (each the RESID_LN_Q
+    tile at N = d) or one attention tile, whichever is larger."""
+    resid = (fs.RESID_LN_ROWS + fs.GEMM_TILE_N) * fs.GEMM_ROW_BYTES + fs.RESID_LN_ROWS * d * 4
+    tiled = (fs.GEMM_TILE_M + fs.GEMM_TILE_N) * fs.GEMM_ROW_BYTES
+    group = -(-max(resid, tiled) // 16) * 16
+    return max(2 * group, attention_smem_bytes(n, head_dim))
+
+
+def megablock_shapes_ok(n: int, num_heads: int, head_dim: int, mlp_dim: int) -> bool:
+    """K9's gate: every GEMM within int8_gemm's, the attention within
+    attention_q's, and the block's shared memory within the limit."""
+    d = num_heads * head_dim
+    return (fs.gemm_shapes_ok(d, 3 * d) and fs.gemm_shapes_ok(d, d, resid_ln=True)
+            and fs.gemm_shapes_ok(d, mlp_dim) and fs.gemm_shapes_ok(mlp_dim, d, resid_ln=True)
+            and attention_shapes_ok(n, head_dim)
+            and megablock_smem_bytes(n, d, head_dim) <= SMEM_LIMIT)
+
+
+def stacked_weight_bytes(blocks: Dict[str, Any], depth: int) -> int:
+    """The int8 weight bytes of ``depth`` blocks (qkv, proj, fc1, fc2)."""
+    return sum(blocks[str(i)][g]["w_int8"].numel()
+               for i in range(depth) for g in ("qkv", "proj", "fc1", "fc2"))
+
+
+def _gemm_entry(layer: Dict[str, Any], in_q: Dict[str, Any], k: int, n: int, dev):
+    w, cs, bias, ws = layer["w_int8"], layer["w_colsum"], layer.get("bias"), layer["w_scale"]
+    require(w, "w_int8", torch.int8, dev, (k, n), align=16)
+    require(cs, "w_colsum", torch.int32, dev, (n,))
+    if bias is not None:
+        require(bias, "bias", torch.float32, dev, (n,))
+    if is_per_channel(ws):
+        require(ws, "w_scale", torch.float32, dev, (n,))
+        ws_ptr, ws0, pc = ws.data_ptr(), 0.0, 1
+    else:
+        ws_ptr, ws0, pc = 0, f32(ws), 0
+    ptrs = (w.data_ptr(), cs.data_ptr(), ptr(bias) or 0, ws_ptr)
+    return ptrs, ws0, pc, f32(in_q["scale"]), int(f32(in_q["zero_point"])) - 128
+
+
+def _block_table(blk: Dict[str, Any], next_ln: Dict[str, Any], d: int, mlp: int, dev) -> bytes:
+    """One BlockTable record: the parameters the chain's five launches get."""
+    gemms = [
+        _gemm_entry(blk["qkv"], blk["norm1"]["out_q"], d, 3 * d, dev),
+        _gemm_entry(blk["proj"], blk["qkv"]["out_q"], d, d, dev),
+        _gemm_entry(blk["fc1"], _recip_scale_q(blk["norm2"]["out_q"]), d, mlp, dev),
+        _gemm_entry(blk["fc2"], _recip_scale_q(blk["gelu_q"]), mlp, d, dev),
+    ]
+    lns = []
+    for ln in (blk["norm2"], next_ln):
+        for key in ("scale", "bias"):
+            require(ln[key], f"ln {key}", torch.float32, dev, (d,))
+            lns.append(ln[key].data_ptr())
+    grids = []
+    for q in (blk["qkv"]["out_q"], blk["norm2"]["out_q"], blk["gelu_q"], next_ln["out_q"]):
+        grids += [fs.inv_scale(q["scale"]), f32(q["zero_point"])]
+    return _BLOCK_TABLE.pack(
+        *[p for g in gemms for p in g[0]], *lns,
+        *[g[1] for g in gemms], *[g[2] for g in gemms], *[g[3] for g in gemms],
+        *[g[4] for g in gemms], *grids)
+
+
+def _launch_megablock(zq, x, pairs: List[Tuple[Dict, Dict]], *, num_heads, head_dim, eps,
+                      n_valid, quant_max, hint: bool, name: str):
+    """One cooperative launch over ``pairs`` = [(block, next LN), ...] →
+    (x', zq'); the activations between stages in one workspace."""
+    dev = zq.device
+    b, n, d = zq.shape
+    mlp = pairs[0][0]["fc1"]["w_int8"].shape[1]
+    if d != num_heads * head_dim:
+        raise ValueError(f"{name}: D {d} != {num_heads} x {head_dim}")
+    if not megablock_shapes_ok(n, num_heads, head_dim, mlp):
+        raise ValueError(f"{name}: unsupported N={n}, D={d}, head_dim={head_dim}, MLP={mlp} "
+                         f"(int8_gemm / attention_q gates, {megablock_smem_bytes(n, d, head_dim)} "
+                         f"bytes of shared memory <= {SMEM_LIMIT})")
+    if not 0 < n_valid <= n:
+        raise ValueError(f"n_valid {n_valid} outside (0, {n}]")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: x must be bf16 or f32, not {x.dtype}")
+    require(zq, "zq", torch.int8, dev, (b, n, d), align=16)
+    require(x, "x", x.dtype, dev, (b, n, d))
+    table = b"".join(_block_table(blk, nxt, d, mlp, dev) for blk, nxt in pairs)
+    table = torch.frombuffer(bytearray(table), dtype=torch.uint8).pin_memory()
+    table = table.to(dev, non_blocking=True)
+    x_out, zq_out = torch.empty_like(x), torch.empty_like(zq)
+    m = b * n
+    sizes = (m * 3 * d * 2, m * d, m * d * 4, m * d, m * mlp)  # qkv, o_q, x_mid, zq2, g_q
+    offsets = np.cumsum((0,) + tuple(-(-s // 256) * 256 for s in sizes))
+    ws = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=dev)
+    if b:
+        _build.load().call(
+            "qvt_megablock", ptr(table), len(pairs), ptr(zq), ptr(x), ptr(zq_out), ptr(x_out),
+            *[ws.data_ptr() + int(o) for o in offsets[:5]], b, n, num_heads, head_dim, mlp,
+            n_valid, int(x.dtype == torch.bfloat16), int(hint),
+            float(_q_scale(head_dim, torch.bfloat16)), f32(quant_max), float(eps), stream_of(dev),
+        )
+    return x_out, zq_out
+
+
+def megablock_forward_plain(zq, x, blk, next_ln, *, num_heads, head_dim, eps=1e-6, n_valid,
+                            quant_max=255.0):
+    """K9a's plain version: the K4 block chain through the plain ops."""
+    return block_forward(zq, x, blk, next_ln, num_heads=num_heads, head_dim=head_dim,
+                         eps=eps, n_valid=n_valid, quant_max=quant_max, ops=PLAIN_OPS)
+
+
+def megablock_forward(
+    zq: torch.Tensor,  # [B, N, D] shifted-int8 LN1 output of this block
+    x: torch.Tensor,  # [B, N, D] residual stream (bf16 or f32)
+    blk: Dict[str, Any],
+    next_ln: Dict[str, Any],
+    *,
+    num_heads: int,
+    head_dim: int,
+    eps: float = 1e-6,
+    n_valid: int,
+    quant_max: float = 255.0,
+    block_b: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ViT block (tanh-GELU) in ONE cooperative launch (K9a) → (x', zq').
+    ``block_b`` (the TPU's images per grid step) changes nothing here."""
+    del block_b
+    kw = dict(num_heads=num_heads, head_dim=head_dim, eps=eps, n_valid=n_valid,
+              quant_max=quant_max)
+    if use_plain(zq):
+        return megablock_forward_plain(zq, x, blk, next_ln, **kw)
+    out = _launch_megablock(zq, x, [(blk, next_ln)], hint=False, name="megablock", **kw)
+    megablock_forward.launches += int(zq.shape[0] > 0)
+    return out
+
+
+def megamodel_res_forward_plain(zq, x, blocks, final_ln, *, num_heads, head_dim, depth,
+                                eps=1e-6, n_valid, quant_max=255.0):
+    """K9b's plain version: the K4 chain through the plain ops."""
+    return model_forward(zq, x, blocks, final_ln, num_heads=num_heads, head_dim=head_dim,
+                         depth=depth, eps=eps, n_valid=n_valid, quant_max=quant_max,
+                         ops=PLAIN_OPS)
+
+
+def megamodel_res_forward(
+    zq: torch.Tensor,
+    x: torch.Tensor,
+    blocks: Dict[str, Any],
+    final_ln: Dict[str, Any],
+    *,
+    num_heads: int,
+    head_dim: int,
+    depth: int,
+    eps: float = 1e-6,
+    n_valid: int,
+    quant_max: float = 255.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All ``depth`` blocks (tanh-GELU) in ONE cooperative launch (K9b),
+    weights loaded with an L2 evict_last policy → (x_final, zq_final).
+    Raises, naming ``megamodel``, when the stacked int8 weights exceed
+    :data:`MEGAMODEL_RES_MAX_WEIGHT_BYTES`."""
+    kw = dict(num_heads=num_heads, head_dim=head_dim, eps=eps, n_valid=n_valid,
+              quant_max=quant_max)
+    if use_plain(zq):
+        return megamodel_res_forward_plain(zq, x, blocks, final_ln, depth=depth, **kw)
+    wbytes = stacked_weight_bytes(blocks, depth)
+    if wbytes > MEGAMODEL_RES_MAX_WEIGHT_BYTES:
+        raise NotImplementedError(
+            f"megamodel_res keeps the stacked int8 weights in L2: {wbytes / 2 ** 20:.1f} MiB > "
+            f"{MEGAMODEL_RES_MAX_WEIGHT_BYTES / 2 ** 20:.0f} MiB; serve this model with "
+            "fused='megamodel'")
+    pairs = [(blocks[str(i)], blocks[str(i + 1)]["norm1"] if i + 1 < depth else final_ln)
+             for i in range(depth)]
+    out = _launch_megablock(zq, x, pairs, hint=True, name="megamodel_res", **kw)
+    megamodel_res_forward.launches += int(zq.shape[0] > 0)
+    return out
+
+
+megablock_forward.launches = 0
+megamodel_res_forward.launches = 0

@@ -13,6 +13,15 @@
   it launches ``attention_fwd`` (``csrc/attention_q.cu``, kernel A, K1's
   forward); on the CPU it runs :func:`attention_fwd_plain`. Launches are
   counted in ``attention_fwd.launches``.
+- :func:`flash_attention_qkv` (K8, ``attn_impl="pallas"``): the float
+  attention of ``flash_attention.py::_attention_kernel``, f32 or bf16 in
+  and out, with the f32 SCORE scaled by ``hd**-0.5`` after the dot (the
+  kernels above scale q in bf16 before it). On CUDA it launches
+  ``qvt_flash_attention`` (``csrc/attention_q.cu``); on the CPU, and inside
+  ``_cuda.reference_impl()``, :func:`flash_attention_qkv_plain`. Launches in
+  ``flash_attention_qkv.launches``. The TPU wrapper pads N to 128 with
+  masked keys; padded keys get exactly zero probability, so the port runs
+  the unpadded N.
 - :func:`xla_attention_qkv`: the exact path's plain attention.
 
 Numerics of the kernels and their plain versions: with ``in_fq`` q, k, v are
@@ -28,7 +37,14 @@ from __future__ import annotations
 import torch
 
 from qat_vit_tpu_torch import _build
-from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, ptr, require, stream_of, use_plain
+from qat_vit_tpu_torch.ops._cuda import (
+    SMEM_LIMIT,
+    ptr,
+    reference_on,
+    require,
+    stream_of,
+    use_plain,
+)
 from qat_vit_tpu_torch.ops.fused_serve import inv_scale, quantize_mul
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
@@ -36,17 +52,20 @@ from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
 _WARPS = 8  # WARPS in csrc/attention_q.cu
 
 
-def attention_smem_bytes(n: int, head_dim: int) -> int:
-    """Shared memory the kernel asks for: K (rows padded by one word) and V
-    of one head, one f32 score row and one q row per warp."""
-    return 4 * (n * (head_dim // 2 + 1) + n * (head_dim // 2) + _WARPS * n + _WARPS * head_dim)
+def attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory the attention_q.cu kernels ask for: K (rows padded by
+    one word) and V of one head in ``dtype`` (f32 only for K8's f32 form,
+    twice bf16's), one f32 score row and one q row per warp."""
+    words = head_dim * dtype.itemsize // 4
+    return 4 * (n * (words + 1) + n * words + _WARPS * n + _WARPS * head_dim)
 
 
-def attention_shapes_ok(n: int, head_dim: int) -> bool:
-    """The kernel's gate: hd a multiple of 8 and <= 128, n within the
-    shared-memory budget (n <= 789 at hd 64)."""
+def attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The kernels' gate: hd a multiple of 8 and <= 128, n within the
+    shared-memory budget for ``dtype`` (at hd 64: n <= 789 in bf16, 420 in
+    f32)."""
     return (head_dim % 8 == 0 and 0 < head_dim <= 128
-            and attention_smem_bytes(n, head_dim) <= SMEM_LIMIT)
+            and attention_smem_bytes(n, head_dim, dtype) <= SMEM_LIMIT)
 
 
 def _q_scale(head_dim: int, dtype: torch.dtype) -> torch.Tensor:
@@ -190,6 +209,54 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
 
 
 fused_attention_qkv.launches = 0
+
+
+def flash_attention_qkv_plain(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
+                              n_valid: int = None) -> torch.Tensor:
+    """K8's arithmetic, rounding for rounding: the f32 score dot in index
+    order (multiply, then add), THEN × f32 ``hd**-0.5``, keys ``>= n_valid``
+    at -1e30, the pinned f32 softmax, p in the qkv dtype, p @ v in f32 in
+    key order, the output in the qkv dtype (f32 or bf16)."""
+    b, n, _ = qkv.shape
+    n_valid = n if n_valid is None else n_valid
+    q, k, v = split_heads(qkv, num_heads, head_dim)
+    s = ordered_dot(q, k) * torch.tensor(head_dim ** -0.5, dtype=torch.float32, device=qkv.device)
+    s = s.masked_fill(torch.arange(n, device=qkv.device) >= n_valid, -1e30)
+    p = softmax_pinned(s).to(qkv.dtype)
+    o = ordered_matmul(p, v).transpose(1, 2).reshape(b, n, num_heads * head_dim)
+    return o.to(qkv.dtype)
+
+
+def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
+                        n_valid: int = None) -> torch.Tensor:
+    """MHA over the packed qkv → ``[B, N, H·hd]`` in the qkv dtype (f32 or
+    bf16), the score scaled after its dot (K8, ``attn_impl="pallas"``)."""
+    if use_plain(qkv) or reference_on():
+        return flash_attention_qkv_plain(qkv, num_heads, head_dim, n_valid=n_valid)
+    b, n, three_d = qkv.shape
+    if three_d != 3 * num_heads * head_dim:
+        raise ValueError(f"qkv last dim {three_d} != 3 * {num_heads} * {head_dim}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: qkv dtype {qkv.dtype}, expected f32 or bf16")
+    if not attention_shapes_ok(n, head_dim, qkv.dtype):
+        raise ValueError(f"flash_attention: unsupported n={n}, head_dim={head_dim} in "
+                         f"{qkv.dtype} ({attention_smem_bytes(n, head_dim, qkv.dtype)} "
+                         f"bytes of shared memory > {SMEM_LIMIT})")
+    n_valid = n if n_valid is None else n_valid
+    if not 0 < n_valid <= n:
+        raise ValueError(f"n_valid {n_valid} outside (0, {n}]")
+    require(qkv, "qkv", qkv.dtype, qkv.device, (b, n, three_d))
+    out = torch.empty((b, n, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
+    if b:
+        _build.load().call(
+            "qvt_flash_attention", ptr(qkv), ptr(out), b, n, num_heads, head_dim, n_valid,
+            head_dim ** -0.5, int(qkv.dtype == torch.float32), stream_of(qkv.device),
+        )
+        flash_attention_qkv.launches += 1
+    return out
+
+
+flash_attention_qkv.launches = 0
 
 
 def xla_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int,

@@ -31,10 +31,14 @@ from qat_vit_tpu_torch.ops.quantized_matmul import f32, int8_matmul, is_per_chan
 
 EPI_PLAIN, EPI_GELU_Q, EPI_RESID_LN_Q = 0, 1, 2
 _ACTS = {"gelu": 0, "quick_gelu": 1}
-# the kernel stages K in 64-byte tiles
+# the kernel stages K in 64-byte tiles (csrc/gemm_tile.cuh): shared-memory
+# rows of 64 + 16 bytes, output tiles of 64 x 64 (32 rows x N for RESID_LN_Q)
 GEMM_K_MULTIPLE = 64
+GEMM_ROW_BYTES = 80
+GEMM_TILE_M, GEMM_TILE_N, RESID_LN_ROWS = 64, 64, 32
 # RESID_LN_Q keeps 32 rows x N f32 in shared memory beside 96 x 80 B of tiles
-RESID_LN_MAX_N = (SMEM_LIMIT - 96 * 80) // (32 * 4)
+RESID_LN_MAX_N = ((SMEM_LIMIT - (RESID_LN_ROWS + GEMM_TILE_N) * GEMM_ROW_BYTES)
+                  // (RESID_LN_ROWS * 4))
 
 
 def gemm_shapes_ok(k: int, n: int, resid_ln: bool = False) -> bool:

@@ -1,0 +1,112 @@
+"""Fused quantize → int8 GEMM → dequantize (port of ``qat_vit_tpu/ops/pallas_gemm.py``, K7).
+
+:func:`fused_quantize_matmul` takes a float activation ``x [..., K]`` (f32
+or bf16), quantizes it on the uint8 grid stored shifted to int8,
+``clamp(round(x · (1/s_x) + zp), 0, qmax) − 128`` with ``1/s_x`` computed
+in f32 (K7 MULTIPLIES by the reciprocal; the exact path's
+``quantize_act_shifted`` divides, so the two may differ by one grid step),
+runs the int8 product with ``w_q [K, N]`` and dequantizes,
+``(acc − z_s·colsum)·(s_x·w_scale[n]) + bias`` in f32 (``s_x·w_scale[n]``
+first, per column; per-tensor or per-channel ``w_scale``), cast once to
+``out_dtype``.
+
+On CUDA it launches ``qvt_quantize_gemm`` (``csrc/int8_gemm.cu``: the PLAIN
+epilogue with the quantize in the A-tile prologue); launches are counted in
+``fused_quantize_matmul.launches``. On the CPU, and inside
+``_cuda.reference_impl()``, it runs :func:`fused_quantize_matmul_plain`.
+The Hopper kernel stages K in 64-byte tiles: for K not a multiple of 64 it
+raises ``NotImplementedError`` (never a quiet fallback).
+
+:func:`fused_quantize_matmul_available` keeps the JAX gate's SHAPE
+conditions (``K % 32``, ``N % 128``, ``K·N`` ≤ 6 MiB) and drops its
+backend test, so the port takes K7 for the same layers on every device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from qat_vit_tpu_torch import _build
+from qat_vit_tpu_torch.ops._cuda import ptr, reference_on, require, stream_of, use_plain
+from qat_vit_tpu_torch.ops.fused_serve import GEMM_K_MULTIPLE, inv_scale, quantize_mul
+from qat_vit_tpu_torch.ops.quantized_matmul import f32, int8_matmul, is_per_channel
+
+# the JAX gate's shape rules (TPU lane 128, int8 sublane 32, panel budget)
+_LANE = 128
+_INT8_SUBLANE = 32
+_MAX_PANEL_BYTES = 6 * 1024 * 1024
+
+
+def fused_quantize_matmul_available(x_shape: Tuple[int, ...], w_shape: Tuple[int, int]) -> bool:
+    """JAX's shape gate for K7 (``pallas_gemm.py:37-48``) without its
+    backend test: the layers the JAX package runs through K7 on the TPU."""
+    k, n = w_shape
+    return (x_shape[-1] == k and k % _INT8_SUBLANE == 0 and n % _LANE == 0
+            and k * n <= _MAX_PANEL_BYTES)
+
+
+def fused_quantize_matmul_plain(x, w_q, *, x_scale, x_zero_point, w_scale, w_colsum,
+                                bias=None, x_quant_max=255.0, out_dtype=torch.float32):
+    """K7's arithmetic in plain PyTorch (``int8_matmul`` after the multiply-quantize)."""
+    x_q = quantize_mul(x.to(torch.float32), inv_scale(x_scale), f32(x_zero_point),
+                       f32(x_quant_max))
+    return int8_matmul(x_q, w_q, x_scale=x_scale, x_zero_point=x_zero_point, w_scale=w_scale,
+                       w_colsum=w_colsum, bias=bias, out_dtype=torch.float32).to(out_dtype)
+
+
+def fused_quantize_matmul(
+    x: torch.Tensor,  # [..., K] f32 or bf16
+    w_q: torch.Tensor,  # [K, N] int8
+    *,
+    x_scale,
+    x_zero_point,
+    w_scale,
+    w_colsum: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    x_quant_max=255.0,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """quantize(x) @ w_q, dequantized, in one kernel → ``[..., N]`` ``out_dtype``."""
+    kw = dict(x_scale=x_scale, x_zero_point=x_zero_point, w_scale=w_scale, w_colsum=w_colsum,
+              bias=bias, x_quant_max=x_quant_max, out_dtype=out_dtype)
+    if use_plain(x) or reference_on():
+        return fused_quantize_matmul_plain(x, w_q, **kw)
+    dev = x.device
+    if w_q.ndim != 2:
+        raise ValueError(f"w_q: expected [K, N], got {tuple(w_q.shape)}")
+    k, n = w_q.shape
+    if k % GEMM_K_MULTIPLE:
+        raise NotImplementedError(
+            f"fused_quantize_matmul: K={k} is not a multiple of {GEMM_K_MULTIPLE}, the Hopper "
+            "kernel's k-tile (ROADMAP.md Queue 2, K7)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_quantize_matmul: x must be f32 or bf16, not {x.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_quantize_matmul writes f32 or bf16, not {out_dtype}")
+    lead = tuple(x.shape[:-1])
+    require(x, "x", x.dtype, dev, lead + (k,), align=16)
+    require(w_q, "w_q", torch.int8, dev, (k, n), align=16)
+    require(w_colsum, "w_colsum", torch.int32, dev, (n,))
+    if bias is not None:
+        require(bias, "bias", torch.float32, dev, (n,))
+    if is_per_channel(w_scale):
+        require(w_scale, "w_scale", torch.float32, dev, (n,))
+        ws_ptr, ws0, per_channel = w_scale.data_ptr(), 0.0, 1
+    else:
+        ws_ptr, ws0, per_channel = None, f32(w_scale), 0
+    m = x.numel() // k
+    y = torch.empty(lead + (n,), dtype=out_dtype, device=dev)
+    if m:
+        _build.load().call(
+            "qvt_quantize_gemm", ptr(x), ptr(w_q), ptr(w_colsum), ptr(bias), ws_ptr, ptr(y),
+            m, n, k, int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            per_channel, ws0, f32(x_scale), int(f32(x_zero_point)) - 128,
+            inv_scale(x_scale), f32(x_zero_point), f32(x_quant_max), stream_of(dev),
+        )
+        fused_quantize_matmul.launches += 1
+    return y
+
+
+fused_quantize_matmul.launches = 0

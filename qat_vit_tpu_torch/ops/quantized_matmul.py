@@ -65,8 +65,25 @@ def int8_matmul(
 
 
 def quantized_dense(x: torch.Tensor, layer: dict, in_q: dict, *,
+                    use_pallas: Optional[bool] = None,
                     out_dtype=torch.float32) -> torch.Tensor:
-    """quantize(x) → int8 GEMM → dequant(+bias): one layer of the exact path."""
+    """quantize(x) → int8 GEMM → dequant(+bias): one layer of the exact path.
+
+    ``use_pallas`` follows the JAX rule: ``None`` is ``False``; ``True``
+    takes the fused kernel K7 (``ops/pallas_gemm.fused_quantize_matmul``:
+    multiply-quantize) where ``fused_quantize_matmul_available`` admits the
+    shape and this division path otherwise. The gate has no backend test
+    here, so the CPU runs K7's plain version where the JAX package on a CPU
+    would divide: the port mirrors the TPU's behaviour."""
+    if use_pallas:
+        from qat_vit_tpu_torch.ops import pallas_gemm
+
+        if pallas_gemm.fused_quantize_matmul_available(x.shape, layer["w_int8"].shape):
+            return pallas_gemm.fused_quantize_matmul(
+                x, layer["w_int8"], x_scale=in_q["scale"], x_zero_point=in_q["zero_point"],
+                x_quant_max=in_q.get("quant_max", 255.0), w_scale=layer["w_scale"],
+                w_colsum=layer["w_colsum"], bias=layer.get("bias"), out_dtype=out_dtype,
+            )
     x_q = quantize_act_shifted(x, in_q["scale"], in_q["zero_point"], in_q.get("quant_max", 255.0))
     return int8_matmul(
         x_q, layer["w_int8"], x_scale=in_q["scale"], x_zero_point=in_q["zero_point"],

@@ -6,32 +6,55 @@
   ``w_int8 [K, N]``, ``w_colsum``, ``w_scale``, ``bias``, ``out_q``), as CPU
   tensors. :func:`export_to_device` moves it to a device, leaving the 0-d
   qparams on the host so the kernels' scalar arguments cost no device sync.
-- :func:`int8_apply`: ``fused="none"`` is the exact path (plain PyTorch:
-  f32 stream, erf-GELU, quantize by division, float64-exact int GEMMs;
-  ``attn_impl="pallas_long"`` puts its attention on the long attention
-  kernel, K5a); ``fused="megamodel"`` is K4's block chain through the CUDA
-  kernels (``ops/block_kernel.py``), ``"megamodel_long"`` /
-  ``"megablock_long"`` K6's (``ops/long_block_kernel.py``), with the
-  patch-embed and head GEMMs on the ``int8_gemm`` kernel too; each
-  ``*_plain`` twin runs that same chain through the kernels' plain
-  versions (the card's reference for them). Feature-mode towers
-  (``num_classes=0``) return the dequantized final-LN tokens.
-- :func:`serving_preset`: ``{}`` on the CPU; on CUDA the megamodel chain,
-  or megamodel_long for long sequences, in bf16 with tanh-GELU (or the
-  model's quick-GELU), for the geometries their kernels accept.
+- :func:`int8_apply`: every option of the JAX package's. ``fused="none"``
+  is the exact path (f32 stream, erf-GELU, quantize by division,
+  float64-exact int GEMMs); ``use_pallas=True`` puts its GEMMs on K7
+  (``ops/pallas_gemm.py``) and ``attn_impl`` its attention on K8
+  (``"pallas"``), kernel A (``"pallas_fused"``) or K5a (``"pallas_long"``).
+  ``fused="pallas"`` / ``"mixed*"`` are the per-GEMM chains;
+  ``"megamodel"`` is K4's block chain through the CUDA kernels
+  (``ops/block_kernel.py``), ``"megablock"`` / ``"megamodel_res"`` the
+  same blocks as one cooperative launch per block (K9a) or per forward
+  (K9b), ``"megamodel_long"`` / ``"megablock_long"`` K6's chain
+  (``ops/long_block_kernel.py``); the patch-embed and head GEMMs run on the
+  ``int8_gemm`` kernel too. Each ``*_plain`` twin runs that same path
+  through the kernels' plain versions (the card's reference for them).
+  Feature-mode towers (``num_classes=0``) return the dequantized final-LN
+  tokens.
+- :func:`serving_preset`: ``{}`` on the CPU; on CUDA, in bf16 with
+  tanh-GELU (or the model's quick-GELU), the first of JAX's rungs whose
+  Hopper kernels accept the geometry (:func:`_preset_kernel_opts`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from functools import partial
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from qat_vit_tpu_torch.models.vit import ViTConfig, extract_patches
-from qat_vit_tpu_torch.ops.block_kernel import KERNEL_OPS, PLAIN_OPS, model_forward
-from qat_vit_tpu_torch.ops.flash_attention import attention_shapes_ok, xla_attention_qkv
+from qat_vit_tpu_torch.ops.block_kernel import (
+    KERNEL_OPS,
+    PLAIN_OPS,
+    megablock_forward,
+    megablock_forward_plain,
+    model_forward,
+)
+from qat_vit_tpu_torch.ops.flash_attention import (
+    attention_fwd,
+    attention_fwd_plain,
+    attention_shapes_ok,
+    flash_attention_qkv,
+    flash_attention_qkv_plain,
+    xla_attention_qkv,
+)
 from qat_vit_tpu_torch.ops.fused_serve import gemm_shapes_ok, int8_dense_plain, layernorm_f32
-from qat_vit_tpu_torch.ops.long_attention import long_attention_qkv
+from qat_vit_tpu_torch.ops.long_attention import (
+    long_attention_qkv,
+    long_attention_qkv_plain,
+    long_attention_shapes_ok,
+)
 from qat_vit_tpu_torch.ops.long_block_kernel import (
     LONG_KERNEL_OPS,
     LONG_PLAIN_OPS,
@@ -39,6 +62,7 @@ from qat_vit_tpu_torch.ops.long_block_kernel import (
     long_megablock_shapes_ok,
     long_model_forward,
 )
+from qat_vit_tpu_torch.ops.pallas_gemm import fused_quantize_matmul_available
 from qat_vit_tpu_torch.ops.quantized_matmul import f32, quantize_act_shifted, quantized_dense
 from qat_vit_tpu_torch.quant.convert import act_output_qparams, act_qparams, dense_int8, ln_params
 from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
@@ -126,13 +150,19 @@ def _head_or_tokens(qp, zq, cfg: ViTConfig, dense) -> torch.Tensor:
     return dense(zq[:, 0].contiguous(), qp["head"], nq, out_dtype=torch.float32)
 
 
-def _embed(qp, images, cfg: ViTConfig, cdt, dense) -> torch.Tensor:
-    """Patch-embed GEMM, cls token and position embedding in ``cdt``, then
-    the pre-encoder LayerNorm where the model has one."""
+def _embed(qp, images, cfg: ViTConfig, cdt, dense, use_pallas=None) -> torch.Tensor:
+    """Patch-embed GEMM (``dense`` after the dividing quantize, or K7 where
+    ``use_pallas`` and its gate say so), cls token and position embedding in
+    ``cdt``, then the pre-encoder LayerNorm where the model has one."""
     patches = extract_patches(images.to(torch.float32), cfg.patch_size)
     iq = qp["input_q"]
-    x_q = quantize_act_shifted(patches, iq["scale"], iq["zero_point"], iq.get("quant_max", 255.0))
-    x = dense(x_q, qp["patch_embed"], iq, out_dtype=cdt)
+    if use_pallas and fused_quantize_matmul_available(patches.shape,
+                                                      qp["patch_embed"]["w_int8"].shape):
+        x = quantized_dense(patches, qp["patch_embed"], iq, use_pallas=True, out_dtype=cdt)
+    else:
+        x_q = quantize_act_shifted(patches, iq["scale"], iq["zero_point"],
+                                   iq.get("quant_max", 255.0))
+        x = dense(x_q, qp["patch_embed"], iq, out_dtype=cdt)
     b = x.shape[0]
     cls = qp["cls_token"].to(device=x.device, dtype=cdt).expand(b, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1) + qp["pos_embed"].to(device=x.device, dtype=cdt)
@@ -140,6 +170,26 @@ def _embed(qp, images, cfg: ViTConfig, cdt, dense) -> torch.Tensor:
         npre = qp["norm_pre"]
         x = layernorm_f32(x, npre["scale"], npre["bias"], cfg.layer_norm_eps).to(cdt)
     return x
+
+
+ATTN_IMPLS = ("xla", "pallas", "pallas_fused", "pallas_long")
+
+
+def _float_attention(attn_impl: str, plain: bool, attn_dtype):
+    """``attn_impl`` → ``fn(qkv, heads, hd)``, the attention in the qkv
+    dtype: K8 (``pallas``), kernel A (``pallas_fused`` without ``out_q``),
+    K5a (``pallas_long``), or the plain einsum (``xla``); with ``plain``
+    the kernels' plain versions."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of {ATTN_IMPLS}")
+    if attn_impl == "pallas":
+        return flash_attention_qkv_plain if plain else flash_attention_qkv
+    if attn_impl == "pallas_fused":
+        return attention_fwd_plain if plain else attention_fwd
+    if attn_impl == "pallas_long":
+        fn = long_attention_qkv_plain if plain else long_attention_qkv
+        return lambda qkv, h, hd: fn(qkv.contiguous(), h, hd)
+    return lambda qkv, h, hd: xla_attention_qkv(qkv, h, hd, softmax_dtype=attn_dtype)
 
 
 @torch.no_grad()
@@ -150,42 +200,54 @@ def int8_apply(
     *,
     attn_dtype=torch.float32,
     compute_dtype=torch.float32,
+    use_pallas: Optional[bool] = None,
+    attn_impl: str = "xla",
     gelu_approx: bool = False,
-    attn_impl: str = "xla",  # exact path: "xla" | "pallas_long"
-    fused: str = "none",
+    fused: Union[str, bool] = "none",
 ) -> torch.Tensor:
     """Int8 serving forward → [B, num_classes] f32 logits; in feature mode
     the dequantized final-LN tokens [B, N, D] (f32).
 
-    ``fused``: ``"none"`` (the exact path), ``"megamodel"`` (K4's chain),
-    ``"megablock_long[:TQ[:RC[:flags]]]"`` / ``"megamodel_long[...]"``
-    (K6's chain), each with a ``*_plain`` twin that runs the same chain
-    through the kernels' plain versions. ``attn_impl="pallas_long"`` runs
-    the exact path's attention through the long attention kernel (K5a)."""
-    if fused != "none":
-        kind, plain = _parse_fused(fused)
-        return _fused_stack(qp, images, cfg, kind, compute_dtype=compute_dtype, plain=plain)
-    if attn_impl not in ("xla", "pallas_long"):
-        raise ValueError(f"unknown attn_impl {attn_impl!r}; expected 'xla' or 'pallas_long'")
+    ``fused``: ``"none"`` / ``False`` (the exact path), ``True`` (=
+    ``"pallas"``), ``"pallas"`` / ``"mixed"`` / ``"mixed_qkv"`` /
+    ``"mixed_fc1"`` / ``"mixed_none"`` (the chains of
+    :func:`_fused_blocks`), ``"megamodel[:BB[:tight]]"`` (K4's chain),
+    ``"megablock[:BB[:tight]]"`` (K9a, one launch per block),
+    ``"megamodel_res[:BB[:tight]]"`` (K9b, one launch per forward),
+    ``"megablock_long[:TQ[:RC[:flags]]]"`` / ``"megamodel_long[...]"`` (K6's
+    chain); each with a ``*_plain`` twin that runs the same path through
+    the kernels' plain versions.
+
+    ``use_pallas`` puts the GEMMs of the exact path, and the patch embed of
+    every path, on K7 where its shape gate admits them. ``attn_impl``
+    (``"xla"``, ``"pallas"`` = K8, ``"pallas_fused"`` = kernel A / K3,
+    ``"pallas_long"`` = K5a) picks the attention of the exact path and of
+    the ``pallas`` / ``mixed*`` chains."""
+    parsed = _parse_fused(fused)
+    if parsed is not None:
+        kind, plain = parsed
+        if kind in _MODES:
+            return _fused_blocks(qp, images, cfg, kind, plain=plain, attn_dtype=attn_dtype,
+                                 compute_dtype=compute_dtype, attn_impl=attn_impl,
+                                 use_pallas=use_pallas)
+        return _fused_stack(qp, images, cfg, kind, compute_dtype=compute_dtype, plain=plain,
+                            use_pallas=use_pallas)
+    attention_f = _float_attention(attn_impl, False, attn_dtype)
     h_heads, hd, eps, cdt = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps, compute_dtype
-    x = _embed(qp, images, cfg, cdt, int8_dense_plain)
+    x = _embed(qp, images, cfg, cdt, int8_dense_plain, use_pallas)
 
     def qd(y, layer, in_q):
-        return quantized_dense(y, layer, in_q, out_dtype=cdt)
+        return quantized_dense(y, layer, in_q, use_pallas=use_pallas, out_dtype=cdt)
 
     def ln(y, p):
         return layernorm_f32(y, p["scale"], p["bias"], eps).to(cdt)
-
-    def attention(qkv):
-        if attn_impl == "pallas_long":
-            return long_attention_qkv(qkv.to(attn_dtype).contiguous(), h_heads, hd).to(cdt)
-        return xla_attention_qkv(qkv.to(attn_dtype), h_heads, hd, softmax_dtype=attn_dtype).to(cdt)
 
     for i in range(cfg.depth):
         blk = qp["blocks"][str(i)]
         qkv = qd(ln(x, blk["norm1"]), blk["qkv"], blk["norm1"]["out_q"])
         # proj input bounded by the qkv output range (convex combination of v)
-        x = x + qd(attention(qkv), blk["proj"], blk["qkv"]["out_q"])
+        x = x + qd(attention_f(qkv.to(attn_dtype), h_heads, hd).to(cdt), blk["proj"],
+                   blk["qkv"]["out_q"])
         f = qd(ln(x, blk["norm2"]), blk["fc1"], blk["norm2"]["out_q"])
         if cfg.act == "quick_gelu":
             f32v = f.to(torch.float32)
@@ -198,25 +260,52 @@ def int8_apply(
     if cfg.num_classes:
         x = x[:, :1]  # only the cls row feeds the head; LN is per token
     nq = qp["norm"]["out_q"]
-    zq = quantize_act_shifted(layernorm_f32(x, qp["norm"]["scale"], qp["norm"]["bias"], eps),
-                              nq["scale"], nq["zero_point"], nq.get("quant_max", 255.0))
+    zq = _ln_quantize_divide(x, qp["norm"], nq, eps)
     return _head_or_tokens(qp, zq, cfg, int8_dense_plain)
 
 
-_FUSED_KINDS = ("megamodel", "megablock_long", "megamodel_long")
+def _ln_quantize_divide(y, ln, out_q, eps) -> torch.Tensor:
+    """LN (f32) → int8 by division: the exact path's seam, and the JAX
+    package's ``_ln_quantize_xla`` in the mixed chains."""
+    return quantize_act_shifted(layernorm_f32(y, ln["scale"], ln["bias"], eps),
+                                out_q["scale"], out_q["zero_point"], out_q.get("quant_max", 255.0))
 
 
-def _parse_fused(fused: str):
-    """``fused`` → (kind, plain). The long modes take the TPU's options
-    ``:TQ:RC:flags``: q_tile, row_chunk and the scheduling flags ``suN``,
-    ``cuN``, ``bbN`` are accepted and change nothing here (on the TPU they
-    are bit-identical scheduling knobs); ``i8`` (int8 score dots) is not
-    ported."""
+# the per-GEMM chains (JAX _fused_blocks), K4's chain and K9, K6's chain
+_MODES = ("pallas", "mixed", "mixed_qkv", "mixed_fc1", "mixed_none")
+_MEGA_KINDS = ("megamodel", "megablock", "megamodel_res")
+_LONG_KINDS = ("megablock_long", "megamodel_long")
+
+
+def _parse_fused(fused: Union[str, bool, None]) -> Optional[Tuple[str, bool]]:
+    """``fused`` → None (the exact path) or (kind, plain). ``True`` is
+    ``"pallas"``; ``False``, ``None``, ``""`` and ``"none"`` the exact path,
+    as in the JAX package. ``megamodel`` / ``megablock`` / ``megamodel_res``
+    take the TPU's ``:BB[:tight]`` (images per grid step, sequence padded to
+    32 instead of 128): accepted and changing nothing here, since the
+    kernels take the unpadded sequence and padded keys would get exactly
+    zero probability, so the valid rows are the same bits either way. The
+    long modes take ``:TQ:RC:flags``: q_tile, row_chunk and the scheduling
+    flags ``suN``, ``cuN``, ``bbN`` are accepted and change nothing here
+    (on the TPU they are bit-identical scheduling knobs); ``i8`` (int8 score
+    dots) is not ported."""
+    if fused is True:
+        fused = "pallas"
+    if fused is False or fused is None or fused in ("", "none"):
+        return None
     base, *opts = fused.split(":")
     plain = base.endswith("_plain")
     kind = base[: -len("_plain")] if plain else base
-    if kind not in _FUSED_KINDS or (kind == "megamodel" and opts):
-        raise ValueError(f"unknown fused mode {fused!r}; expected 'none', 'megamodel', "
+    if kind in _MODES and not opts:
+        return kind, plain
+    if kind in _MEGA_KINDS:
+        if (len(opts) > 2 or (opts and opts[0] and not opts[0].isdigit())
+                or (len(opts) == 2 and opts[1] not in ("", "tight"))):
+            raise ValueError(f"{fused!r}: expected '{kind}[:BLOCK_B[:tight]]'")
+        return kind, plain
+    if kind not in _LONG_KINDS:
+        raise ValueError(f"unknown fused mode {fused!r}; expected 'none', one of {_MODES}, "
+                         "'megamodel[:BB[:tight]]', 'megablock[...]', 'megamodel_res[...]', "
                          "'megablock_long[:TQ[:RC[:flags]]]' or 'megamodel_long[...]', "
                          "or a '*_plain' twin")
     for i, opt in enumerate(opts):
@@ -231,15 +320,107 @@ def _parse_fused(fused: str):
     return kind, plain
 
 
-def _fused_stack(qp, images, cfg: ViTConfig, kind: str, *, compute_dtype, plain: bool):
-    """K4 (``megamodel``) or K6 (``mega{block,model}_long``) on Hopper: the
-    entry LN → int8 (ln_quantize), the per-block launch chain, then the head
-    GEMM on the cls row or, in feature mode, the dequantized tokens."""
-    long = kind != "megamodel"
+def _fused_blocks(qp, images, cfg: ViTConfig, mode: str, *, plain: bool, attn_dtype,
+                  compute_dtype, attn_impl: str, use_pallas):
+    """The JAX package's per-GEMM chains (``_fused_blocks``): activations
+    cross op boundaries as int8.
+
+    ``pallas``: every GEMM + epilogue on ``int8_gemm`` (qkv PLAIN; proj and
+    fc2 RESID_LN_Q carrying the residual, the next LN and its quantize; fc1
+    GELU_Q), the entry LN on ``ln_quantize``, the patch and head GEMMs on
+    ``int8_gemm`` as in the megamodel chain. ``mixed``: the kernels only for
+    qkv, proj and fc1 + GELU; ``mixed_qkv`` only qkv and proj,
+    ``mixed_fc1`` only fc1, ``mixed_none`` none; what the JAX package runs
+    in XLA (the other GEMMs, LN → quantize by division, GELU, the patch and
+    head GEMMs) runs here as the exact path's plain PyTorch, so on the card
+    the mixed chains spend their time in float64 GEMMs. ``attn_impl``:
+    ``pallas_fused`` is K3 with the proj-input quantize in its epilogue;
+    the others produce float attention (K8, K5a or the einsum), quantized
+    by division. With ``plain`` every kernel is its plain version."""
+    eps, cdt = cfg.layer_norm_eps, compute_dtype
+    qmax = float(cfg.quant.activation.quant_max) if cfg.quant else 255.0
+    mixed = mode.startswith("mixed")
+    pallas_qkv = mode in ("mixed", "mixed_qkv")
+    pallas_fc1 = mode in ("mixed", "mixed_fc1")
+    if cfg.act not in ("gelu", "quick_gelu") and (pallas_fc1 or not mixed):
+        raise NotImplementedError(
+            f"fused mode {mode!r} computes the activation in-kernel; act={cfg.act!r} models "
+            "need 'mixed_none'/'mixed_qkv' (or the exact path)")
+    ops = PLAIN_OPS if plain else KERNEL_OPS
+    attention_f = _float_attention(attn_impl, plain, attn_dtype)
+    h_heads, hd = cfg.num_heads, cfg.head_dim
+
+    def xla_dense(x_q, layer, in_q, out_dtype=cdt):
+        return int8_dense_plain(x_q, layer, in_q, out_dtype=out_dtype)
+
+    outer = xla_dense if mixed else ops.int8_dense  # patch embed and head
+    x = _embed(qp, images, cfg, cdt, outer, use_pallas)
+    blk0 = qp["blocks"]["0"]
+    if mixed:
+        zq = _ln_quantize_divide(x, blk0["norm1"], blk0["norm1"]["out_q"], eps)
+    else:
+        zq = ops.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=eps, quant_max=qmax)
+    for i in range(cfg.depth):
+        blk = qp["blocks"][str(i)]
+        oq, n2q = blk["qkv"]["out_q"], blk["norm2"]["out_q"]
+        if mixed and not pallas_qkv:
+            qkv = xla_dense(zq, blk["qkv"], blk["norm1"]["out_q"])
+        else:
+            qkv = ops.int8_dense(zq, blk["qkv"], blk["norm1"]["out_q"], out_dtype=cdt)
+        # proj input bounded by the qkv output range (convex combination of v)
+        if attn_impl == "pallas_fused":
+            o_q = ops.attention(qkv.to(attn_dtype), h_heads, hd, out_q=oq, quant_max=qmax)
+        else:
+            o = attention_f(qkv.to(attn_dtype), h_heads, hd).to(cdt)
+            o_q = quantize_act_shifted(o, oq["scale"], oq["zero_point"], oq.get("quant_max", 255.0))
+        nxt = qp["blocks"][str(i + 1)]["norm1"] if i + 1 < cfg.depth else qp["norm"]
+        if not mixed:
+            x, zq2 = ops.int8_dense_resid_ln_q(o_q, blk["proj"], oq, x, blk["norm2"], n2q,
+                                               eps=eps, out_dtype=cdt, quant_max=qmax)
+            g_q = ops.int8_dense_gelu_q(zq2, blk["fc1"], n2q, blk["gelu_q"], act=cfg.act,
+                                        quant_max=qmax)
+            # the fc2 epilogue carries the NEXT LayerNorm and its quantize
+            x, zq = ops.int8_dense_resid_ln_q(g_q, blk["fc2"], blk["gelu_q"], x, nxt,
+                                              nxt["out_q"], eps=eps, out_dtype=cdt,
+                                              quant_max=qmax)
+            continue
+        if pallas_qkv:
+            p = ops.int8_dense(o_q, blk["proj"], oq, out_dtype=cdt)
+        else:
+            p = xla_dense(o_q, blk["proj"], oq)
+        x = x + p
+        zq2 = _ln_quantize_divide(x, blk["norm2"], n2q, eps)
+        if pallas_fc1:
+            g_q = ops.int8_dense_gelu_q(zq2, blk["fc1"], n2q, blk["gelu_q"], act=cfg.act,
+                                        quant_max=qmax)
+        else:
+            f1 = xla_dense(zq2, blk["fc1"], n2q)
+            if cfg.act == "quick_gelu":
+                f32v = f1.to(torch.float32)
+                g = (f32v * torch.sigmoid(1.702 * f32v)).to(f1.dtype)
+            else:
+                g = torch.nn.functional.gelu(f1, approximate="tanh")
+            gq = blk["gelu_q"]
+            g_q = quantize_act_shifted(g, gq["scale"], gq["zero_point"], gq.get("quant_max", 255.0))
+        x = x + xla_dense(g_q, blk["fc2"], blk["gelu_q"])
+        if i + 1 == cfg.depth and cfg.num_classes:
+            x = x[:, :1]  # only the cls row feeds the head; LN is per token
+        zq = _ln_quantize_divide(x, nxt, nxt["out_q"], eps)
+    return _head_or_tokens(qp, zq, cfg, outer)
+
+
+def _fused_stack(qp, images, cfg: ViTConfig, kind: str, *, compute_dtype, plain: bool,
+                 use_pallas=None):
+    """K4 (``megamodel``), K9a (``megablock``), K9b (``megamodel_res``) or K6
+    (``mega{block,model}_long``) on Hopper: the entry LN → int8
+    (ln_quantize), the blocks, then the head GEMM on the cls row or, in
+    feature mode, the dequantized tokens. The ``*_plain`` twins of K9a/K9b
+    run K4's chain through the plain ops: their plain version."""
+    long = kind in _LONG_KINDS
     if not long and cfg.act != "gelu":
         raise NotImplementedError(
-            f"the megamodel chain computes tanh-GELU in-kernel (act={cfg.act!r}); "
-            "short quick-GELU serving needs K3 behind the mixed_none chain: ROADMAP.md Queue 2"
+            f"the {kind} kernels compute tanh-GELU in-kernel (act={cfg.act!r}); quick-GELU "
+            "models take fused='mixed_none' (with attn_impl='pallas_fused'), as on the TPU"
         )
     if cfg.act not in ("gelu", "quick_gelu"):
         raise NotImplementedError(f"{kind} computes the activation in-kernel; act={cfg.act!r} "
@@ -250,19 +431,26 @@ def _fused_stack(qp, images, cfg: ViTConfig, kind: str, *, compute_dtype, plain:
         ops = PLAIN_OPS if plain else KERNEL_OPS
     eps = cfg.layer_norm_eps
     qmax = float(cfg.quant.activation.quant_max) if cfg.quant else 255.0
-    x = _embed(qp, images, cfg, compute_dtype, ops.int8_dense)
+    x = _embed(qp, images, cfg, compute_dtype, ops.int8_dense, use_pallas)
     n = x.shape[1]
     blk0 = qp["blocks"]["0"]
     zq = ops.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=eps, quant_max=qmax)
-    kw = dict(num_heads=cfg.num_heads, head_dim=cfg.head_dim, act=cfg.act, eps=eps, n_valid=n,
-              quant_max=qmax, ops=ops)
-    if kind == "megablock_long":
+    kw = dict(num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=eps, n_valid=n,
+              quant_max=qmax)
+    if kind in ("megablock", "megablock_long"):
+        if kind == "megablock_long":
+            block = partial(long_block_forward, act=cfg.act, ops=ops)
+        else:
+            block = megablock_forward_plain if plain else megablock_forward
         for i in range(cfg.depth):
             nxt = qp["blocks"][str(i + 1)]["norm1"] if i + 1 < cfg.depth else qp["norm"]
-            x, zq = long_block_forward(zq, x, qp["blocks"][str(i)], nxt, **kw)
+            x, zq = block(zq, x, qp["blocks"][str(i)], nxt, **kw)
+    elif long:
+        _, zq = long_model_forward(zq, x, qp["blocks"], qp["norm"], depth=cfg.depth,
+                                   act=cfg.act, ops=ops, **kw)
     else:
-        stack = long_model_forward if long else model_forward
-        _, zq = stack(zq, x, qp["blocks"], qp["norm"], depth=cfg.depth, **kw)
+        _, zq = model_forward(zq, x, qp["blocks"], qp["norm"], depth=cfg.depth, act=cfg.act,
+                              ops=ops, resident=kind == "megamodel_res", **kw)
     return _head_or_tokens(qp, zq, cfg, ops.int8_dense)
 
 
@@ -271,30 +459,36 @@ LONG_SEQ_MIN = 1536
 
 
 def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
-    """Kernel-path selection on CUDA, gated on what the Hopper kernels accept:
-    the megamodel chain (K4) for GELU models within attention_q's gate, the
-    megamodel_long chain (K6) for GELU or quick-GELU models of >= 1536 tokens
-    within the long attention kernel's plan. Geometries they do not cover
-    raise: the card never quietly runs the plain path."""
+    """Kernel-path selection on CUDA, JAX's rungs under Hopper gates:
+
+    1. GELU models whose GEMMs and attention the kernels accept: the
+       megamodel chain (K4);
+    2. models within attention_q's gate (any activation; the GEMMs run
+       plain): ``mixed_none`` + ``pallas_fused`` (K3);
+    3. GELU or quick-GELU models of >= 1536 tokens within the long
+       attention kernel's plan: the megamodel_long chain (K6);
+    4. models the long attention kernel takes that rung 3 rejects:
+       ``mixed_none`` + ``pallas_long`` (K5a).
+
+    Geometries none of them covers raise: the card never quietly runs the
+    plain path."""
     d, p, hd, n = cfg.embed_dim, cfg.patch_size, cfg.head_dim, cfg.seq_len
-    ok = (gemm_shapes_ok(p * p * 3, d) and gemm_shapes_ok(d, 3 * d)
-          and gemm_shapes_ok(d, d, resid_ln=True) and gemm_shapes_ok(d, cfg.mlp_dim)
-          and gemm_shapes_ok(cfg.mlp_dim, d, resid_ln=True))
-    if not ok:
-        raise NotImplementedError(
-            f"embed_dim {d} / mlp_dim {cfg.mlp_dim} / patch {p} outside the int8_gemm "
-            "kernel's gate (K a multiple of 64): ROADMAP.md Queue 2, K2"
-        )
-    if cfg.act == "gelu" and attention_shapes_ok(n, hd):
+    gemms_ok = (gemm_shapes_ok(p * p * 3, d) and gemm_shapes_ok(d, 3 * d)
+                and gemm_shapes_ok(d, d, resid_ln=True) and gemm_shapes_ok(d, cfg.mlp_dim)
+                and gemm_shapes_ok(cfg.mlp_dim, d, resid_ln=True))
+    if cfg.act == "gelu" and gemms_ok and attention_shapes_ok(n, hd):
         return {"fused": "megamodel"}
-    if (cfg.act in ("gelu", "quick_gelu") and n >= LONG_SEQ_MIN
+    if attention_shapes_ok(n, hd):
+        return {"fused": "mixed_none", "attn_impl": "pallas_fused"}
+    if (cfg.act in ("gelu", "quick_gelu") and n >= LONG_SEQ_MIN and gemm_shapes_ok(p * p * 3, d)
             and long_megablock_shapes_ok(n, cfg.num_heads, hd, cfg.mlp_dim)):
         return {"fused": "megamodel_long"}
+    if long_attention_shapes_ok(n, hd):
+        return {"fused": "mixed_none", "attn_impl": "pallas_long"}
     raise NotImplementedError(
-        f"no Hopper serving path for act={cfg.act!r} at seq_len {n}, head_dim {hd}: megamodel "
-        "takes GELU models within attention_q's gate, megamodel_long sequences of >= "
-        f"{LONG_SEQ_MIN} tokens within the long attention kernel's plan; short quick-GELU "
-        "models need K3 behind the mixed_none chain (ROADMAP.md Queue 2)"
+        f"no Hopper serving path for seq_len {n}, head_dim {hd}: the attention kernels "
+        "(attention_q, attention_long) take hd a multiple of 8 up to 128 within their "
+        "shared-memory plans (ROADMAP.md Queue 2)"
     )
 
 

@@ -9,7 +9,7 @@ Preprocessing (bicubic resize + normalize) runs on the device, so the host
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -35,6 +35,10 @@ class Int8Predictor:
     compute_dtype: Any = None
     attn_dtype: Any = None
     preset: bool = True
+    # explicit serving options (int8_apply's); each one given wins over the preset
+    use_pallas: Optional[bool] = None
+    fused: Optional[Union[str, bool]] = None
+    attn_impl: Optional[str] = None
     # data-parallel serving over several devices comes with the DDP slice
     mesh: Optional[Any] = None
     # the card unless the caller asks for the CPU; no fallback
@@ -56,6 +60,9 @@ class Int8Predictor:
             opts["attn_dtype"] = self.attn_dtype
         if self.compute_dtype is not None:
             opts["compute_dtype"] = self.compute_dtype
+        for key in ("use_pallas", "fused", "attn_impl"):
+            if getattr(self, key) is not None:
+                opts[key] = getattr(self, key)
         self.options = opts
         self._fwd = make_int8_forward(self.cfg, **opts)
         self.qparams = export_to_device(self.qparams, self.device)

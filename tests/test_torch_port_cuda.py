@@ -414,3 +414,172 @@ def test_long_attention_bwd_raises(dev):
     with pytest.raises(ValueError, match="qkv: dtype"):
         la.long_attention_bwd(qkv.float(), do, 1, 64)
     assert la.long_attention_bwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K7 (fused quantize GEMM), K8 (scale-after-dot attention), K9a / K9b
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,x_dt,out_dt,per_channel,qmax", [
+    (6272, 768, 384, "f32", "f32", False, 255.0), (6304, 384, 1152, "bf16", "bf16", True, 255.0),
+    (6304, 1536, 384, "f32", "bf16", True, 127.0), (37, 128, 256, "bf16", "f32", False, 127.0),
+])
+def test_fused_quantize_matmul(dev, m, k, n, x_dt, out_dt, per_channel, qmax):
+    """K7 (qvt_quantize_gemm) against its plain version: identical, f32 and
+    bf16 inputs and outputs, both weight-scale kinds, both grids, ragged M."""
+    from qat_vit_tpu_torch.ops import pallas_gemm as pg
+
+    rng = np.random.default_rng(m + k)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    x = torch.from_numpy(rng.normal(0, 1.5, (m, k)).astype(np.float32)).to(dev).to(dts[x_dt])
+    layer = _layer(rng, k, n, dev, per_channel)
+    kw = dict(x_scale=torch.tensor(4.0 / qmax), x_zero_point=torch.tensor(100.0),
+              w_scale=layer["w_scale"], w_colsum=layer["w_colsum"], bias=layer["bias"],
+              x_quant_max=qmax, out_dtype=dts[out_dt])
+    before = pg.fused_quantize_matmul.launches
+    got = pg.fused_quantize_matmul(x, layer["w_int8"], **kw)
+    assert pg.fused_quantize_matmul.launches == before + 1
+    _same(got, pg.fused_quantize_matmul_plain(x, layer["w_int8"], **kw))
+
+
+def test_fused_quantize_matmul_raises(dev):
+    """Outside the kernel's K gate (a multiple of 64) K7 raises, even where
+    JAX's gate admits the shape (K 96), and quantized_dense never swaps in
+    the division path for such a shape; bad inputs raise; nothing launches."""
+    from qat_vit_tpu_torch.ops import pallas_gemm as pg
+    from qat_vit_tpu_torch.ops.quantized_matmul import quantized_dense
+
+    rng = np.random.default_rng(9)
+    layer = _layer(rng, 96, 128, dev)
+    x = torch.zeros(8, 96, device=dev)
+    kw = dict(x_scale=0.02, x_zero_point=100.0, w_scale=layer["w_scale"],
+              w_colsum=layer["w_colsum"], bias=layer["bias"])
+    before = pg.fused_quantize_matmul.launches
+    assert pg.fused_quantize_matmul_available(x.shape, layer["w_int8"].shape)
+    with pytest.raises(NotImplementedError, match="multiple of 64"):
+        pg.fused_quantize_matmul(x, layer["w_int8"], **kw)
+    with pytest.raises(NotImplementedError, match="multiple of 64"):
+        quantized_dense(x, layer, IN_Q, use_pallas=True)
+    layer = _layer(rng, 128, 128, dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        pg.fused_quantize_matmul(torch.zeros(8, 128, dtype=torch.float16, device=dev),
+                                 layer["w_int8"], **{**kw, "w_colsum": layer["w_colsum"]})
+    assert pg.fused_quantize_matmul.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(32, 197, 6, 64, 197), (4, 32, 2, 64, 17),
+                                                  (2, 50, 4, 32, 41), (2, 130, 2, 128, 130)])
+def test_flash_attention(dev, dtype, b, n, heads, hd, n_valid):
+    """K8 (qvt_flash_attention) against its plain version: identical in f32
+    (explicit multiply-then-add, no contracted FMA) and bf16, masked keys."""
+    rng = np.random.default_rng(n + hd)
+    qkv = torch.from_numpy(rng.normal(0, 1.5, (b, n, 3 * heads * hd)).astype(np.float32))
+    qkv = qkv.to(dev).to(dtype)
+    before = fa.flash_attention_qkv.launches
+    got = fa.flash_attention_qkv(qkv, heads, hd, n_valid=n_valid)
+    assert fa.flash_attention_qkv.launches == before + 1
+    _same(got, fa.flash_attention_qkv_plain(qkv, heads, hd, n_valid=n_valid))
+
+
+def test_flash_attention_gate_raises(dev):
+    """f32 K and V take twice the shared memory: past K8's f32 gate it
+    raises (bf16 still fits), and nothing launches."""
+    before = fa.flash_attention_qkv.launches
+    qkv = torch.zeros(1, 421, 3 * 64, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        fa.flash_attention_qkv(qkv, 1, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_qkv(qkv.half(), 1, 64)
+    assert fa.flash_attention_qkv.launches == before
+    fa.flash_attention_qkv(qkv.to(torch.bfloat16), 1, 64)
+    assert fa.flash_attention_qkv.launches == before + 1
+
+
+@pytest.fixture(scope="module", params=["micro", "vit_s_depth2"])
+def serve_export(dev, request):
+    """A PTQ export on the card: the micro ViT, or ViT-S/16 at full width
+    with depth cut to 2 (random init from seed 0, one batch of 8 images)."""
+    from qat_vit_tpu_torch.models.registry import create_model
+    from qat_vit_tpu_torch.serve.calibrate import ptq_convert
+    from qat_vit_tpu_torch.serve.int8_vit import export_to_device
+
+    name, kw, px = (("vit_micro_test", {}, 32) if request.param == "micro"
+                    else ("vit_small_patch16_224_student", {"depth": 2}, 224))
+    m = create_model(name, qat_wrapper=True, generator=torch.Generator().manual_seed(0),
+                     device=dev, **kw)
+    x = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (8, px, px, 3))
+                         .astype(np.float32)).to(dev)
+    return m.cfg, export_to_device(ptq_convert(m.module.state_dict(), [x], m.cfg), dev), x
+
+
+def test_megablock_modes_match_the_chain(dev, serve_export):
+    """K9a (one cooperative launch per block) and K9b (one per forward):
+    logits identical to the K4 chain's and the plain chain's; 1 launch per
+    block and 1 per forward, none of the chain's kernels."""
+    from qat_vit_tpu_torch.ops import block_kernel as bk
+    from qat_vit_tpu_torch.serve.int8_vit import int8_apply
+
+    cfg, qp, x = serve_export
+    bf = torch.bfloat16
+    chain = int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel")
+    plain = int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel_plain")
+    _same(chain, plain)
+    for mode, wrapper, want in (("megablock:4:tight", bk.megablock_forward, cfg.depth),
+                                ("megamodel_res:4:tight", bk.megamodel_res_forward, 1)):
+        before, attn = wrapper.launches, fa.fused_attention_qkv.launches
+        got = int8_apply(qp, x, cfg, compute_dtype=bf, fused=mode)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + want
+        assert fa.fused_attention_qkv.launches == attn
+        _same(got, chain)
+
+
+def test_megablock_blocks_match_the_chain(dev, serve_export):
+    """At block level, f32 and bf16 streams: K9a's and K9b's x and zq are the
+    chain's, bit for bit."""
+    from qat_vit_tpu_torch.ops import block_kernel as bk
+    from qat_vit_tpu_torch.serve.int8_vit import _embed
+
+    cfg, qp, x_img = serve_export
+    kw = dict(num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=cfg.layer_norm_eps)
+    for dt in (torch.bfloat16, torch.float32):
+        x = _embed(qp, x_img, cfg, dt, fs.int8_dense)
+        blk0 = qp["blocks"]["0"]
+        zq = fs.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps)
+        n = x.shape[1]
+        nxt = qp["blocks"]["1"]["norm1"]
+        _same(bk.megablock_forward(zq, x, blk0, nxt, n_valid=n, **kw),
+              bk.block_forward(zq, x, blk0, nxt, n_valid=n, **kw))
+        _same(bk.megamodel_res_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=n, **kw),
+              bk.model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=n, **kw))
+        # masked keys (n_valid < N) through the same stages
+        _same(bk.megablock_forward(zq, x, blk0, nxt, n_valid=n - 3, **kw),
+              bk.block_forward(zq, x, blk0, nxt, n_valid=n - 3, **kw))
+
+
+def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypatch):
+    """K9b above its weight gate raises naming megamodel; a refused
+    cooperative launch (a shared-memory plan past the limit) surfaces its
+    cudaError as an exception; nothing is counted."""
+    import ctypes
+
+    from qat_vit_tpu_torch import _build
+    from qat_vit_tpu_torch.ops import block_kernel as bk
+    from qat_vit_tpu_torch.serve.int8_vit import int8_apply
+
+    cfg, qp, x = serve_export
+    monkeypatch.setattr(bk, "MEGAMODEL_RES_MAX_WEIGHT_BYTES",
+                        bk.stacked_weight_bytes(qp["blocks"], cfg.depth) - 1)
+    before = bk.megamodel_res_forward.launches
+    with pytest.raises(NotImplementedError, match="fused='megamodel'"):
+        int8_apply(qp, x, cfg, compute_dtype=torch.bfloat16, fused="megamodel_res")
+    assert bk.megamodel_res_forward.launches == before
+    null = ctypes.c_void_p(0)
+    with pytest.raises(RuntimeError, match="qvt_megablock failed to launch"):
+        _build.load().call("qvt_megablock", null, 1, *([null] * 9), 1, 20000, 6, 64, 1536,
+                           20000, 1, 0, 0.125, 255.0, 1e-6, null)
+    # the error was cleared: the next launch reports its own status (success)
+    fs.ln_quantize(torch.zeros(1, 4, 384, device=dev), _ln(np.random.default_rng(0), 384, dev),
+                   OUT_Q)
+    torch.cuda.synchronize()

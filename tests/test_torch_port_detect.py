@@ -415,8 +415,9 @@ def test_long_block_and_model_forward_identical(export):
 
 def test_detection_preset_gates():
     """CPU: the exact defaults. CUDA: megamodel_long for OWLv2-pruned (2,305
-    tokens) and OWLv2-base (960 px, 3,601 tokens), megamodel for ViT-S;
-    short quick-GELU models and the i8 flag raise, naming ROADMAP.md."""
+    tokens) and OWLv2-base (960 px, 3,601 tokens), megamodel for ViT-S,
+    mixed_none + K3 for short quick-GELU models; sequences over the long
+    kernel's plan and the i8 flag raise, naming ROADMAP.md."""
     pruned, base = detector_config(pruned=True), detector_config(pruned=False)
     assert serving_preset(pruned, "cpu") == {}
     assert _preset_kernel_opts(pruned) == {"fused": "megamodel_long"}
@@ -424,18 +425,18 @@ def test_detection_preset_gates():
     assert base.seq_len == 3601 and long_attention_shapes_ok(3601, 64)
     assert _preset_kernel_opts(ViTConfig()) == {"fused": "megamodel"}
     assert serving_preset(pruned, "cuda")["fused"] == "megamodel_long"
-    for bad in (dataclasses.replace(pruned, image_size=224),  # 197 quick-GELU tokens
-                dataclasses.replace(pruned, image_size=1600)):  # 10,001 tokens: over the plan
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _preset_kernel_opts(bad)
+    assert _preset_kernel_opts(dataclasses.replace(pruned, image_size=224)) == {
+        "fused": "mixed_none", "attn_impl": "pallas_fused"}  # 197 quick-GELU tokens
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # 10,001 tokens: over the plan
+        _preset_kernel_opts(dataclasses.replace(pruned, image_size=1600))
     x = torch.zeros(1, 32, 32, 3)
     tower = convert_detector(*_tiny_export_inputs(), dataclasses.replace(
         detector_config(pruned=True, **MICRO), quant=default_qat_qconfig()))["tower"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         int8_apply(tower, x, detector_config(pruned=True, **MICRO), fused="megamodel_long:512:256:i8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # K4's chain is GELU-only
+    with pytest.raises(NotImplementedError, match="mixed_none"):  # K4's chain is GELU-only
         int8_apply(tower, x, detector_config(pruned=True, **MICRO), fused="megamodel")
-    for bad in ("megamodel_long:x", "megamodel_long:512:256:zz1", "megamodel:4"):
+    for bad in ("megamodel_long:x", "megamodel_long:512:256:zz1", "megamodel:x"):
         with pytest.raises(ValueError):
             int8_apply(tower, x, detector_config(pruned=True, **MICRO), fused=bad)
 

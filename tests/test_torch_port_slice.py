@@ -164,8 +164,10 @@ def test_predictor_cpu(export):
 
 
 def test_serving_preset_gates():
-    """CPU: the exact defaults. CUDA: the megamodel chain for GELU ViTs the
-    kernels accept, the megamodel_long chain for 2,305-token ones; other
+    """CPU: the exact defaults. CUDA: JAX's rungs under the Hopper gates:
+    the megamodel chain for GELU ViTs the kernels accept, mixed_none + K3
+    for other models within attention_q's gate, the megamodel_long chain
+    for 2,305-token ones, mixed_none + K5a for sequences between; other
     geometries raise instead of running plain code."""
     import dataclasses
 
@@ -179,9 +181,14 @@ def test_serving_preset_gates():
                                          patch_size=8)) == {"fused": "megamodel"}
     assert _preset_kernel_opts(dataclasses.replace(vit_s, image_size=768)) == {
         "fused": "megamodel_long"}  # 2305 tokens: K6
-    for bad in (dataclasses.replace(vit_s, act="quick_gelu"),  # K3 + mixed_none
-                dataclasses.replace(vit_s, image_size=480),  # 901 tokens: under the K6 rung
-                ViTConfig(embed_dim=360, num_heads=6)):  # K % 64 != 0
+    mixed_k3 = {"fused": "mixed_none", "attn_impl": "pallas_fused"}
+    assert _preset_kernel_opts(dataclasses.replace(vit_s, act="quick_gelu")) == mixed_k3
+    assert _preset_kernel_opts(ViTConfig(embed_dim=96, num_heads=3)) == mixed_k3  # K % 64 != 0
+    # 901 tokens: over attention_q's gate, under the K6 rung
+    assert _preset_kernel_opts(dataclasses.replace(vit_s, image_size=480)) == {
+        "fused": "mixed_none", "attn_impl": "pallas_long"}
+    for bad in (ViTConfig(embed_dim=360, num_heads=6),  # hd 60: no attention kernel
+                dataclasses.replace(vit_s, image_size=1600)):  # 10,001 tokens
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _preset_kernel_opts(bad)
 
