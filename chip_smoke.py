@@ -9,8 +9,8 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    versions, and the time to build the kernels from ``qat_vit_tpu_torch/csrc``;
 2. kernels against their plain PyTorch versions on the card, at ViT-S/16
    shapes with batch 32, each timed (CUDA events, median of 30 runs after
-   warm-up, 5 for the slow plain attention backward) beside its plain
-   version;
+   warm-up) beside its plain version (the slow plain versions of the
+   attention kernels: the one run that the check makes);
 3. serving: a random-init ViT-S/16 student (224 px, 10 classes), PTQ over
    4 calibration batches of 32, then ``Int8Predictor`` on 512 uint8 32x32
    images at batch 256 through the kernels; checks the kernels' launch
@@ -58,7 +58,17 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    ``mixed`` + ``pallas`` against their ``*_plain`` twins; then
    ``megablock:4:tight`` and ``megamodel_res:4:tight`` at batch 256 (12 and 1
    cooperative launches, logits bit-identical to the megamodel chain) with
-   the ms per forward of all three, in turns.
+   the ms per forward of all three, in turns;
+8. kernel forms: K6's int8 score dots (the ``i8`` flag), the qkv GEMM's
+   PLAIN_Q8 epilogue and ``attention_long_q8`` at ``[2, 2305, 1728]``, and
+   the f32 forms of kernels A and B (ViT-S ``[8, 197, 1152]``, with and
+   without the in-kernel fake-quant) and of K5a / K5b (``[2, 2305, 1728]``),
+   each bit-identical to its plain version; the ``i8`` chain on phase 5's
+   export at batch 8 x 4 queries (47 launches, identical to its plain twin,
+   within the detection bounds of the exact path, ms per forward beside
+   ``megamodel_long`` in turns); one float and one QAT step
+   of ViT-S and of OWLv2-pruned in f32 with fast_math, depth 2, batch 2,
+   through the kernels and through ``reference_impl()``: identical.
 
 Every kernel check also records the kernel's bound (the larger of its
 operations over the H100's peak for their type and its bytes over 3.35
@@ -69,6 +79,7 @@ time. The last two lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -255,9 +266,9 @@ def attention_work(b, n, heads, hd, out_bytes=2, backward=False, in_bytes=2, op_
     products forward (4·N²·hd per head), 5 backward (s, dp, dq, dk, dv:
     10·N²·hd), at the rate of ``op_type`` (f32 products: the f32 rate)."""
     d = heads * hd
-    if backward:  # qkv and do in, dqkv out
-        return {"ops": 10 * b * heads * n * n * hd, "type": "bf16",
-                "bytes": 2 * b * n * 3 * d + 2 * b * n * d + 2 * b * n * 3 * d}
+    if backward:  # qkv and do in, dqkv out, all of in_bytes
+        return {"ops": 10 * b * heads * n * n * hd, "type": op_type,
+                "bytes": in_bytes * (b * n * 3 * d + b * n * d + b * n * 3 * d)}
     return {"ops": 4 * b * heads * n * n * hd, "type": op_type,
             "bytes": in_bytes * b * n * 3 * d + out_bytes * b * n * d}
 
@@ -409,38 +420,47 @@ def phase_kernels(torch, np, fs, fa, fat):
     return check_kernels(torch, cases, "phase 2", slow_plain=(fat.attention_bwd_plain,))
 
 
-def check_kernels(torch, cases, label, slow_plain=()):
+def check_kernels(torch, cases, label, slow_plain=(), exact=False):
     """Each (name, kernel, plain, args, kwargs, replaces, work, library) case:
-    the kernel's output against its plain version's on the same inputs, then
-    both timed (the plain versions in ``slow_plain`` over 5 runs), the
-    library call (None: no single call computes it) and the bound of
-    ``work`` (one work, or a list of them done one after another)."""
+    the kernel's output against its plain version's on the same inputs
+    (``exact``: bit for bit), then both timed (a plain version in
+    ``slow_plain`` by its one comparison call), the library call (None: no
+    single call computes it) and the bound of ``work`` (one work, or a list
+    of them done one after another)."""
     bf16 = torch.bfloat16
     results = []
     for name, kernel, plain, args, kwargs, replaces, work, library in cases:
         got = kernel(*args, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         want = plain(*args, **kwargs)
+        end.record()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        errs, exact = [], []
+        errs, notes = [], []
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
                 fail(f"{name}: kernel gives {g.dtype}{tuple(g.shape)}, plain {w.dtype}{tuple(w.shape)}")
+            if exact and not torch.equal(g, w):
+                fail(f"{name}: not identical to its plain version (max |diff| "
+                     f"{float((g.float() - w.float()).abs().max()):.3e})")
             if g.dtype == torch.int8:
                 worst, share = compare_int8(name, g, w)
                 errs.append(worst)
-                exact.append(f"int8 exact {share:.7f}")
+                notes.append(f"int8 exact {share:.7f}")
             else:
                 # f32 out: same f32 ops in the same order; bf16 out: one bf16 ulp
                 errs.append(compare_float(name, g, w, 2 ** -7 if g.dtype == bf16 else 1e-5))
         ms = median_ms(lambda: kernel(*args, **kwargs))
-        plain_ms = median_ms(lambda: plain(*args, **kwargs),
-                             runs=5 if plain in slow_plain else TIMING_RUNS)
+        if plain in slow_plain:
+            plain_ms = start.elapsed_time(end)
+        else:
+            plain_ms = median_ms(lambda: plain(*args, **kwargs))
         library_ms = median_ms(library) if library is not None else None
         bound_ms, bound_by = roofline(*(work if isinstance(work, list) else [work]))
         lib = f"{library_ms:.4f} ms" if library is not None else "none"
-        print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(exact)}  "
+        print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(notes)}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         results.append({"name": name, "wrapper": kernel, "replaces": replaces,
@@ -821,7 +841,7 @@ def phase_detection(torch, np, fs, la):
     for k in kernels:
         path = k5a_launches if k["wrapper"] is la.long_attention_qkv else launches
         k["launches"] = path[k["wrapper"]]
-    return kernels
+    return kernels, {"export": export, "cfg": cfg, "x": x, "q": q, "exact": exact}
 
 
 def phase_detect_training(torch, np, fs, la):
@@ -1174,6 +1194,201 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
                          if w is fa.flash_attention_qkv and "bf16" in k["name"] else launches[w])
     return kernels
 
+def _replay(torch, make, steps, counters):
+    """The same ``steps`` through the kernels and under ``reference_impl()``
+    on a module from one seed: ([metrics], params) of each run, and the
+    ``counters``' launches of the kernel run."""
+    from qat_vit_tpu_torch.ops._cuda import reference_impl
+
+    runs = []
+    for plain in (False, True):
+        state, batch, hp = make()
+        for c in counters:
+            c.launches = 0
+        with reference_impl() if plain else contextlib.nullcontext():
+            ms = [{k: float(v) for k, v in step(state, batch, hp).items()} for step in steps]
+        torch.cuda.synchronize()
+        if not plain:
+            launches = [c.launches for c in counters]
+        runs.append((ms, torch.cat([p.detach().flatten() for p in state.module.parameters()])))
+        del state
+    return runs, launches
+
+
+def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
+    """The last kernel forms: K6's int8 score dots (``i8``: PLAIN_Q8 and the
+    int8-score attention, then the chain on phase 5's export) and the f32
+    forms of kernels A and B (K1) and of K5a / K5b."""
+    from qat_vit_tpu_torch.serve.int8_detect import int8_detect_apply, make_int8_detect_forward
+
+    dev = torch.device("cuda")
+    bf16, f32t = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(SEED + 8)
+    card = card_line()
+    d, heads, hd, n = 576, 9, 64, 2305
+    b = DET_REF_B
+    m = b * n
+    out_q = {"scale": torch.tensor(0.05), "zero_point": torch.tensor(131.0)}
+    in_q = {"scale": torch.tensor(0.02), "zero_point": torch.tensor(121.0)}
+    x_qkv = rand_int8(torch, np, rng, dev, b, n, d)
+    l_qkv = rand_layer(torch, np, rng, dev, d, 3 * d)
+    qk8 = rand_int8(torch, np, rng, dev, b, n, 2 * d)
+    qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n, 3 * d)).astype(np.float32)).to(dev)
+    do = torch.from_numpy(rng.normal(0, 1.0, (b, n, d)).astype(np.float32)).to(dev)
+    vb, vh, vn, vd = 8, 6, 197, 384  # ViT-S at batch 8
+    vqkv = torch.from_numpy(rng.normal(0, 1.0, (vb, vn, 3 * vd)).astype(np.float32)).to(dev)
+    vdo = torch.from_numpy(rng.normal(0, 1.0, (vb, vn, vd)).astype(np.float32)).to(dev)
+    fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=f32t, device=dev), "in_fq": (0, 255)}
+    q8_attn = [{"ops": 2 * b * heads * n * n * hd, "type": "int8",  # the int8 score dot
+                "bytes": b * n * 2 * d + 2 * b * n * d + b * n * d},
+               {"ops": 2 * b * heads * n * n * hd, "type": "bf16", "bytes": 0}]  # p @ v
+    f32_fwd = attention_work(vb, vn, vh, 64, 4, in_bytes=4, op_type="f32")
+    f32_bwd = attention_work(vb, vn, vh, 64, backward=True, in_bytes=4, op_type="f32")
+    cases = [
+        (f"int8_gemm:plain_q8 qkv [{m}x{d}]@[{d}x{3 * d}] + int8 q,k", fs.int8_dense_q8,
+         fs.int8_dense_q8_plain, (x_qkv, l_qkv, in_q, out_q), {},
+         "qat_vit_tpu/ops/long_block_kernel.py:146", gemm_work(m, d, 3 * d, 2, m * 2 * d),
+         int_mm(torch, x_qkv, l_qkv)),
+        (f"attention_long_q8 (i8) [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_q8,
+         la.long_attention_q8_plain, (qk8, qkv.to(bf16), heads, hd), {"out_q": out_q},
+         "qat_vit_tpu/ops/long_block_kernel.py:179", q8_attn, None),
+        (f"attention_fwd f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fa.attention_fwd,
+         fa.attention_fwd_plain, (vqkv, vh, 64), {}, "qat_vit_tpu/ops/flash_attention.py:125",
+         f32_fwd, sdpa_forward(torch, vqkv, vh, 64)),
+        (f"attention_fwd:in_fq f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fa.attention_fwd,
+         fa.attention_fwd_plain, (vqkv, vh, 64), fq, "qat_vit_tpu/ops/flash_attention.py:125",
+         f32_fwd, sdpa_forward(torch, vqkv, vh, 64)),
+        (f"attention_bwd f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fat.attention_bwd,
+         fat.attention_bwd_plain, (vqkv, vdo, vh, 64), {},
+         "qat_vit_tpu/ops/flash_attention_train.py:48", f32_bwd,
+         sdpa_backward(torch, vqkv, vdo, vh, 64)),
+        (f"attention_bwd:in_fq+ste f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fat.attention_bwd,
+         fat.attention_bwd_plain, (vqkv, vdo, vh, 64), fq,
+         "qat_vit_tpu/ops/flash_attention_train.py:48", f32_bwd,
+         sdpa_backward(torch, vqkv, vdo, vh, 64)),
+        (f"attention_long f32 [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_qkv,
+         la.long_attention_qkv_plain, (qkv, heads, hd), {}, "qat_vit_tpu/ops/long_attention.py:63",
+         attention_work(b, n, heads, hd, 4, in_bytes=4, op_type="f32"),
+         sdpa_forward(torch, qkv, heads, hd)),
+        (f"attention_long_bwd f32 [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_bwd,
+         la.long_attention_bwd_plain, (qkv, do, heads, hd), {},
+         "qat_vit_tpu/ops/long_attention.py:173",
+         attention_work(b, n, heads, hd, backward=True, in_bytes=4, op_type="f32"),
+         sdpa_backward(torch, qkv, do, heads, hd)),
+    ]
+    kernels = check_kernels(torch, cases, "phase 8", exact=True,
+                            slow_plain=(la.long_attention_q8_plain, la.long_attention_qkv_plain,
+                                        la.long_attention_bwd_plain))
+    del x_qkv, qk8, qkv, do, vqkv, vdo, cases
+
+    # the i8 chain on phase 5's export at batch 8 x 4 queries: against its
+    # plain twin and the exact path, ms per forward beside megamodel_long
+    export, cfg, x, q, exact = det["export"], det["cfg"], det["x"], det["q"], det["exact"]
+    depth = cfg.depth
+    i8 = make_int8_detect_forward(cfg, dev, fused="megamodel_long:512:256:i8")
+    wrappers = (fs.int8_dense, fs.int8_dense_q8, fs.int8_dense_resid_ln_q, fs.int8_dense_gelu_q,
+                fs.ln_quantize, la.long_attention_q8, la.long_attention_q)
+    for w in wrappers:
+        w.launches = 0
+    out = i8(export, x, q)
+    torch.cuda.synchronize()
+    launches = {w: w.launches for w in wrappers}
+    want = {fs.int8_dense: 1, fs.int8_dense_q8: depth, fs.int8_dense_resid_ln_q: 2 * depth,
+            fs.int8_dense_gelu_q: depth, fs.ln_quantize: 1, la.long_attention_q8: depth,
+            la.long_attention_q: 0}
+    counts = ", ".join(f"{w.__name__} {launches[w]}" for w in wrappers)
+    print(f"phase 8 the i8 chain (megamodel_long:512:256:i8): {sum(launches.values())} launches "
+          f"per batch-{DET_B} forward ({counts})", flush=True)
+    if launches != want:
+        fail(f"the i8 chain's launches {launches}, expected {want}")
+    plain = int8_detect_apply(export, x, cfg, q, **{
+        **i8.options, "fused": "megamodel_long_plain:512:256:i8"})
+    same = all(torch.equal(out[k], plain[k]) for k in plain)
+    box_err = float((out["pred_boxes"] - exact["pred_boxes"]).abs().mean())
+    corr = {k: float(np.corrcoef(out[k].flatten().cpu().numpy(),
+                                 exact[k].flatten().cpu().numpy())[0, 1])
+            for k in ("logits", "objectness_logits")}
+    print(f"phase 8 the i8 chain at batch {DET_B} identical to its plain twin: {same}; "
+          f"vs the exact f32 path: pred_boxes mean |err| {box_err:.3e} (bound "
+          f"{DET_BOX_MEAN_ERR}), corr logits {corr['logits']:.5f} objectness "
+          f"{corr['objectness_logits']:.5f} (bound > {DET_CORR})", flush=True)
+    if not same or box_err > DET_BOX_MEAN_ERR or min(corr.values()) <= DET_CORR:
+        fail(f"the i8 chain: identical to plain {same}, box err {box_err:.3e}, corr {corr}")
+    del out, plain
+    bf = make_int8_detect_forward(cfg, dev)
+    times = {}
+    for name, fwd in (("i8", i8), ("megamodel_long", bf), ("megamodel_long", bf), ("i8", i8)):
+        times.setdefault(name, []).append(median_ms(lambda: fwd(export, x, q),
+                                                    runs=DET_TIMING_RUNS))
+    print(f"phase 8 ms per batch-{DET_B} forward with {DET_Q} queries (CUDA events, median of "
+          f"{DET_TIMING_RUNS}, two turns each): " + ", ".join(
+              f"{k} {' / '.join(f'{v:.2f}' for v in vs)}" for k, vs in times.items())
+          + f" on {card}", flush=True)
+
+    replays = replay_f32_steps(torch, np, fa, fat, la, dev)
+    for k in kernels:
+        w = k["wrapper"]
+        k["launches"] = launches[w] if w in launches else replays[w]
+    return kernels
+
+def replay_f32_steps(torch, np, fa, fat, la, dev):
+    """Depth-2 f32 fast_math train steps (one float, one QAT) at batch 2:
+    ViT-S through kernels A and B, OWLv2-pruned through K5a / K5b, each
+    through the kernels and under ``reference_impl()`` (must be identical);
+    the kernels' launches by wrapper."""
+    from qat_vit_tpu_torch.models.owlv2_detect import create_detector
+    from qat_vit_tpu_torch.models.registry import create_student
+    from qat_vit_tpu_torch.train import detect_steps, steps
+
+    rng = np.random.default_rng(SEED + 9)
+    hp = {"kd_alpha": 0.5, "kd_temperature": 4.0, "label_smoothing": 0.1, "det_box_weight": 1.0,
+          "det_obj_weight": 0.25}
+    images = torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)).to(dev)
+
+    def vit():
+        s = create_student("vit", depth=2, fast_math=True, fq_in_kernel=True,
+                           generator=torch.Generator().manual_seed(SEED), device=dev).module
+        batch = {"image": images, "label": torch.tensor([1, 7], device=dev),
+                 "teacher_logits": torch.from_numpy(
+                     np.random.default_rng(SEED).normal(0, 2, (2, 10)).astype(np.float32)).to(dev)}
+        return (steps.TrainState(s, steps.make_optimizer(s.parameters(), 1e-3, 1e-2)), batch,
+                steps.loss_hparams(hp, dev))
+
+    def owl():
+        s, c = create_detector(pruned=True, qat_wrapper=True, depth=2, fast_math=True,
+                               generator=torch.Generator().manual_seed(SEED), device=dev)
+        p = c.num_patches
+        r = np.random.default_rng(SEED)
+        batch = {"image": images,
+                 "query_embeds": torch.from_numpy(r.normal(0, 1, (2, DET_Q, 512))
+                                                  .astype(np.float32)).to(dev),
+                 "t_logits": torch.from_numpy(r.normal(0, 2, (2, p, DET_Q))
+                                              .astype(np.float32)).to(dev),
+                 "t_boxes": torch.from_numpy(r.uniform(0, 1, (2, p, 4))
+                                             .astype(np.float32)).to(dev),
+                 "t_obj": torch.from_numpy(r.normal(0, 2, (2, p)).astype(np.float32)).to(dev)}
+        return (steps.TrainState(s, steps.make_optimizer(s.parameters(), 1e-3, 1e-2)), batch,
+                detect_steps.detect_loss_hparams(hp, dev))
+
+    replays = {}
+    for name, make, mk_step, px, counters in (
+            ("ViT-S/16", vit, steps.make_train_step, 224, (fa.attention_fwd, fat.attention_bwd)),
+            ("OWLv2-pruned", owl, detect_steps.make_detect_train_step, 768,
+             (la.long_attention_qkv, la.long_attention_bwd))):
+        st = [mk_step(None, qat=qat, image_size=px) for qat in (False, True)]
+        ((mk, pk), (mp, pp)), counts = _replay(torch, make, st, counters)
+        same = mk == mp and torch.equal(pk, pp)
+        print(f"phase 8 {name} at depth 2, f32 fast_math, one float and one QAT step at batch "
+              f"2: losses through the kernels {[m['train_loss'] for m in mk]!r}, through "
+              f"reference_impl() {[m['train_loss'] for m in mp]!r}; metrics and parameters "
+              f"identical {same}; launches {counters[0].__name__} {counts[0]} "
+              f"{counters[1].__name__} {counts[1]}", flush=True)
+        want = [4, 4] if counters[0] is fa.attention_fwd else [4, 8]  # K5b: 2 per call
+        if not same or counts != want:
+            fail(f"the {name} f32 replay: identical {same}, launches {counts} (expected {want})")
+        replays.update(zip(counters, counts))
+    return replays
+
 
 def main() -> None:
     import numpy as np
@@ -1212,11 +1427,15 @@ def main() -> None:
     launches.update(phase_training(torch, np, fs, fa, fat))
     for k in kernels:
         k["launches"] = launches[k["wrapper"]]
-    kernels += phase_detection(torch, np, fs, la)
+    det_kernels, det_ctx = phase_detection(torch, np, fs, la)
+    kernels += det_kernels
     kernels += phase_detect_training(torch, np, fs, la)
     kernels += phase_serve_modes(torch, np, fs, fa, serve_ctx)
+    kernels += phase_kernel_forms(torch, np, fs, fa, fat, la, det_ctx)
 
     sources = {fs.int8_dense: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
+               fs.int8_dense_q8: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
+               la.long_attention_q8: "qat_vit_tpu_torch/csrc/attention_long.cu",
                fs.int8_dense_gelu_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_resid_ln_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.ln_quantize: "qat_vit_tpu_torch/csrc/ln_quantize.cu",

@@ -4,11 +4,12 @@
 //   Replaces (TPU, Pallas): qat_vit_tpu/ops/flash_attention.py::
 //   _fused_attention_kernel with quantize=True, and the attention stage of
 //   qat_vit_tpu/ops/block_kernel.py::_block_tile_body (K4).
-// - qvt_attention_fwd: bf16 output, optionally with the qkv activation
-//   fake-quant applied to q, k and v as they are loaded (kernel A, K1's
-//   forward). Replaces: _fused_attention_kernel with quantize=False, with
-//   and without in_fq, as qat_vit_tpu/ops/flash_attention_train.py's
-//   attention_train and attention_train_fq launch it.
+// - qvt_attention_fwd: output in the qkv type, bf16 or f32, optionally with
+//   the qkv activation fake-quant applied to q, k and v as they are loaded
+//   (kernel A, K1's forward). Replaces: _fused_attention_kernel with
+//   quantize=False, with and without in_fq, as
+//   qat_vit_tpu/ops/flash_attention_train.py's attention_train and
+//   attention_train_fq launch it, for bf16 and f32 qkv.
 // - qvt_flash_attention: output in the qkv type, bf16 or f32, with the f32
 //   score scaled by hd^-0.5 AFTER the dot (K8). Replaces:
 //   qat_vit_tpu/ops/flash_attention.py::_attention_kernel.
@@ -75,10 +76,18 @@ extern "C" int qvt_attention_q(const void* qkv, void* out, int B, int N, int H, 
                                           zp, qmax, 0.0f, 0.0f, stream);
 }
 
-// bf16 out; in_fq != 0 fake-quantizes q, k, v with (qs[0], qs[1], fq_min, fq_max)
+// kernel A: out in the qkv type (is_f32: f32, else bf16); in_fq != 0
+// fake-quantizes q, k, v with (qs[0], qs[1], fq_min, fq_max); scale is
+// hd^-0.5 in the qkv type, applied to q before the score dot
 extern "C" int qvt_attention_fwd(const void* qkv, const void* qs, void* out, int B, int N,
                                  int H, int hd, int n_valid, float scale, int in_fq,
-                                 float fq_min, float fq_max, void* stream) {
+                                 float fq_min, float fq_max, int is_f32, void* stream) {
+  if (is_f32 && in_fq)
+    return launch<float, false, true, false>(qkv, qs, out, B, N, H, hd, n_valid, scale, 0.0f,
+                                             0.0f, 0.0f, fq_min, fq_max, stream);
+  if (is_f32)
+    return launch<float, false, false, false>(qkv, nullptr, out, B, N, H, hd, n_valid, scale,
+                                              0.0f, 0.0f, 0.0f, 0.0f, 0.0f, stream);
   if (in_fq)
     return launch<bf16, false, true, false>(qkv, qs, out, B, N, H, hd, n_valid, scale, 0.0f,
                                             0.0f, 0.0f, fq_min, fq_max, stream);

@@ -12,9 +12,10 @@
 // (ops/flash_attention.py mirrors it).
 //
 // Numerics, as the TPU kernels. T is the qkv (and output) type: bf16, or f32
-// for K8. With IN_FQ (bf16 only) every q/k/v element is first fake-quantized
-// (f32, round half to even, clip, back to bf16). Without SCALE_AFTER (K1,
-// K3) q is scaled by hd^-0.5 in the qkv type before the score dot; with
+// (K8, and K1's forward for f32 models). With IN_FQ every q/k/v element is
+// first fake-quantized (f32, round half to even, clip, back to T: a no-op
+// rounding for f32). Without SCALE_AFTER (K1, K3) q is scaled by hd^-0.5 in
+// the qkv type before the score dot; with
 // SCALE_AFTER (K8) the f32 score is scaled after it. Keys >= n_valid get
 // -1e30; f32 softmax; p is rounded to T before the value product; o
 // accumulates in f32 and is either quantized with (inv_s, zp, qmax) or
@@ -22,11 +23,9 @@
 //
 // Every rounding is pinned so that the plain versions reproduce it bit for
 // bit: both dots accumulate in f32 in index order (d, then j), exp and the
-// softmax sum run in f64 before one rounding to f32. For bf16 operands the
-// products are exact in f32, so an FMA rounds as a multiply-then-add does;
-// for f32 operands they are not, so the f32 form multiplies and adds with
-// __fmul_rn / __fadd_rn (never a contracted FMA), as ordered_dot's
-// multiply-then-add does.
+// softmax sum run in f64 before one rounding to f32; products go through
+// mac<T> (common.cuh), an FMA for bf16 and __fmul_rn then __fadd_rn for
+// f32, as ordered_dot's multiply-then-add.
 #pragma once
 
 #include "common.cuh"
@@ -37,34 +36,6 @@ namespace attn {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int Q_TILE = 64;
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) { return round_bf16(v); }
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-
-// acc + a * b in the kernel's pinned order
-template <typename T>
-__device__ __forceinline__ float mac(float a, float b, float acc) {
-  if constexpr (sizeof(T) == 2)
-    return fmaf(a, b, acc);  // exact product: one rounding either way
-  else
-    return __fadd_rn(acc, __fmul_rn(a, b));
-}
-
-// the elements of one 32-bit word of T as f32
-template <typename T>
-__device__ __forceinline__ void unpack_word(uint32_t w, float (&f)[4 / sizeof(T)]) {
-  if constexpr (sizeof(T) == 2) {
-    const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
-    f[0] = v.x;
-    f[1] = v.y;
-  } else {
-    f[0] = __uint_as_float(w);
-  }
-}
 
 // shared-memory bytes of one tile (words per K row padded by one)
 __host__ __device__ constexpr size_t smem_bytes(int N, int hd, int elem_bytes) {
@@ -97,8 +68,8 @@ __device__ __forceinline__ void tile(const T* qkv, const float* qs, void* out, i
     uint32_t kw = reinterpret_cast<const uint32_t*>(row + D)[w2];
     uint32_t vw = reinterpret_cast<const uint32_t*>(row + 2 * D)[w2];
     if constexpr (IN_FQ) {
-      kw = fake_quant_pair(kw, fs, fz, fq_min, fq_max);
-      vw = fake_quant_pair(vw, fs, fz, fq_min, fq_max);
+      kw = fake_quant_word<T>(kw, fs, fz, fq_min, fq_max);
+      vw = fake_quant_word<T>(vw, fs, fz, fq_min, fq_max);
     }
     Ks[j * kst + w2] = kw;
     Vs[j * hw + w2] = vw;
@@ -114,8 +85,8 @@ __device__ __forceinline__ void tile(const T* qkv, const float* qs, void* out, i
     const T* qrow = img + (size_t)i * 3 * D + h * hd;
     for (int d = lane; d < hd; d += 32) {
       float x = to_f32(qrow[d]);
-      if constexpr (IN_FQ) x = round_bf16(fake_quant(x, fs, fz, fq_min, fq_max));
-      qv[d] = SCALE_AFTER ? x : round_to<T>(x * scale);
+      if constexpr (IN_FQ) x = round_to<T>(fake_quant(x, fs, fz, fq_min, fq_max));
+      qv[d] = SCALE_AFTER ? x : round_to<T>(__fmul_rn(x, scale));
     }
     __syncwarp();
 

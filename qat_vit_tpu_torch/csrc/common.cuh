@@ -82,10 +82,59 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// Element-type helpers of the attention kernels, which take bf16 or f32
+// operands (T). round_to<T> rounds an f32 value to T (identity for f32).
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) { return round_bf16(v); }
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+
+// acc + a * b in the kernels' pinned order: for bf16 operands the product is
+// exact in f32, so an FMA rounds as multiply-then-add does; for f32 operands
+// it is not, so multiply and add are rounded one after the other (never a
+// contracted FMA), as the plain versions' multiply-then-add
+template <typename T>
+__device__ __forceinline__ float mac(float a, float b, float acc) {
+  if constexpr (sizeof(T) == 2)
+    return fmaf(a, b, acc);
+  else
+    return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// the elements of one 32-bit word of T as f32
+template <typename T>
+__device__ __forceinline__ void unpack_word(uint32_t w, float (&f)[4 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 2) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+    f[0] = v.x;
+    f[1] = v.y;
+  } else {
+    f[0] = __uint_as_float(w);
+  }
+}
+
+// Fake-quant of the elements of one 32-bit word of T, back to T
+template <typename T>
+__device__ __forceinline__ uint32_t fake_quant_word(uint32_t w, float s, float zp, float qmin,
+                                                   float qmax) {
+  if constexpr (sizeof(T) == 2)
+    return fake_quant_pair(w, s, zp, qmin, qmax);
+  else
+    return __float_as_uint(fake_quant(__uint_as_float(w), s, zp, qmin, qmax));
+}
+
 // 16-byte asynchronous copies from global to shared memory (cp.async)
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+}
+
+// 4-byte asynchronous copy (cp.async.ca: the only form for fewer than 16 bytes)
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -104,6 +153,19 @@ __device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
     const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
     f[2 * i] = v.x;
     f[2 * i + 1] = v.y;
+  }
+}
+
+// the 16 / sizeof(T) values of T in a 16-byte chunk as f32
+template <typename T>
+__device__ __forceinline__ void unpack_chunk(const uint4& w, float (&f)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 2) {
+    unpack8(w, f);
+  } else {
+    f[0] = __uint_as_float(w.x);
+    f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z);
+    f[3] = __uint_as_float(w.w);
   }
 }
 

@@ -6,7 +6,12 @@
 // Math. A is shifted int8 [M, K] (uint8 grid - 128), W is int8 [K, N] in the
 // JAX export's layout, colsum[n] = sum_k W[k, n]. With z_s = zp - 128:
 //   y = float(acc - z_s * colsum[n]) * (s_x * w_scale[n]) + bias[n]
-// PLAIN writes y (f32 or bf16). GELU_Q writes quantize(act(y)), act = the
+// PLAIN writes y (f32 or bf16). PLAIN_Q8 writes y and, for the first q_n
+// columns, quantize(y) from the f32 y (not from the rounded output) into an
+// [M, q_n] int8 array: the q and k of a qkv GEMM on the qkv out_q grid, for
+// the int8 score dots of csrc/attention_long.cu (K6's int8_scores, JAX
+// ops/long_block_kernel.py `_q8(y[:, :2D], ...)`). GELU_Q writes
+// quantize(act(y)), act = the
 // tanh GELU of jax.nn.gelu(approximate=True) or quick-GELU y*sigmoid(1.702y).
 // RESID_LN_Q adds the residual in f32, writes y, and writes quantize(LN(y))
 // with f32 statistics over the whole row. With a float A (f32 or bf16; the
@@ -47,7 +52,7 @@ constexpr int THREADS = 128;   // one group: 4 warps, 2 x 2
 constexpr int BM_TILED = 64;   // rows per tile, PLAIN / GELU_Q
 constexpr int BM_ROWS = 32;    // rows per tile, RESID_LN_Q
 
-enum Epilogue { EPI_PLAIN = 0, EPI_GELU_Q = 1, EPI_RESID_LN_Q = 2 };
+enum Epilogue { EPI_PLAIN = 0, EPI_GELU_Q = 1, EPI_RESID_LN_Q = 2, EPI_PLAIN_Q8 = 3 };
 
 struct GemmParams {
   const void* a;           // [M, K] int8, or f32 / bf16 with the quantize prologue
@@ -59,7 +64,7 @@ struct GemmParams {
   const float* gamma;      // [N] (RESID_LN_Q)
   const float* beta;       // [N] (RESID_LN_Q)
   void* y;                 // [M, N] float output (PLAIN, RESID_LN_Q)
-  int8_t* q;               // [M, N] int8 output (GELU_Q, RESID_LN_Q)
+  int8_t* q;               // [M, N] int8 output (GELU_Q, RESID_LN_Q); [M, q_n] (PLAIN_Q8)
   int M, N, K;
   int ws_per_channel;
   int act;                 // 0 tanh-GELU, 1 quick-GELU
@@ -70,6 +75,7 @@ struct GemmParams {
   float inv_s, zp, qmax;   // output quantize grid
   float eps;
   float a_inv_s, a_zp, a_qmax;  // input quantize grid of a float A (K7)
+  int q_n;                 // PLAIN_Q8: the first q_n columns are also quantized
 };
 
 __host__ __device__ constexpr int tiled_smem_bytes() { return (BM_TILED + BN) * BKP; }
@@ -301,7 +307,7 @@ __device__ __forceinline__ float activation(float y, int act) {
   return __fmul_rn(y, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
-// PLAIN and GELU_Q: the (64-row, 64-column) output tile at (m0, n0)
+// PLAIN, PLAIN_Q8 and GELU_Q: the (64-row, 64-column) output tile at (m0, n0)
 template <int EPI, typename OutT, typename AT, bool HINT>
 __device__ __forceinline__ void tiled_body(const GemmParams& p, uint8_t* smem, int m0, int n0,
                                            const Group& grp) {
@@ -325,10 +331,13 @@ __device__ __forceinline__ void tiled_body(const GemmParams& p, uint8_t* smem, i
         if (row >= p.M || col >= p.N) continue;
         const float y = dequant(p, acc[mi][ni][r], col);
         const size_t o = (size_t)row * p.N + col;
-        if (EPI == EPI_PLAIN) {
-          static_cast<OutT*>(p.y)[o] = from_f32<OutT>(y);
-        } else {
+        if constexpr (EPI == EPI_GELU_Q) {
           p.q[o] = quantize_shifted(activation(y, p.act), p.inv_s, p.zp, p.qmax);
+        } else {
+          static_cast<OutT*>(p.y)[o] = from_f32<OutT>(y);
+          if constexpr (EPI == EPI_PLAIN_Q8)
+            if (col < p.q_n)
+              p.q[(size_t)row * p.q_n + col] = quantize_shifted(y, p.inv_s, p.zp, p.qmax);
         }
       }
 }

@@ -1,8 +1,10 @@
-// int8 x int8 -> int32 GEMM with three fused epilogues, and the fused
+// int8 x int8 -> int32 GEMM with four fused epilogues, and the fused
 // quantize -> int8 GEMM -> dequantize kernel, for sm_90a.
 //
 // Replaces (TPU, Pallas):
 //   qat_vit_tpu/ops/fused_serve.py::_plain_kernel       (K2a)  -> EPI_PLAIN
+//   qat_vit_tpu/ops/long_block_kernel.py::_long_block_impl phase 1 with
+//     int8_scores (K6's qkv GEMM + the q/k requantize)           -> EPI_PLAIN_Q8
 //   qat_vit_tpu/ops/fused_serve.py::_gelu_q_kernel      (K2b)  -> EPI_GELU_Q
 //   qat_vit_tpu/ops/fused_serve.py::_resid_ln_q_kernel  (K2c)  -> EPI_RESID_LN_Q
 //   qat_vit_tpu/ops/pallas_gemm.py::_kernel             (K7)   -> qvt_quantize_gemm:
@@ -18,8 +20,8 @@
 // f32 (4 bytes per element), which moves its byte count up but not past that.
 //
 // This is a first, correct kernel: mma.sync on synchronously staged tiles;
-// wgmma/TMA/pipelining are later work. PLAIN / GELU_Q (and K7) run one block
-// of 128 threads per (64-row, 64-column) output tile; RESID_LN_Q one block
+// wgmma/TMA/pipelining are later work. PLAIN / PLAIN_Q8 / GELU_Q (and K7) run
+// one block of 128 threads per (64-row, 64-column) output tile; RESID_LN_Q one block
 // per 32 rows owning all N columns.
 
 #include "gemm_tile.cuh"
@@ -84,7 +86,7 @@ extern "C" int qvt_int8_gemm(const void* a, const void* w, const void* colsum,
                              int M, int N, int K, int epilogue, int out_bf16,
                              int res_bf16, int ws_per_channel, int act, float ws0,
                              float s_x, int z_s, float inv_s, float zp, float qmax,
-                             float eps, void* stream) {
+                             float eps, int q_n, void* stream) {
   GemmParams p = make_params(a, w, colsum, bias, wscale, M, N, K, ws_per_channel, ws0, s_x, z_s);
   p.residual = residual;
   p.gamma = static_cast<const float*>(gamma);
@@ -96,6 +98,7 @@ extern "C" int qvt_int8_gemm(const void* a, const void* w, const void* colsum,
   p.zp = zp;
   p.qmax = qmax;
   p.eps = eps;
+  p.q_n = q_n;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf16;
 
@@ -111,6 +114,10 @@ extern "C" int qvt_int8_gemm(const void* a, const void* w, const void* colsum,
   const size_t smem = tiled_smem_bytes();
   if (epilogue == EPI_GELU_Q)
     return launch(gemm_tiled_kernel<EPI_GELU_Q, float, int8_t>, grid, smem, s, p);
+  if (epilogue == EPI_PLAIN_Q8) {  // bf16 y, as K6's qkv stage stores it
+    if (!out_bf16 || q_n < 0 || q_n > N) return static_cast<int>(cudaErrorInvalidValue);
+    return launch(gemm_tiled_kernel<EPI_PLAIN_Q8, bf16, int8_t>, grid, smem, s, p);
+  }
   if (epilogue != EPI_PLAIN) return static_cast<int>(cudaErrorInvalidValue);
   if (out_bf16) return launch(gemm_tiled_kernel<EPI_PLAIN, bf16, int8_t>, grid, smem, s, p);
   return launch(gemm_tiled_kernel<EPI_PLAIN, float, int8_t>, grid, smem, s, p);

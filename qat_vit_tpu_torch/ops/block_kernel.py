@@ -94,6 +94,22 @@ def block_forward(
     qkv = ops.int8_dense(zq, blk["qkv"], blk["norm1"]["out_q"], out_dtype=torch.bfloat16)
     o_q = ops.attention(qkv, num_heads, head_dim, out_q=blk["qkv"]["out_q"],
                         quant_max=quant_max, n_valid=n_valid)
+    return block_tail(o_q, x, blk, next_ln, act=act, eps=eps, quant_max=quant_max, ops=ops)
+
+
+def block_tail(
+    o_q: torch.Tensor,  # [B, N, D] int8 attention output on the qkv out_q grid
+    x: torch.Tensor,  # [B, N, D] residual stream (bf16)
+    blk: Dict[str, Any],
+    next_ln: Dict[str, Any],
+    *,
+    act: str,
+    eps: float,
+    quant_max: float,
+    ops: SimpleNamespace,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A block's last three launches (proj, fc1, fc2) → (x', the next LN's
+    int8 rows)."""
     x_mid, zq2 = ops.int8_dense_resid_ln_q(
         o_q, blk["proj"], blk["qkv"]["out_q"], x, blk["norm2"], blk["norm2"]["out_q"],
         eps=eps, out_dtype=torch.float32, quant_max=quant_max,

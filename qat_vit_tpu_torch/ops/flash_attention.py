@@ -7,16 +7,17 @@
   :func:`fused_attention_qkv_plain`. Launches are counted in
   ``fused_attention_qkv.launches``.
 - :func:`attention_fwd` (and :func:`fused_attention_qkv` without ``out_q``):
-  the float-output form, ``[B, N, H·hd]`` in the qkv dtype, optionally with
-  the qkv activation fake-quant applied inside (``in_fq=(qmin, qmax)``,
-  scale and zero point in the device tensor ``qs = [scale, zp]``). On CUDA
+  the float-output form, ``[B, N, H·hd]`` in the qkv dtype (bf16 or f32),
+  optionally with the qkv activation fake-quant applied inside
+  (``in_fq=(qmin, qmax)``, scale and zero point in the device tensor
+  ``qs = [scale, zp]``). On CUDA
   it launches ``attention_fwd`` (``csrc/attention_q.cu``, kernel A, K1's
   forward); on the CPU it runs :func:`attention_fwd_plain`. Launches are
   counted in ``attention_fwd.launches``.
 - :func:`flash_attention_qkv` (K8, ``attn_impl="pallas"``): the float
   attention of ``flash_attention.py::_attention_kernel``, f32 or bf16 in
   and out, with the f32 SCORE scaled by ``hd**-0.5`` after the dot (the
-  kernels above scale q in bf16 before it). On CUDA it launches
+  kernels above scale q in the qkv dtype before it). On CUDA it launches
   ``qvt_flash_attention`` (``csrc/attention_q.cu``); on the CPU, and inside
   ``_cuda.reference_impl()``, :func:`flash_attention_qkv_plain`. Launches in
   ``flash_attention_qkv.launches``. The TPU wrapper pads N to 128 with
@@ -26,7 +27,7 @@
 
 Numerics of the kernels and their plain versions: with ``in_fq`` q, k, v are
 first fake-quantized (f32, half to even, clip, back to the qkv dtype); q
-scaled by ``hd**-0.5`` in the qkv dtype (bf16), f32 scores, keys
+scaled by ``hd**-0.5`` in the qkv dtype, f32 scores, keys
 ``>= n_valid`` at -1e30, f32 softmax, probabilities cast to the qkv dtype,
 f32 output accumulation, as the TPU kernel; the plain versions pin every
 rounding to the kernels'.
@@ -50,6 +51,8 @@ from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
 
 _WARPS = 8  # WARPS in csrc/attention_q.cu
+# the qkv dtypes of the training attentions' kernels (K1, K5a/K5b)
+TRAIN_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -142,16 +145,18 @@ def attention_fwd_plain(qkv: torch.Tensor, num_heads: int, head_dim: int, *, qs=
     return _attention_plain(qkv, num_heads, head_dim, n_valid, qs, in_fq).to(qkv.dtype)
 
 
-def _check_attention(qkv, num_heads, head_dim, n_valid, name):
+def _check_attention(qkv, num_heads, head_dim, n_valid, name, dtypes=(torch.bfloat16,)):
     b, n, three_d = qkv.shape
     if three_d != 3 * num_heads * head_dim:
         raise ValueError(f"qkv last dim {three_d} != 3 * {num_heads} * {head_dim}")
-    if not attention_shapes_ok(n, head_dim):
-        raise ValueError(f"{name}: unsupported n={n}, head_dim={head_dim}")
+    if qkv.dtype not in dtypes:
+        raise ValueError(f"{name}: qkv dtype {qkv.dtype}, expected one of {dtypes}")
+    if not attention_shapes_ok(n, head_dim, qkv.dtype):
+        raise ValueError(f"{name}: unsupported n={n}, head_dim={head_dim} in {qkv.dtype}")
     n_valid = n if n_valid is None else n_valid
     if not 0 < n_valid <= n:
         raise ValueError(f"n_valid {n_valid} outside (0, {n}]")
-    require(qkv, "qkv", torch.bfloat16, qkv.device, (b, n, three_d))
+    require(qkv, "qkv", qkv.dtype, qkv.device, (b, n, three_d))
     return n_valid
 
 
@@ -162,21 +167,24 @@ def check_qs(qs: torch.Tensor, device: torch.device) -> None:
 
 def attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, *, qs=None, in_fq=None,
                   n_valid: int = None) -> torch.Tensor:
-    """MHA over the packed qkv → ``[B, N, H·hd]`` in the qkv dtype; with
-    ``in_fq=(qmin, qmax)`` q, k, v are fake-quantized with ``qs`` first."""
+    """MHA over the packed qkv (bf16 or f32) → ``[B, N, H·hd]`` in the qkv
+    dtype; with ``in_fq=(qmin, qmax)`` q, k, v are fake-quantized with ``qs``
+    first."""
     if use_plain(qkv):
         return attention_fwd_plain(qkv, num_heads, head_dim, qs=qs, in_fq=in_fq, n_valid=n_valid)
-    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_fwd")
+    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_fwd",
+                               TRAIN_DTYPES)
     if in_fq is not None:
         check_qs(qs, qkv.device)
     b, n, _ = qkv.shape
-    out = torch.empty((b, n, num_heads * head_dim), dtype=torch.bfloat16, device=qkv.device)
+    out = torch.empty((b, n, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     if b:
         lo, hi = in_fq if in_fq is not None else (0, 0)
         _build.load().call(
             "qvt_attention_fwd", ptr(qkv), ptr(qs) if in_fq is not None else None, ptr(out),
-            b, n, num_heads, head_dim, n_valid, float(_q_scale(head_dim, torch.bfloat16)),
-            int(in_fq is not None), float(lo), float(hi), stream_of(qkv.device),
+            b, n, num_heads, head_dim, n_valid, float(_q_scale(head_dim, qkv.dtype)),
+            int(in_fq is not None), float(lo), float(hi), int(qkv.dtype == torch.float32),
+            stream_of(qkv.device),
         )
         attention_fwd.launches += 1
     return out

@@ -2,8 +2,8 @@
 ``torch.autograd.Function`` each (port of
 ``qat_vit_tpu/ops/flash_attention_train.py``).
 
-- :func:`attention_train`: MHA over the packed qkv ``[B, N, 3·H·hd]`` →
-  ``[B, N, H·hd]``, differentiable. Forward: kernel A
+- :func:`attention_train`: MHA over the packed qkv ``[B, N, 3·H·hd]`` (bf16
+  or f32) → ``[B, N, H·hd]``, differentiable. Forward: kernel A
   (``ops/flash_attention.attention_fwd``); backward: kernel B
   (:func:`attention_bwd`, ``csrc/attention_bwd.cu``). Only the raw ``qkv``
   is saved; the ``[B, H, N, N]`` probabilities never exist in memory in
@@ -35,6 +35,7 @@ from qat_vit_tpu_torch.ops._cuda import (
     use_plain,
 )
 from qat_vit_tpu_torch.ops.flash_attention import (
+    TRAIN_DTYPES,
     _check_attention,
     attention_fwd,
     attention_fwd_plain,
@@ -48,28 +49,50 @@ from qat_vit_tpu_torch.ops.flash_attention import (
 from qat_vit_tpu_torch.quant.fake_quant import ste_mask
 
 _BWD_WARPS = 8  # WARPS in csrc/attention_bwd.cu
+# the JAX package's gate on its K1 kernels (qat_vit_tpu/ops/_tiling.py
+# shapes_ok and batched_softmax_fits at block_b 4): the packed width a
+# multiple of 128 lanes, hd dividing 128, and the stacked f32 scores of 4
+# images within 24 MiB at N rounded up to 32
+_JAX_LANE, _JAX_BLOCK_B, _JAX_SCORE_BYTES = 128, 4, 24 * 1024 * 1024
 
 
-def attention_bwd_smem_bytes(n: int, head_dim: int) -> int:
-    """Shared memory kernel B asks for: q, k, v and do of one head (bf16
-    rows padded by one word), f64 softmax sums and f32 max / rowsum per row,
-    two f32 rows of N and two of hd per warp."""
-    return (16 * n * (head_dim // 2 + 1) + 16 * n
+def attention_bwd_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory kernel B asks for: q, k, v and do of one head (rows of
+    ``dtype`` padded by one word), f64 softmax sums and f32 max / rowsum per
+    row, two f32 rows of N and two of hd per warp."""
+    words = head_dim * dtype.itemsize // 4
+    return (16 * n * (words + 1) + 16 * n
             + 8 * (_BWD_WARPS * n + _BWD_WARPS * head_dim))
+
+
+def _jax_gate_ok(num_heads: int, head_dim: int, seq_len: int = None) -> bool:
+    """The JAX package's shape conditions on K1, so that both packages take
+    the kernel branch at the same geometries (the TPU's lane layout and its
+    VMEM budget; the Hopper kernels add their own shared-memory plans)."""
+    if (num_heads * head_dim) % _JAX_LANE or head_dim > _JAX_LANE or _JAX_LANE % head_dim:
+        return False
+    if seq_len is None:
+        return True
+    n_pad = max(32, -(-seq_len // 32) * 32)
+    return _JAX_BLOCK_B * num_heads * n_pad * n_pad * 4 <= _JAX_SCORE_BYTES
 
 
 def attention_train_available(num_heads: int, head_dim: int, seq_len: int = None,
                               dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The Hopper kernels' gate: bf16, hd a multiple of 8 and <= 128, and N
-    within both kernels' shared-memory budgets (N <= 375 at hd 64: ViT-S and
-    ViT-B at 197 tokens pass). True on the CPU as well, where the plain
-    versions run, so both devices take the same branch of the model."""
-    if dtype != torch.bfloat16 or num_heads < 1:
+    """The kernels' gate: bf16 or f32, the JAX package's K1 conditions
+    (:func:`_jax_gate_ok`), and N within both kernels' shared-memory plans for
+    ``dtype`` (at hd 64: N <= 375 in bf16, 203 in f32; ViT-S and ViT-B at
+    197 tokens pass). Past the plans, where JAX's gate still admits N
+    (ROADMAP Queue 3), the model takes the long-sequence pair. True on the
+    CPU as well, where the plain versions run, so both devices take the same
+    branch of the model."""
+    if (dtype not in TRAIN_DTYPES or num_heads < 1
+            or not _jax_gate_ok(num_heads, head_dim, seq_len)):
         return False
     if seq_len is None:
-        return attention_shapes_ok(1, head_dim)
-    return (attention_shapes_ok(seq_len, head_dim)
-            and attention_bwd_smem_bytes(seq_len, head_dim) <= SMEM_LIMIT)
+        return attention_shapes_ok(1, head_dim, dtype)
+    return (attention_shapes_ok(seq_len, head_dim, dtype)
+            and attention_bwd_smem_bytes(seq_len, head_dim, dtype) <= SMEM_LIMIT)
 
 
 def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim: int, *,
@@ -108,25 +131,26 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, hea
 def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim: int, *,
                   qs=None, in_fq=None, n_valid: int = None) -> torch.Tensor:
     """dqkv ``[B, N, 3·H·hd]`` of :func:`attention_fwd` for the output
-    gradient ``do`` (kernel B on CUDA, its plain version on the CPU)."""
+    gradient ``do`` of the qkv dtype, bf16 or f32 (kernel B on CUDA, its
+    plain version on the CPU)."""
     if use_plain(qkv):
         return attention_bwd_plain(qkv, do, num_heads, head_dim, qs=qs, in_fq=in_fq,
                                    n_valid=n_valid)
-    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_bwd")
+    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_bwd", TRAIN_DTYPES)
     b, n, three_d = qkv.shape
-    if attention_bwd_smem_bytes(n, head_dim) > SMEM_LIMIT:
-        raise ValueError(f"attention_bwd: unsupported n={n}, head_dim={head_dim}")
-    require(do, "do", torch.bfloat16, qkv.device, (b, n, num_heads * head_dim))
+    if attention_bwd_smem_bytes(n, head_dim, qkv.dtype) > SMEM_LIMIT:
+        raise ValueError(f"attention_bwd: unsupported n={n}, head_dim={head_dim} in {qkv.dtype}")
+    require(do, "do", qkv.dtype, qkv.device, (b, n, num_heads * head_dim))
     if in_fq is not None:
         check_qs(qs, qkv.device)
-    dqkv = torch.empty((b, n, three_d), dtype=torch.bfloat16, device=qkv.device)
+    dqkv = torch.empty((b, n, three_d), dtype=qkv.dtype, device=qkv.device)
     if b:
         lo, hi = in_fq if in_fq is not None else (0, 0)
         _build.load().call(
             "qvt_attention_bwd", ptr(qkv), ptr(do), ptr(qs) if in_fq is not None else None,
             ptr(dqkv), b, n, num_heads, head_dim, n_valid,
             float(bwd_scale_f32(head_dim, "cpu")), int(in_fq is not None), float(lo), float(hi),
-            stream_of(qkv.device),
+            int(qkv.dtype == torch.float32), stream_of(qkv.device),
         )
         attention_bwd.launches += 1
     return dqkv

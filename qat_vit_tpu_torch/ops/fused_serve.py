@@ -1,11 +1,12 @@
 """Fused int8 serving ops: GEMM + epilogue (port of ``qat_vit_tpu/ops/fused_serve.py``).
 
     int8_dense              x_q @ W  -> float             (K2a, PLAIN)
+    int8_dense_q8           x_q @ W  -> (bf16, int8 of the q, k columns)   (PLAIN_Q8)
     int8_dense_gelu_q       x_q @ W  -> GELU -> int8      (K2b, GELU_Q)
     int8_dense_resid_ln_q   x_q @ W + residual -> (y, LN(y) -> int8)   (K2c)
     ln_quantize             LN(x) -> int8                 (K2d)
 
-On CUDA the first three launch the ``int8_gemm`` kernel
+On CUDA the first four launch the ``int8_gemm`` kernel
 (``csrc/int8_gemm.cu``) with the named epilogue and the last the
 ``ln_quantize`` kernel (``csrc/ln_quantize.cu``); on the CPU each runs its
 plain version (``*_plain``, same signature), which ``chip_smoke.py`` also
@@ -29,7 +30,7 @@ from qat_vit_tpu_torch import _build
 from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, ptr, require, stream_of, use_plain
 from qat_vit_tpu_torch.ops.quantized_matmul import f32, int8_matmul, is_per_channel
 
-EPI_PLAIN, EPI_GELU_Q, EPI_RESID_LN_Q = 0, 1, 2
+EPI_PLAIN, EPI_GELU_Q, EPI_RESID_LN_Q, EPI_PLAIN_Q8 = 0, 1, 2, 3
 _ACTS = {"gelu": 0, "quick_gelu": 1}
 # the kernel stages K in 64-byte tiles (csrc/gemm_tile.cuh): shared-memory
 # rows of 64 + 16 bytes, output tiles of 64 x 64 (32 rows x N for RESID_LN_Q)
@@ -94,6 +95,23 @@ def int8_dense_plain(x_q, layer, in_q, *, out_dtype=torch.bfloat16):
     return _dense_f32(x_q, layer, in_q).to(out_dtype)
 
 
+def qk_cols(layer: dict) -> int:
+    """The q and k columns of a packed qkv layer: the first two thirds."""
+    n = layer["w_int8"].shape[-1]
+    if n % 3:
+        raise ValueError(f"int8_dense_q8: {n} output columns are not a packed q, k, v")
+    return 2 * n // 3
+
+
+def int8_dense_q8_plain(x_q, layer, in_q, out_q, *, quant_max=255.0):
+    """``(y, q8)``: y in bf16, and the q and k columns of the f32 y (before
+    that rounding) quantized on the ``out_q`` grid."""
+    y = _dense_f32(x_q, layer, in_q)
+    q8 = quantize_mul(y[..., :qk_cols(layer)], inv_scale(out_q["scale"]),
+                      f32(out_q["zero_point"]), f32(quant_max))
+    return y.to(torch.bfloat16), q8
+
+
 def int8_dense_gelu_q_plain(x_q, layer, in_q, gelu_out_q, *, act="gelu", quant_max=255.0):
     y = _dense_f32(x_q, layer, in_q)
     g = y * torch.sigmoid(1.702 * y) if act == "quick_gelu" else gelu_tanh(y)
@@ -123,7 +141,8 @@ def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
                  y_dtype: Optional[torch.dtype] = None,
                  residual: Optional[torch.Tensor] = None, ln: Optional[dict] = None,
                  out_q: Optional[dict] = None, act: str = "gelu", eps: float = 0.0,
-                 quant_max=255.0) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+                 quant_max=255.0,
+                 q_cols: int = 0) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     dev = x_q.device
     w = layer["w_int8"]
     if w.ndim != 2:
@@ -148,8 +167,11 @@ def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
         ws_ptr, ws0, per_channel = None, f32(ws), 0
     if y_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"int8_gemm writes f32 or bf16, not {y_dtype}")
+    if epi == EPI_PLAIN_Q8 and not 0 < q_cols <= n:
+        raise ValueError(f"int8_gemm PLAIN_Q8: q_cols {q_cols} outside (0, {n}]")
+    q_n = q_cols if epi == EPI_PLAIN_Q8 else n
     y = torch.empty((m, n), dtype=y_dtype, device=dev) if epi != EPI_GELU_Q else None
-    q = torch.empty((m, n), dtype=torch.int8, device=dev) if epi != EPI_PLAIN else None
+    q = torch.empty((m, q_n), dtype=torch.int8, device=dev) if epi != EPI_PLAIN else None
     gamma = beta = None
     res_bf16 = 0
     if epi == EPI_RESID_LN_Q:
@@ -169,12 +191,12 @@ def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
             ptr(residual), ptr(gamma), ptr(beta), ptr(y), ptr(q),
             m, n, k, epi, int(y_dtype == torch.bfloat16), res_bf16, per_channel, _ACTS[act],
             ws0, f32(in_q["scale"]), int(f32(in_q["zero_point"])) - 128, inv_s, zp,
-            f32(quant_max), float(eps), stream_of(dev),
+            f32(quant_max), float(eps), q_n, stream_of(dev),
         )
     lead = tuple(x_q.shape[:-1])
     return (
         None if y is None else y.reshape(*lead, n),
-        None if q is None else q.reshape(*lead, n),
+        None if q is None else q.reshape(*lead, q_n),
     )
 
 
@@ -189,6 +211,20 @@ def int8_dense(x_q: torch.Tensor, layer: dict, in_q: dict, *,
     y, _ = _launch_gemm(EPI_PLAIN, x_q, layer, in_q, y_dtype=out_dtype)
     int8_dense.launches += int(x_q.numel() > 0)
     return y
+
+
+def int8_dense_q8(x_q: torch.Tensor, layer: dict, in_q: dict, out_q: dict, *,
+                  quant_max=255.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, q8)``: the PLAIN output in bf16 and the q and k columns (the
+    first two thirds) of the f32 y quantized on ``out_q`` (the qkv GEMM of
+    K6's ``int8_scores``: q and k on the qkv out_q grid for the int8 score
+    dots)."""
+    if use_plain(x_q):
+        return int8_dense_q8_plain(x_q, layer, in_q, out_q, quant_max=quant_max)
+    y, q = _launch_gemm(EPI_PLAIN_Q8, x_q, layer, in_q, y_dtype=torch.bfloat16, out_q=out_q,
+                        quant_max=quant_max, q_cols=qk_cols(layer))
+    int8_dense_q8.launches += int(x_q.numel() > 0)
+    return y, q
 
 
 def int8_dense_gelu_q(x_q: torch.Tensor, layer: dict, in_q: dict, gelu_out_q: dict, *,
@@ -240,6 +276,6 @@ def ln_quantize(x: torch.Tensor, ln: dict, out_q: dict, *, eps: float = 1e-6,
     return q
 
 
-for _wrapper in (int8_dense, int8_dense_gelu_q, int8_dense_resid_ln_q, ln_quantize):
+for _wrapper in (int8_dense, int8_dense_q8, int8_dense_gelu_q, int8_dense_resid_ln_q, ln_quantize):
     _wrapper.launches = 0
 del _wrapper

@@ -16,14 +16,17 @@
   (``ops/block_kernel.py``), ``"megablock"`` / ``"megamodel_res"`` the
   same blocks as one cooperative launch per block (K9a) or per forward
   (K9b), ``"megamodel_long"`` / ``"megablock_long"`` K6's chain
-  (``ops/long_block_kernel.py``); the patch-embed and head GEMMs run on the
+  (``ops/long_block_kernel.py``; with the ``i8`` flag its int8 score
+  dots); the patch-embed and head GEMMs run on the
   ``int8_gemm`` kernel too. Each ``*_plain`` twin runs that same path
   through the kernels' plain versions (the card's reference for them).
   Feature-mode towers (``num_classes=0``) return the dequantized final-LN
   tokens.
 - :func:`serving_preset`: ``{}`` on the CPU; on CUDA, in bf16 with
   tanh-GELU (or the model's quick-GELU), the first of JAX's rungs whose
-  Hopper kernels accept the geometry (:func:`_preset_kernel_opts`).
+  Hopper kernels accept the geometry (:func:`_preset_kernel_opts`), or, as
+  in JAX, the exact path in bf16 where no kernel gate of either package
+  does.
 """
 
 from __future__ import annotations
@@ -225,13 +228,13 @@ def int8_apply(
     the ``pallas`` / ``mixed*`` chains."""
     parsed = _parse_fused(fused)
     if parsed is not None:
-        kind, plain = parsed
+        kind, plain, int8_scores = parsed
         if kind in _MODES:
             return _fused_blocks(qp, images, cfg, kind, plain=plain, attn_dtype=attn_dtype,
                                  compute_dtype=compute_dtype, attn_impl=attn_impl,
                                  use_pallas=use_pallas)
         return _fused_stack(qp, images, cfg, kind, compute_dtype=compute_dtype, plain=plain,
-                            use_pallas=use_pallas)
+                            use_pallas=use_pallas, int8_scores=int8_scores)
     attention_f = _float_attention(attn_impl, False, attn_dtype)
     h_heads, hd, eps, cdt = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps, compute_dtype
     x = _embed(qp, images, cfg, cdt, int8_dense_plain, use_pallas)
@@ -277,18 +280,18 @@ _MEGA_KINDS = ("megamodel", "megablock", "megamodel_res")
 _LONG_KINDS = ("megablock_long", "megamodel_long")
 
 
-def _parse_fused(fused: Union[str, bool, None]) -> Optional[Tuple[str, bool]]:
-    """``fused`` → None (the exact path) or (kind, plain). ``True`` is
-    ``"pallas"``; ``False``, ``None``, ``""`` and ``"none"`` the exact path,
-    as in the JAX package. ``megamodel`` / ``megablock`` / ``megamodel_res``
-    take the TPU's ``:BB[:tight]`` (images per grid step, sequence padded to
-    32 instead of 128): accepted and changing nothing here, since the
-    kernels take the unpadded sequence and padded keys would get exactly
-    zero probability, so the valid rows are the same bits either way. The
-    long modes take ``:TQ:RC:flags``: q_tile, row_chunk and the scheduling
-    flags ``suN``, ``cuN``, ``bbN`` are accepted and change nothing here
-    (on the TPU they are bit-identical scheduling knobs); ``i8`` (int8 score
-    dots) is not ported."""
+def _parse_fused(fused: Union[str, bool, None]) -> Optional[Tuple[str, bool, bool]]:
+    """``fused`` → None (the exact path) or (kind, plain, int8_scores).
+    ``True`` is ``"pallas"``; ``False``, ``None``, ``""`` and ``"none"`` the
+    exact path, as in the JAX package. ``megamodel`` / ``megablock`` /
+    ``megamodel_res`` take the TPU's ``:BB[:tight]`` (images per grid step,
+    sequence padded to 32 instead of 128): accepted and changing nothing
+    here, since the kernels take the unpadded sequence and padded keys would
+    get exactly zero probability, so the valid rows are the same bits either
+    way. The long modes take ``:TQ:RC:flags``: q_tile, row_chunk and the
+    scheduling flags ``suN``, ``cuN``, ``bbN`` are accepted and change
+    nothing here (on the TPU they are bit-identical scheduling knobs);
+    ``i8`` turns on the int8 score dots."""
     if fused is True:
         fused = "pallas"
     if fused is False or fused is None or fused in ("", "none"):
@@ -297,12 +300,12 @@ def _parse_fused(fused: Union[str, bool, None]) -> Optional[Tuple[str, bool]]:
     plain = base.endswith("_plain")
     kind = base[: -len("_plain")] if plain else base
     if kind in _MODES and not opts:
-        return kind, plain
+        return kind, plain, False
     if kind in _MEGA_KINDS:
         if (len(opts) > 2 or (opts and opts[0] and not opts[0].isdigit())
                 or (len(opts) == 2 and opts[1] not in ("", "tight"))):
             raise ValueError(f"{fused!r}: expected '{kind}[:BLOCK_B[:tight]]'")
-        return kind, plain
+        return kind, plain, False
     if kind not in _LONG_KINDS:
         raise ValueError(f"unknown fused mode {fused!r}; expected 'none', one of {_MODES}, "
                          "'megamodel[:BB[:tight]]', 'megablock[...]', 'megamodel_res[...]', "
@@ -312,12 +315,9 @@ def _parse_fused(fused: Union[str, bool, None]) -> Optional[Tuple[str, bool]]:
         if i < 2:
             if opt and not opt.isdigit():
                 raise ValueError(f"{fused!r}: q_tile / row_chunk must be integers")
-        elif opt == "i8":
-            raise NotImplementedError(
-                "the i8 (int8 score dot) option of K6 is not ported: ROADMAP.md Queue 2")
-        elif not (opt[:2] in ("su", "cu", "bb") and opt[2:].isdigit()):
+        elif not (opt == "i8" or (opt[:2] in ("su", "cu", "bb") and opt[2:].isdigit())):
             raise ValueError(f"{fused!r}: unknown flag {opt!r}")
-    return kind, plain
+    return kind, plain, "i8" in opts[2:]
 
 
 def _fused_blocks(qp, images, cfg: ViTConfig, mode: str, *, plain: bool, attn_dtype,
@@ -410,12 +410,13 @@ def _fused_blocks(qp, images, cfg: ViTConfig, mode: str, *, plain: bool, attn_dt
 
 
 def _fused_stack(qp, images, cfg: ViTConfig, kind: str, *, compute_dtype, plain: bool,
-                 use_pallas=None):
+                 use_pallas=None, int8_scores: bool = False):
     """K4 (``megamodel``), K9a (``megablock``), K9b (``megamodel_res``) or K6
-    (``mega{block,model}_long``) on Hopper: the entry LN → int8
-    (ln_quantize), the blocks, then the head GEMM on the cls row or, in
-    feature mode, the dequantized tokens. The ``*_plain`` twins of K9a/K9b
-    run K4's chain through the plain ops: their plain version."""
+    (``mega{block,model}_long``, with ``int8_scores`` its int8 score dots)
+    on Hopper: the entry LN → int8 (ln_quantize), the blocks, then the head
+    GEMM on the cls row or, in feature mode, the dequantized tokens. The
+    ``*_plain`` twins of K9a/K9b run K4's chain through the plain ops: their
+    plain version."""
     long = kind in _LONG_KINDS
     if not long and cfg.act != "gelu":
         raise NotImplementedError(
@@ -439,7 +440,7 @@ def _fused_stack(qp, images, cfg: ViTConfig, kind: str, *, compute_dtype, plain:
               quant_max=qmax)
     if kind in ("megablock", "megablock_long"):
         if kind == "megablock_long":
-            block = partial(long_block_forward, act=cfg.act, ops=ops)
+            block = partial(long_block_forward, act=cfg.act, ops=ops, int8_scores=int8_scores)
         else:
             block = megablock_forward_plain if plain else megablock_forward
         for i in range(cfg.depth):
@@ -447,7 +448,7 @@ def _fused_stack(qp, images, cfg: ViTConfig, kind: str, *, compute_dtype, plain:
             x, zq = block(zq, x, qp["blocks"][str(i)], nxt, **kw)
     elif long:
         _, zq = long_model_forward(zq, x, qp["blocks"], qp["norm"], depth=cfg.depth,
-                                   act=cfg.act, ops=ops, **kw)
+                                   act=cfg.act, ops=ops, int8_scores=int8_scores, **kw)
     else:
         _, zq = model_forward(zq, x, qp["blocks"], qp["norm"], depth=cfg.depth, act=cfg.act,
                               ops=ops, resident=kind == "megamodel_res", **kw)
@@ -468,10 +469,16 @@ def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
     3. GELU or quick-GELU models of >= 1536 tokens within the long
        attention kernel's plan: the megamodel_long chain (K6);
     4. models the long attention kernel takes that rung 3 rejects:
-       ``mixed_none`` + ``pallas_long`` (K5a).
+       ``mixed_none`` + ``pallas_long`` (K5a);
+    5. geometries none of them covers and no Pallas gate of the JAX
+       package admits either: ``{}``, the exact path (its GEMMs and
+       attention are plain PyTorch there, as they are XLA in JAX), which
+       :func:`serving_preset` runs in bf16 with tanh-GELU, as JAX's does.
 
-    Geometries none of them covers raise: the card never quietly runs the
-    plain path."""
+    A geometry that JAX serves on a kernel but no Hopper plan holds (a
+    sequence past the long kernel's shared-memory plan) raises: the card
+    never quietly runs plain code where JAX runs a kernel. Like JAX's, it
+    never emits ``i8``."""
     d, p, hd, n = cfg.embed_dim, cfg.patch_size, cfg.head_dim, cfg.seq_len
     gemms_ok = (gemm_shapes_ok(p * p * 3, d) and gemm_shapes_ok(d, 3 * d)
                 and gemm_shapes_ok(d, d, resid_ln=True) and gemm_shapes_ok(d, cfg.mlp_dim)
@@ -485,17 +492,33 @@ def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
         return {"fused": "megamodel_long"}
     if long_attention_shapes_ok(n, hd):
         return {"fused": "mixed_none", "attn_impl": "pallas_long"}
-    raise NotImplementedError(
-        f"no Hopper serving path for seq_len {n}, head_dim {hd}: the attention kernels "
-        "(attention_q, attention_long) take hd a multiple of 8 up to 128 within their "
-        "shared-memory plans (ROADMAP.md Queue 2)"
-    )
+    if _jax_preset_takes_kernel(cfg):
+        raise NotImplementedError(
+            f"{n} tokens at head_dim {hd}: the JAX package serves this geometry on a kernel, "
+            "and no Hopper kernel plan holds it (ROADMAP.md Queue 3)")
+    return {}
+
+
+def _jax_preset_takes_kernel(cfg: ViTConfig) -> bool:
+    """Whether the JAX package's ``_preset_kernel_opts`` picks a Pallas rung
+    for ``cfg``: its long kernels take any N at a head dim that is a
+    multiple of 8 and <= 128; its slab kernels take lane-aligned widths of
+    head slabs whose four images of stacked f32 scores stay within 24 MiB
+    (sequence padded to 32 for GELU models, 128 otherwise)."""
+    h, hd, n = cfg.num_heads, cfg.head_dim, cfg.seq_len
+    if hd % 8 == 0 and hd <= 128:
+        return True
+    pad = 32 if cfg.act == "gelu" else 128
+    n_pad = -(-n // pad) * pad
+    slab = (h * hd) % 128 == 0 and hd <= 128 and 128 % hd == 0
+    return slab and 4 * h * n_pad * n_pad * 4 <= 24 * 1024 * 1024
 
 
 def serving_preset(cfg: ViTConfig, device) -> Dict[str, Any]:
     """Serving options for ``device``: ``{}`` (the exact defaults) off CUDA;
-    on CUDA a kernel chain (:func:`_preset_kernel_opts`) with a bf16 stream
-    and tanh-GELU (quick-GELU models keep their exact activation)."""
+    on CUDA a bf16 stream and tanh-GELU (quick-GELU models keep their exact
+    activation) with the kernel chain of :func:`_preset_kernel_opts`, or the
+    exact path where no kernel gate admits the geometry."""
     if torch.device(device).type != "cuda":
         return {}
     opts: Dict[str, Any] = {

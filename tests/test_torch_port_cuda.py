@@ -178,7 +178,7 @@ def test_attention_train_autograd(dev, fq):
 def test_attention_train_wrappers_raise(dev):
     qkv, do, qs = _qkv_case(dev, 2, 32, 2, 64, 5)
     with pytest.raises(ValueError, match="dtype"):
-        fa.attention_fwd(qkv.float(), 2, 64)
+        fa.attention_fwd(qkv.half(), 2, 64)
     with pytest.raises(ValueError, match="qs: on cpu"):
         fa.attention_fwd(qkv, 2, 64, qs=qs.cpu(), in_fq=(0, 255))
     with pytest.raises(ValueError, match="qs: missing"):
@@ -272,7 +272,9 @@ def test_long_attention_gate_raises(dev):
     with pytest.raises(ValueError, match="unsupported"):
         la.long_attention_qkv(qkv, 1, 64, out_q=OUT_Q)
     with pytest.raises(ValueError, match="dtype"):
-        la.long_attention_qkv(torch.zeros(1, 64, 3 * 64, device=dev), 1, 64)
+        la.long_attention_qkv(torch.zeros(1, 64, 3 * 64, dtype=torch.float16, device=dev), 1, 64)
+    with pytest.raises(ValueError, match="dtype"):  # the int8 forms are bf16-only
+        la.long_attention_qkv(torch.zeros(1, 64, 3 * 64, device=dev), 1, 64, out_q=OUT_Q)
     assert (la.long_attention_qkv.launches, la.long_attention_q.launches) == before
 
 
@@ -411,7 +413,9 @@ def test_long_attention_bwd_raises(dev):
         la.long_attention_bwd(qkv, do.float(), 1, 64)
     with pytest.raises(ValueError, match="do: shape"):
         la.long_attention_bwd(qkv, do[:, :32].contiguous(), 1, 64)
-    with pytest.raises(ValueError, match="qkv: dtype"):
+    with pytest.raises(ValueError, match="qkv dtype"):
+        la.long_attention_bwd(qkv.half(), do.half(), 1, 64)
+    with pytest.raises(ValueError, match="do: dtype"):  # f32 qkv takes an f32 do
         la.long_attention_bwd(qkv.float(), do, 1, 64)
     assert la.long_attention_bwd.launches == before
 
@@ -583,3 +587,160 @@ def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypat
     fs.ln_quantize(torch.zeros(1, 4, 384, device=dev), _ln(np.random.default_rng(0), 384, dev),
                    OUT_Q)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the f32 forms of the training attention (K1's kernels A and B, K5a, K5b)
+# ---------------------------------------------------------------------------
+
+F32_ATTN_SHAPES = [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17), (2, 197, 12, 64, 190),
+                   (2, 50, 4, 32, 50)]
+
+
+@pytest.mark.parametrize("fq", [False, True])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", F32_ATTN_SHAPES)
+def test_attention_fwd_f32(dev, b, n, heads, hd, n_valid, fq):
+    """Kernel A in f32 (with and without the in-kernel fake-quant, which
+    rounds nothing back): identical to its plain version, f32 out."""
+    qkv, _, qs = _qkv_case(dev, b, n, heads, hd, n + heads + 1)
+    qkv = qkv.float() + 1e-3 * torch.randn(qkv.shape, device=dev,
+                                           generator=torch.Generator(dev).manual_seed(n))
+    kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
+    before = fa.attention_fwd.launches
+    got = fa.attention_fwd(qkv, heads, hd, n_valid=n_valid, **kw)
+    assert fa.attention_fwd.launches == before + 1 and got.dtype == torch.float32
+    _same(got, fa.attention_fwd_plain(qkv, heads, hd, n_valid=n_valid, **kw))
+
+
+@pytest.mark.parametrize("fq", [False, True])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", F32_ATTN_SHAPES)
+def test_attention_bwd_f32(dev, b, n, heads, hd, n_valid, fq):
+    """Kernel B in f32 (with and without the STE mask): identical dqkv."""
+    qkv, do, qs = _qkv_case(dev, b, n, heads, hd, 2 * n + heads + 1)
+    qkv, do = qkv.float() * 1.01, do.float() * 0.99
+    kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
+    before = fat.attention_bwd.launches
+    got = fat.attention_bwd(qkv, do, heads, hd, n_valid=n_valid, **kw)
+    assert fat.attention_bwd.launches == before + 1 and got.dtype == torch.float32
+    _same(got, fat.attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid, **kw))
+    if fq:
+        assert (got == 0).any() and (got != 0).any()
+
+
+def test_attention_f32_gate(dev):
+    """Kernel B's f32 plan ends at N = 203 (hd 64): the gate says so and the
+    wrapper raises past it, launching nothing."""
+    assert fat.attention_train_available(6, 64, 203, torch.float32)
+    assert not fat.attention_train_available(6, 64, 204, torch.float32)
+    qkv = torch.zeros(1, 204, 3 * 64, device=dev)
+    before = fat.attention_bwd.launches
+    with pytest.raises(ValueError, match="unsupported"):
+        fat.attention_bwd(qkv, torch.zeros(1, 204, 64, device=dev), 1, 64)
+    assert fat.attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(2, 197, 6, 64, 197), (1, 2305, 9, 64, 2305),
+                                                  (2, 300, 3, 32, 290), (1, 130, 2, 128, 130),
+                                                  (1, 520, 2, 72, 500)])
+def test_long_attention_f32(dev, b, n, heads, hd, n_valid):
+    """K5a and K5b in f32 (64-key tiles): identical to their plain versions,
+    forward and dqkv; padded query and key rows of dqkv are zero."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    rng = np.random.default_rng(n + hd + 1)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32)).to(dev)
+    do = torch.from_numpy(rng.normal(0, 1, (b, n, heads * hd)).astype(np.float32)).to(dev)
+    before = la.long_attention_qkv.launches, la.long_attention_bwd.launches
+    out = la.long_attention_qkv(qkv, heads, hd, n_valid=n_valid)
+    got = la.long_attention_bwd(qkv, do, heads, hd, n_valid=n_valid)
+    assert (la.long_attention_qkv.launches, la.long_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert out.dtype == got.dtype == torch.float32
+    _same(out, la.long_attention_qkv_plain(qkv, heads, hd, n_valid=n_valid))
+    _same(got, la.long_attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid))
+    assert not got[:, n_valid:].any() and got[:, :n_valid].any()
+
+
+@pytest.mark.parametrize("long", [False, True])
+def test_attention_train_f32_autograd(dev, long):
+    """The f32 training pairs on the kernels vs the same Functions through
+    the plain versions (``reference_impl``): forward and dqkv identical."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    heads, hd, n = (9, 64, 2305) if long else (6, 64, 197)
+    rng = np.random.default_rng(13)
+    qkv = torch.from_numpy(rng.normal(0, 1, (1, n, 3 * heads * hd)).astype(np.float32)).to(dev)
+    do = torch.from_numpy(rng.normal(0, 1, (1, n, heads * hd)).astype(np.float32)).to(dev)
+
+    def run():
+        x = qkv.clone().requires_grad_(True)
+        out = la.long_attention_train(x, heads, hd) if long else fat.attention_train(x, heads, hd)
+        (out * do).sum().backward()
+        return out.detach(), x.grad
+
+    out_k, grad_k = run()
+    with reference_impl():
+        out_p, grad_p = run()
+    _same(out_k, out_p)
+    _same(grad_k, grad_p)
+
+
+# ---------------------------------------------------------------------------
+# K6 with int8 scores: PLAIN_Q8 and qvt_attention_long_q8
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,d", [(8 * 2305, 576), (2 * 2305, 576), (37, 64), (394, 384)])
+def test_int8_dense_q8(dev, m, d):
+    """The PLAIN_Q8 epilogue: the bf16 y and the int8 q/k columns (quantized
+    from the f32 y) identical to the plain version; y identical to PLAIN's."""
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, d), dtype=np.int8)).to(dev)
+    layer = _layer(rng, d, 3 * d, dev)
+    before = fs.int8_dense_q8.launches
+    got = fs.int8_dense_q8(x, layer, IN_Q, OUT_Q)
+    assert fs.int8_dense_q8.launches == before + 1
+    _same(got, fs.int8_dense_q8_plain(x, layer, IN_Q, OUT_Q))
+    _same(got[0], fs.int8_dense(x, layer, IN_Q))
+    assert got[1].shape == (m, 2 * d)
+
+
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(8, 2305, 9, 64, 2305), (2, 2305, 9, 64, 2305),
+                                                  (2, 197, 6, 64, 190),
+                                                  (1, 300, 3, 32, 300), (1, 130, 2, 128, 129)])
+def test_long_attention_q8(dev, b, n, heads, hd, n_valid):
+    """qvt_attention_long_q8 (int8 score dots by __dp4a, exact in int32)
+    against its plain version (the integer dot exact in f64): identical."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    rng = np.random.default_rng(n + heads)
+    qk8 = torch.from_numpy(rng.integers(-128, 128, (b, n, 2 * heads * hd), dtype=np.int8)).to(dev)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
+    qkv = qkv.to(dev).to(torch.bfloat16)
+    out_q = {"scale": torch.tensor(0.05), "zero_point": torch.tensor(131.0)}
+    before = la.long_attention_q8.launches
+    got = la.long_attention_q8(qk8, qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+    assert la.long_attention_q8.launches == before + 1
+    _same(got, la.long_attention_q8_plain(qk8, qkv, heads, hd, out_q=out_q, n_valid=n_valid))
+
+
+def test_i8_chain_matches_plain(dev, owlv2_export):
+    """The ``i8`` chain on OWLv2-pruned (full width, depth 2): five launches
+    per block (PLAIN_Q8 and the int8-score attention in place of PLAIN and
+    attention_long_q), outputs identical to its plain twin and equal between
+    megablock_long and megamodel_long."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+    from qat_vit_tpu_torch.serve.int8_detect import make_int8_detect_forward
+
+    cfg, qp, x = owlv2_export
+    q = torch.from_numpy(np.random.default_rng(8).normal(0, 1, (1, 4, 512))
+                         .astype(np.float32)).to(dev)
+    wrappers = (fs.int8_dense, fs.int8_dense_q8, la.long_attention_q8, la.long_attention_q)
+    before = [w.launches for w in wrappers]
+    out = make_int8_detect_forward(cfg, dev, fused="megamodel_long:512:256:i8")(qp, x, q)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 2, 2, 0]
+    plain = make_int8_detect_forward(cfg, dev, fused="megamodel_long_plain:512:256:i8")(qp, x, q)
+    block = make_int8_detect_forward(cfg, dev, fused="megablock_long:512:256:i8:su5")(qp, x, q)
+    for k in out:
+        _same(out[k], plain[k])
+        _same(out[k], block[k])

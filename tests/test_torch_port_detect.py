@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from qat_vit_tpu.models import owlv2 as jax_owlv2
 from qat_vit_tpu.models.owlv2_detect import create_detector as jax_create_detector
+from qat_vit_tpu.models.owlv2_detect import detector_config as jax_detector_config
 from qat_vit_tpu.models.vit import VisionTransformer as JaxVisionTransformer
 from qat_vit_tpu.models.vit import count_fake_quant_sites as jax_count_sites
 from qat_vit_tpu.ops.long_attention import long_attention_qkv as jax_long_attention
@@ -31,6 +32,7 @@ from qat_vit_tpu.quant.convert import act_output_qparams as jax_act_output_qpara
 from qat_vit_tpu.quant.qconfig import default_qat_qconfig as jax_qconfig
 from qat_vit_tpu.serve.int8_detect import convert_detector as jax_convert_detector
 from qat_vit_tpu.serve.int8_detect import int8_detect_apply as jax_int8_detect_apply
+from qat_vit_tpu.serve.int8_vit import _preset_kernel_opts as jax_preset_kernel_opts
 from qat_vit_tpu.serve.int8_vit import int8_apply as jax_int8_apply
 from qat_vit_tpu_torch.models import jax_params, owlv2
 from qat_vit_tpu_torch.models.owlv2_detect import create_detector, detector_config
@@ -417,7 +419,8 @@ def test_detection_preset_gates():
     """CPU: the exact defaults. CUDA: megamodel_long for OWLv2-pruned (2,305
     tokens) and OWLv2-base (960 px, 3,601 tokens), megamodel for ViT-S,
     mixed_none + K3 for short quick-GELU models; sequences over the long
-    kernel's plan and the i8 flag raise, naming ROADMAP.md."""
+    kernel's plan, which JAX serves on its long kernels, raise, naming
+    ROADMAP.md; the ``i8`` flag runs the int8-score chain."""
     pruned, base = detector_config(pruned=True), detector_config(pruned=False)
     assert serving_preset(pruned, "cpu") == {}
     assert _preset_kernel_opts(pruned) == {"fused": "megamodel_long"}
@@ -427,13 +430,16 @@ def test_detection_preset_gates():
     assert serving_preset(pruned, "cuda")["fused"] == "megamodel_long"
     assert _preset_kernel_opts(dataclasses.replace(pruned, image_size=224)) == {
         "fused": "mixed_none", "attn_impl": "pallas_fused"}  # 197 quick-GELU tokens
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # 10,001 tokens: over the plan
-        _preset_kernel_opts(dataclasses.replace(pruned, image_size=1600))
+    huge = dataclasses.replace(pruned, image_size=1600)  # 10,001 tokens: over the plan
+    assert jax_preset_kernel_opts(jax_detector_config(pruned=True, image_size=1600)) != {}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # JAX serves them on a kernel
+        _preset_kernel_opts(huge)
     x = torch.zeros(1, 32, 32, 3)
     tower = convert_detector(*_tiny_export_inputs(), dataclasses.replace(
         detector_config(pruned=True, **MICRO), quant=default_qat_qconfig()))["tower"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        int8_apply(tower, x, detector_config(pruned=True, **MICRO), fused="megamodel_long:512:256:i8")
+    i8 = int8_apply(tower, x, detector_config(pruned=True, **MICRO),
+                    fused="megamodel_long:512:256:i8")
+    assert i8.shape == (1, 17, 64) and torch.isfinite(i8).all()
     with pytest.raises(NotImplementedError, match="mixed_none"):  # K4's chain is GELU-only
         int8_apply(tower, x, detector_config(pruned=True, **MICRO), fused="megamodel")
     for bad in ("megamodel_long:x", "megamodel_long:512:256:zz1", "megamodel:x"):

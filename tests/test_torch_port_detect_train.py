@@ -121,15 +121,16 @@ def test_long_attention_bwd_padding():
 @pytest.mark.parametrize("hd", [8, 16, 64, 72, 128])
 def test_long_attention_train_gate_matches_jax(interpret, hd):
     """The port's gate is the JAX package's (hd a multiple of 8 and <= 128,
-    N rounded up to 256 at most 4,096) for bf16, so both take the
+    N rounded up to 256 at most 4,096) for bf16 and f32, so both take the
     long-sequence branch at the same N; False outside the kernels' gates
-    (f32, hd not a multiple of 8, hd > 128)."""
+    (other dtypes, hd not a multiple of 8, hd > 128)."""
     for n in (17, 2305, 3601, 4096, 4097, 5000):
-        assert la.long_attention_train_available(9, hd, n) == jax_long_attention_train_available(
-            9, hd, seq_len=n), (hd, n)
+        for dt in (torch.bfloat16, torch.float32):
+            assert la.long_attention_train_available(9, hd, n, dt) == (
+                jax_long_attention_train_available(9, hd, seq_len=n)), (hd, n, dt)
     assert la.long_attention_train_available(9, 64, 4096)
     assert not la.long_attention_train_available(9, 64, 4097)
-    assert not la.long_attention_train_available(9, hd, 2305, torch.float32)
+    assert not la.long_attention_train_available(9, hd, 2305, torch.float16)
     assert not la.long_attention_train_available(9, 60, 2305)
     assert not la.long_attention_train_available(9, 256, 2305)
     assert la.long_attention_bwd_shapes_ok(4096, hd) and la.long_attention_shapes_ok(4096, hd)
@@ -183,8 +184,9 @@ def _det_batches(n=3, b=4):
 @pytest.mark.parametrize("qat", [False, True])
 def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
     """3 steps of both packages' detection train steps (cached teacher, f32,
-    fast_math on so that both take their long-sequence attention branch: the
-    port's plain K5a/K5b, the JAX pair in interpret mode); before each step
+    fast_math on so that both take their long-sequence attention branch by
+    their gates: the port's plain K5a/K5b, the JAX pair in interpret mode);
+    before each step
     the port takes the JAX state (params, AdamW moments, observers), the
     chaos rule of ``test_train_step_f32_matches_jax``. Bounds as there: loss
     rtol 1e-5, clipped grads rtol 1e-4, params atol 1e-5, observers rtol
@@ -196,9 +198,6 @@ def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
         return la.long_attention_train(qkv, h, hd)
 
     monkeypatch.setattr(port_vit, "long_attention_train", spy)
-    # the port's gate is bf16-only; its plain versions take f32 as well
-    monkeypatch.setattr(port_vit, "long_attention_train_available",
-                        lambda h, hd, n, dtype: la.long_attention_train_available(h, hd, n))
     kw = dict(pruned=True, qat_wrapper=qat, text_dim=TEXT_DIM, fast_math=True, **GEO)
     jdet, jcfg = jax_create_detector(**kw)
     x0 = jnp.zeros((1, 32, 32, 3), jnp.float32)
@@ -286,10 +285,14 @@ def _hp(**over):
 
 
 @pytest.fixture
-def long_branch(monkeypatch):
-    """At 17 tokens kernels A and B would take the attention; route the
-    micro students through the long-sequence pair, as at 768 px."""
-    monkeypatch.setattr(port_vit, "attention_train_available", lambda *a, **k: False)
+def long_branch():
+    """The micro students (3 heads of 16, 17 tokens) take the long-sequence
+    pair by the gates alone, as at 768 px: the packed width 48 is past the
+    K1 shape conditions both packages share."""
+    h, hd = GEO["num_heads"], GEO["embed_dim"] // GEO["num_heads"]
+    for dt in (torch.bfloat16, torch.float32):
+        assert not port_vit.attention_train_available(h, hd, 17, dt)
+        assert port_vit.long_attention_train_available(h, hd, 17, dt)
 
 
 def test_detect_trainer_phases(long_branch):

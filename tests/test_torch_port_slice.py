@@ -24,7 +24,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from qat_vit_tpu.models.registry import create_model as jax_create_model
+from qat_vit_tpu.models.vit import ViTConfig as JaxViTConfig
 from qat_vit_tpu.ops.block_kernel import model_forward as jax_model_forward
+from qat_vit_tpu.serve.int8_vit import _preset_kernel_opts as jax_preset_kernel_opts
 from qat_vit_tpu.serve.int8_vit import convert_vit as jax_convert_vit
 from qat_vit_tpu.serve.int8_vit import int8_apply as jax_int8_apply
 from qat_vit_tpu_torch.data.pipeline import preprocess_fn, resize_matrix
@@ -167,8 +169,10 @@ def test_serving_preset_gates():
     """CPU: the exact defaults. CUDA: JAX's rungs under the Hopper gates:
     the megamodel chain for GELU ViTs the kernels accept, mixed_none + K3
     for other models within attention_q's gate, the megamodel_long chain
-    for 2,305-token ones, mixed_none + K5a for sequences between; other
-    geometries raise instead of running plain code."""
+    for 2,305-token ones, mixed_none + K5a for sequences between;
+    geometries no kernel gate of either package admits get ``{}``, the exact
+    path in bf16, as in JAX; those JAX serves on a kernel past every Hopper
+    plan raise, naming ROADMAP.md."""
     import dataclasses
 
     from qat_vit_tpu_torch.models.vit import ViTConfig
@@ -187,10 +191,17 @@ def test_serving_preset_gates():
     # 901 tokens: over attention_q's gate, under the K6 rung
     assert _preset_kernel_opts(dataclasses.replace(vit_s, image_size=480)) == {
         "fused": "mixed_none", "attn_impl": "pallas_long"}
-    for bad in (ViTConfig(embed_dim=360, num_heads=6),  # hd 60: no attention kernel
-                dataclasses.replace(vit_s, image_size=1600)):  # 10,001 tokens
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _preset_kernel_opts(bad)
+    # hd 60: no attention kernel in either package
+    past = ViTConfig(embed_dim=360, num_heads=6)
+    assert _preset_kernel_opts(past) == {} == jax_preset_kernel_opts(
+        JaxViTConfig(embed_dim=360, num_heads=6))
+    assert serving_preset(past, "cuda") == {"attn_dtype": torch.bfloat16,
+                                            "compute_dtype": torch.bfloat16,
+                                            "gelu_approx": True}
+    # 10,001 tokens: JAX serves them on its long kernels, past the Hopper plan
+    assert jax_preset_kernel_opts(JaxViTConfig(image_size=1600)) != {}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _preset_kernel_opts(dataclasses.replace(vit_s, image_size=1600))
 
 
 def test_port_imports_without_jax():
