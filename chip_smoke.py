@@ -33,13 +33,16 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    against the same chain through the plain versions (batch 2) and against
    the exact f32 path, and the median ms per forward; last, the exact path
    with ``attn_impl="pallas_long"`` (K5a) at batch 2;
-6. detection training: the long attention forward (K5a) and backward (K5b)
-   against their plain versions at the shapes the main path below gives
+6. detection training: the long attention forward (K5a) and backward (K5b,
+   timed with the forward's output and log-sum-exp given, as training calls
+   it) against their plain versions at the shapes the main path below gives
    them (``[16, 2305, 1728]``); ``DetectKDTrainer`` (the OWLv2-pruned
    student from a random-init bf16 OWLv2-base teacher, 768 px, 4 queries
    per image, the trainer's defaults) with depth cut to 2 at batch 2: 2
-   float steps, the QAT switch and 2 QAT steps through the kernels and
-   through their plain versions (losses and parameters must agree); then
+   float steps, the QAT switch and 2 QAT steps, each run from the same
+   state through the kernels and through the plain versions (the loss, the
+   gradient, the update and the parameters after the step held to fixed
+   limits, ``DT_REPLAY_*``); then
    the main path at full depth and batch 16: the teacher-output cache over
    64 synthetic CIFAR-10 images, 3 float steps, the switch, 3 QAT steps
    (launches of K5a and K5b per step, ms per step and img/s with the first
@@ -69,6 +72,13 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    ``megamodel_long`` in turns); one float and one QAT step
    of ViT-S and of OWLv2-pruned in f32 with fast_math, depth 2, batch 2,
    through the kernels and through ``reference_impl()``: identical.
+
+The bf16 long attention pair (K5a ``attention_long_mma``, K5b
+``attention_long_bwd_mma``, phases 5 and 6) sums on the tensor cores: it is
+held to ``compare_tc``'s tolerance against its plain version and to the
+plain version's own error against the f64 math, and two of its launches on
+the same inputs must be identical; every other kernel and form must be
+identical to its plain version (int8 outputs within ``INT8_MIN_EXACT``).
 
 Every kernel check also records the kernel's bound (the larger of its
 operations over the H100's peak for their type and its bytes over 3.35
@@ -123,6 +133,22 @@ DT_B, DT_STEPS, DT_REPLAY_B, DT_REPLAY_STEPS, DT_REPLAY_DEPTH = 16, 3, 2, 2, 2
 DT_N_TRAIN, DT_EVAL_B, DT_EVAL_BATCHES = 64, 16, 2
 # phase 7: timing runs of each serving mode's forward
 SERVE_MODE_RUNS = 10
+# phase 6's replay: each step run from the same state through the kernels,
+# through K5a with K5b's plain version (the hybrid: the same forward) and
+# through the plain versions. The bf16 long pair sums on the tensor cores,
+# so no metric is 0. Held: the loss against the plain step in float steps
+# (REPLAY_LOSS_REL), the parameters after every step (REPLAY_PARAM_REL_L2),
+# and the gradient on the qkv weights, the first that K5b's output reaches,
+# against the hybrid step (DT_REPLAY_QKV_GRAD_REL). That limit lies between
+# readings of port_scripts/replay_bounds.py on the H100 over eight seeds
+# (PERF.md §2): at most 1.29e-3 for sound attention (the kernels; K5a with
+# the exact f64 backward), at least 5.83e-3 for a planted fault (K5b's dk or
+# dv zeroed on one key tile of 64; the exact backward of float8 qkv).
+# Printed, not held: the loss under QAT, where no limit lies between sound
+# and faulty readings (exact attention moves it by up to 1.03e-2, zeroing a
+# head's output by as little as 4.9e-4) and the 1e-3 bound is not met; the
+# whole gradient and the update, where a planted fault hides in the noise.
+DT_REPLAY_QKV_GRAD_REL = 3e-3
 
 # H100 SXM dense peaks (NVIDIA's H100 datasheet): operations per second by
 # type, and the device memory's bytes per second
@@ -163,9 +189,10 @@ def median_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
 def kernel_group(name: str) -> str:
     """The bucket of a device kernel in the detection training breakdown."""
     n = name.lower()
-    for key, group in (("long_bwd_rows", "K5b pass 1 (rows)"),
-                       ("long_bwd_keys", "K5b pass 2 (keys)"),
-                       ("long_attention_kernel", "K5a")):
+    for key, group in (("long_bwd_rows_mma", "K5b rows"), ("long_bwd_keys_mma", "K5b keys"),
+                       ("long_attention_mma", "K5a"),
+                       ("long_bwd_rows", "K5b f32 rows"), ("long_bwd_keys", "K5b f32 keys"),
+                       ("long_attention_kernel", "K5a f32 / K6")):
         if key in n:
             return group
     if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90", "nvjet")):
@@ -221,6 +248,26 @@ def compare_float(name, got, want, rtol):
     if not torch.isfinite(got).all() or bool((err > bound).any()):
         fail(f"{name}: max |diff| {float(err.max()):.3e} beyond rtol {rtol}")
     return float(err.max())
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def compare_tc(name, got, want, ref, sections):
+    """A tensor-core kernel of the bf16 long pair against its plain version
+    ``want`` and the f64 math ``ref``, by the pair's tolerance
+    (``long_attention.tc_errors``) → (worst |diff|, one note per section)."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    ok, errs = la.tc_errors(got, want, ref, sections)
+    notes = [f"{e['label']} worst |diff| {e['worst']:.3e} within 2^-7(1+|plain|) "
+             f"{e['within']:.7f} rel L2 vs plain {e['rel']:.3e} (bound {la.TC_REL_L2} for "
+             f"dq/dk/dv); vs f64 kernel {e['f64']:.3e} plain {e['plain_f64']:.3e} (ratio "
+             f"{e['f64'] / e['plain_f64']:.3f}, bound {la.TC_F64_RATIO})" for e in errs]
+    if not ok:
+        fail(f"{name}: beyond the bf16 pair's tolerance ({'; '.join(notes)})")
+    return max(e["worst"] for e in errs), notes
 
 
 def rand_int8(torch, np, rng, dev, *shape):
@@ -420,16 +467,30 @@ def phase_kernels(torch, np, fs, fa, fat):
     return check_kernels(torch, cases, "phase 2", slow_plain=(fat.attention_bwd_plain,))
 
 
+def k5_tc(la, qkv, heads, hd, do=None, n_valid=None):
+    """``check_kernels``' extra of a bf16 K5a (``do`` None) or K5b case: its
+    tensor-core source and the f64 math it is held to."""
+    if do is None:
+        return {"source": "qat_vit_tpu_torch/csrc/attention_long_mma.cu",
+                "tc": (lambda: la.long_attention_f64(qkv, heads, hd, n_valid=n_valid)[0], 1)}
+    return {"source": "qat_vit_tpu_torch/csrc/attention_long_bwd_mma.cu",
+            "tc": (lambda: la.long_attention_f64(qkv, heads, hd, do, n_valid=n_valid)[1], 3)}
+
+
 def check_kernels(torch, cases, label, slow_plain=(), exact=False):
-    """Each (name, kernel, plain, args, kwargs, replaces, work, library) case:
-    the kernel's output against its plain version's on the same inputs
-    (``exact``: bit for bit), then both timed (a plain version in
+    """Each (name, kernel, plain, args, kwargs, replaces, work, library[,
+    extra]) case: the kernel's output against its plain version's on the
+    same inputs (``exact``: bit for bit), then both timed (a plain version in
     ``slow_plain`` by its one comparison call), the library call (None: no
     single call computes it) and the bound of ``work`` (one work, or a list
-    of them done one after another)."""
+    of them done one after another). ``extra``: ``source`` (where the
+    kernel is not its wrapper's usual one) and ``tc`` (the f64 math and its
+    number of output sections: a tensor-core kernel of the bf16 long pair,
+    held by :func:`compare_tc` and to identical bits over two launches)."""
     bf16 = torch.bfloat16
     results = []
-    for name, kernel, plain, args, kwargs, replaces, work, library in cases:
+    for name, kernel, plain, args, kwargs, replaces, work, library, *extra in cases:
+        extra = extra[0] if extra else {}
         got = kernel(*args, **kwargs)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -442,6 +503,18 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
                 fail(f"{name}: kernel gives {g.dtype}{tuple(g.shape)}, plain {w.dtype}{tuple(w.shape)}")
+        if "tc" in extra:
+            again = kernel(*args, **kwargs)
+            same = torch.equal(again, got[0])
+            notes.append(f"two launches identical {same};")
+            if not same:
+                fail(f"{name}: two launches on the same inputs differ")
+            ref, sections = extra["tc"]
+            worst, tc_notes = compare_tc(name, got[0], want[0], ref(), sections)
+            errs.append(worst)
+            notes.append("; ".join(tc_notes))
+            got = want = ()
+        for g, w in zip(got, want):
             if exact and not torch.equal(g, w):
                 fail(f"{name}: not identical to its plain version (max |diff| "
                      f"{float((g.float() - w.float()).abs().max()):.3e})")
@@ -463,7 +536,8 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
         print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(notes)}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        results.append({"name": name, "wrapper": kernel, "replaces": replaces,
+        results.append({"name": name, "wrapper": kernel, "source": extra.get("source"),
+                        "replaces": replaces,
                         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
     return results
@@ -723,7 +797,7 @@ def phase_detection(torch, np, fs, la):
         (f"attention_long [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_qkv,
          la.long_attention_qkv_plain, (qkv, heads, hd), {},
          "qat_vit_tpu/ops/long_attention.py:63", attention_work(b, n, heads, hd),
-         sdpa_forward(torch, qkv, heads, hd)),
+         sdpa_forward(torch, qkv, heads, hd), k5_tc(la, qkv, heads, hd)),
         (f"attention_long_q [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_q,
          la.long_attention_qkv_plain, (qkv, heads, hd), {"out_q": out_q},
          "qat_vit_tpu/ops/long_block_kernel.py:262", attention_work(b, n, heads, hd, 1),
@@ -844,12 +918,123 @@ def phase_detection(torch, np, fs, la):
     return kernels, {"export": export, "cfg": cfg, "x": x, "q": q, "exact": exact}
 
 
-def phase_detect_training(torch, np, fs, la):
-    """OWLv2 detection KD + QAT training through the long attention pair (K5a, K5b)."""
-    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+@contextlib.contextmanager
+def swapped(module, **attrs):
+    """``module``'s functions ``attrs`` replaced for the block."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def plain_k5b(la):
+    """The training pair on K5a's forward with K5b's plain version (a scoped
+    stand-in for ``long_attention_bwd`` that takes only the training path's
+    call): the backward's reference on the kernels' own forward."""
+    def bwd(qkv, do, heads, hd, *, out=None, lse=None):
+        return la.long_attention_bwd_plain(qkv, do, heads, hd)
+    return swapped(la, long_attention_bwd=bwd)
+
+
+def same_state_step(torch, step, records, variants, plain, hybrid):
+    """``step`` (a train step ``(state, batch, loss_hp) -> metrics``) run
+    from the same state under each of ``variants`` ((name, context manager
+    factory) pairs), under ``hybrid`` (K5a with K5b's plain version) and last
+    under ``plain`` (the plain versions), whose result the run keeps.
+    ``records`` gets one dict per call, for each variant: against the plain
+    step, the loss's rel difference (``loss``) and the parameters' rel L2
+    after the step (``params``); against the hybrid step, whose forward is
+    the same, so that they see the backward alone, the rel L2 of the
+    gradient the optimizer took (``grad``), of its part on the qkv weights,
+    the first that K5b's output reaches (``qkv_grad``), and of the update
+    (``update``: ‖θ − θ_hybrid‖ / ‖Δθ_hybrid‖)."""
+    import copy
+
+    def flat(tensors):
+        return torch.cat([t.detach().float().flatten() for t in tensors])
+
+    def call(state, batch, loss_hp):
+        params = state.optimizer.params
+        qkv_w = [p for n, p in state.module.named_parameters() if n.endswith("attn.qkv.weight")]
+        snap = (copy.deepcopy(state.module.state_dict()),
+                copy.deepcopy(state.optimizer.adamw.state_dict()), state.step)
+        before = flat(params)
+
+        def run(ctx):
+            # AdamW takes the moments' tensors as they are: a copy each time
+            state.module.load_state_dict(snap[0])
+            state.optimizer.adamw.load_state_dict(copy.deepcopy(snap[1]))
+            state.step = snap[2]
+            with ctx():
+                m = step(state, batch, loss_hp)
+            grads = flat(torch.zeros_like(p) if p.grad is None else p.grad for p in params)
+            return m, float(m["train_loss"]), grads, flat(p.grad for p in qkv_w), flat(params)
+
+        got = {name: run(ctx)[1:] for name, ctx in variants}
+        _, _, gh, qh, ph = run(hybrid)
+        mp, lp, _, _, pp = run(plain)
+        moved = float((ph - before).norm())
+        records.append({name: {"loss": abs(lv - lp) / abs(lp), "params": rel_l2(pv, pp),
+                               "grad": rel_l2(gv, gh), "qkv_grad": rel_l2(qv, qh),
+                               "update": float((pv - ph).norm()) / moved}
+                        for name, (lv, gv, qv, pv) in got.items()})
+        return mp
+    return call
+
+
+def replay_detect(torch, la, t, steps, variants, reference_impl):
+    """``steps`` float steps of the detection trainer ``t``, the QAT switch
+    and ``steps`` QAT steps, each step compared from the same state
+    (:func:`same_state_step`) → (float records, QAT records)."""
+    import math
+
+    records = ([], [])
+    t.train_step_float, t.train_step_qat = (
+        same_state_step(torch, step, rec, variants, reference_impl, lambda: plain_k5b(la))
+        for step, rec in zip((t.train_step_float, t.train_step_qat), records))
+    for epoch in (0, 1):
+        if epoch:
+            t.enable_qat()
+        m = t.train_epoch(epoch, limit_batches=steps)
+        if m["n_batches"] != steps or not math.isfinite(m["train_loss"]):
+            fail(f"detection replay epoch {epoch}: {m}")
+        if len(records[epoch]) != steps:
+            fail(f"detection replay: {len(records[epoch])} steps compared, expected {steps}")
+    return records
+
+
+def detect_trainer(torch, data, batch, depth=None, seed=SEED):
+    """``DetectKDTrainer`` on the card at its defaults (OWLv2-pruned student,
+    OWLv2-base teacher, 768 px), ``depth`` cutting both towers."""
     from qat_vit_tpu_torch.train.config import load_hparams
     from qat_vit_tpu_torch.train.detect_trainer import DetectKDTrainer
 
+    hp = load_hparams(None)
+    hp.update(task="detection", image_size=768, batch_size=batch, eval_batch_size=DT_EVAL_B,
+              epochs=2, seed=seed)
+    if depth is not None:
+        hp["depth"] = depth  # teacher and student
+    t = DetectKDTrainer(hp, device=torch.device("cuda"), data=data)
+    sc, qc, tc = t.student_float_cfg, t.student_qat_cfg, t.teacher.cfg
+    if ((sc.embed_dim, sc.num_heads, sc.mlp_dim, sc.seq_len, sc.act, sc.pre_norm)
+            != (576, 9, 3072, 2305, "quick_gelu", True)
+            or (tc.embed_dim, tc.num_heads, tc.seq_len, tc.dtype, tc.fast_math)
+            != (768, 12, 2305, torch.bfloat16, False)
+            or sc.depth != (depth or 9) or tc.depth != (depth or 12)):
+        fail(f"unexpected detection geometry: student {sc}, teacher {tc}")
+    if not (sc.fast_math and qc.fast_math and sc.dtype == qc.dtype == torch.bfloat16
+            and t.cache_teacher):
+        fail(f"the detection trainer's defaults changed: {sc} / {qc}")
+    return t
+
+
+def phase_detect_training(torch, np, fs, la):
+    """OWLv2 detection KD + QAT training through the long attention pair (K5a, K5b)."""
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
     from qat_vit_tpu_torch.ops._cuda import reference_impl
 
     dev = torch.device("cuda")
@@ -861,58 +1046,41 @@ def phase_detect_training(torch, np, fs, la):
     qkv = qkv.to(dev).to(torch.bfloat16)
     do = torch.from_numpy(rng.normal(0, 1, (b, n, heads * hd)).astype(np.float32))
     do = do.to(dev).to(torch.bfloat16)
+    # the backward as the training path calls it: with the forward's output
+    # and log-sum-exp
+    out, lse = la._attention_launch(qkv, heads, hd, None, want_lse=True)
     cases = [(f"attention_long [{b}x{n}x{3 * heads * hd}] {heads} heads", la.long_attention_qkv,
               la.long_attention_qkv_plain, (qkv, heads, hd), {},
               "qat_vit_tpu/ops/long_attention.py:63", attention_work(b, n, heads, hd),
-              sdpa_forward(torch, qkv, heads, hd)),
+              sdpa_forward(torch, qkv, heads, hd), k5_tc(la, qkv, heads, hd)),
              (f"attention_long_bwd [{b}x{n}x{3 * heads * hd}] {heads} heads",
-              la.long_attention_bwd, la.long_attention_bwd_plain, (qkv, do, heads, hd), {},
-              "qat_vit_tpu/ops/long_attention.py:173",
+              la.long_attention_bwd, la.long_attention_bwd_plain, (qkv, do, heads, hd),
+              {"out": out, "lse": lse}, "qat_vit_tpu/ops/long_attention.py:173",
               attention_work(b, n, heads, hd, backward=True),
-              sdpa_backward(torch, qkv, do, heads, hd))]
+              sdpa_backward(torch, qkv, do, heads, hd), k5_tc(la, qkv, heads, hd, do))]
     kernels = check_kernels(torch, cases, "phase 6", slow_plain=(la.long_attention_qkv_plain,
                                                                  la.long_attention_bwd_plain))
-    del qkv, do, cases
+    del qkv, do, out, lse, cases
 
     data = synthetic_cifar10(n_train=DT_N_TRAIN, n_test=DT_EVAL_B * DT_EVAL_BATCHES, seed=SEED)
 
-    def trainer(batch, depth=None):
-        hp = load_hparams(None)
-        hp.update(task="detection", image_size=768, batch_size=batch, eval_batch_size=DT_EVAL_B,
-                  epochs=2, seed=SEED)
-        if depth is not None:
-            hp["depth"] = depth  # teacher and student
-        t = DetectKDTrainer(hp, device=dev, data=data)
-        sc, qc, tc = t.student_float_cfg, t.student_qat_cfg, t.teacher.cfg
-        if ((sc.embed_dim, sc.num_heads, sc.mlp_dim, sc.seq_len, sc.act, sc.pre_norm)
-                != (576, 9, 3072, 2305, "quick_gelu", True)
-                or (tc.embed_dim, tc.num_heads, tc.seq_len, tc.dtype, tc.fast_math)
-                != (768, 12, 2305, torch.bfloat16, False)
-                or sc.depth != (depth or 9) or tc.depth != (depth or 12)):
-            fail(f"unexpected detection geometry: student {sc}, teacher {tc}")
-        if not (sc.fast_math and qc.fast_math and sc.dtype == qc.dtype == torch.bfloat16
-                and t.cache_teacher):
-            fail(f"the detection trainer's defaults changed: {sc} / {qc}")
-        return t
-
-    def run(t, steps, counts=None, times=None, profiles=None):
+    def run(t, steps, counts, times, profiles):
         """``steps`` float steps, the QAT switch, ``steps`` QAT steps; per
-        phase the K5a/K5b launches, (``times``) each step's host time ending
-        in a synchronize and (``profiles``) the device breakdown of one more
-        step, taken after the phase's counts are read."""
-        if times is not None:
-            def timed(step, out):
-                def call(state, batch, loss_hp):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    metrics = step(state, batch, loss_hp)
-                    torch.cuda.synchronize()
-                    out.append(time.perf_counter() - t0)
-                    return metrics
-                return call
-            times.extend(([], []))
-            t.train_step_float = timed(t.train_step_float, times[0])
-            t.train_step_qat = timed(t.train_step_qat, times[1])
+        phase the K5a/K5b launches, each step's host time ending in a
+        synchronize and the device breakdown of one more step, taken after
+        the phase's counts are read."""
+        def timed(step, out):
+            def call(state, batch, loss_hp):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(state, batch, loss_hp)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+                return metrics
+            return call
+        times.extend(([], []))
+        t.train_step_float = timed(t.train_step_float, times[0])
+        t.train_step_qat = timed(t.train_step_qat, times[1])
         out = []
         for epoch in (0, 1):
             if epoch:
@@ -920,45 +1088,39 @@ def phase_detect_training(torch, np, fs, la):
             la.long_attention_qkv.launches = la.long_attention_bwd.launches = 0
             m = t.train_epoch(epoch, limit_batches=steps)
             torch.cuda.synchronize()
-            if counts is not None:
-                counts.append((la.long_attention_qkv.launches, la.long_attention_bwd.launches))
+            counts.append((la.long_attention_qkv.launches, la.long_attention_bwd.launches))
             if m["n_batches"] != steps or not np.isfinite(m["train_loss"]):
                 fail(f"detection training epoch {epoch}: {m}")
             out.append(m)
-            if profiles is not None:
-                profiles.append(device_breakdown(
-                    torch, lambda: t.train_epoch(epoch, limit_batches=1)))
+            profiles.append(device_breakdown(torch, lambda: t.train_epoch(epoch, limit_batches=1)))
         return out
 
-    # the same steps through the kernels and through their plain versions
-    replay = []
-    for plain in (False, True):
-        t = trainer(DT_REPLAY_B, DT_REPLAY_DEPTH)
-        if plain:
-            with reference_impl():
-                ms = run(t, DT_REPLAY_STEPS)
-        else:
-            ms = run(t, DT_REPLAY_STEPS)
-        replay.append((ms, torch.cat([p.detach().float().flatten()
-                                      for p in t.student_qat.parameters()])))
-        del t
-    for phase, (mk, mp) in enumerate(zip(replay[0][0], replay[1][0])):
-        rel = abs(mk["train_loss"] - mp["train_loss"]) / abs(mp["train_loss"])
-        print(f"phase 6 replay at batch {DT_REPLAY_B}, depth {DT_REPLAY_DEPTH}, "
-              f"{('float', 'QAT')[phase]} steps: loss kernels {mk['train_loss']!r} plain "
-              f"{mp['train_loss']!r} (rel {rel:.3e}, bound {REPLAY_LOSS_REL})", flush=True)
-        if rel > REPLAY_LOSS_REL:
-            fail(f"detection: kernel vs plain training loss rel {rel:.3e} > {REPLAY_LOSS_REL}")
-    pk, pp = replay[0][1], replay[1][1]
-    prel = float((pk - pp).norm() / pp.norm())
-    print(f"phase 6 replay: student parameters after {2 * DT_REPLAY_STEPS} steps, kernels vs "
-          f"plain rel L2 {prel:.3e} (bound {REPLAY_PARAM_REL_L2})", flush=True)
-    if prel > REPLAY_PARAM_REL_L2:
-        fail(f"detection: kernel vs plain parameters rel L2 {prel:.3e} > {REPLAY_PARAM_REL_L2}")
-    del replay, pk, pp
+    # the same steps through the kernels and through their plain versions,
+    # each from the same state, held to the fixed limits DT_REPLAY_*
+    t = detect_trainer(torch, data, DT_REPLAY_B, DT_REPLAY_DEPTH)
+    records = replay_detect(torch, la, t, DT_REPLAY_STEPS, [("kernels", contextlib.nullcontext)],
+                            reference_impl)
+    del t
+    bad = []
+    for phase, rec in enumerate(records):
+        name = ("float", "QAT")[phase]
+        limits = {"loss": (REPLAY_LOSS_REL, None)[phase], "params": REPLAY_PARAM_REL_L2,
+                  "qkv_grad": DT_REPLAY_QKV_GRAD_REL, "grad": None, "update": None}
+        for i, r in enumerate(rec):
+            r = r["kernels"]
+            print(f"phase 6 replay at batch {DT_REPLAY_B}, depth {DT_REPLAY_DEPTH}, {name} step "
+                  f"{i + 1} from the same state: loss and params vs the plain step, grad, "
+                  f"qkv_grad and update vs K5a + plain K5b: " + ", ".join(
+                      f"{k} {r[k]:.3e} (limit {v})" for k, v in limits.items())
+                  + f"; loss within {REPLAY_LOSS_REL}: {r['loss'] <= REPLAY_LOSS_REL}",
+                  flush=True)
+            bad += [f"{name} step {i + 1} {k} {r[k]:.3e} > {v}" for k, v in limits.items()
+                    if v is not None and r[k] > v]
+    if bad:
+        fail(f"detection: kernel vs plain steps from the same state: {'; '.join(bad)}")
 
     # the main path: full depth, batch 16
-    t = trainer(DT_B)
+    t = detect_trainer(torch, data, DT_B)
     t0 = time.perf_counter()
     t._ensure_teacher_outputs()
     torch.cuda.synchronize()
@@ -1450,7 +1612,7 @@ def main() -> None:
                bk.megablock_forward: "qat_vit_tpu_torch/csrc/megablock.cu",
                bk.megamodel_res_forward: "qat_vit_tpu_torch/csrc/megablock.cu"}
     record = {"kernels": [
-        {"name": k["name"], "route": "cuda", "source": sources[k["wrapper"]],
+        {"name": k["name"], "route": "cuda", "source": k["source"] or sources[k["wrapper"]],
          "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"]}

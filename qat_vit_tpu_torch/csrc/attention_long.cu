@@ -1,7 +1,8 @@
 // Long-sequence multi-head attention over the packed qkv, for sm_90a, in
 // three forms sharing one body:
 //
-// - qvt_attention_long: output in the qkv type, bf16 or f32 (K5's forward).
+// - qvt_attention_long: output in f32 from an f32 qkv (K5's forward, f32
+//   form; the bf16 form runs on the tensor cores, attention_long_mma.cu).
 //   Replaces (TPU, Pallas): qat_vit_tpu/ops/long_attention.py::
 //   _long_attention_kernel.
 // - qvt_attention_long_q: output quantized to shifted int8 with the qkv
@@ -41,8 +42,9 @@
 // CUDA cores (f32 FMA, 67 TFLOP/s peak; the int8-score form's q.k on
 // __dp4a, whose int8 rate is a fraction of the tensor cores' 1,979 TOP/s)
 // and every block re-reads its head's K and V (from L2). The exact softmax costs one f64 exp and one f64
-// division per score. Tensor cores (mma/wgmma) are the next step and must
-// keep the kernel/plain identity.
+// division per score. The forms here keep the kernel/plain identity; the
+// bf16 forward left for the tensor cores (attention_long_mma.cu), held to a
+// tolerance instead.
 //
 // Design, per block (q-tile of 8 rows, head, image):
 // 1. stage the 8 q rows, scaled, as f32 in shared memory (int8 words for
@@ -365,14 +367,11 @@ typedef __nv_bfloat16 bf16;
 
 }  // namespace
 
-// out in the qkv type (is_f32: f32, else bf16); scale is hd^-0.5 in that type
+// out f32 of the f32 qkv; scale is hd^-0.5 in f32
 extern "C" int qvt_attention_long(const void* qkv, void* out, int B, int N, int H, int hd,
-                                  int n_valid, float scale, int is_f32, void* stream) {
-  if (is_f32)
-    return launch<float, false, false>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0, 0.0f,
-                                       0.0f, 0.0f, stream);
-  return launch<bf16, false, false>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0, 0.0f, 0.0f,
-                                    0.0f, stream);
+                                  int n_valid, float scale, void* stream) {
+  return launch<float, false, false>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0, 0.0f,
+                                     0.0f, 0.0f, stream);
 }
 
 extern "C" int qvt_attention_long_q(const void* qkv, void* out, int B, int N, int H, int hd,

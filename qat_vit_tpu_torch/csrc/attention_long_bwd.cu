@@ -28,8 +28,9 @@
 // (s, dp, dq, dk, dv) on 4*N*hd*2 bytes read and 3*N*hd*2 written: ~2,000
 // flops per byte at OWLv2's 2,305 tokens, compute-bound. This first kernel
 // recomputes s and dp once more (14*N*N*hd flops) and runs every product on
-// the CUDA cores (f32 FMA, 67 TFLOP/s peak); tensor cores are later work and
-// must keep the kernel/plain identity.
+// the CUDA cores (f32 FMA, 67 TFLOP/s peak). It now runs only the f32 form,
+// bit-identical to its plain version; the bf16 form runs on the tensor cores
+// (attention_long_bwd_mma.cu), held to a tolerance instead.
 //
 // Design. One head's q, k, v and do at 2,305 tokens and hd 64 are ~1.2 MB,
 // over the 227 KB a block may use, so kernel B's plan (a whole (image, head)
@@ -463,15 +464,14 @@ int launch(const void* qkv, const void* dout, void* dqkv, void* stats, int B, in
 
 }  // namespace
 
-// dqkv [B, N, 3*H*hd] in the qkv type (is_f32: f32, else bf16) of
-// qvt_attention_long for the output gradient do [B, N, H*hd] of that type;
-// stats: [B, H, N, 4] f64 scratch (the rows' max, softmax sum and rowsum,
-// from pass 1 to pass 2). Two launches on `stream`.
+// dqkv [B, N, 3*H*hd] f32 of qvt_attention_long for the output gradient do
+// [B, N, H*hd] f32 (the bf16 form runs on the tensor cores,
+// attention_long_bwd_mma.cu); stats: [B, H, N, 4] f64 scratch (the rows'
+// max, softmax sum and rowsum, from pass 1 to pass 2). Two launches on
+// `stream`.
 extern "C" int qvt_attention_long_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
                                       int B, int N, int H, int hd, int n_valid, float qscale,
-                                      float scale, int is_f32, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f32)
-    return launch<float>(qkv, dout, dqkv, stats, B, N, H, hd, n_valid, qscale, scale, st);
-  return launch<__nv_bfloat16>(qkv, dout, dqkv, stats, B, N, H, hd, n_valid, qscale, scale, st);
+                                      float scale, void* stream) {
+  return launch<float>(qkv, dout, dqkv, stats, B, N, H, hd, n_valid, qscale, scale,
+                       static_cast<cudaStream_t>(stream));
 }

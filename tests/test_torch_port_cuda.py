@@ -7,7 +7,12 @@ conftest::
     python -m pytest --noconftest -m requires_cuda tests/test_torch_port_cuda.py -q
 
 Every kernel pins its roundings to its plain version (f64 LN and softmax
-sums, index-ordered f32 dots), so outputs must be IDENTICAL, int8 and float.
+sums, index-ordered f32 dots), so outputs must be IDENTICAL, int8 and float,
+except the bf16 long attention pair (K5a ``qvt_attention_long_mma``, K5b
+``qvt_attention_long_bwd_mma``): it sums on the tensor cores in their own
+order and is held by :func:`assert_tc_close` to the tolerance of
+``long_attention.tc_errors`` against its plain version and to the plain
+version's own accuracy against the f64 math.
 """
 
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops import flash_attention as fa
 from qat_vit_tpu_torch.ops import flash_attention_train as fat
+from qat_vit_tpu_torch.ops import long_attention as la
 from qat_vit_tpu_torch.ops._cuda import reference_impl
 
 pytestmark = pytest.mark.requires_cuda
@@ -48,6 +54,14 @@ def _ln(rng, n, dev):
 
 IN_Q = {"scale": torch.tensor(0.02), "zero_point": torch.tensor(121.0)}
 OUT_Q = {"scale": torch.tensor(8.0 / 255), "zero_point": torch.tensor(128.0)}
+
+
+def assert_tc_close(got, plain, ref, sections):
+    """A tensor-core output ``got`` (``sections`` equal column blocks: 1 for
+    the forward, 3 for dqkv) within the bf16 pair's tolerance
+    (``long_attention.tc_errors``) of its plain version and the f64 math."""
+    ok, errs = la.tc_errors(got, plain, ref, sections)
+    assert ok, errs
 
 
 def _same(a, b):
@@ -244,8 +258,10 @@ def test_megamodel_chain_matches_plain_chain(dev):
 @pytest.mark.parametrize("b,n,heads,hd,n_valid", [(2, 197, 6, 64, 197), (2, 1000, 4, 32, 1000),
                                                   (1, 2305, 9, 64, 2305), (2, 2305, 3, 32, 2001)])
 def test_long_attention(dev, b, n, heads, hd, n_valid, out):
-    """Both entry points of csrc/attention_long.cu against their plain
-    version: identical, bf16 and int8."""
+    """Both entry points of the bf16 long attention against their plain
+    version: the int8 form (csrc/attention_long.cu) identical, the bf16
+    form (csrc/attention_long_mma.cu, tensor cores) within the pair's
+    bounds."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     rng = np.random.default_rng(n + hd)
@@ -256,21 +272,31 @@ def test_long_attention(dev, b, n, heads, hd, n_valid, out):
     before = wrapper.launches
     got = la.long_attention_qkv(qkv, heads, hd, out_q=out_q, n_valid=n_valid)
     assert wrapper.launches == before + 1
-    _same(got, la.long_attention_qkv_plain(qkv, heads, hd, out_q=out_q, n_valid=n_valid))
+    want = la.long_attention_qkv_plain(qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+    if out_q:
+        _same(got, want)
+    else:
+        assert_tc_close(got, want, la.long_attention_f64(qkv, heads, hd, n_valid=n_valid)[0], 1)
 
 
 def test_long_attention_gate_raises(dev):
-    """Beyond the shared-memory plan (one f32 score row per query of a
-    block) the wrapper raises instead of falling back."""
+    """The gates are split: the bf16 form streams K and V on the tensor
+    cores and takes any N (7,000 tokens here, past the plan); the int8 and
+    f32 forms keep one f32 score row per query of a block in shared memory
+    and, beyond that plan, raise instead of falling back."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     assert la.long_attention_shapes_ok(6048, 64) and not la.long_attention_shapes_ok(6049, 64)
+    assert la.long_attention_stream_ok(7000, 64) and la.long_attention_stream_ok(100_000, 128)
+    assert not la.long_attention_stream_ok(7000, 60) and not la.long_attention_stream_ok(64, 136)
     qkv = torch.zeros(1, 7000, 3 * 64, dtype=torch.bfloat16, device=dev)
     before = la.long_attention_qkv.launches, la.long_attention_q.launches
     with pytest.raises(ValueError, match="unsupported"):
-        la.long_attention_qkv(qkv, 1, 64)
-    with pytest.raises(ValueError, match="unsupported"):
         la.long_attention_qkv(qkv, 1, 64, out_q=OUT_Q)
+    with pytest.raises(ValueError, match="unsupported"):
+        la.long_attention_qkv(qkv.float(), 1, 64)
+    with pytest.raises(ValueError, match="unsupported"):
+        la.long_attention_qkv(torch.zeros(1, 64, 3 * 60, dtype=torch.bfloat16, device=dev), 1, 60)
     with pytest.raises(ValueError, match="dtype"):
         la.long_attention_qkv(torch.zeros(1, 64, 3 * 64, dtype=torch.float16, device=dev), 1, 64)
     with pytest.raises(ValueError, match="dtype"):  # the int8 forms are bf16-only
@@ -353,26 +379,69 @@ def test_detection_preset_runs_the_kernels(dev, owlv2_export):
                                                   (1, 130, 2, 128, 130), (1, 520, 2, 72, 500),
                                                   (2, 2305, 9, 64, 2305)])
 def test_long_attention_bwd(dev, b, n, heads, hd, n_valid):
-    """csrc/attention_long_bwd.cu against its plain version: identical dqkv
-    (both passes, both key-block shapes: hd <= 64 and hd up to 128); dq
-    rows of padded queries and dk/dv rows of padded keys are zero."""
+    """csrc/attention_long_bwd_mma.cu (tensor cores) against its plain
+    version within the pair's bounds (both passes, both tile shapes: hd <=
+    64 and hd up to 128), from its own forward's output and log-sum-exp
+    (one launch of the forward) and from them given; dq rows of padded
+    queries and dk/dv rows of padded keys are zero."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     rng = np.random.default_rng(n + hd)
     qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
     do = torch.from_numpy(rng.normal(0, 1, (b, n, heads * hd)).astype(np.float32))
     qkv, do = qkv.to(dev).to(torch.bfloat16), do.to(dev).to(torch.bfloat16)
-    before = la.long_attention_bwd.launches
+    before = la.long_attention_bwd.launches, la.long_attention_qkv.launches
     got = la.long_attention_bwd(qkv, do, heads, hd, n_valid=n_valid)
-    assert la.long_attention_bwd.launches == before + 2  # the rows and keys passes
-    _same(got, la.long_attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid))
+    assert (la.long_attention_bwd.launches, la.long_attention_qkv.launches) == (
+        before[0] + 2, before[1] + 1)  # the rows and keys passes, after the forward
+    out, lse = la._attention_launch(qkv, heads, hd, n_valid, want_lse=True)
+    assert torch.equal(la.long_attention_bwd(qkv, do, heads, hd, n_valid=n_valid, out=out,
+                                             lse=lse), got)
+    assert la.long_attention_qkv.launches == before[1] + 2
+    ref = la.long_attention_f64(qkv, heads, hd, do, n_valid=n_valid)[1]
+    assert_tc_close(got, la.long_attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid), ref, 3)
     assert not got[:, n_valid:].any() and got[:, :n_valid].any()
+
+
+def test_long_attention_past_the_plan(dev):
+    """The bf16 pair past the f32 plan's 6,048 tokens: [1, 7000, 192], one
+    head of 64, n_valid 6,990, forward and backward within the pair's
+    bounds; two launches of each identical; the training pair at N 7,000
+    within them against itself through the plain versions."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    rng = np.random.default_rng(7000)
+    n, nv = 7000, 6990
+    qkv = torch.from_numpy(rng.normal(0, 1, (1, n, 192)).astype(np.float32)).to(dev).bfloat16()
+    do = torch.from_numpy(rng.normal(0, 1, (1, n, 64)).astype(np.float32)).to(dev).bfloat16()
+    out = la.long_attention_qkv(qkv, 1, 64, n_valid=nv)
+    assert torch.equal(out, la.long_attention_qkv(qkv, 1, 64, n_valid=nv))
+    ref_out, ref_grad = la.long_attention_f64(qkv, 1, 64, do, n_valid=nv)
+    assert_tc_close(out, la.long_attention_qkv_plain(qkv, 1, 64, n_valid=nv), ref_out, 1)
+    grad = la.long_attention_bwd(qkv, do, 1, 64, n_valid=nv)
+    assert torch.equal(grad, la.long_attention_bwd(qkv, do, 1, 64, n_valid=nv))
+    assert_tc_close(grad, la.long_attention_bwd_plain(qkv, do, 1, 64, n_valid=nv), ref_grad, 3)
+    assert not grad[:, nv:].any()
+
+    def run():
+        x = qkv.clone().requires_grad_(True)
+        y = la.long_attention_train(x, 1, 64)
+        (y.float() * do.float()).sum().backward()
+        return y.detach(), x.grad
+
+    out_k, grad_k = run()
+    with reference_impl():
+        out_p, grad_p = run()
+    ref_out, ref_grad = la.long_attention_f64(qkv, 1, 64, do)
+    assert_tc_close(out_k, out_p, ref_out, 1)
+    assert_tc_close(grad_k, grad_p, ref_grad, 3)
 
 
 def test_long_attention_train_autograd(dev):
     """The training pair on the kernels vs the same Function through the
-    plain versions (``reference_impl``): forward and dqkv identical; one K5a
-    launch and K5b's two per step, none under the reference."""
+    plain versions (``reference_impl``): forward and dqkv within the pair's
+    bounds; one K5a launch and K5b's two per step (the backward takes the
+    forward's saved output and log-sum-exp), none under the reference."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     heads, hd = 9, 64
@@ -393,22 +462,32 @@ def test_long_attention_train_autograd(dev):
     with reference_impl():
         out_p, grad_p = run()
     assert (la.long_attention_qkv.launches, la.long_attention_bwd.launches) == (fwd0 + 1, bwd0 + 2)
-    _same(out_k, out_p)
-    _same(grad_k, grad_p)
+    ref_out, ref_grad = la.long_attention_f64(qkv, heads, hd, do)
+    assert_tc_close(out_k, out_p, ref_out, 1)
+    assert_tc_close(grad_k, grad_p, ref_grad, 3)
 
 
 def test_long_attention_bwd_raises(dev):
     """Outside its gate or on bad inputs the backward raises instead of
-    falling back, and launches nothing."""
+    falling back, and launches nothing. The gates are split: bf16 takes any
+    N (the tensor-core pair), f32 keeps pass 1's shared-memory plan (5,024
+    tokens at hd 128)."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     assert la.long_attention_bwd_shapes_ok(4960, 128) and not la.long_attention_bwd_shapes_ok(4961, 128)
+    assert (la.long_attention_bwd_shapes_ok(5024, 128, torch.float32)
+            and not la.long_attention_bwd_shapes_ok(5025, 128, torch.float32))
     qkv = torch.zeros(1, 64, 3 * 64, dtype=torch.bfloat16, device=dev)
     do = torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=dev)
     before = la.long_attention_bwd.launches
     with pytest.raises(ValueError, match="unsupported"):
-        la.long_attention_bwd(torch.zeros(1, 5000, 3 * 128, dtype=torch.bfloat16, device=dev),
-                              torch.zeros(1, 5000, 128, dtype=torch.bfloat16, device=dev), 1, 128)
+        la.long_attention_bwd(torch.zeros(1, 5100, 3 * 128, device=dev),
+                              torch.zeros(1, 5100, 128, device=dev), 1, 128)
+    with pytest.raises(ValueError, match="unsupported"):
+        la.long_attention_bwd(torch.zeros(1, 64, 3 * 60, dtype=torch.bfloat16, device=dev),
+                              torch.zeros(1, 64, 60, dtype=torch.bfloat16, device=dev), 1, 60)
+    with pytest.raises(ValueError, match="lse: shape"):
+        la.long_attention_bwd(qkv, do, 1, 64, out=do, lse=torch.zeros(1, 1, 32, device=dev))
     with pytest.raises(ValueError, match="do: dtype"):
         la.long_attention_bwd(qkv, do.float(), 1, 64)
     with pytest.raises(ValueError, match="do: shape"):
