@@ -8,9 +8,10 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the time to build the kernels from ``qat_vit_tpu_torch/csrc``;
 2. kernels against their plain PyTorch versions on the card, at ViT-S/16
-   shapes with batch 32, each timed (CUDA events, median of 30 runs after
-   warm-up) beside its plain version (the slow plain versions of the
-   attention kernels: the one run that the check makes);
+   shapes with batch 32, each timed (CUDA events around one call, median
+   of 30 runs after warm-up; the kernel also as the mean of 10 back-to-back
+   calls, printed beside it) beside its plain version (the slow plain
+   versions of the attention kernels: the one run that the check makes);
 3. serving: a random-init ViT-S/16 student (224 px, 10 classes), PTQ over
    4 calibration batches of 32, then ``Int8Predictor`` on 512 uint8 32x32
    images at batch 256 through the kernels; checks the kernels' launch
@@ -26,13 +27,17 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    convert and int8 eval through the serving kernels;
 5. detection: a random-init OWLv2-pruned detector (768 px, D 576, depth 9,
    9 heads, 2,305 tokens, quick-GELU) calibrated on 2 seeded images and
-   converted; the long attention kernel's two entry points and the GEMM
-   kernels against their plain versions at its shapes (batch 2); then
-   int8 detection at batch 8 with 4 queries through the serving preset
-   (``megamodel_long``: the K6 chain), with its launch counts, the outputs
-   against the same chain through the plain versions (batch 2) and against
-   the exact f32 path, and the median ms per forward; last, the exact path
-   with ``attn_impl="pallas_long"`` (K5a) at batch 2;
+   converted; the long attention kernel's two entry points (K5a's bf16
+   output, K6a's int8 output) and the GEMM kernels against their plain
+   versions at its shapes (batch 2); then int8 detection at batch 8 with 4
+   queries through the serving preset (``megamodel_long``: the K6 chain),
+   with its launch counts, the outputs against the same chain through the
+   plain versions (batch 2; printed with the 2e-2 chain bound, not held),
+   identical to the plain chain with the kernels' attention stage (each of
+   its calls within K6a's int8 bound), against the exact f32 path, the median ms
+   per forward and one profiled forward (device time by kernel group, the
+   idle share); last, the exact path with ``attn_impl="pallas_long"`` (K5a)
+   at batch 2;
 6. detection training: the long attention forward (K5a) and backward (K5b,
    timed with the forward's output and log-sum-exp given, as training calls
    it) against their plain versions at the shapes the main path below gives
@@ -66,9 +71,11 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    PLAIN_Q8 epilogue and ``attention_long_q8`` at ``[2, 2305, 1728]``, and
    the f32 forms of kernels A and B (ViT-S ``[8, 197, 1152]``, with and
    without the in-kernel fake-quant) and of K5a / K5b (``[2, 2305, 1728]``),
-   each bit-identical to its plain version; the ``i8`` chain on phase 5's
-   export at batch 8 x 4 queries (47 launches, identical to its plain twin,
-   within the detection bounds of the exact path, ms per forward beside
+   each bit-identical to its plain version (``attention_long_q8``: K6a's
+   int8 bound); the ``i8`` chain on phase 5's
+   export at batch 8 x 4 queries (47 launches; against its plain twin
+   printed, not held; identical to the plain twin with the kernels'
+   attention stage; within the detection bounds of the exact path, ms per forward beside
    ``megamodel_long`` in turns); one float and one QAT step
    of ViT-S and of OWLv2-pruned in f32 with fast_math, depth 2, batch 2,
    through the kernels and through ``reference_impl()``: identical.
@@ -77,8 +84,17 @@ The bf16 long attention pair (K5a ``attention_long_mma``, K5b
 ``attention_long_bwd_mma``, phases 5 and 6) sums on the tensor cores: it is
 held to ``compare_tc``'s tolerance against its plain version and to the
 plain version's own error against the f64 math, and two of its launches on
-the same inputs must be identical; every other kernel and form must be
-identical to its plain version (int8 outputs within ``INT8_MIN_EXACT``).
+the same inputs must be identical. K6a (``attention_long_q_mma``, both
+score forms, phases 5 and 8) sums there too and uses the card's ``ex2``:
+its int8 outputs are held to at most one step off and ``INT8_MIN_EXACT``
+identical against its index-order plain version. A K6 chain amplifies
+every such flip (any change of rounding in its attention moves the
+nine-block chain ~3e-2 from its plain twin,
+``port_scripts/k6_chain_check.py``), so the chains through K6a are held to
+the plain chain with K6a as its attention stage (identical) and to the
+exact f32 path's bounds; their distance to the plain chain is printed
+beside the 2e-2 bound and not held. Every other kernel and form must be
+identical to its plain version.
 
 Every kernel check also records the kernel's bound (the larger of its
 operations over the H100's peak for their type and its bytes over 3.35
@@ -102,6 +118,11 @@ B_KERNEL = 32  # batch of the phase-2 kernel checks
 CALIB_BATCHES, CALIB_B = 4, 32
 N_IMAGES, SERVE_B = 512, 256
 TIMING_RUNS = 30
+# printed beside a kernel's time (one call per pair of CUDA events, which
+# also counts the ~0.05 ms the Python wrapper takes while the card waits):
+# the mean over this many back-to-back calls, where a wrapper's host work
+# overlaps the previous call's device work as in the serving chains
+KERNEL_REPS = 10
 # int8 outputs: a rounding-boundary flip (op order, tanh/exp ulps) may move
 # an element by one step; at least this share must be exact
 INT8_MIN_EXACT = 0.999
@@ -169,7 +190,9 @@ def card_line() -> str:
     return out[0]
 
 
-def median_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
+def median_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3, reps: int = 1) -> float:
+    """The median over ``runs`` samples of the CUDA-event time of ``reps``
+    back-to-back calls of ``fn``, per call."""
     import torch
 
     for _ in range(warmup):
@@ -179,10 +202,11 @@ def median_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -190,9 +214,11 @@ def kernel_group(name: str) -> str:
     """The bucket of a device kernel in the detection training breakdown."""
     n = name.lower()
     for key, group in (("long_bwd_rows_mma", "K5b rows"), ("long_bwd_keys_mma", "K5b keys"),
-                       ("long_attention_mma", "K5a"),
+                       ("long_attention_mma", "K5a"), ("long_attention_q_mma", "K6a"),
                        ("long_bwd_rows", "K5b f32 rows"), ("long_bwd_keys", "K5b f32 keys"),
-                       ("long_attention_kernel", "K5a f32 / K6")):
+                       ("long_attention_kernel", "K5a f32"), ("gemm_resid_ln", "K2c RESID_LN_Q"),
+                       ("gemm_tiled_kernel<1,", "K2b GELU_Q"), ("gemm_tiled_kernel", "K2a PLAIN"),
+                       ("ln_quantize", "K2d LN")):
         if key in n:
             return group
     if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90", "nvjet")):
@@ -237,6 +263,43 @@ def compare_int8(name, got, want):
     if worst > 1 or exact < INT8_MIN_EXACT:
         fail(f"{name}: int8 max |diff| {worst}, exact share {exact:.6f}")
     return float(worst), exact
+
+
+@contextlib.contextmanager
+def kernel_attention_in_plain_chain(la):
+    """Within the block, the long chains' plain ops (``*_plain`` serving
+    modes) take K6a as their attention stage: each call runs the kernel and
+    its plain version on the same inputs, holds the kernel to
+    :func:`compare_int8` and returns the kernel's output. Yields the list of
+    (max |diff|, identical share) per call. Such a chain equals the kernel
+    chain exactly where every other op replays its plain version."""
+    from types import SimpleNamespace
+
+    from qat_vit_tpu_torch.serve import int8_vit
+
+    calls = []
+
+    def attention(qkv, h, hd, *, out_q=None, quant_max=255.0, n_valid=None):
+        got = la.long_attention_qkv(qkv, h, hd, out_q=out_q, quant_max=quant_max,
+                                    n_valid=n_valid)
+        calls.append(compare_int8("attention_long_q in the chain", got, la.long_attention_qkv_plain(
+            qkv, h, hd, out_q=out_q, quant_max=quant_max, n_valid=n_valid)))
+        return got
+
+    def attention_q8(qk8, qkv, h, hd, *, out_q, quant_max=255.0, n_valid=None):
+        got = la.long_attention_q8(qk8, qkv, h, hd, out_q=out_q, quant_max=quant_max,
+                                   n_valid=n_valid)
+        calls.append(compare_int8("attention_long_q8 in the chain", got, la.long_attention_q8_plain(
+            qk8, qkv, h, hd, out_q=out_q, quant_max=quant_max, n_valid=n_valid)))
+        return got
+
+    plain_ops = int8_vit.LONG_PLAIN_OPS
+    int8_vit.LONG_PLAIN_OPS = SimpleNamespace(**{**vars(plain_ops), "attention": attention,
+                                                 "attention_q8": attention_q8})
+    try:
+        yield calls
+    finally:
+        int8_vit.LONG_PLAIN_OPS = plain_ops
 
 
 def compare_float(name, got, want, rtol):
@@ -425,7 +488,8 @@ def phase_kernels(torch, np, fs, fa, fat):
          "qat_vit_tpu/ops/fused_serve.py:57", gemm_work(m, d, 3 * d, 2),
          int_mm(torch, x_qkv, l_qkv)),
         ("int8_gemm:resid_ln_q proj [6304x384]@[384x384]", fs.int8_dense_resid_ln_q,
-         fs.int8_dense_resid_ln_q_plain, (x_proj, l_proj, in_q, x_bf16, ln(d), out_q),
+         fs.int8_dense_resid_ln_q_plain,
+         (x_proj, fs.with_packed_weight(l_proj), in_q, x_bf16, ln(d), out_q),
          {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:87",
          gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), int_mm(torch, x_proj, l_proj)),
         ("int8_gemm:gelu_q fc1 [6304x384]@[384x1536]", fs.int8_dense_gelu_q,
@@ -433,7 +497,8 @@ def phase_kernels(torch, np, fs, fa, fat):
          "qat_vit_tpu/ops/fused_serve.py:70", gemm_work(m, d, mlp, 1),
          int_mm(torch, x_fc1, l_fc1)),
         ("int8_gemm:resid_ln_q fc2 [6304x1536]@[1536x384]", fs.int8_dense_resid_ln_q,
-         fs.int8_dense_resid_ln_q_plain, (x_fc2, l_fc2, in_q, x_f32, ln(d), out_q),
+         fs.int8_dense_resid_ln_q_plain,
+         (x_fc2, fs.with_packed_weight(l_fc2), in_q, x_f32, ln(d), out_q),
          {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:87",
          gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d), int_mm(torch, x_fc2, l_fc2)),
         ("int8_gemm:plain patch_embed [6272x768]@[768x384]", fs.int8_dense, fs.int8_dense_plain,
@@ -484,7 +549,8 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
     ``slow_plain`` by its one comparison call), the library call (None: no
     single call computes it) and the bound of ``work`` (one work, or a list
     of them done one after another). ``extra``: ``source`` (where the
-    kernel is not its wrapper's usual one) and ``tc`` (the f64 math and its
+    kernel is not its wrapper's usual one), ``int8_bound`` (K6a: int8
+    outputs held by :func:`compare_int8` even where ``exact``) and ``tc`` (the f64 math and its
     number of output sections: a tensor-core kernel of the bf16 long pair,
     held by :func:`compare_tc` and to identical bits over two launches)."""
     bf16 = torch.bfloat16
@@ -515,7 +581,7 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
             notes.append("; ".join(tc_notes))
             got = want = ()
         for g, w in zip(got, want):
-            if exact and not torch.equal(g, w):
+            if exact and not extra.get("int8_bound") and not torch.equal(g, w):
                 fail(f"{name}: not identical to its plain version (max |diff| "
                      f"{float((g.float() - w.float()).abs().max()):.3e})")
             if g.dtype == torch.int8:
@@ -526,6 +592,7 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
                 # f32 out: same f32 ops in the same order; bf16 out: one bf16 ulp
                 errs.append(compare_float(name, g, w, 2 ** -7 if g.dtype == bf16 else 1e-5))
         ms = median_ms(lambda: kernel(*args, **kwargs))
+        ms_b2b = median_ms(lambda: kernel(*args, **kwargs), reps=KERNEL_REPS)
         if plain in slow_plain:
             plain_ms = start.elapsed_time(end)
         else:
@@ -534,7 +601,8 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
         bound_ms, bound_by = roofline(*(work if isinstance(work, list) else [work]))
         lib = f"{library_ms:.4f} ms" if library is not None else "none"
         print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(notes)}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
+              f"kernel {ms:.4f} ms ({ms_b2b:.4f} ms each of {KERNEL_REPS} back to back)  "
+              f"plain {plain_ms:.4f} ms  library {lib}  "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         results.append({"name": name, "wrapper": kernel, "source": extra.get("source"),
                         "replaces": replaces,
@@ -811,7 +879,8 @@ def phase_detection(torch, np, fs, la):
          int_mm(torch, x_patch, l_patch)),
         (f"int8_gemm:resid_ln_q proj [{m}x{d}]@[{d}x{d}]", fs.int8_dense_resid_ln_q,
          fs.int8_dense_resid_ln_q_plain,
-         (x_proj, l_proj, in_q, x_bf16, rand_ln(torch, np, rng, dev, d), out_q),
+         (x_proj, fs.with_packed_weight(l_proj), in_q, x_bf16, rand_ln(torch, np, rng, dev, d),
+          out_q),
          {"out_dtype": torch.float32, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87",
          gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), int_mm(torch, x_proj, l_proj)),
         (f"int8_gemm:gelu_q quick-GELU fc1 [{m}x{d}]@[{d}x{mlp}]", fs.int8_dense_gelu_q,
@@ -820,7 +889,8 @@ def phase_detection(torch, np, fs, la):
          int_mm(torch, x_fc1, l_fc1)),
         (f"int8_gemm:resid_ln_q fc2 [{m}x{mlp}]@[{mlp}x{d}]", fs.int8_dense_resid_ln_q,
          fs.int8_dense_resid_ln_q_plain,
-         (x_fc2, l_fc2, in_q, x_f32, rand_ln(torch, np, rng, dev, d), out_q),
+         (x_fc2, fs.with_packed_weight(l_fc2), in_q, x_f32, rand_ln(torch, np, rng, dev, d),
+          out_q),
          {"out_dtype": bf16, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87",
          gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d), int_mm(torch, x_fc2, l_fc2)),
         (f"ln_quantize [{m}x{d}] bf16", fs.ln_quantize, fs.ln_quantize_plain,
@@ -864,12 +934,22 @@ def phase_detection(torch, np, fs, la):
     plain = int8_detect_apply(export, x[:DET_REF_B], cfg, q[:DET_REF_B],
                               **{**fwd.options, "fused": "megamodel_long_plain"})
     for k in shapes:
-        got, ref = out[k][:DET_REF_B].float(), plain[k].float()
-        rel = float((got - ref).norm() / ref.norm())
+        rel = rel_l2(out[k][:DET_REF_B].float(), plain[k].float())
         print(f"phase 5 {k} vs the plain chain at batch {DET_REF_B}: rel L2 {rel:.3e} "
-              f"(bound {CHAIN_REL_L2})", flush=True)
-        if rel > CHAIN_REL_L2:
-            fail(f"detection: kernel chain vs plain chain {k} rel L2 {rel:.3e} > {CHAIN_REL_L2}")
+              f"({'within' if rel <= CHAIN_REL_L2 else 'NOT within'} the chain bound "
+              f"{CHAIN_REL_L2}; printed, not held: K6a's flips)", flush=True)
+    # the plain chain with K6a as its attention stage: identical
+    with kernel_attention_in_plain_chain(la) as calls:
+        hybrid = int8_detect_apply(export, x[:DET_REF_B], cfg, q[:DET_REF_B],
+                                   **{**fwd.options, "fused": "megamodel_long_plain"})
+    same = all(torch.equal(out[k][:DET_REF_B], hybrid[k]) for k in shapes)
+    print(f"phase 5 the plain chain with K6a's attention at batch {DET_REF_B}: identical to the "
+          f"kernel chain {same}; K6a per block within the int8 bound, exact shares "
+          + ", ".join(f"{e:.7f}" for _, e in calls), flush=True)
+    if not same or len(calls) != depth:
+        fail(f"detection: the plain chain with K6a's attention identical {same}, "
+             f"{len(calls)} attention calls (expected {depth})")
+    del hybrid
     # the chain and its plain version timed at batch DET_REF_B (K6b's row)
     ms_k = median_ms(lambda: fwd(export, x[:DET_REF_B], q[:DET_REF_B]), runs=DET_TIMING_RUNS)
     ms_p = median_ms(lambda: int8_detect_apply(export, x[:DET_REF_B], cfg, q[:DET_REF_B], **{
@@ -896,6 +976,10 @@ def phase_detection(torch, np, fs, la):
     print(f"phase 5 int8 detection: {ms:.2f} ms per batch-{DET_B} forward with {DET_Q} queries "
           f"(median of {DET_TIMING_RUNS}, warm-up excluded; the K6 chain's bound "
           f"{bound_ms:.4f} ms ({bound_by})) on {card_line()}", flush=True)
+    groups, busy, wall, n_kernels = device_breakdown(torch, lambda: fwd(export, x, q))
+    print(f"phase 5 one profiled batch-{DET_B} forward: device busy {busy:.2f} of {wall:.2f} ms "
+          f"(idle {100 * (1 - busy / wall):.1f}%), {n_kernels} kernels; device ms by group: "
+          + ", ".join(f"{g} {t:.2f}" for g, t in groups.most_common()), flush=True)
     del out, plain
 
     # the exact path with its attention on the long attention kernel (K5a)
@@ -1413,7 +1497,7 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
          int_mm(torch, x_qkv, l_qkv)),
         (f"attention_long_q8 (i8) [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_q8,
          la.long_attention_q8_plain, (qk8, qkv.to(bf16), heads, hd), {"out_q": out_q},
-         "qat_vit_tpu/ops/long_block_kernel.py:179", q8_attn, None),
+         "qat_vit_tpu/ops/long_block_kernel.py:179", q8_attn, None, {"int8_bound": True}),
         (f"attention_fwd f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fa.attention_fwd,
          fa.attention_fwd_plain, (vqkv, vh, 64), {}, "qat_vit_tpu/ops/flash_attention.py:125",
          f32_fwd, sdpa_forward(torch, vqkv, vh, 64)),
@@ -1465,18 +1549,29 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
         fail(f"the i8 chain's launches {launches}, expected {want}")
     plain = int8_detect_apply(export, x, cfg, q, **{
         **i8.options, "fused": "megamodel_long_plain:512:256:i8"})
-    same = all(torch.equal(out[k], plain[k]) for k in plain)
+    rels = {k: rel_l2(out[k].float(), plain[k].float()) for k in plain}
+    print(f"phase 8 the i8 chain at batch {DET_B} vs its plain twin: rel L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" ({'within' if max(rels.values()) <= CHAIN_REL_L2 else 'NOT within'} the chain "
+          f"bound {CHAIN_REL_L2}; printed, not held: K6a's flips)", flush=True)
+    with kernel_attention_in_plain_chain(la) as calls:
+        hybrid = int8_detect_apply(export, x, cfg, q, **{
+            **i8.options, "fused": "megamodel_long_plain:512:256:i8"})
+    same = all(torch.equal(out[k], hybrid[k]) for k in plain) and len(calls) == depth
     box_err = float((out["pred_boxes"] - exact["pred_boxes"]).abs().mean())
     corr = {k: float(np.corrcoef(out[k].flatten().cpu().numpy(),
                                  exact[k].flatten().cpu().numpy())[0, 1])
             for k in ("logits", "objectness_logits")}
-    print(f"phase 8 the i8 chain at batch {DET_B} identical to its plain twin: {same}; "
+    print(f"phase 8 the i8 chain at batch {DET_B} identical to its plain twin with K6a's "
+          f"attention (per block within the int8 bound, exact shares "
+          + ", ".join(f"{e:.7f}" for _, e in calls) + f"): {same}; "
           f"vs the exact f32 path: pred_boxes mean |err| {box_err:.3e} (bound "
           f"{DET_BOX_MEAN_ERR}), corr logits {corr['logits']:.5f} objectness "
           f"{corr['objectness_logits']:.5f} (bound > {DET_CORR})", flush=True)
     if not same or box_err > DET_BOX_MEAN_ERR or min(corr.values()) <= DET_CORR:
-        fail(f"the i8 chain: identical to plain {same}, box err {box_err:.3e}, corr {corr}")
-    del out, plain
+        fail(f"the i8 chain: identical to the plain twin with K6a's attention {same}, box err "
+             f"{box_err:.3e}, corr {corr}")
+    del out, plain, hybrid
     bf = make_int8_detect_forward(cfg, dev)
     times = {}
     for name, fwd in (("i8", i8), ("megamodel_long", bf), ("megamodel_long", bf), ("i8", i8)):
@@ -1597,7 +1692,7 @@ def main() -> None:
 
     sources = {fs.int8_dense: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_q8: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
-               la.long_attention_q8: "qat_vit_tpu_torch/csrc/attention_long.cu",
+               la.long_attention_q8: "qat_vit_tpu_torch/csrc/attention_long_q_mma.cu",
                fs.int8_dense_gelu_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.int8_dense_resid_ln_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.ln_quantize: "qat_vit_tpu_torch/csrc/ln_quantize.cu",
@@ -1605,7 +1700,7 @@ def main() -> None:
                fa.attention_fwd: "qat_vit_tpu_torch/csrc/attention_q.cu",
                fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd.cu",
                la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long.cu",
-               la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long.cu",
+               la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long_q_mma.cu",
                la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd.cu",
                pg.fused_quantize_matmul: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fa.flash_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q.cu",

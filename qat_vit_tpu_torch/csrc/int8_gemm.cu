@@ -6,7 +6,7 @@
 //   qat_vit_tpu/ops/long_block_kernel.py::_long_block_impl phase 1 with
 //     int8_scores (K6's qkv GEMM + the q/k requantize)           -> EPI_PLAIN_Q8
 //   qat_vit_tpu/ops/fused_serve.py::_gelu_q_kernel      (K2b)  -> EPI_GELU_Q
-//   qat_vit_tpu/ops/fused_serve.py::_resid_ln_q_kernel  (K2c)  -> EPI_RESID_LN_Q
+//   qat_vit_tpu/ops/fused_serve.py::_resid_ln_q_kernel  (K2c)  -> qvt_int8_gemm_resid_ln
 //   qat_vit_tpu/ops/pallas_gemm.py::_kernel             (K7)   -> qvt_quantize_gemm:
 //     EPI_PLAIN with an f32 / bf16 A quantized in the A-tile prologue
 // and the four GEMM stages of qat_vit_tpu/ops/block_kernel.py::_model_kernel
@@ -19,15 +19,41 @@
 // tensor cores (1,979 dense int8 TOP/s), not HBM (3.35 TB/s). K7 reads A as
 // f32 (4 bytes per element), which moves its byte count up but not past that.
 //
-// This is a first, correct kernel: mma.sync on synchronously staged tiles;
-// wgmma/TMA/pipelining are later work. PLAIN / PLAIN_Q8 / GELU_Q (and K7) run
-// one block of 128 threads per (64-row, 64-column) output tile; RESID_LN_Q one block
-// per 32 rows owning all N columns.
+// PLAIN / PLAIN_Q8 / GELU_Q (and K7) are a first, correct kernel: mma.sync
+// on synchronously staged tiles, one block of 128 threads per (64-row,
+// 64-column) output tile (gemm_tile.cuh); wgmma/TMA are later work.
+//
+// RESID_LN_Q (K2c) is pipelined. LayerNorm needs whole rows, so a block owns
+// BM rows (64, 32 or 16, chosen by the wrapper: ops/fused_serve.
+// resid_ln_rows) and ALL N columns (K9's megablock.cu keeps the 32-row body
+// of gemm_tile.cuh, resid_ln_body, which re-streams K for every 64-column
+// tile). Here:
+// - W comes pre-packed k-contiguous, [N, K] (serve/int8_vit.export_to_device
+//   packs each RESID_LN_Q weight once, beside the JAX-layout [K, N] copy),
+//   so a B tile is NC rows of 64 k-bytes, copied in 16-byte cp.async chunks
+//   and read into mma fragments by ldmatrix, with no register transpose;
+// - 8 warps, column passes of NC = 192 (N 384: two passes, 576: three), so
+//   A is re-read N / 192 times (from L2), W once per block;
+// - a ring of 3 cp.async stages of (A [BM x 64], B [192 x 64]) with one
+//   barrier per k-step; rows of 80 bytes (conflict-free ldmatrix);
+// - the pass's f32 y (dequant + residual) goes to the output and to a [BM x
+//   (N + 4)] f32 block in shared memory; after the last pass each warp
+//   takes rows and computes the LayerNorm statistics in f64
+//   (warp_row_stats), as before, so y and q stay bit-identical to the plain
+//   version (ops/fused_serve.int8_dense_resid_ln_q_plain).
+// - the per-column constants (colsum, s_x w_scale, bias, LN gamma and beta)
+//   are staged in shared memory once, and the epilogue issues its loads
+//   before its stores: the int8 and bf16 outputs may alias any input as far
+//   as the compiler knows, so a load after a store waits for it.
+// Shared memory: 3 (BM + 192) 80 + BM (N + 4) 4 + 20 N bytes; every N the
+// gate admits (RESID_LN_MAX_N) fits at BM 16.
 
 #include "gemm_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
+using namespace qvt;
 using namespace qvt::gemm;
 
 template <int EPI, typename OutT, typename AT>
@@ -37,23 +63,209 @@ __global__ void __launch_bounds__(THREADS) gemm_tiled_kernel(GemmParams p) {
                                    Group{static_cast<int>(threadIdx.x), 0});
 }
 
-template <typename OutT, typename ResT>
-__global__ void __launch_bounds__(THREADS) gemm_resid_ln_kernel(GemmParams p) {
+// ---- RESID_LN_Q (K2c), pipelined ----
+constexpr int RL_THREADS = 256;  // 8 warps
+constexpr int RL_NC = 192;       // columns per pass
+constexpr int RL_STAGES = 3;
+constexpr int RL_BK = 64;            // k bytes per stage
+constexpr int RL_ROW = RL_BK + 16;   // bytes per A / B tile row (an odd number of 16-byte chunks)
+
+// the ring, the block's f32 y in rows of N + 4, and five per-column
+// constants (colsum, s_x * w_scale, bias, gamma, beta)
+constexpr size_t rl_smem_bytes(int bm, int n) {
+  return (size_t)RL_STAGES * (bm + RL_NC) * RL_ROW + (size_t)bm * (n + 4) * sizeof(float) +
+         5 * sizeof(float) * (size_t)n;
+}
+
+// an int8 tile of RL_ROW-byte rows read as bf16 pairs: its 32-byte k-steps
+// are the 16-element k-steps of a [rows][RL_BK / 2 + 8] bf16 tile, so the
+// bf16 ldmatrix helpers of mma_tile.cuh give the m16n8k32.s8 fragments
+constexpr int RL_HALF = RL_BK / 2;
+__device__ __forceinline__ const qvt_mma::bf16* rl_pairs(const uint8_t* p) {
+  static_assert(RL_ROW == 2 * (RL_HALF + 8), "int8 rows must be bf16 rows of RL_BK / 2");
+  return reinterpret_cast<const qvt_mma::bf16*>(p);
+}
+
+// BM rows x all N; 8 warps as WM (rows) x 8 / WM (columns); a warp owns
+// MI 16-row tiles x NI 8-column tiles of a pass
+template <int BM, int WM, typename OutT, typename ResT>
+__global__ void __launch_bounds__(RL_THREADS) gemm_resid_ln_kernel(GemmParams p) {
+  constexpr int WN = 8 / WM, MI = BM / (16 * WM), NI = RL_NC / (8 * WN);
+  constexpr int STAGE = (BM + RL_NC) * RL_ROW;
+  static_assert(MI >= 1 && NI >= 2 && BM == 16 * WM * MI && RL_NC == 8 * WN * NI, "layout");
   extern __shared__ __align__(16) uint8_t smem[];
-  resid_ln_body<OutT, ResT, false>(p, smem, blockIdx.x * BM_ROWS,
-                                   Group{static_cast<int>(threadIdx.x), 0});
+  float* const Ys = reinterpret_cast<float*>(smem + RL_STAGES * STAGE);  // [BM][N + 4]
+  int* const Cs = reinterpret_cast<int*>(Ys + BM * (p.N + 4));  // colsum
+  float* const Sw = reinterpret_cast<float*>(Cs + p.N);           // s_x * w_scale
+  float* const Bi = Sw + p.N;                                      // bias
+  float* const Ga = Bi + p.N;                                      // LN gamma
+  float* const Be = Ga + p.N;                                      // LN beta
+  const int m0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / WN) * MI * 16, wc = (warp % WN) * NI * 8;  // the warp's tile
+  const int nk = (p.K + RL_BK - 1) / RL_BK, ldy = p.N + 4;
+  const int8_t* const a = static_cast<const int8_t*>(p.a);
+  const ResT* const res = static_cast<const ResT*>(p.residual);
+
+  // k-step kt of the pass at column n0 into ring stage `stage` (bytes past
+  // K zero-filled): one group
+  auto load = [&](int kt, int stage, int n0) {
+    constexpr int CH = RL_BK / 16;
+    uint8_t* const As = smem + stage * STAGE;
+    uint8_t* const Bs = As + BM * RL_ROW;
+    const int k0 = kt * RL_BK;
+    for (int c = tid; c < BM * CH; c += RL_THREADS) {
+      const int r = c / CH, ch = c % CH;
+      const bool ok = m0 + r < p.M && k0 + 16 * ch < p.K;
+      qvt_mma::cp_async16_zfill(As + r * RL_ROW + 16 * ch,
+                                ok ? a + (size_t)(m0 + r) * p.K + k0 + 16 * ch : a, ok);
+    }
+    for (int c = tid; c < RL_NC * CH; c += RL_THREADS) {
+      const int r = c / CH, ch = c % CH;
+      const bool ok = n0 + r < p.N && k0 + 16 * ch < p.K;
+      qvt_mma::cp_async16_zfill(Bs + r * RL_ROW + 16 * ch,
+                                ok ? p.w + (size_t)(n0 + r) * p.K + k0 + 16 * ch : p.w, ok);
+    }
+    qvt_mma::cp_async_commit();
+  };
+
+  // the per-column constants in shared memory (visible after the first
+  // k-step's barrier): the epilogue and the LayerNorm then issue no global
+  // load behind an output store that might alias it
+  for (int c = tid; c < p.N; c += RL_THREADS) {
+    Cs[c] = p.colsum[c];
+    Sw[c] = __fmul_rn(p.s_x, p.ws_per_channel ? p.wscale[c] : p.ws0);
+    Bi[c] = p.bias != nullptr ? p.bias[c] : 0.0f;
+    Ga[c] = p.gamma[c];
+    Be[c] = p.beta[c];
+  }
+  const bool has_bias = p.bias != nullptr;
+
+  for (int n0 = 0; n0 < p.N; n0 += RL_NC) {
+    int acc[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+    for (int s = 0; s < RL_STAGES - 1; ++s) {
+      if (s < nk)
+        load(s, s, n0);
+      else
+        qvt_mma::cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      qvt_mma::cp_async_wait<RL_STAGES - 2>();
+      __syncthreads();  // k-step kt visible, and every warp done with kt - 1's stage
+      const int nxt = kt + RL_STAGES - 1;
+      if (nxt < nk)
+        load(nxt, nxt % RL_STAGES, n0);
+      else
+        qvt_mma::cp_async_commit();
+      const uint8_t* const As = smem + (kt % RL_STAGES) * STAGE;
+      const qvt_mma::bf16* const Bp = rl_pairs(As + BM * RL_ROW);
+#pragma unroll
+      for (int ks = 0; ks < RL_BK / 32; ++ks) {
+        uint32_t af[MI][4];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          qvt_mma::frag_a<RL_HALF>(rl_pairs(As + (wr + 16 * mi) * RL_ROW), ks, af[mi]);
+#pragma unroll
+        for (int q = 0; q < NI / 2; ++q) {
+          uint32_t bb[4];  // n-tiles 2q (bb[0], bb[1]) and 2q + 1 (bb[2], bb[3])
+          qvt_mma::frag_b<RL_HALF>(Bp, wc + 16 * q, ks, bb);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+            mma_s8(acc[mi][2 * q], af[mi], b0);
+            mma_s8(acc[mi][2 * q + 1], af[mi], b1);
+          }
+        }
+        if constexpr (NI % 2 == 1) {  // the last n-tile: rows wc + 8 (NI - 1) ..
+          uint32_t bb[2];
+          const qvt_mma::bf16* const at =
+              Bp + (wc + 8 * (NI - 1) + (lane & 7)) * (RL_HALF + 8) + 16 * ks +
+              ((lane >> 3) & 1) * 8;
+          asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                       : "=r"(bb[0]), "=r"(bb[1])
+                       : "r"(qvt_mma::smem_addr(at)));
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) mma_s8(acc[mi][NI - 1], af[mi], bb);
+        }
+      }
+    }
+    qvt_mma::cp_async_wait<0>();
+    __syncthreads();  // every warp done with the ring before the next pass refills it
+
+    // the pass's y = dequant + residual (dequant's arithmetic: (acc - z_s
+    // colsum) * (s_x w_scale), + bias), every load first, then to Ys and the
+    // output
+    float yv[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = m0 + wr + 16 * mi + g + (r >= 2 ? 8 : 0);
+          const int col = n0 + wc + 8 * ni + 2 * t + (r & 1);
+          yv[mi][ni][r] = 0.0f;
+          if (row >= p.M || col >= p.N) continue;
+          float y = __fmul_rn(static_cast<float>(acc[mi][ni][r] - p.z_s * Cs[col]), Sw[col]);
+          if (has_bias) y = __fadd_rn(y, Bi[col]);
+          yv[mi][ni][r] = __fadd_rn(y, to_f32(res[(size_t)row * p.N + col]));
+        }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int lr = wr + 16 * mi + g + (r >= 2 ? 8 : 0);
+          const int row = m0 + lr;
+          const int col = n0 + wc + 8 * ni + 2 * t + (r & 1);
+          if (row >= p.M || col >= p.N) continue;
+          Ys[lr * ldy + col] = yv[mi][ni][r];
+          static_cast<OutT*>(p.y)[(size_t)row * p.N + col] = from_f32<OutT>(yv[mi][ni][r]);
+        }
+  }
+  __syncthreads();
+
+  for (int lr = warp; lr < BM; lr += RL_THREADS / 32) {
+    const int row = m0 + lr;
+    if (row >= p.M) continue;
+    const float* yr = Ys + lr * ldy;
+    const float2 st = warp_row_stats([&](int c) { return yr[c]; }, p.N, p.eps);
+    for (int c = lane; c < p.N; c += 32)
+      p.q[(size_t)row * p.N + c] = quantize_shifted(ln_affine(yr[c], st, Ga[c], Be[c]), p.inv_s,
+                                                    p.zp, p.qmax);
+  }
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-           const GemmParams& p) {
+int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const GemmParams& p,
+           int threads = THREADS) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int WM>
+int launch_resid_ln(const GemmParams& p, int out_bf16, int res_bf16, cudaStream_t s) {
+  typedef __nv_bfloat16 bf16;
+  const dim3 grid((p.M + BM - 1) / BM);
+  const size_t smem = rl_smem_bytes(BM, p.N);
+  if (out_bf16 && res_bf16)
+    return launch(gemm_resid_ln_kernel<BM, WM, bf16, bf16>, grid, smem, s, p, RL_THREADS);
+  if (out_bf16) return launch(gemm_resid_ln_kernel<BM, WM, bf16, float>, grid, smem, s, p, RL_THREADS);
+  if (res_bf16) return launch(gemm_resid_ln_kernel<BM, WM, float, bf16>, grid, smem, s, p, RL_THREADS);
+  return launch(gemm_resid_ln_kernel<BM, WM, float, float>, grid, smem, s, p, RL_THREADS);
 }
 
 GemmParams make_params(const void* a, const void* w, const void* colsum, const void* bias,
@@ -79,7 +291,8 @@ GemmParams make_params(const void* a, const void* w, const void* colsum, const v
 }  // namespace
 
 // Returns a cudaError_t (0 = launched). Pointers are device pointers; the
-// kernel allocates nothing and does not synchronise.
+// kernel allocates nothing and does not synchronise. The epilogue is PLAIN,
+// GELU_Q or PLAIN_Q8 (RESID_LN_Q: qvt_int8_gemm_resid_ln).
 extern "C" int qvt_int8_gemm(const void* a, const void* w, const void* colsum,
                              const void* bias, const void* wscale, const void* residual,
                              const void* gamma, const void* beta, void* y, void* q,
@@ -102,14 +315,6 @@ extern "C" int qvt_int8_gemm(const void* a, const void* w, const void* colsum,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf16;
 
-  if (epilogue == EPI_RESID_LN_Q) {
-    const dim3 grid((M + BM_ROWS - 1) / BM_ROWS);
-    const size_t smem = resid_ln_smem_bytes(N);
-    if (out_bf16 && res_bf16) return launch(gemm_resid_ln_kernel<bf16, bf16>, grid, smem, s, p);
-    if (out_bf16) return launch(gemm_resid_ln_kernel<bf16, float>, grid, smem, s, p);
-    if (res_bf16) return launch(gemm_resid_ln_kernel<float, bf16>, grid, smem, s, p);
-    return launch(gemm_resid_ln_kernel<float, float>, grid, smem, s, p);
-  }
   const dim3 grid((N + BN - 1) / BN, (M + BM_TILED - 1) / BM_TILED);
   const size_t smem = tiled_smem_bytes();
   if (epilogue == EPI_GELU_Q)
@@ -144,4 +349,32 @@ extern "C" int qvt_quantize_gemm(const void* x, const void* w, const void* colsu
   if (x_bf16) return launch(gemm_tiled_kernel<EPI_PLAIN, float, bf16>, grid, smem, s, p);
   if (out_bf16) return launch(gemm_tiled_kernel<EPI_PLAIN, bf16, float>, grid, smem, s, p);
   return launch(gemm_tiled_kernel<EPI_PLAIN, float, float>, grid, smem, s, p);
+}
+
+// K2c: y = x_q @ W + residual (f32 or bf16 y), q = quantize(LN(y)). w_t is
+// the weight packed k-contiguous, [N, K]; bm (64, 32 or 16) the rows of a
+// block; K a multiple of 64; N within the shared-memory plan at that bm.
+extern "C" int qvt_int8_gemm_resid_ln(const void* a, const void* w_t, const void* colsum,
+                                      const void* bias, const void* wscale, const void* residual,
+                                      const void* gamma, const void* beta, void* y, void* q,
+                                      int M, int N, int K, int bm, int out_bf16, int res_bf16,
+                                      int ws_per_channel, float ws0, float s_x, int z_s,
+                                      float inv_s, float zp, float qmax, float eps, void* stream) {
+  if (K <= 0 || K % BK || N <= 0 || M < 0 || rl_smem_bytes(bm, N) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmParams p = make_params(a, w_t, colsum, bias, wscale, M, N, K, ws_per_channel, ws0, s_x, z_s);
+  p.residual = residual;
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  p.y = y;
+  p.q = static_cast<int8_t*>(q);
+  p.inv_s = inv_s;
+  p.zp = zp;
+  p.qmax = qmax;
+  p.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 64) return launch_resid_ln<64, 2>(p, out_bf16, res_bf16, s);
+  if (bm == 32) return launch_resid_ln<32, 2>(p, out_bf16, res_bf16, s);
+  if (bm == 16) return launch_resid_ln<16, 1>(p, out_bf16, res_bf16, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,9 @@
     int8_dense_resid_ln_q   x_q @ W + residual -> (y, LN(y) -> int8)   (K2c)
     ln_quantize             LN(x) -> int8                 (K2d)
 
-On CUDA the first four launch the ``int8_gemm`` kernel
-(``csrc/int8_gemm.cu``) with the named epilogue and the last the
+On CUDA the first four launch the ``int8_gemm`` kernels
+(``csrc/int8_gemm.cu``: ``qvt_int8_gemm`` with the named epilogue,
+``qvt_int8_gemm_resid_ln`` for RESID_LN_Q) and the last the
 ``ln_quantize`` kernel (``csrc/ln_quantize.cu``); on the CPU each runs its
 plain version (``*_plain``, same signature), which ``chip_smoke.py`` also
 runs on the card to check the kernels. Each wrapper counts its kernel
@@ -15,8 +16,12 @@ launches in ``<wrapper>.launches``.
 
 Activations are shifted int8; ``in_q``/``out_q`` are ``{"scale",
 "zero_point"}`` dicts of the export. Quantizing multiplies by ``1/scale``
-(f32), as the TPU kernels do. ``W`` stays ``[K, N]`` as exported: the
-kernel transposes its tiles in shared memory, so no transposed copy exists.
+(f32), as the TPU kernels do. ``W`` stays ``[K, N]`` as exported; PLAIN,
+PLAIN_Q8 and GELU_Q transpose its tiles in shared memory. RESID_LN_Q reads
+a k-contiguous ``[N, K]`` copy, ``layer["w_int8_t"]``
+(:func:`with_packed_weight`), which ``serve/int8_vit.export_to_device``
+adds to every RESID_LN_Q layer of an export placed on a CUDA device; on
+CUDA the wrapper raises for a layer without one.
 """
 
 from __future__ import annotations
@@ -32,19 +37,68 @@ from qat_vit_tpu_torch.ops.quantized_matmul import f32, int8_matmul, is_per_chan
 
 EPI_PLAIN, EPI_GELU_Q, EPI_RESID_LN_Q, EPI_PLAIN_Q8 = 0, 1, 2, 3
 _ACTS = {"gelu": 0, "quick_gelu": 1}
-# the kernel stages K in 64-byte tiles (csrc/gemm_tile.cuh): shared-memory
-# rows of 64 + 16 bytes, output tiles of 64 x 64 (32 rows x N for RESID_LN_Q)
+# the kernels stage K in 64-byte tiles (csrc/gemm_tile.cuh): shared-memory
+# rows of 64 + 16 bytes, output tiles of 64 x 64 (32 rows x N for the
+# RESID_LN_Q body that K9's megablock.cu keeps)
 GEMM_K_MULTIPLE = 64
 GEMM_ROW_BYTES = 80
 GEMM_TILE_M, GEMM_TILE_N, RESID_LN_ROWS = 64, 64, 32
-# RESID_LN_Q keeps 32 rows x N f32 in shared memory beside 96 x 80 B of tiles
+# K9's RESID_LN_Q keeps 32 rows x N f32 in shared memory beside 96 x 80 B of
+# tiles: the N every RESID_LN_Q kernel must take
 RESID_LN_MAX_N = ((SMEM_LIMIT - (RESID_LN_ROWS + GEMM_TILE_N) * GEMM_ROW_BYTES)
                   // (RESID_LN_ROWS * 4))
+# the pipelined RESID_LN_Q (K2c, qvt_int8_gemm_resid_ln): blocks of 64, 32
+# or 16 rows x all N, column passes of 192, a ring of 3 stages of (A [rows
+# x 64], B [192 x 64]) in 80-byte rows, the block's f32 y in rows of N + 4
+# and five f32 per-column constants
+RESID_LN_BLOCK_ROWS = (64, 32, 16)
+RESID_LN_PASS_N, RESID_LN_STAGES = 192, 3
+# H100: shared memory of an SM, and what the runtime reserves per block
+SM_SMEM_BYTES, BLOCK_SMEM_RESERVE = 233472, 1024
 
 
 def gemm_shapes_ok(k: int, n: int, resid_ln: bool = False) -> bool:
-    """The int8_gemm kernel's shape gate."""
+    """The int8_gemm kernels' shape gate."""
     return k > 0 and k % GEMM_K_MULTIPLE == 0 and n >= 1 and (not resid_ln or n <= RESID_LN_MAX_N)
+
+
+def resid_ln_smem_bytes(rows: int, n: int) -> int:
+    """Shared memory of the pipelined RESID_LN_Q at ``rows`` per block."""
+    return (RESID_LN_STAGES * (rows + RESID_LN_PASS_N) * GEMM_ROW_BYTES
+            + rows * (n + 4) * 4 + 5 * 4 * n)
+
+
+def resid_ln_rows(m: int, n: int) -> int:
+    """Rows per block of the pipelined RESID_LN_Q for ``[m, K] @ [K, n]``:
+    of 64, 32 and 16, the height that keeps the most rows in flight on an
+    SM (rows × the blocks whose shared memory fits an SM together, at most
+    two), the shorter on a tie: W streams once per block, and a second
+    block per SM hides the first one's load latency and epilogue. OWLv2's
+    N 576 takes 64 rows (one block per SM), ViT-S's 384 takes 32 (two);
+    measured on an H100 by ``port_scripts/k2c_variants.py``. Every ``n <=
+    RESID_LN_MAX_N`` fits at 16. ``m`` does not enter."""
+    del m
+    best, best_rows = 0, None
+    for r in sorted(RESID_LN_BLOCK_ROWS):
+        smem = resid_ln_smem_bytes(r, n)
+        if smem > SMEM_LIMIT:
+            continue
+        rows = r * min(2, SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVE))
+        if rows > best:
+            best, best_rows = rows, r
+    if best_rows is None:
+        raise ValueError(f"RESID_LN_Q: N={n} past the shared-memory plan")
+    return best_rows
+
+
+def pack_k_major(w_int8: torch.Tensor) -> torch.Tensor:
+    """The ``[K, N]`` weight as a k-contiguous ``[N, K]`` copy."""
+    return w_int8.t().contiguous()
+
+
+def with_packed_weight(layer: dict) -> dict:
+    """``layer`` with ``w_int8_t``, the k-contiguous copy RESID_LN_Q reads."""
+    return {**layer, "w_int8_t": pack_k_major(layer["w_int8"])}
 
 
 def inv_scale(scale) -> float:
@@ -170,6 +224,12 @@ def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
     if epi == EPI_PLAIN_Q8 and not 0 < q_cols <= n:
         raise ValueError(f"int8_gemm PLAIN_Q8: q_cols {q_cols} outside (0, {n}]")
     q_n = q_cols if epi == EPI_PLAIN_Q8 else n
+    if epi == EPI_RESID_LN_Q:
+        w_t = layer.get("w_int8_t")
+        if w_t is None:
+            raise ValueError("int8_gemm RESID_LN_Q: the layer has no packed weight w_int8_t "
+                             "(serve.int8_vit.export_to_device or with_packed_weight adds it)")
+        require(w_t, "w_int8_t", torch.int8, dev, (n, k), align=16)
     y = torch.empty((m, n), dtype=y_dtype, device=dev) if epi != EPI_GELU_Q else None
     q = torch.empty((m, q_n), dtype=torch.int8, device=dev) if epi != EPI_PLAIN else None
     gamma = beta = None
@@ -185,7 +245,15 @@ def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
     inv_s, zp = (inv_scale(out_q["scale"]), f32(out_q["zero_point"])) if out_q else (1.0, 0.0)
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
-    if m:
+    if m and epi == EPI_RESID_LN_Q:
+        _build.load().call(
+            "qvt_int8_gemm_resid_ln", ptr(x_q), ptr(w_t), ptr(colsum), ptr(bias), ws_ptr,
+            ptr(residual), ptr(gamma), ptr(beta), ptr(y), ptr(q), m, n, k, resid_ln_rows(m, n),
+            int(y_dtype == torch.bfloat16), res_bf16, per_channel, ws0, f32(in_q["scale"]),
+            int(f32(in_q["zero_point"])) - 128, inv_s, zp, f32(quant_max), float(eps),
+            stream_of(dev),
+        )
+    elif m:
         _build.load().call(
             "qvt_int8_gemm", ptr(x_q), ptr(w), ptr(colsum), ptr(bias), ws_ptr,
             ptr(residual), ptr(gamma), ptr(beta), ptr(y), ptr(q),

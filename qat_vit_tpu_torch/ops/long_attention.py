@@ -13,12 +13,15 @@ stage of ``qat_vit_tpu/ops/long_block_kernel.py``, K6).
   shifted int8 on the ``out_q`` grid (K6's attention stage, the proj GEMM's
   input; the ``out_q`` / ``quant_max`` contract of
   ``flash_attention.fused_attention_qkv``). On CUDA it launches
-  ``qvt_attention_long_q``; launches in ``long_attention_q.launches``.
+  ``qvt_attention_long_q_mma`` (``csrc/attention_long_q_mma.cu``: a
+  streaming two-pass forward on the tensor cores); launches in
+  ``long_attention_q.launches``.
 - :func:`long_attention_q8`: that stage with int8 score dots (K6's
   ``int8_scores``, the ``i8`` serving flag): q and k as shifted int8 on the
   ``out_q`` grid, their corrected integer dot times ``s_o²·hd^-0.5``; on
-  CUDA ``qvt_attention_long_q8``, launches in ``long_attention_q8.launches``;
-  on the CPU :func:`long_attention_q8_plain`.
+  CUDA ``qvt_attention_long_q8_mma`` (the same kernel with the scores on
+  int8 ``mma.sync``), launches in ``long_attention_q8.launches``; on the
+  CPU :func:`long_attention_q8_plain`.
 
 On the CPU the first two run :func:`long_attention_qkv_plain`: the arithmetic of
 ``flash_attention._attention_plain`` (q scaled by ``hd**-0.5`` in the qkv
@@ -27,17 +30,22 @@ p rounded to the qkv dtype, keys ``>= n_valid`` at -1e30), one image and one
 stripe of query rows at a time: a batch-8 f64 score tensor at 2,305 tokens
 would hold ~3 GB.
 
-Two kinds of kernel, two gates. The f32 form and K6's two int8 forms keep
-score rows, not K and V, in shared memory (one head's K and V at 2,305 × 64
-bf16 are 295 KB each, over the 227 KB a block may use) and replay their
-plain versions bit for bit; their gate is that plan, hd a multiple of 8 and
-at most 128 and :func:`long_attention_smem_bytes` within the limit (N <=
-6,048 at hd 64 in bf16; f32 tiles hold half the keys, so the same bytes).
-The bf16 pair K5a / K5b streams K and V through tiles on the tensor cores,
-keeps only tiles in shared memory and so takes any N at such an hd
-(:func:`long_attention_stream_ok`, JAX's ``long_attention_shapes_ok``); it
-sums in the tensor cores' order and is held to a tolerance against its
-plain versions, not to identity. The TPU's lane and VMEM rules do not apply.
+Two kinds of kernel, two gates. The f32 forms keep score rows, not K and
+V, in shared memory (one head's K and V at 2,305 × 64 in f32 are 590 KB
+each, over the 227 KB a block may use) and replay their plain versions bit
+for bit; their gate is that plan, hd a multiple of 8 and at most 128 and
+:func:`long_attention_smem_bytes` within the limit. The bf16 pair K5a /
+K5b and K6's two int8-output forms stream K and V through tiles on the
+tensor cores, keep only tiles in shared memory and so take any N at such an
+hd (:func:`long_attention_stream_ok`, JAX's ``long_attention_shapes_ok``);
+they sum in the tensor cores' order and use the card's ``ex2``, so they
+are held to a tolerance against their index-order plain versions, not to
+identity: the bf16 pair by :func:`tc_errors`, K6's int8 outputs to at most
+one grid step off and >= 99.9% identical. A K6 chain is chaotic: any
+change of rounding in its attention stage moves a nine-block OWLv2 chain's
+outputs by ~3e-2 (rel L2; ``port_scripts/k6_chain_check.py``), so the chain
+is held to the exact f32 path's bounds. The TPU's lane and VMEM rules do not
+apply.
 
 Training (K5 with its backward, K5b):
 
@@ -116,8 +124,9 @@ def long_attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.
 
 
 def long_attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The kernel's gate: hd a multiple of 8 and <= 128, n within the
-    shared-memory plan for ``dtype``."""
+    """The score-row plan's gate (``csrc/attention_long.cu``, which the f32
+    forward runs): hd a multiple of 8 and <= 128, n within the shared-memory
+    plan for ``dtype`` (N <= 6,048 at hd 64 with bf16-sized tiles)."""
     return (head_dim % 8 == 0 and 0 < head_dim <= 128 and n > 0
             and long_attention_smem_bytes(n, head_dim, dtype) <= SMEM_LIMIT)
 
@@ -143,10 +152,16 @@ def long_attention_bwd_shapes_ok(n: int, head_dim: int,
 
 
 def long_attention_stream_ok(n: int, head_dim: int) -> bool:
-    """The bf16 tensor-core pair's gate (K5a and K5b in bf16): any n >= 1 at
-    hd a multiple of 8 and <= 128, JAX's ``long_attention_shapes_ok``; only
-    tiles of 64 rows live in shared memory."""
+    """The tensor-core kernels' gate (K5a and K5b in bf16, K6's two int8
+    forms): any n >= 1 at hd a multiple of 8 and <= 128, JAX's
+    ``long_attention_shapes_ok``; only tiles of 64 rows live in shared
+    memory."""
     return head_dim % 8 == 0 and 0 < head_dim <= 128 and n > 0
+
+
+def _stream_gate(n: int, head_dim: int, dtype: torch.dtype) -> bool:
+    del dtype
+    return long_attention_stream_ok(n, head_dim)
 
 
 def _fwd_gate(n: int, head_dim: int, dtype: torch.dtype) -> bool:
@@ -252,8 +267,8 @@ def _check(qkv, num_heads, head_dim, n_valid, name, dtypes=(torch.bfloat16,),
         raise ValueError(f"{name}: qkv dtype {qkv.dtype}, expected one of {dtypes}")
     if not gate(n, head_dim, qkv.dtype):
         raise ValueError(f"{name}: unsupported n={n}, head_dim={head_dim} in {qkv.dtype} (needs "
-                         f"hd % 8 == 0 and hd <= 128; the f32 and int8 forms also N within "
-                         f"their shared-memory plans, {SMEM_LIMIT} bytes)")
+                         f"hd % 8 == 0 and hd <= 128; the f32 forms also N within their "
+                         f"shared-memory plans, {SMEM_LIMIT} bytes)")
     n_valid = n if n_valid is None else n_valid
     if not 0 < n_valid <= n:
         raise ValueError(f"n_valid {n_valid} outside (0, {n}]")
@@ -302,12 +317,13 @@ def long_attention_q(qkv: torch.Tensor, num_heads: int, head_dim: int, *, out_q:
     if use_plain(qkv):
         return long_attention_qkv_plain(qkv, num_heads, head_dim, out_q=out_q,
                                         quant_max=quant_max, n_valid=n_valid)
-    n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long_q")
+    n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long_q",
+                     gate=_stream_gate)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, num_heads * head_dim), dtype=torch.int8, device=qkv.device)
     if b:
         _build.load().call(
-            "qvt_attention_long_q", ptr(qkv), ptr(out), b, n, num_heads, head_dim, n_valid,
+            "qvt_attention_long_q_mma", ptr(qkv), ptr(out), b, n, num_heads, head_dim, n_valid,
             float(_q_scale(head_dim, torch.bfloat16)), inv_scale(out_q["scale"]),
             f32(out_q["zero_point"]), f32(quant_max), stream_of(qkv.device),
         )
@@ -324,13 +340,14 @@ def long_attention_q8(qk8: torch.Tensor, qkv: torch.Tensor, num_heads: int, head
     if use_plain(qkv):
         return long_attention_q8_plain(qk8, qkv, num_heads, head_dim, out_q=out_q,
                                        quant_max=quant_max, n_valid=n_valid)
-    n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long_q8")
+    n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long_q8",
+                     gate=_stream_gate)
     b, n, _ = qkv.shape
     require(qk8, "qk8", torch.int8, qkv.device, (b, n, 2 * num_heads * head_dim))
     out = torch.empty((b, n, num_heads * head_dim), dtype=torch.int8, device=qkv.device)
     if b:
         _build.load().call(
-            "qvt_attention_long_q8", ptr(qk8), ptr(qkv), ptr(out), b, n, num_heads, head_dim,
+            "qvt_attention_long_q8_mma", ptr(qk8), ptr(qkv), ptr(out), b, n, num_heads, head_dim,
             n_valid, q8_score_scale(out_q["scale"], head_dim),
             int(f32(out_q["zero_point"])) - 128, inv_scale(out_q["scale"]),
             f32(out_q["zero_point"]), f32(quant_max), stream_of(qkv.device),

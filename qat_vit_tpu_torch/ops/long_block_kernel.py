@@ -10,7 +10,7 @@ launches per block, as ``ops/block_kernel.py`` builds K4:
 
     qkv   int8_dense (PLAIN, bf16 out)                               K2a
           or, with int8_scores, int8_dense_q8 (PLAIN_Q8: + int8 q, k)
-    attn  long_attention_q(out_q=qkv.out_q)    csrc/attention_long.cu
+    attn  long_attention_q(out_q=qkv.out_q)    csrc/attention_long_q_mma.cu
           or, with int8_scores, long_attention_q8 (int8 score dots)
     proj  int8_dense_resid_ln_q (+x, LN2 → int8), x_mid f32 out      K2c
     fc1   int8_dense_gelu_q (quick-GELU or tanh-GELU → int8)         K2b
@@ -41,7 +41,7 @@ from qat_vit_tpu_torch.ops.long_attention import (
     long_attention_q8_plain,
     long_attention_qkv,
     long_attention_qkv_plain,
-    long_attention_shapes_ok,
+    long_attention_stream_ok,
 )
 
 # the ops the K6 chain runs: K4's, with the long-sequence attention, and the
@@ -61,10 +61,11 @@ def long_megablock_pad(n: int, q_tile: int = 0, row_chunk: int = 0) -> int:
 
 
 def long_megablock_shapes_ok(n: int, num_heads: int, head_dim: int, mlp_dim: int) -> bool:
-    """The chain's gate: the long attention kernel's plan holds at ``n``,
-    and the int8_gemm gates hold for every GEMM of the block."""
+    """The chain's gate: the streaming attention kernel takes ``n`` at this
+    head dim (any N at hd a multiple of 8 and <= 128), and the int8_gemm
+    gates hold for every GEMM of the block."""
     d = num_heads * head_dim
-    return (long_attention_shapes_ok(n, head_dim) and gemm_shapes_ok(d, 3 * d)
+    return (long_attention_stream_ok(n, head_dim) and gemm_shapes_ok(d, 3 * d)
             and gemm_shapes_ok(d, d, resid_ln=True) and gemm_shapes_ok(d, mlp_dim)
             and gemm_shapes_ok(mlp_dim, d, resid_ln=True))
 

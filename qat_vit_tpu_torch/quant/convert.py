@@ -11,9 +11,9 @@ has the JAX package's layout.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from qat_vit_tpu_torch.quant.fake_quant import quantize_to_int
@@ -48,8 +48,45 @@ def act_qparams(min_val, max_val, qcfg: QConfig) -> Dict[str, torch.Tensor]:
     }
 
 
+# XLA's f32 erf (its ErfImpl32): x clamped to +-erfinv(1 - 2^-23), then
+# x * P(x^2) / Q(x^2), each polynomial by Horner steps that the CPU backend
+# fuses into FMAs
+_ERF_CLAMP = np.float32(3.7439211627767994)
+_ERF_P = np.array([2.2905065861350646e-4, 3.4082910107109506e-3, 5.0955695062380861e-2,
+                   1.8520832239976145e-1, 1.128379143519084], dtype=np.float32)
+_ERF_Q = np.array([-1.1791602954361697e-7, 2.3547966471313185e-5, 1.0179625278914885e-3,
+                   1.4070470171167667e-2, 1.1098505178285362e-1, 4.9746925110067538e-1, 1.0],
+                  dtype=np.float32)
+# sqrt(2) as the f32 divisor: the JAX package's convert runs eagerly, one
+# XLA computation per operation, so v / sqrt(2) stays a division there (a
+# jitted trace would rewrite it as v * f32(1/sqrt(2)))
+_SQRT2 = np.float32(np.sqrt(2.0))
+
+
+def _horner_fma(x2: torch.Tensor, coeffs: np.ndarray) -> torch.Tensor:
+    """Horner's rule in f32 with each step one fused multiply-add: the
+    product of two f32 values is exact in f64, so ``f32(f64(r)·f64(x²) +
+    c)`` rounds once, as the FMA does."""
+    x2 = x2.to(torch.float64)
+    r = torch.full_like(x2, float(coeffs[0]), dtype=torch.float32)
+    for c in coeffs[1:]:
+        r = (r.to(torch.float64) * x2 + float(c)).to(torch.float32)
+    return r
+
+
+def xla_erf_f32(x: torch.Tensor) -> torch.Tensor:
+    """erf of an f32 tensor with XLA's arithmetic (``jax.scipy.special.erf``
+    on the CPU), bit for bit: torch.erf differs from it in the last bits of
+    about half of all f32 inputs."""
+    x = torch.clamp(x.to(torch.float32), torch.tensor(-_ERF_CLAMP), torch.tensor(_ERF_CLAMP))
+    x2 = x * x
+    return (x * _horner_fma(x2, _ERF_P)) / _horner_fma(x2, _ERF_Q)
+
+
 def _gelu_erf(v: torch.Tensor) -> torch.Tensor:
-    return v * 0.5 * (1.0 + torch.erf(v / math.sqrt(2.0)))
+    """``v * 0.5 * (1 + erf(v / sqrt(2)))`` in f32 as the JAX package's
+    eager convert computes it."""
+    return v * 0.5 * (1.0 + xla_erf_f32(v / torch.tensor(_SQRT2)))
 
 
 def gelu_transform_qparams(min_val, max_val, qcfg: QConfig) -> Dict[str, torch.Tensor]:
@@ -68,12 +105,13 @@ def act_output_qparams(min_val, max_val, qcfg: QConfig, act: str = "gelu") -> Di
     """Static qparams for an activation's output given its input range:
     exact for GELU, a 1025-point scan of the interval for quick-GELU.
 
-    The quick-GELU scan uses ``torch.sigmoid``, which differs from XLA's
-    logistic by a few ulps on some f32 inputs (and no simple formula
-    reproduces XLA's), so the scanned range, and with it the ``gelu_q``
-    scale and zero point, can differ from the JAX package's in the last
-    bits: within 2 f32 ulps of scale and 1 of zero point (tested). The GELU
-    export is byte-identical."""
+    GELU's erf is XLA's, emulated bit for bit (:func:`xla_erf_f32`), so the
+    GELU ``gelu_q`` qparams equal the JAX package's (tested). The quick-GELU
+    scan uses ``torch.sigmoid``, which differs from XLA's logistic (its own
+    f32 exp) by a few ulps on some f32 inputs, so the scanned range, and
+    with it the ``gelu_q`` scale and zero point, can differ from the JAX
+    package's in the last bits: within 2 f32 ulps of scale and 1 of zero
+    point (tested)."""
     if act == "gelu":
         return gelu_transform_qparams(min_val, max_val, qcfg)
     if act != "quick_gelu":

@@ -52,11 +52,16 @@ from qat_vit_tpu_torch.ops.flash_attention import (
     flash_attention_qkv_plain,
     xla_attention_qkv,
 )
-from qat_vit_tpu_torch.ops.fused_serve import gemm_shapes_ok, int8_dense_plain, layernorm_f32
+from qat_vit_tpu_torch.ops.fused_serve import (
+    gemm_shapes_ok,
+    int8_dense_plain,
+    layernorm_f32,
+    with_packed_weight,
+)
 from qat_vit_tpu_torch.ops.long_attention import (
     long_attention_qkv,
     long_attention_qkv_plain,
-    long_attention_shapes_ok,
+    long_attention_stream_ok,
 )
 from qat_vit_tpu_torch.ops.long_block_kernel import (
     LONG_KERNEL_OPS,
@@ -133,14 +138,40 @@ def convert_vit(
     return out
 
 
+# the layers of a block that run RESID_LN_Q (fused_serve.int8_dense_resid_ln_q)
+RESID_LN_LAYERS = ("proj", "fc2")
+
+
 def export_to_device(qp: Any, device) -> Any:
     """The export with every tensor of rank >= 1 on ``device``; 0-d qparams
-    stay on the host."""
+    stay on the host. On a CUDA device the RESID_LN_Q layers are also packed
+    (:func:`pack_resid_ln_weights`), the one place the port packs them."""
+    out = _to_device(qp, device)
+    return pack_resid_ln_weights(out) if torch.device(device).type == "cuda" else out
+
+
+def _to_device(qp: Any, device) -> Any:
     if isinstance(qp, dict):
-        return {k: export_to_device(v, device) for k, v in qp.items()}
+        return {k: _to_device(v, device) for k, v in qp.items()}
     if isinstance(qp, torch.Tensor) and qp.ndim > 0:
         return qp.to(device)
     return qp
+
+
+def pack_resid_ln_weights(qp: Any) -> Any:
+    """The export (a tower, or a tree holding towers) with each block's
+    RESID_LN_Q layers (``proj``, ``fc2``) given ``w_int8_t``, their weight
+    packed k-contiguous (``fused_serve.with_packed_weight``), which the K2c
+    kernel reads; the JAX-layout ``w_int8`` stays for every other reader
+    (K9, the plain versions, the file format)."""
+    if not isinstance(qp, dict):
+        return qp
+    out = {k: pack_resid_ln_weights(v) for k, v in qp.items()}
+    if isinstance(out.get("blocks"), dict):
+        out["blocks"] = {
+            i: {k: with_packed_weight(v) if k in RESID_LN_LAYERS else v for k, v in blk.items()}
+            for i, blk in out["blocks"].items()}
+    return out
 
 
 def _head_or_tokens(qp, zq, cfg: ViTConfig, dense) -> torch.Tensor:
@@ -457,6 +488,26 @@ def _fused_stack(qp, images, cfg: ViTConfig, kind: str, *, compute_dtype, plain:
 
 # the long rung serves sequences of at least this many tokens (OWLv2's 2,305)
 LONG_SEQ_MIN = 1536
+# JAX's rung 3 (qat_vit_tpu/serve/int8_vit.py): the whole-model long kernel
+# at q_tile 512 and row chunk 256 (sequence padded to 512), taken where its
+# VMEM estimate at stripe unroll 1 stays within the kernels' 100 MiB
+JAX_LONG_Q_TILE, JAX_LONG_VMEM_LIMIT = 512, 100 * 1024 * 1024
+
+
+def jax_long_rung_fits(n: int, d: int, mlp_dim: int) -> bool:
+    """Whether JAX's preset can take its long rung (K6) at ``n`` tokens of
+    width ``d``: ``long_megablock_pick_unroll`` finds a stripe unroll, i.e.
+    ``long_megablock_vmem_bytes`` at unroll 1 (the packed qkv, f32 output
+    and int8 q/k scratch, double-buffered activation tiles and weight
+    panels, one f32 score stripe) is within its limit. Otherwise JAX falls
+    to rung 4 (``mixed_none`` + the long attention), and so does the port,
+    so that both serve a geometry through the same chain (the rungs differ
+    in numerics: int8 attention output against bf16)."""
+    n_pad = -(-n // JAX_LONG_Q_TILE) * JAX_LONG_Q_TILE
+    scratch = n_pad * 3 * d * 2 + n_pad * d * 4 + n_pad * 2 * d
+    acts = 2 * 2 * (n_pad * d + n_pad * d * 2)
+    weights = 2 * (d * 3 * d + d * d + 2 * d * mlp_dim)
+    return scratch + acts + weights + JAX_LONG_Q_TILE * n_pad * 4 <= JAX_LONG_VMEM_LIMIT
 
 
 def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
@@ -466,19 +517,22 @@ def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
        megamodel chain (K4);
     2. models within attention_q's gate (any activation; the GEMMs run
        plain): ``mixed_none`` + ``pallas_fused`` (K3);
-    3. GELU or quick-GELU models of >= 1536 tokens within the long
-       attention kernel's plan: the megamodel_long chain (K6);
-    4. models the long attention kernel takes that rung 3 rejects:
-       ``mixed_none`` + ``pallas_long`` (K5a);
+    3. GELU or quick-GELU models of >= 1536 tokens whose block GEMMs
+       int8_gemm takes, at any N for a head dim the streaming attention
+       takes, where JAX's own rung 3 fits (:func:`jax_long_rung_fits`):
+       the megamodel_long chain (K6);
+    4. models the streaming attention takes that rung 3 rejects (hd a
+       multiple of 8 and <= 128, any N): ``mixed_none`` + ``pallas_long``
+       (K5a);
     5. geometries none of them covers and no Pallas gate of the JAX
        package admits either: ``{}``, the exact path (its GEMMs and
        attention are plain PyTorch there, as they are XLA in JAX), which
        :func:`serving_preset` runs in bf16 with tanh-GELU, as JAX's does.
 
-    A geometry that JAX serves on a kernel but no Hopper plan holds (a
-    sequence past the long kernel's shared-memory plan) raises: the card
-    never quietly runs plain code where JAX runs a kernel. Like JAX's, it
-    never emits ``i8``."""
+    A geometry that JAX serves on a kernel and no Hopper gate admits (head
+    dims below 8, which only JAX's slab kernels take) raises: the card never
+    quietly runs plain code where JAX runs a kernel. Like JAX's, it never
+    emits ``i8``."""
     d, p, hd, n = cfg.embed_dim, cfg.patch_size, cfg.head_dim, cfg.seq_len
     gemms_ok = (gemm_shapes_ok(p * p * 3, d) and gemm_shapes_ok(d, 3 * d)
                 and gemm_shapes_ok(d, d, resid_ln=True) and gemm_shapes_ok(d, cfg.mlp_dim)
@@ -488,26 +542,25 @@ def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
     if attention_shapes_ok(n, hd):
         return {"fused": "mixed_none", "attn_impl": "pallas_fused"}
     if (cfg.act in ("gelu", "quick_gelu") and n >= LONG_SEQ_MIN and gemm_shapes_ok(p * p * 3, d)
-            and long_megablock_shapes_ok(n, cfg.num_heads, hd, cfg.mlp_dim)):
+            and long_megablock_shapes_ok(n, cfg.num_heads, hd, cfg.mlp_dim)
+            and jax_long_rung_fits(n, d, cfg.mlp_dim)):
         return {"fused": "megamodel_long"}
-    if long_attention_shapes_ok(n, hd):
+    if long_attention_stream_ok(n, hd):
         return {"fused": "mixed_none", "attn_impl": "pallas_long"}
-    if _jax_preset_takes_kernel(cfg):
+    if _jax_slab_takes_kernel(cfg):
         raise NotImplementedError(
-            f"{n} tokens at head_dim {hd}: the JAX package serves this geometry on a kernel, "
-            "and no Hopper kernel plan holds it (ROADMAP.md Queue 3)")
+            f"{n} tokens at head_dim {hd}: the JAX package serves this geometry on its slab "
+            "kernels, and no Hopper kernel's gate admits the head dim")
     return {}
 
 
-def _jax_preset_takes_kernel(cfg: ViTConfig) -> bool:
-    """Whether the JAX package's ``_preset_kernel_opts`` picks a Pallas rung
-    for ``cfg``: its long kernels take any N at a head dim that is a
-    multiple of 8 and <= 128; its slab kernels take lane-aligned widths of
-    head slabs whose four images of stacked f32 scores stay within 24 MiB
-    (sequence padded to 32 for GELU models, 128 otherwise)."""
+def _jax_slab_takes_kernel(cfg: ViTConfig) -> bool:
+    """Whether the JAX package's slab kernels (its rungs 1 and 2) take
+    ``cfg``: lane-aligned widths of head slabs whose four images of stacked
+    f32 scores stay within 24 MiB (sequence padded to 32 for GELU models,
+    128 otherwise). Its long kernels take every head dim that the port's
+    streaming attention takes."""
     h, hd, n = cfg.num_heads, cfg.head_dim, cfg.seq_len
-    if hd % 8 == 0 and hd <= 128:
-        return True
     pad = 32 if cfg.act == "gelu" else 128
     n_pad = -(-n // pad) * pad
     slab = (h * hd) % 128 == 0 and hd <= 128 and 128 % hd == 0

@@ -12,8 +12,15 @@ except the bf16 long attention pair (K5a ``qvt_attention_long_mma``, K5b
 ``qvt_attention_long_bwd_mma``): it sums on the tensor cores in their own
 order and is held by :func:`assert_tc_close` to the tolerance of
 ``long_attention.tc_errors`` against its plain version and to the plain
-version's own accuracy against the f64 math.
+version's own accuracy against the f64 math. K6a
+(``qvt_attention_long_q_mma``, ``qvt_attention_long_q8_mma``) sums there
+too and uses the card's ``ex2``: its int8 outputs are held by
+:func:`_int8_close` (at most one grid step off, >= 99.9% identical), and a
+K6 chain through the kernels to its plain twin with the kernels' attention
+stage (:func:`_plain_ops_with_kernel_attention`): identical.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -72,6 +79,41 @@ def _same(a, b):
         assert torch.equal(x, y), (x.float() - y.float()).abs().max()
 
 
+def _int8_close(got, want):
+    """K6a's bound: int8 outputs at most one grid step from the plain
+    version's, at least 99.9% identical."""
+    assert got.dtype == want.dtype == torch.int8 and got.shape == want.shape
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    worst, exact = int(diff.max()), float((diff == 0).float().mean())
+    assert worst <= 1 and exact >= 0.999, (worst, exact)
+
+
+def _plain_ops_with_kernel_attention():
+    """The long chain's plain ops with K6a as their attention stage: each
+    call runs the kernel and the plain version on the same inputs, holds the
+    kernel to :func:`_int8_close` and returns the kernel's output. A chain
+    through these equals the kernel chain exactly where everything but the
+    attention replays its plain version."""
+    from qat_vit_tpu_torch.ops import long_block_kernel as lbk
+
+    def attention(qkv, h, hd, *, out_q=None, quant_max=255.0, n_valid=None):
+        got = la.long_attention_qkv(qkv, h, hd, out_q=out_q, quant_max=quant_max,
+                                    n_valid=n_valid)
+        _int8_close(got, la.long_attention_qkv_plain(qkv, h, hd, out_q=out_q,
+                                                     quant_max=quant_max, n_valid=n_valid))
+        return got
+
+    def attention_q8(qk8, qkv, h, hd, *, out_q, quant_max=255.0, n_valid=None):
+        got = la.long_attention_q8(qk8, qkv, h, hd, out_q=out_q, quant_max=quant_max,
+                                   n_valid=n_valid)
+        _int8_close(got, la.long_attention_q8_plain(qk8, qkv, h, hd, out_q=out_q,
+                                                    quant_max=quant_max, n_valid=n_valid))
+        return got
+
+    return SimpleNamespace(**{**vars(lbk.LONG_PLAIN_OPS), "attention": attention,
+                              "attention_q8": attention_q8})
+
+
 @pytest.mark.parametrize("m,k,n,per_channel,out", [
     (6304, 384, 1152, False, "bf16"), (6272, 768, 384, False, "bf16"),
     (32, 384, 10, True, "f32"), (37, 128, 384, False, "f32"),
@@ -95,19 +137,35 @@ def test_int8_dense_gelu_q(dev, act, qmax):
           fs.int8_dense_gelu_q_plain(x, layer, IN_Q, gq, act=act, quant_max=qmax))
 
 
-@pytest.mark.parametrize("k,res,out", [(384, "bf16", "f32"), (1536, "f32", "bf16"),
-                                       (768, "bf16", "bf16")])
-def test_int8_dense_resid_ln_q(dev, k, res, out):
-    rng = np.random.default_rng(k)
-    m, n = 6304 + 5, 384 if k != 768 else 768
+@pytest.mark.parametrize("m,k,n,res,out", [
+    (6304 + 5, 384, 384, "bf16", "f32"), (6304 + 5, 1536, 384, "f32", "bf16"),
+    (6304 + 5, 768, 768, "bf16", "bf16"),
+    # the main paths: ViT-S proj / fc2 at batch 32 and 256, OWLv2 proj / fc2
+    # at batch 2 and 8 (block rows 32 and 64)
+    (6304, 384, 384, "bf16", "f32"), (6304, 1536, 384, "f32", "bf16"),
+    (50_432, 1536, 384, "f32", "bf16"), (4610, 576, 576, "bf16", "f32"),
+    (4610, 3072, 576, "f32", "bf16"), (18_440, 3072, 576, "f32", "bf16"),
+    # the largest N the gate admits (16 rows a block), and a short ragged M
+    (300, 384, 1756, "bf16", "f32"), (37, 128, 200, "f32", "f32"),
+])
+def test_int8_dense_resid_ln_q(dev, m, k, n, res, out):
+    """K2c (``qvt_int8_gemm_resid_ln``, the pipelined tile) identical to its
+    plain version, y and q, from the packed weight; a layer without one
+    raises."""
+    rng = np.random.default_rng(k + n)
     x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8)).to(dev)
     layer = _layer(rng, k, n, dev)
     rt = torch.bfloat16 if res == "bf16" else torch.float32
     r = torch.from_numpy(rng.normal(0, 1.5, (m, n)).astype(np.float32)).to(dev).to(rt)
     ot = torch.bfloat16 if out == "bf16" else torch.float32
     ln = _ln(rng, n, dev)
-    _same(fs.int8_dense_resid_ln_q(x, layer, IN_Q, r, ln, OUT_Q, out_dtype=ot),
-          fs.int8_dense_resid_ln_q_plain(x, layer, IN_Q, r, ln, OUT_Q, out_dtype=ot))
+    before = fs.int8_dense_resid_ln_q.launches
+    got = fs.int8_dense_resid_ln_q(x, fs.with_packed_weight(layer), IN_Q, r, ln, OUT_Q,
+                                   out_dtype=ot)
+    assert fs.int8_dense_resid_ln_q.launches == before + 1
+    _same(got, fs.int8_dense_resid_ln_q_plain(x, layer, IN_Q, r, ln, OUT_Q, out_dtype=ot))
+    with pytest.raises(ValueError, match="w_int8_t"):
+        fs.int8_dense_resid_ln_q(x, layer, IN_Q, r, ln, OUT_Q, out_dtype=ot)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -259,9 +317,9 @@ def test_megamodel_chain_matches_plain_chain(dev):
                                                   (1, 2305, 9, 64, 2305), (2, 2305, 3, 32, 2001)])
 def test_long_attention(dev, b, n, heads, hd, n_valid, out):
     """Both entry points of the bf16 long attention against their plain
-    version: the int8 form (csrc/attention_long.cu) identical, the bf16
-    form (csrc/attention_long_mma.cu, tensor cores) within the pair's
-    bounds."""
+    version, both on the tensor cores: the int8 form (K6a,
+    csrc/attention_long_q_mma.cu) within K6a's int8 bound, the bf16 form
+    (csrc/attention_long_mma.cu) within the pair's bounds."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     rng = np.random.default_rng(n + hd)
@@ -274,16 +332,50 @@ def test_long_attention(dev, b, n, heads, hd, n_valid, out):
     assert wrapper.launches == before + 1
     want = la.long_attention_qkv_plain(qkv, heads, hd, out_q=out_q, n_valid=n_valid)
     if out_q:
-        _same(got, want)
+        _int8_close(got, want)
     else:
         assert_tc_close(got, want, la.long_attention_f64(qkv, heads, hd, n_valid=n_valid)[0], 1)
 
 
+@pytest.mark.parametrize("form", ["bf16", "i8"])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(1, 10_001, 2, 64, 10_001),
+                                                  (1, 10_001, 1, 72, 9_990),
+                                                  (2, 2305, 9, 64, 2001), (1, 520, 2, 72, 500),
+                                                  (2, 300, 2, 128, 290), (1, 77, 3, 40, 77)])
+def test_long_attention_q_streaming(dev, b, n, heads, hd, n_valid, form):
+    """K6a in both score forms past the old score-row plan (10,001 tokens,
+    1,600 px), with masked keys, and at hd 72, 128 and 40 (the int8 dot
+    zero-filled to a multiple of 32, 8-byte copies of its rows): within the
+    int8 bound of the plain versions; two launches identical."""
+    rng = np.random.default_rng(n + hd + heads)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
+    qkv = qkv.to(dev).to(torch.bfloat16)
+    if form == "bf16":
+        out_q = {"scale": torch.tensor(2.0 / 255), "zero_point": torch.tensor(128.0)}
+        before = la.long_attention_q.launches
+        got = la.long_attention_q(qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+        assert la.long_attention_q.launches == before + 1
+        want = la.long_attention_qkv_plain(qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+        again = la.long_attention_q(qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+    else:
+        out_q = {"scale": torch.tensor(0.03), "zero_point": torch.tensor(131.0)}
+        qk8 = np.clip(np.round(rng.normal(3, 60, (b, n, 2 * heads * hd))), -128, 127)
+        qk8 = torch.from_numpy(qk8.astype(np.int8)).to(dev)
+        before = la.long_attention_q8.launches
+        got = la.long_attention_q8(qk8, qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+        assert la.long_attention_q8.launches == before + 1
+        want = la.long_attention_q8_plain(qk8, qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+        again = la.long_attention_q8(qk8, qkv, heads, hd, out_q=out_q, n_valid=n_valid)
+    _int8_close(got, want)
+    assert torch.equal(got, again)
+
+
 def test_long_attention_gate_raises(dev):
-    """The gates are split: the bf16 form streams K and V on the tensor
-    cores and takes any N (7,000 tokens here, past the plan); the int8 and
-    f32 forms keep one f32 score row per query of a block in shared memory
-    and, beyond that plan, raise instead of falling back."""
+    """The gates are split: the bf16 forms (K5a, and K6a's two int8-output
+    forms) stream K and V on the tensor cores and take any N at hd a
+    multiple of 8 up to 128; the f32 form keeps one f32 score row per query
+    of a block in shared memory and, beyond that plan (7,000 tokens here),
+    raises instead of falling back."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     assert la.long_attention_shapes_ok(6048, 64) and not la.long_attention_shapes_ok(6049, 64)
@@ -292,7 +384,7 @@ def test_long_attention_gate_raises(dev):
     qkv = torch.zeros(1, 7000, 3 * 64, dtype=torch.bfloat16, device=dev)
     before = la.long_attention_qkv.launches, la.long_attention_q.launches
     with pytest.raises(ValueError, match="unsupported"):
-        la.long_attention_qkv(qkv, 1, 64, out_q=OUT_Q)
+        la.long_attention_qkv(qkv[..., :3 * 60].contiguous(), 1, 60, out_q=OUT_Q)
     with pytest.raises(ValueError, match="unsupported"):
         la.long_attention_qkv(qkv.float(), 1, 64)
     with pytest.raises(ValueError, match="unsupported"):
@@ -325,8 +417,9 @@ def owlv2_export(dev):
 @pytest.mark.parametrize("depth", [1, 2])
 def test_long_chain_matches_plain(dev, owlv2_export, depth):
     """One K6 block (long_block_forward) and a 2-block long_model_forward
-    through the kernels against the same chain through the plain versions:
-    identical x and zq."""
+    through the kernels against the same chain through the plain versions
+    with the kernels' attention stage (each attention call within K6a's
+    int8 bound of its plain version): identical x and zq."""
     from qat_vit_tpu_torch.ops import long_block_kernel as lbk
     from qat_vit_tpu_torch.serve.int8_vit import _embed
 
@@ -337,7 +430,7 @@ def test_long_chain_matches_plain(dev, owlv2_export, depth):
     zq = fs.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps)
     kw = dict(num_heads=9, head_dim=64, act="quick_gelu", eps=cfg.layer_norm_eps, n_valid=2305)
     outs = []
-    for ops in (lbk.LONG_KERNEL_OPS, lbk.LONG_PLAIN_OPS):
+    for ops in (lbk.LONG_KERNEL_OPS, _plain_ops_with_kernel_attention()):
         if depth == 1:
             outs.append(lbk.long_block_forward(zq, x, blk0, qp["blocks"]["1"]["norm1"], ops=ops,
                                                **kw))
@@ -347,11 +440,12 @@ def test_long_chain_matches_plain(dev, owlv2_export, depth):
     _same(outs[0], outs[1])
 
 
-def test_detection_preset_runs_the_kernels(dev, owlv2_export):
+def test_detection_preset_runs_the_kernels(dev, owlv2_export, monkeypatch):
     """The CUDA preset of a detector is the megamodel_long chain: five
     launches per block plus the entry patch GEMM and LN, and the output
-    equals the plain chain's."""
+    equals the plain chain's with the kernels' attention stage."""
     from qat_vit_tpu_torch.ops import long_attention as la
+    from qat_vit_tpu_torch.serve import int8_vit
     from qat_vit_tpu_torch.serve.int8_detect import make_int8_detect_forward
 
     cfg, qp, x = owlv2_export
@@ -365,6 +459,7 @@ def test_detection_preset_runs_the_kernels(dev, owlv2_export):
     out = fwd(qp, x, q)
     torch.cuda.synchronize()
     assert [w.launches - b for w, b in zip(wrappers, before)] == [1 + 2, 2 * 2, 2, 1, 2]
+    monkeypatch.setattr(int8_vit, "LONG_PLAIN_OPS", _plain_ops_with_kernel_attention())
     plain = make_int8_detect_forward(cfg, dev, fused="megamodel_long_plain")(qp, x, q)
     assert out.keys() == plain.keys()
     for k in out:
@@ -787,8 +882,9 @@ def test_int8_dense_q8(dev, m, d):
                                                   (2, 197, 6, 64, 190),
                                                   (1, 300, 3, 32, 300), (1, 130, 2, 128, 129)])
 def test_long_attention_q8(dev, b, n, heads, hd, n_valid):
-    """qvt_attention_long_q8 (int8 score dots by __dp4a, exact in int32)
-    against its plain version (the integer dot exact in f64): identical."""
+    """qvt_attention_long_q8_mma (int8 score dots on mma.sync, exact in
+    int32) against its plain version (the integer dot exact in f64): within
+    K6a's int8 bound."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
     rng = np.random.default_rng(n + heads)
@@ -799,15 +895,17 @@ def test_long_attention_q8(dev, b, n, heads, hd, n_valid):
     before = la.long_attention_q8.launches
     got = la.long_attention_q8(qk8, qkv, heads, hd, out_q=out_q, n_valid=n_valid)
     assert la.long_attention_q8.launches == before + 1
-    _same(got, la.long_attention_q8_plain(qk8, qkv, heads, hd, out_q=out_q, n_valid=n_valid))
+    _int8_close(got, la.long_attention_q8_plain(qk8, qkv, heads, hd, out_q=out_q,
+                                                n_valid=n_valid))
 
 
-def test_i8_chain_matches_plain(dev, owlv2_export):
+def test_i8_chain_matches_plain(dev, owlv2_export, monkeypatch):
     """The ``i8`` chain on OWLv2-pruned (full width, depth 2): five launches
     per block (PLAIN_Q8 and the int8-score attention in place of PLAIN and
-    attention_long_q), outputs identical to its plain twin and equal between
-    megablock_long and megamodel_long."""
+    attention_long_q), outputs identical to its plain twin with the kernels'
+    attention stage and equal between megablock_long and megamodel_long."""
     from qat_vit_tpu_torch.ops import long_attention as la
+    from qat_vit_tpu_torch.serve import int8_vit
     from qat_vit_tpu_torch.serve.int8_detect import make_int8_detect_forward
 
     cfg, qp, x = owlv2_export
@@ -818,6 +916,7 @@ def test_i8_chain_matches_plain(dev, owlv2_export):
     out = make_int8_detect_forward(cfg, dev, fused="megamodel_long:512:256:i8")(qp, x, q)
     torch.cuda.synchronize()
     assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 2, 2, 0]
+    monkeypatch.setattr(int8_vit, "LONG_PLAIN_OPS", _plain_ops_with_kernel_attention())
     plain = make_int8_detect_forward(cfg, dev, fused="megamodel_long_plain:512:256:i8")(qp, x, q)
     block = make_int8_detect_forward(cfg, dev, fused="megablock_long:512:256:i8:su5")(qp, x, q)
     for k in out:

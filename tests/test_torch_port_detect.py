@@ -53,7 +53,7 @@ from qat_vit_tpu_torch.ops.long_block_kernel import (
     long_block_forward,
     long_model_forward,
 )
-from qat_vit_tpu_torch.quant.convert import act_output_qparams
+from qat_vit_tpu_torch.quant.convert import act_output_qparams, xla_erf_f32
 from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
 from qat_vit_tpu_torch.serve.calibrate import calibrate_detector
 from qat_vit_tpu_torch.serve.int8_detect import (
@@ -102,16 +102,30 @@ def _ulps(a, b):
 # the quick-GELU export against JAX
 # ---------------------------------------------------------------------------
 
+def test_xla_erf_f32_is_jax_erf():
+    """The port's emulation of XLA's f32 erf (clamp, x·P(x²)/Q(x²) by FMA
+    Horner steps) against ``jax.scipy.special.erf`` on the CPU: identical
+    bits on 2·10^5 seeded f32 inputs, the tails past the clamp included;
+    torch.erf differs from it on about half of them."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.normal(0, 3, 150_000), rng.uniform(-6, 6, 50_000)]).astype(np.float32)
+    want = np.asarray(jax.scipy.special.erf(jnp.asarray(x)))
+    got = xla_erf_f32(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (torch.erf(torch.from_numpy(x)).numpy() != want).mean() > 0.1
+
+
 def test_act_output_qparams_match_jax():
     """600 seeded observer ranges through both packages' convert-time
-    activation qparams. Quick-GELU scans ``v·sigmoid(1.702 v)``: torch's
-    sigmoid and XLA's logistic differ by an ulp or two on some f32 inputs
-    (3,721 of 10^6 N(0, 3) inputs here), so the scanned range may move in
-    its last bits; measured: 2 of 600 ranges differ, by at most 2 ulps of
-    scale and 0 in zero point. GELU is not byte-identical either: torch's
-    and XLA's erf differ on most f32 inputs (679,718 of 10^6), and 299 of
-    600 GELU scales differ by at most 3 ulps, zero point 0. Bound for both:
-    scale within 3 f32 ulps, zero point within 1; quant_max identical."""
+    activation qparams. GELU: identical scale and zero point (the port
+    computes XLA's erf, ``xla_erf_f32``, and JAX's eager ``v / f32(√2)``).
+    Quick-GELU scans ``v·sigmoid(1.702 v)``: torch's sigmoid and XLA's
+    logistic differ by an ulp or two on some f32 inputs (3,721 of 10^6 N(0,
+    3) inputs here), so the scanned range may move in its last bits;
+    measured: 2 of 600 ranges differ, by at most 2 ulps of scale and 0 in
+    zero point; bound: scale within 3 f32 ulps, zero point within 1.
+    quant_max identical for both."""
     rng = np.random.default_rng(0)
     jc, tc = jax_qconfig(), default_qat_qconfig()
     differ = {"gelu": 0, "quick_gelu": 0}
@@ -125,8 +139,8 @@ def test_act_output_qparams_match_jax():
             assert np.float32(t["quant_max"].item()) == np.float32(j["quant_max"])
             assert _ulps(ts, js) <= 3 and abs(tz - jz) <= 1, (act, lo, hi, ts, js, tz, jz)
             differ[act] += (ts, tz) != (js, jz)
-    # quick-GELU: a rare last-bit effect, not a systematic one
-    assert differ["quick_gelu"] <= 12, differ
+    # GELU identical; quick-GELU: a rare last-bit effect, not a systematic one
+    assert differ["gelu"] == 0 and differ["quick_gelu"] <= 12, differ
 
 
 # ---------------------------------------------------------------------------
@@ -265,23 +279,29 @@ def test_detector_matches_jax(micro, queries):
 
 def test_convert_detector_matches_jax(micro):
     """convert_detector on both packages from the same params and stats: the
-    int8 tower export (no head, norm_pre kept) is byte-identical except the
-    quick-GELU gelu_q qparams (scale within 3 ulps, zero point within 1, see
+    int8 tower export (no head, norm_pre kept) is byte-identical, and so is
+    the same tower converted as a GELU model; only the quick-GELU gelu_q
+    qparams may differ (scale within 3 ulps, zero point within 1, see
     test_act_output_qparams_match_jax); the float head params are the same
     tensors."""
     _, jcfg, params, qs, _, tcfg, _ = micro
-    jexp = jax.device_get(jax_convert_detector(params, qs, jcfg))
     sd = jax_params.params_to_state_dict(params)
-    texp = convert_detector(sd, jax_params.quant_stats_to_buffers(qs), tcfg)
-    assert "head" not in texp["tower"] and "norm_pre" in texp["tower"]
-    j, t = _leaves(jexp["tower"]), _leaves(texp["tower"])
-    assert j.keys() == t.keys()
-    for k in j:
-        assert t[k].shape == j[k].shape and t[k].dtype == j[k].dtype, k
-        if "/gelu_q/" in k and k.endswith(("/scale", "/zero_point")):
-            assert (_ulps(t[k], j[k]) <= 3) if k.endswith("scale") else abs(t[k] - j[k]) <= 1, k
-        else:
-            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    for act in ("quick_gelu", "gelu"):
+        jexp = jax.device_get(jax_convert_detector(params, qs,
+                                                   dataclasses.replace(jcfg, act=act)))
+        texp = convert_detector(sd, jax_params.quant_stats_to_buffers(qs),
+                                dataclasses.replace(tcfg, act=act))
+        assert "head" not in texp["tower"] and "norm_pre" in texp["tower"]
+        j, t = _leaves(jexp["tower"]), _leaves(texp["tower"])
+        assert j.keys() == t.keys()
+        for k in j:
+            assert t[k].shape == j[k].shape and t[k].dtype == j[k].dtype, k
+            if (act == "quick_gelu" and "/gelu_q/" in k
+                    and k.endswith(("/scale", "/zero_point"))):
+                assert ((_ulps(t[k], j[k]) <= 3) if k.endswith("scale")
+                        else abs(t[k] - j[k]) <= 1), k
+            else:
+                np.testing.assert_array_equal(t[k], j[k], err_msg=(act, k))
     heads = jax_params.params_to_state_dict(jexp["heads"])
     assert heads.keys() == texp["heads"].keys()
     for k in heads:
@@ -418,9 +438,11 @@ def test_long_block_and_model_forward_identical(export):
 def test_detection_preset_gates():
     """CPU: the exact defaults. CUDA: megamodel_long for OWLv2-pruned (2,305
     tokens) and OWLv2-base (960 px, 3,601 tokens), megamodel for ViT-S,
-    mixed_none + K3 for short quick-GELU models; sequences over the long
-    kernel's plan, which JAX serves on its long kernels, raise, naming
-    ROADMAP.md; the ``i8`` flag runs the int8-score chain."""
+    mixed_none + K3 for short quick-GELU models; at 1,600 px (10,001
+    tokens) JAX's rung, which is mixed_none + its long attention there
+    (its whole-model kernel's working set does not fit): the streaming
+    kernels take any N, so nothing raises; the ``i8`` flag runs the
+    int8-score chain."""
     pruned, base = detector_config(pruned=True), detector_config(pruned=False)
     assert serving_preset(pruned, "cpu") == {}
     assert _preset_kernel_opts(pruned) == {"fused": "megamodel_long"}
@@ -430,10 +452,10 @@ def test_detection_preset_gates():
     assert serving_preset(pruned, "cuda")["fused"] == "megamodel_long"
     assert _preset_kernel_opts(dataclasses.replace(pruned, image_size=224)) == {
         "fused": "mixed_none", "attn_impl": "pallas_fused"}  # 197 quick-GELU tokens
-    huge = dataclasses.replace(pruned, image_size=1600)  # 10,001 tokens: over the plan
-    assert jax_preset_kernel_opts(jax_detector_config(pruned=True, image_size=1600)) != {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # JAX serves them on a kernel
-        _preset_kernel_opts(huge)
+    huge = dataclasses.replace(pruned, image_size=1600)  # 10,001 tokens
+    long_k5a = {"fused": "mixed_none", "attn_impl": "pallas_long"}
+    assert jax_preset_kernel_opts(jax_detector_config(pruned=True, image_size=1600)) == long_k5a
+    assert _preset_kernel_opts(huge) == long_k5a
     x = torch.zeros(1, 32, 32, 3)
     tower = convert_detector(*_tiny_export_inputs(), dataclasses.replace(
         detector_config(pruned=True, **MICRO), quant=default_qat_qconfig()))["tower"]

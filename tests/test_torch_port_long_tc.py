@@ -21,10 +21,16 @@ The model is held against the plain versions (``long_attention_qkv_plain``,
 ``long_attention_bwd_plain``) and against JAX's ``long_attention_qkv`` /
 ``long_attention_train`` in interpret mode, and its error to the f64 math
 (``long_attention_f64``) against theirs, on ragged N, n_valid < N and hd 72
-and 128. Also on the CPU: ``tc_errors`` on planted faults, the split gates,
-the preset's routing, and the wrappers' launch arguments against a recording stand-in for the kernel
-library. Inputs are numpy, seeded, and go to both packages.
+and 128. K6a (``csrc/attention_long_q_mma.cu``) is modelled too: the
+two-pass form with o quantized, in both score forms, held to the card's
+int8 bound against its plain versions and run as the K6 chain's attention
+against JAX's ``megamodel_long``. Also on the CPU: ``tc_errors`` on planted
+faults, the split gates, the preset's routing, K2c's packed weight and
+gate, and the wrappers' launch arguments against a recording stand-in for
+the kernel library. Inputs are numpy, seeded, and go to both packages.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -38,11 +44,25 @@ from qat_vit_tpu.ops.long_attention import long_attention_qkv as jax_long_attent
 from qat_vit_tpu.ops.long_attention import long_attention_shapes_ok as jax_long_shapes_ok
 from qat_vit_tpu.ops.long_attention import long_attention_train as jax_long_attention_train
 from qat_vit_tpu.serve.int8_vit import _preset_kernel_opts as jax_preset_kernel_opts
+from qat_vit_tpu.serve.int8_vit import int8_apply as jax_int8_apply
 from qat_vit_tpu_torch import _build
 from qat_vit_tpu_torch.models.vit import ViTConfig
+from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops import long_attention as la
 from qat_vit_tpu_torch.ops.flash_attention import _q_scale, split_heads
-from qat_vit_tpu_torch.serve.int8_vit import _preset_kernel_opts
+from qat_vit_tpu_torch.ops.quantized_matmul import f32
+from qat_vit_tpu_torch.serve.int8_vit import (
+    _preset_kernel_opts,
+    export_to_device,
+    int8_apply,
+    pack_resid_ln_weights,
+)
+from tests.test_torch_port_detect import (  # noqa: F401 (export, micro: module fixtures)
+    _int8_close,
+    _jax_interpret,
+    export,
+    micro,
+)
 
 BF16 = torch.bfloat16
 LOG2E = np.float32(1.4426950408889634)
@@ -104,17 +124,32 @@ def tc_forward(qkv, h, hd, n_valid=None, tile=TILE):
     return _packed((acc / l).to(BF16)), (m + torch.log(l))[..., 0]
 
 
-def two_pass_forward(qkv, h, hd, n_valid=None, tile=TILE):
-    """The two-pass form, measured beside the online one: each row's max and
-    sum first, then the normalised p = exp(s - m) / l rounded to bf16, as
-    the plain version and JAX round it."""
+def _scores8(qk8, h, hd, out_q, n_valid, k0, k1):
+    """The int8-score form's scores over keys [k0, k1): the corrected
+    integer dot of the int8 q and k, exact (int64), times s_o²·hd^-0.5 in
+    f32; keys >= n_valid at -1e30."""
+    b, n, _ = qk8.shape
+    q8, k8 = (t.to(torch.int64).reshape(b, n, h, hd).transpose(1, 2)
+              for t in qk8.split(h * hd, dim=-1))
+    k8 = k8[:, :, k0:k1]
+    zq8 = int(f32(out_q["zero_point"])) - 128
+    corr = (q8 @ k8.transpose(-1, -2) - zq8 * (q8.sum(-1, keepdim=True) + k8.sum(-1)[:, :, None])
+            + hd * zq8 * zq8)
+    s = corr.to(torch.float32) * la.q8_score_scale(out_q["scale"], hd)
+    return s.masked_fill(torch.arange(k0, k1) >= n_valid, -1e30)
+
+
+def _two_pass(qkv, h, hd, n_valid, tile, scores):
+    """The two passes over ``tile`` keys at a time → the f32 ``p·v`` of
+    every row, ``[B, H, N, hd]``: pass 1 keeps each row's running max m and
+    sum l of exp2((s - m)·log2e) in f32, pass 2 recomputes the scores
+    (``scores(k0, k1)``) and rounds p = exp2((s - m)·log2e)·(1/l) to bf16."""
     b, n, _ = qkv.shape
-    n_valid = n if n_valid is None else n_valid
     _, _, _, v = _heads(qkv, h, hd)
     m = torch.full((b, h, n, 1), -1e30)
     l = torch.zeros((b, h, n, 1))
     for k0 in range(0, n, tile):
-        s = _scores(qkv, h, hd, n_valid, k0, min(n, k0 + tile))
+        s = scores(k0, min(n, k0 + tile))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         l = l * torch.exp2((m - m_new) * LOG2E) + torch.exp2((s - m_new) * LOG2E).sum(
             dim=-1, keepdim=True)
@@ -122,9 +157,34 @@ def two_pass_forward(qkv, h, hd, n_valid=None, tile=TILE):
     acc = torch.zeros((b, h, n, hd))
     for k0 in range(0, n, tile):
         k1 = min(n, k0 + tile)
-        p = torch.exp2((_scores(qkv, h, hd, n_valid, k0, k1) - m) * LOG2E) * (1 / l)
+        p = torch.exp2((scores(k0, k1) - m) * LOG2E) * (1 / l)
         acc = acc + p.to(BF16).float() @ v[:, :, k0:k1]
+    return acc
+
+
+def two_pass_forward(qkv, h, hd, n_valid=None, tile=TILE):
+    """The two-pass form, measured beside the online one: each row's max and
+    sum first, then the normalised p = exp(s - m) / l rounded to bf16, as
+    the plain version and JAX round it."""
+    n_valid = qkv.shape[1] if n_valid is None else n_valid
+    acc = _two_pass(qkv, h, hd, n_valid, tile,
+                    lambda k0, k1: _scores(qkv, h, hd, n_valid, k0, k1))
     return _packed(acc.to(BF16))
+
+
+def two_pass_q(qkv, h, hd, out_q, quant_max=255.0, n_valid=None, qk8=None, tile=TILE):
+    """K6a's algorithm (``csrc/attention_long_q_mma.cu``): the two-pass
+    form (``_two_pass``) with o quantized to shifted int8 on ``out_q`` (multiply by 1/scale, round half
+    to even), its scores from q scaled in bf16 and k, or with ``qk8`` the
+    int8-score form's exact corrected integer dot."""
+    n_valid = qkv.shape[1] if n_valid is None else n_valid
+    if qk8 is None:
+        scores = lambda k0, k1: _scores(qkv, h, hd, n_valid, k0, k1)  # noqa: E731
+    else:
+        scores = lambda k0, k1: _scores8(qk8, h, hd, out_q, n_valid, k0, k1)  # noqa: E731
+    o = _packed(_two_pass(qkv, h, hd, n_valid, tile, scores))
+    return fs.quantize_mul(o, fs.inv_scale(out_q["scale"]), f32(out_q["zero_point"]),
+                           f32(quant_max))
 
 
 def tc_backward(qkv, do, h, hd, out, lse, n_valid=None):
@@ -184,6 +244,82 @@ def test_what_the_online_form_gives_up():
     assert la.rel_l2(two_pass, plain) < 5e-4 < 1e-3 < la.rel_l2(one_pass, plain) < 1e-2
     assert_tc_close(one_pass, plain, ref, 1)
     assert_tc_close(two_pass, plain, ref, 1)
+
+
+Q_OUT = {"scale": torch.tensor(2.0 / 255), "zero_point": torch.tensor(128.0)}
+Q8_OUT = {"scale": torch.tensor(0.03), "zero_point": torch.tensor(131.0)}
+
+
+def _qk8(b, n, h, hd, seed):
+    """Shifted int8 q and k on ``Q8_OUT``'s grid (z' = 3), ~N(z', 60): the
+    scores then spread over a few units, as a trained model's do."""
+    rng = np.random.default_rng(seed)
+    v = np.clip(np.round(rng.normal(3, 60, (b, n, 2 * h * hd))), -128, 127).astype(np.int8)
+    return torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("form", ["bf16", "i8"])
+@pytest.mark.parametrize("b,n,h,hd,n_valid", SHAPES + [(1, 700, 1, 64, 650)])
+def test_quantizing_two_pass_within_the_int8_bound(b, n, h, hd, n_valid, form):
+    """K6a's tile algorithm (``two_pass_q``: two passes over 64-key tiles,
+    the running max and sum in f32, the normalised p = exp2((s - m)·log2e)
+    ·(1/l) rounded to bf16, o quantized) with torch's f32 matmuls for the
+    two dots, against the index-order plain versions
+    (``long_attention_qkv_plain(out_q=…)``, ``long_attention_q8_plain``), in
+    both score forms, on ragged N, n_valid < N and hd 72 and 128: the
+    card's int8 bound, max |diff| 1 and >= 99.9% identical. Only sum orders
+    and exp2 against the f64 exp differ; measured here: one output a step
+    off in one of the ten cases, the rest identical."""
+    qkv, _ = _qkv_do(b, n, h, hd, n + 7 * hd)
+    if form == "bf16":
+        want = la.long_attention_qkv_plain(qkv, h, hd, out_q=Q_OUT, n_valid=n_valid)
+        got = two_pass_q(qkv, h, hd, Q_OUT, n_valid=n_valid)
+    else:
+        qk8 = _qk8(b, n, h, hd, n + hd)
+        want = la.long_attention_q8_plain(qk8, qkv, h, hd, out_q=Q8_OUT, n_valid=n_valid)
+        got = two_pass_q(qkv, h, hd, Q8_OUT, n_valid=n_valid, qk8=qk8)
+    assert got.dtype == want.dtype == torch.int8 and got.shape == want.shape
+    _int8_close(got.numpy(), want.numpy())  # the card's bound: max |diff| 1, >= 99.9% exact
+    assert len(torch.unique(want)) > 20  # o spans many grid steps
+
+
+@pytest.mark.parametrize("i8", [False, True])
+def test_k6_chain_on_the_two_pass_model_matches_jax(export, monkeypatch, i8):
+    """The K6 chain (``megamodel_long``, and with ``i8`` its int8-score
+    form) with K6a's two-pass model as its attention stage, against JAX's
+    ``megamodel_long:64:32`` in one jitted interpret call, at micro size
+    (17 tokens, 2 heads of 32, depth 2, feature mode): the bounds of
+    ``test_long_chain_matches_jax``, mean |diff| <= 3e-3 and at most one
+    grid step of the final LN; the model ran once per block."""
+    jcfg, tcfg, jexp, texp = export
+    calls = []
+    plain_qkv = la.long_attention_qkv_plain
+
+    def attention(qkv, h, hd, *, out_q=None, quant_max=255.0, n_valid=None):
+        if out_q is None:
+            return plain_qkv(qkv, h, hd, n_valid=n_valid)
+        calls.append("bf16")
+        return two_pass_q(qkv, h, hd, out_q, quant_max, n_valid)
+
+    def attention_q8(qk8, qkv, h, hd, *, out_q, quant_max=255.0, n_valid=None):
+        calls.append("i8")
+        return two_pass_q(qkv, h, hd, out_q, quant_max, n_valid, qk8=qk8)
+
+    monkeypatch.setattr(la, "long_attention_qkv_plain", attention)
+    monkeypatch.setattr(la, "long_attention_q8_plain", attention_q8)
+    flag = ":i8" if i8 else ""
+    x = np.random.default_rng(3).normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(_jax_interpret(
+        partial(jax_int8_apply, cfg=jcfg, compute_dtype=jnp.bfloat16,
+                fused="megamodel_long:64:32" + flag),
+        jax.tree.map(jnp.asarray, jexp["tower"]), jnp.asarray(x)))
+    got = int8_apply(texp["tower"], torch.from_numpy(x), tcfg, compute_dtype=BF16,
+                     fused="megamodel_long:512:256" + flag)
+    assert calls == ["i8" if i8 else "bf16"] * tcfg.depth
+    assert got.shape == want.shape == (2, 17, 64)
+    step = float(texp["tower"]["norm"]["out_q"]["scale"])
+    diff = np.abs(got.numpy() - want)
+    assert diff.mean() <= 3e-3 and diff.max() <= step * 1.001, (diff.mean(), diff.max(), step)
 
 
 def test_lse_is_the_row_statistic():
@@ -270,16 +406,20 @@ def test_split_gates():
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 def test_preset_routes_as_before_at_1600px(act):
-    """The preset's long rungs keep the plan gate: OWLv2-pruned widths at
-    960 px (3,601 tokens) take the K6 chain; at 1,600 px (10,001 tokens)
-    the preset raises where JAX serves a kernel (its rung 3 has no N cap),
-    instead of sending the streaming K5a's rung 4 a chain JAX does not
-    run."""
-    for heads, hd in ((9, 64), (12, 64), (2, 128)):
+    """The preset's long rungs take the streaming gate: at 1,600 px (10,001
+    tokens) the port serves JAX's rung for OWLv2-pruned widths and others,
+    never raising: the K6 chain where JAX's whole-model kernel fits (d 256),
+    mixed_none + the long attention where it does not (d 576, 768), as at
+    960 px (3,601 tokens) the K6 chain."""
+    for heads, hd, rung in ((9, 64, "pallas_long"), (12, 64, "pallas_long"),
+                            (2, 128, "megamodel_long")):
         geo = dict(embed_dim=heads * hd, num_heads=heads, image_size=1600, patch_size=16, act=act)
-        assert jax_preset_kernel_opts(JaxViTConfig(**geo)) != {}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _preset_kernel_opts(ViTConfig(**geo))
+        want = jax_preset_kernel_opts(JaxViTConfig(**geo))
+        got = _preset_kernel_opts(ViTConfig(**geo))
+        assert ViTConfig(**geo).seq_len == 10_001
+        assert got == {"fused": want["fused"].split(":")[0],
+                       **({"attn_impl": want["attn_impl"]} if "attn_impl" in want else {})}
+        assert rung in (got.get("attn_impl"), got["fused"]), (geo, got)
     geo = dict(embed_dim=576, num_heads=9, image_size=960, patch_size=16, act=act)
     assert _preset_kernel_opts(ViTConfig(**geo)) == {"fused": "megamodel_long"}
 
@@ -363,3 +503,140 @@ def test_cpu_pair_ignores_the_statistics():
     assert torch.equal(out, la.long_attention_qkv_plain(qkv, 2, 16))
     assert torch.equal(x.grad, want)
     assert la.rel_l2(x.grad, want) == 0.0
+
+
+def test_k6a_launch_arguments(recorder):
+    """K6a's two wrappers hand the streaming kernels
+    (``csrc/attention_long_q_mma.cu``) their arguments at 10,001 tokens,
+    past the old score-row plan: q scale in bf16 or the int8 score factor
+    s_o²·hd^-0.5 and z' = z_o - 128, the output grid, one launch each;
+    hd 60 still raises."""
+    b, n, h, hd = 1, 10_001, 1, 72
+    qkv, _ = _qkv_do(b, n, h, hd, 2)
+    out_q = {"scale": torch.tensor(0.05), "zero_point": torch.tensor(131.0)}
+    before = la.long_attention_q.launches, la.long_attention_q8.launches
+    out = la.long_attention_qkv(qkv, h, hd, out_q=out_q, n_valid=9_999)
+    name, args = recorder.calls[-1]
+    assert name == "qvt_attention_long_q_mma" and out.dtype == torch.int8
+    assert args[:2] == (qkv.data_ptr(), out.data_ptr()) and args[2:7] == (b, n, h, hd, 9_999)
+    assert args[7] == float(torch.tensor(hd ** -0.5, dtype=BF16))
+    assert args[8:11] == (fs.inv_scale(0.05), 131.0, 255.0)
+    qk8 = torch.zeros(b, n, 2 * h * hd, dtype=torch.int8)
+    out8 = la.long_attention_q8(qk8, qkv, h, hd, out_q=out_q, quant_max=127.0)
+    name, args = recorder.calls[-1]
+    assert name == "qvt_attention_long_q8_mma"
+    assert args[:3] == (qk8.data_ptr(), qkv.data_ptr(), out8.data_ptr())
+    assert args[3:8] == (b, n, h, hd, n) and args[8] == la.q8_score_scale(0.05, hd)
+    assert args[9:13] == (3, fs.inv_scale(0.05), 131.0, 127.0)
+    assert (la.long_attention_q.launches, la.long_attention_q8.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="unsupported"):
+        la.long_attention_q(torch.zeros(1, 64, 3 * 60, dtype=BF16), 1, 60, out_q=out_q)
+    with pytest.raises(ValueError, match="dtype"):  # the int8 forms are bf16-only
+        la.long_attention_q(torch.zeros(1, 64, 3 * 64), 1, 64, out_q=out_q)
+
+
+# ---------------------------------------------------------------------------
+# K2c: the RESID_LN_Q GEMM's packed weight, gate and launch
+# ---------------------------------------------------------------------------
+
+def _resid_layer(rng, k, n):
+    w = np.clip(np.round(rng.normal(0, 20, (k, n))), -128, 127).astype(np.int8)
+    return {"w_int8": torch.from_numpy(w), "w_scale": torch.tensor(0.002),
+            "w_colsum": torch.from_numpy(w.astype(np.int32).sum(0, dtype=np.int32)),
+            "bias": torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32))}
+
+
+def test_k2c_weight_packing(export):
+    """``pack_resid_ln_weights`` (which ``export_to_device`` runs for a CUDA
+    device, and only there) adds to every block's proj and fc2 (the
+    RESID_LN_Q layers) ``w_int8_t``, numpy's k-contiguous transpose of
+    ``w_int8``, and changes nothing else: the export's own tree stays the
+    JAX layout, and an export placed on the CPU gets no packed copy."""
+    _, _, jexp, texp = export
+    on_cpu = export_to_device(texp["tower"], "cpu")
+    assert all("w_int8_t" not in layer for blk in on_cpu["blocks"].values()
+               for layer in blk.values() if isinstance(layer, dict))
+    dev = pack_resid_ln_weights(texp["tower"])
+    packed = []
+    for i, blk in dev["blocks"].items():
+        for name, layer in blk.items():
+            src = texp["tower"]["blocks"][i][name]
+            if name in ("proj", "fc2"):
+                w = np.asarray(jexp["tower"]["blocks"][i][name]["w_int8"])
+                t = layer["w_int8_t"]
+                assert t.is_contiguous() and t.dtype == torch.int8
+                np.testing.assert_array_equal(t.numpy(), np.ascontiguousarray(w.T))
+                packed.append(name)
+                assert "w_int8_t" not in src
+            assert set(layer) == set(src) | ({"w_int8_t"} if name in ("proj", "fc2") else set())
+            for k, v in src.items() if isinstance(src, dict) else ():
+                if isinstance(v, torch.Tensor):
+                    assert torch.equal(layer[k], v), (i, name, k)
+    assert sorted(packed) == sorted(["proj", "fc2"] * len(dev["blocks"]))
+    np.testing.assert_array_equal(fs.pack_k_major(torch.arange(6, dtype=torch.int8).view(2, 3)),
+                                  np.array([[0, 3], [1, 4], [2, 5]], np.int8))
+
+
+def test_k2c_gate_and_block_rows():
+    """The RESID_LN gate is unchanged (K a multiple of 64, 1 <= N <= 1,756,
+    the N K9's 32-row body holds) and the pipelined kernel's plan holds
+    every N it admits: the block rows of ``resid_ln_rows`` fit the shared
+    memory, 16 rows fit at N 1,756, and the height with the most rows in
+    flight per SM is taken: OWLv2's N 576 64 rows (one block per SM),
+    ViT-S's N 384 32 rows (two blocks per SM), whatever M."""
+    assert fs.RESID_LN_MAX_N == 1756
+    for k in (32, 64, 100, 384, 576, 1536, 3072):
+        for n in (1, 10, 384, 576, 768, 1024, 1536, 1756, 1757, 3072):
+            ok = fs.gemm_shapes_ok(k, n, resid_ln=True)
+            assert ok == (k % 64 == 0 and n <= 1756), (k, n)
+            if ok:
+                for m in (1, 37, 4610, 6304, 18_440, 50_432):
+                    r = fs.resid_ln_rows(m, n)
+                    assert r in fs.RESID_LN_BLOCK_ROWS
+                    assert fs.resid_ln_smem_bytes(r, n) <= la.SMEM_LIMIT, (m, n, r)
+    assert fs.resid_ln_smem_bytes(16, 1756) <= la.SMEM_LIMIT
+    assert fs.resid_ln_rows(2 * 2305, 576) == 64 == fs.resid_ln_rows(8 * 2305, 576)
+    assert fs.resid_ln_rows(32 * 197, 384) == 32 == fs.resid_ln_rows(256 * 197, 384)
+    assert fs.resid_ln_smem_bytes(64, 576) > fs.SM_SMEM_BYTES // 2  # one block per SM
+    assert 2 * (fs.resid_ln_smem_bytes(32, 384) + fs.BLOCK_SMEM_RESERVE) <= fs.SM_SMEM_BYTES
+    assert fs.resid_ln_rows(37, 384) == 32 and fs.resid_ln_rows(300, 1756) == 16
+
+
+def test_k2c_launch_arguments(recorder, monkeypatch):
+    """``int8_dense_resid_ln_q`` launches ``qvt_int8_gemm_resid_ln`` with
+    the layer's packed weight, the block rows of ``resid_ln_rows`` and the
+    output and residual types; one launch per call; a layer without a
+    packed weight raises before any launch; the other epilogues keep
+    ``qvt_int8_gemm``."""
+    monkeypatch.setattr(fs, "use_plain", lambda t: False)
+    monkeypatch.setattr(fs, "stream_of", lambda dev: 0)
+    rng = np.random.default_rng(9)
+    m, k, n = 2 * 2305, 3072, 576
+    x = torch.from_numpy(rng.integers(-128, 128, (2, 2305, k), dtype=np.int8))
+    layer = fs.with_packed_weight(_resid_layer(rng, k, n))
+    res = torch.zeros(2, 2305, n)
+    ln = {"scale": torch.ones(n), "bias": torch.zeros(n)}
+    in_q = {"scale": torch.tensor(0.02), "zero_point": torch.tensor(121.0)}
+    before = fs.int8_dense_resid_ln_q.launches
+    y, q = fs.int8_dense_resid_ln_q(x, layer, in_q, res, ln, Q_OUT, eps=1e-5)
+    name, args = recorder.calls[-1]
+    assert name == "qvt_int8_gemm_resid_ln" and y.shape == (2, 2305, n) and q.dtype == torch.int8
+    assert args[:2] == (x.data_ptr(), layer["w_int8_t"].data_ptr())
+    assert args[5] == res.data_ptr() and args[8:10] == (y.data_ptr(), q.data_ptr())
+    assert args[10:17] == (m, n, k, 64, 1, 0, 0)
+    assert args[17:25] == (float(np.float32(0.002)), float(np.float32(0.02)), -7,
+                           fs.inv_scale(Q_OUT["scale"]), 128.0, 255.0, 1e-5, 0)
+    fs.int8_dense_resid_ln_q(x[:1, :18].contiguous(), layer, in_q,
+                             res[:1, :18].to(BF16).contiguous(), ln, Q_OUT,
+                             out_dtype=torch.float32)
+    name, args = recorder.calls[-1]
+    assert name == "qvt_int8_gemm_resid_ln" and args[10:17] == (18, n, k, 64, 0, 1, 0)
+    bare = {kk: v for kk, v in layer.items() if kk != "w_int8_t"}
+    calls = len(recorder.calls)
+    with pytest.raises(ValueError, match="w_int8_t"):
+        fs.int8_dense_resid_ln_q(x, bare, in_q, res, ln, Q_OUT, eps=1e-5)
+    assert len(recorder.calls) == calls
+    assert fs.int8_dense_resid_ln_q.launches == before + 2
+    fs.int8_dense(x, layer, in_q)
+    assert recorder.calls[-1][0] == "qvt_int8_gemm"

@@ -171,8 +171,7 @@ def test_serving_preset_gates():
     for other models within attention_q's gate, the megamodel_long chain
     for 2,305-token ones, mixed_none + K5a for sequences between;
     geometries no kernel gate of either package admits get ``{}``, the exact
-    path in bf16, as in JAX; those JAX serves on a kernel past every Hopper
-    plan raise, naming ROADMAP.md."""
+    path in bf16, as in JAX; 10,001-token ViT-S takes JAX's rung there."""
     import dataclasses
 
     from qat_vit_tpu_torch.models.vit import ViTConfig
@@ -198,10 +197,11 @@ def test_serving_preset_gates():
     assert serving_preset(past, "cuda") == {"attn_dtype": torch.bfloat16,
                                             "compute_dtype": torch.bfloat16,
                                             "gelu_approx": True}
-    # 10,001 tokens: JAX serves them on its long kernels, past the Hopper plan
-    assert jax_preset_kernel_opts(JaxViTConfig(image_size=1600)) != {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _preset_kernel_opts(dataclasses.replace(vit_s, image_size=1600))
+    # 10,001 tokens: JAX's rung 4 (its long attention; its whole-model kernel's
+    # working set does not fit), which the streaming kernels serve at any N
+    long_k5a = {"fused": "mixed_none", "attn_impl": "pallas_long"}
+    assert jax_preset_kernel_opts(JaxViTConfig(image_size=1600)) == long_k5a
+    assert _preset_kernel_opts(dataclasses.replace(vit_s, image_size=1600)) == long_k5a
 
 
 def test_port_imports_without_jax():
