@@ -191,20 +191,6 @@ def parent_k2c(x, layer, r, ln, odt, y, q):
     assert err == 0, err
 
 
-def device_ms(fn, runs=20):
-    """The device time of one ``fn()``: the summed durations of the kernels it
-    launches under torch.profiler, over ``runs`` calls (no host time)."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / runs
-
-
 def turns(label, fns, work, library):
     """Time ``fns`` ({name: fn}) in turns (parent, change, change, parent
     where a parent is given): CUDA events around one call (the host's
@@ -218,9 +204,9 @@ def turns(label, fns, work, library):
     for k in order:
         one.setdefault(k, []).append(cs.median_ms(fns[k]))
         times.setdefault(k, []).append(cs.median_ms(fns[k], reps=cs.KERNEL_REPS))
-        dev_times.setdefault(k, []).append(device_ms(fns[k]))
+        dev_times.setdefault(k, []).append(cs.device_ms(torch, fns[k]))
     lib = cs.median_ms(library, reps=cs.KERNEL_REPS) if library is not None else None
-    lib_dev = device_ms(library) if library is not None else None
+    lib_dev = cs.device_ms(torch, library) if library is not None else None
     bound, by = cs.roofline(*(work if isinstance(work, list) else [work]))
     lib_s = f"{lib:.4f} (device {lib_dev:.4f})" if lib is not None else "none"
     print(f"time {label}: " + ", ".join(

@@ -1,11 +1,13 @@
-"""Readings behind the limits of chip_smoke.py's detection replay (phase 6,
-``DT_REPLAY_*``): the replay's trainer (OWLv2-pruned student at full width,
-depth 2, batch 2) at several seeds, each step run from the same state
-through the plain versions, through K5a with K5b's plain version (the
-hybrid) and through the attentions below, each compared by the replay's
-metrics: the loss and the parameters after the step against the plain
-step; the gradient, its part on the qkv weights and the update against
-the hybrid step.
+"""Readings behind the limits of chip_smoke.py's training replays: each step
+run from the same state through the plain versions, through the forward
+kernel with the backward's plain version (the hybrid) and through the
+attentions below, each compared by the replay's metrics (the loss and the
+parameters after the step against the plain step; the gradient, its part
+on the qkv weights and the update against the hybrid step, or with
+``--vit`` against the plain step), at several seeds.
+
+Detection (phase 6, ``DT_REPLAY_*``): the replay's trainer (OWLv2-pruned
+student at full width, depth 2, batch 2):
 
 - sound: the kernels (K5a / K5b on the tensor cores), exact attention
   (``long_attention_f64`` rounded to bf16, forward and backward) and K5a
@@ -14,11 +16,22 @@ the hybrid step.
   backward of qkv rounded to float8 e4m3; K5a with one head's output zeroed;
   float8 attention (forward and backward).
 
+ViT-S (``--vit``: phase 4, ``VIT_REPLAY_*``): the replay's trainer (ViT-S/16
+student, ViT-B/16 teacher, the trainer's defaults, batch 32); kernel B is
+bit-identical to its plain version, so the hybrid is the kernels and the
+backward's metrics are taken against the plain step:
+
+- sound: the kernels (kernel A on the tensor cores) and kernel A replaced
+  by the exact forward (``long_attention_f64`` of the fake-quantized qkv,
+  rounded to bf16);
+- faulty: kernel A with the k and v of one 64-key tile zeroed, and with one
+  head's output zeroed.
+
 Prints every reading, then per phase and metric the largest sound reading
 and the smallest faulty one (a limit must lie between them), and last
 those as one JSON line.
 
-    python3 port_scripts/replay_bounds.py [SEED ...]     (default 0 to 7)
+    python3 port_scripts/replay_bounds.py [--vit] [SEED ...]     (default 0 to 7)
 """
 import contextlib
 import json
@@ -31,6 +44,7 @@ import torch
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10  # noqa: E402
+from qat_vit_tpu_torch.ops import flash_attention_train as fat  # noqa: E402
 from qat_vit_tpu_torch.ops import long_attention as la  # noqa: E402
 from qat_vit_tpu_torch.ops._cuda import reference_impl  # noqa: E402
 
@@ -44,6 +58,9 @@ SOUND = {"loss": FWD_SOUND, "params": FWD_SOUND, "grad": BWD_SOUND, "qkv_grad": 
 FAULTY = {"loss": FWD_FAULTY, "params": FWD_FAULTY, "grad": BWD_FAULTY,
           "qkv_grad": BWD_FAULTY, "update": BWD_FAULTY}
 KEY_TILE = slice(1024, 1088)  # 64 keys of the 2,305
+# ViT-S: every metric against the plain step, the forward's variants
+VIT_SOUND, VIT_FAULTY = ("kernels", "exact"), ("key_tile_zeroed", "head_zeroed")
+VIT_KEY_TILE = slice(64, 128)  # 64 keys of the 197
 
 
 def float8(qkv):
@@ -110,19 +127,56 @@ def variants():
             ("float8", plain_swap(float8))]
 
 
+def vit_variants():
+    """(name, context manager factory) for :func:`chip_smoke.replay` of the
+    ViT-S trainer: kernel A's forward swapped."""
+    kernel = fat.attention_fwd
+
+    def exact(qkv, heads, hd, *, qs=None, in_fq=None, n_valid=None):
+        return la.long_attention_f64(qkv, heads, hd, qs=qs, in_fq=in_fq,
+                                     n_valid=n_valid)[0].to(qkv.dtype)
+
+    def key_tile_zeroed(qkv, heads, hd, **kw):
+        d = heads * hd
+        qkv = qkv.clone()
+        qkv[:, VIT_KEY_TILE, d:] = 0  # k and v of the tile
+        return kernel(qkv, heads, hd, **kw)
+
+    def head_zeroed(qkv, heads, hd, **kw):
+        out = kernel(qkv, heads, hd, **kw)
+        out[..., :hd] = 0
+        return out
+
+    return [("kernels", contextlib.nullcontext)] + [
+        (name, lambda fn=fn: cs.swapped(fat, attention_fwd=fn))
+        for name, fn in (("exact", exact), ("key_tile_zeroed", key_tile_zeroed),
+                         ("head_zeroed", head_zeroed))]
+
+
 def main():
-    seeds = [int(a) for a in sys.argv[1:]] or list(range(8))
+    vit = "--vit" in sys.argv[1:]
+    seeds = [int(a) for a in sys.argv[1:] if a != "--vit"] or list(range(8))
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     readings = []
+    sound_of = {k: VIT_SOUND for k in METRICS} if vit else SOUND
+    faulty_of = {k: VIT_FAULTY for k in METRICS} if vit else FAULTY
     for seed in seeds:
         t0 = time.perf_counter()
         torch.manual_seed(seed)
-        data = synthetic_cifar10(n_train=cs.DT_N_TRAIN, n_test=cs.DT_EVAL_B, seed=seed)
-        t = cs.detect_trainer(torch, data, cs.DT_REPLAY_B, cs.DT_REPLAY_DEPTH, seed=seed)
-        records = cs.replay_detect(torch, la, t, cs.DT_REPLAY_STEPS, variants(),
-                                   reference_impl)
+        if vit:
+            data = synthetic_cifar10(n_train=cs.N_TRAIN, n_test=cs.N_TEST, seed=seed)
+            student, teacher = cs.vit_models(torch, seed)
+            t = cs.vit_trainer(torch, data, student, teacher, cs.REPLAY_B, seed)
+            records = cs.replay(torch, t, cs.TRAIN_STEPS, vit_variants(), reference_impl,
+                                lambda: cs.plain_kernel_b(fat), grad_ref="plain")
+            del student, teacher
+        else:
+            data = synthetic_cifar10(n_train=cs.DT_N_TRAIN, n_test=cs.DT_EVAL_B, seed=seed)
+            t = cs.detect_trainer(torch, data, cs.DT_REPLAY_B, cs.DT_REPLAY_DEPTH, seed=seed)
+            records = cs.replay_detect(torch, la, t, cs.DT_REPLAY_STEPS, variants(),
+                                       reference_impl)
         del t
         for phase, rec in enumerate(records):
             for i, r in enumerate(rec):
@@ -130,19 +184,20 @@ def main():
                     readings.append({"seed": seed, "phase": ("float", "QAT")[phase],
                                      "step": i + 1, "variant": name, **m})
                     print(f"seed {seed} {readings[-1]['phase']} step {i + 1} {name}: " + ", ".join(
-                        f"{k} {m[k]:.3e}" for k in METRICS),
-                        flush=True)
+                        f"{k} {m[k]:.3e}" for k in METRICS)
+                        + f", identical to the hybrid {m['hybrid_same']}", flush=True)
         print(f"seed {seed}: {time.perf_counter() - t0:.1f} s", flush=True)
     summary = {}
     for phase in ("float", "QAT"):
         rows = [r for r in readings if r["phase"] == phase]
         for k in METRICS:
-            sound = max(r[k] for r in rows if r["variant"] in SOUND[k])
-            faulty = {v: min(r[k] for r in rows if r["variant"] == v) for v in FAULTY[k]}
+            sound = max(r[k] for r in rows if r["variant"] in sound_of[k])
+            faulty = {v: min(r[k] for r in rows if r["variant"] == v) for v in faulty_of[k]}
             summary[f"{phase} {k}"] = {"sound_max": sound, "faulty_min": faulty}
             print(f"{phase} {k}: sound max {sound:.3e}; faulty min " + ", ".join(
                 f"{v} {x:.3e}" for v, x in faulty.items()), flush=True)
-    print(json.dumps({"card": cs.card_line(), "seeds": seeds, "summary": summary}), flush=True)
+    print(json.dumps({"card": cs.card_line(), "model": "ViT-S/16" if vit else "OWLv2-pruned",
+                      "seeds": seeds, "summary": summary}), flush=True)
 
 
 if __name__ == "__main__":

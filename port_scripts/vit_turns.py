@@ -1,0 +1,122 @@
+"""ViT-S/16 end to end through two checkouts of the port, in turns on one card: for
+each checkout in the order parent, change, change, parent, a fresh process that
+imports the package from that checkout, builds its kernels and measures
+
+- int8 serving: phase 3's export of chip_smoke.py (random init from seed 0, PTQ over
+  4 x 32 images) through the megamodel chain at batch 256, ms per forward (CUDA
+  events, median of 10 after 3 warm-up calls);
+- training: KDQATTrainer at batch 256 under the trainer's defaults (bf16, fast_math,
+  fq_in_kernel) with a random-init ViT-B/16 teacher, teacher logits cached, 4 float
+  steps, the QAT switch, 4 QAT steps: host ms per step ending in a synchronize, the
+  median of the steps after the first.
+
+    python3 port_scripts/vit_turns.py PARENT_DIR CHANGE_DIR
+"""
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r'''
+import json, statistics, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from qat_vit_tpu_torch import _build
+from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+from qat_vit_tpu_torch.data.pipeline import preprocess_fn
+from qat_vit_tpu_torch.models.registry import create_student, create_teacher
+from qat_vit_tpu_torch.serve.calibrate import ptq_convert
+from qat_vit_tpu_torch.serve.int8_vit import export_to_device, int8_apply
+from qat_vit_tpu_torch.train.config import load_hparams
+from qat_vit_tpu_torch.train.trainer import KDQATTrainer
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+_build.load()
+
+
+def median_ms(fn, runs=10):
+    for _ in range(3):
+        fn()
+    ts = []
+    for _ in range(runs):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return statistics.median(ts)
+
+
+bundle = create_student("vit", generator=torch.Generator().manual_seed(0), device=dev)
+cfg = bundle.cfg
+rng = np.random.default_rng(1)
+prep = preprocess_fn(cfg.image_size, device=dev)
+calib = [prep(torch.from_numpy(rng.integers(0, 256, (32, 32, 32, 3), dtype=np.uint8)))
+         for _ in range(4)]
+qp = export_to_device(ptq_convert(bundle.module.state_dict(), calib, cfg, device=dev), dev)
+x = prep(torch.from_numpy(np.random.default_rng(2).integers(0, 256, (256, 32, 32, 3),
+                                                            dtype=np.uint8)))
+serve = median_ms(lambda: int8_apply(qp, x, cfg, fused="megamodel", compute_dtype=torch.bfloat16))
+del bundle, qp, x
+
+data = synthetic_cifar10(n_train=1024, n_test=256, seed=0)
+gen = torch.Generator().manual_seed(0)
+teacher = create_teacher("vit", dtype=torch.bfloat16, generator=gen)
+student = create_student("vit", generator=gen)
+hp = load_hparams(None)
+hp.update(batch_size=256, eval_batch_size=256, epochs=2, seed=0)
+t = KDQATTrainer(hp, device=dev, data=data, student=student, teacher=teacher)
+t._ensure_teacher_logits()
+times = ([], [])
+
+
+def timed(step, out):
+    def call(state, batch, loss_hp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, batch, loss_hp)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+        return m
+    return call
+
+
+t.train_step_float = timed(t.train_step_float, times[0])
+t.train_step_qat = timed(t.train_step_qat, times[1])
+for epoch in (0, 1):
+    if epoch:
+        t.enable_qat()
+    t.train_epoch(epoch, limit_batches=4)
+print(json.dumps({"serve_ms": serve, "float_ms": statistics.median(times[0][1:]),
+                  "qat_ms": statistics.median(times[1][1:]), "float_steps": times[0],
+                  "qat_steps": times[1]}), flush=True)
+'''
+
+
+def main():
+    parent, change = sys.argv[1:3]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(card.strip(), flush=True)
+    runs = []
+    for name, root in (("parent", parent), ("change", change), ("change", change),
+                       ("parent", parent)):
+        r = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(root)],
+                           capture_output=True, text=True)
+        if r.returncode:
+            sys.exit(f"{name} ({root}) failed:\n{r.stderr[-3000:]}")
+        m = json.loads(r.stdout.strip().splitlines()[-1])
+        runs.append((name, m))
+        print(f"{name}: serving {m['serve_ms']:.2f} ms per batch-256 forward; float step "
+              f"{m['float_ms']:.1f} ms, QAT step {m['qat_ms']:.1f} ms (steps "
+              f"{', '.join(f'{v:.1f}' for v in m['float_steps'])} / "
+              f"{', '.join(f'{v:.1f}' for v in m['qat_steps'])})", flush=True)
+    print(json.dumps({"card": card.strip(), "runs": runs}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

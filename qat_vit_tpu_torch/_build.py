@@ -41,8 +41,9 @@ _SIGNATURES = {
     "qvt_int8_gemm": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _F, _F, _F, _F, _I, _P],
     "qvt_int8_gemm_resid_ln": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _F, _F, _F, _F, _P],
     "qvt_ln_quantize": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P],
-    "qvt_attention_q": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],
-    "qvt_attention_fwd": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _I, _P],
+    "qvt_attention_q_mma": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],
+    "qvt_attention_fwd_mma": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _P],
+    "qvt_attention_fwd": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _P],
     "qvt_attention_bwd": [_P] * 4 + [_I] * 5 + [_F, _I, _F, _F, _I, _P],
     "qvt_attention_long": [_P, _P] + [_I] * 5 + [_F, _P],
     "qvt_attention_long_mma": [_P] * 3 + [_I] * 5 + [_F, _P],

@@ -1,6 +1,10 @@
-// The attention tile body over the packed qkv, shared by csrc/attention_q.cu
-// (one tile per block) and csrc/megablock.cu (a grid-stride loop over the
-// tiles of the attention stage inside one cooperative launch).
+// The CUDA-core attention tile body over the packed qkv. Its users: in
+// csrc/attention_q.cu (one tile per block) the f32 kernel A and K8 in f32
+// and bf16; in csrc/megablock.cu (a grid-stride loop over the tiles of the
+// attention stage inside one cooperative launch) K9a / K9b's int8-out
+// attention, which is therefore bit-identical to K3's plain version. The
+// bf16 K3 and kernel A run on the tensor cores instead
+// (csrc/attention_q_mma.cu).
 //
 // A tile is (64 queries, one head, one image) on 8 warps (256 threads). K
 // and V of that head are staged whole in shared memory (N x hd elements
@@ -11,12 +15,12 @@
 // then split the head dims for p @ v. Layout in attention_smem_bytes
 // (ops/flash_attention.py mirrors it).
 //
-// Numerics, as the TPU kernels. T is the qkv (and output) type: bf16, or f32
-// (K8, and K1's forward for f32 models). With IN_FQ every q/k/v element is
-// first fake-quantized (f32, round half to even, clip, back to T: a no-op
-// rounding for f32). Without SCALE_AFTER (K1, K3) q is scaled by hd^-0.5 in
-// the qkv type before the score dot; with
-// SCALE_AFTER (K8) the f32 score is scaled after it. Keys >= n_valid get
+// Numerics, as the TPU kernels. T is the qkv (and output) type: bf16 (K8,
+// K9), or f32 (K8, and K1's forward for f32 models). With IN_FQ every q/k/v
+// element is first fake-quantized (f32, round half to even, clip, back to T:
+// a no-op rounding for f32). Without SCALE_AFTER (K1, K9's K3 stage) q is
+// scaled by hd^-0.5 in the qkv type before the score dot; with SCALE_AFTER
+// (K8) the f32 score is scaled after it. Keys >= n_valid get
 // -1e30; f32 softmax; p is rounded to T before the value product; o
 // accumulates in f32 and is either quantized with (inv_s, zp, qmax) or
 // rounded to T, into the packed [B, N, H*hd] output at column h*hd.

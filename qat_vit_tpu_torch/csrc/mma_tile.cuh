@@ -1,6 +1,7 @@
-// Tensor-core building blocks of the streaming attention kernels
-// (attention_long_mma.cu, attention_long_bwd_mma.cu), for sm_90a: bf16
-// tiles in shared memory, read into mma.sync fragments with ldmatrix.
+// Tensor-core building blocks of the attention kernels (attention_long_mma.cu,
+// attention_long_bwd_mma.cu, attention_long_q_mma.cu, attention_q_mma.cu),
+// for sm_90a: bf16 tiles in shared memory, read into mma.sync fragments with
+// ldmatrix.
 //
 // Fragments of mma.sync.m16n8k16 (bf16 in, f32 accumulate), for lane l of a
 // warp with g = l / 4 and t = l % 4:

@@ -2,18 +2,19 @@
 
 - :func:`fused_attention_qkv` with ``out_q``: MHA over ``[B, N, 3·H·hd]``
   with the output quantized to shifted int8 ``[B, N, H·hd]`` (the proj
-  GEMM's input). On CUDA it launches the ``attention_q`` kernel
-  (``csrc/attention_q.cu``, the port of K3); on the CPU it runs
-  :func:`fused_attention_qkv_plain`. Launches are counted in
+  GEMM's input). On CUDA it launches ``qvt_attention_q_mma``
+  (``csrc/attention_q_mma.cu``, the port of K3, on the tensor cores); on
+  the CPU it runs :func:`fused_attention_qkv_plain`. Launches are counted in
   ``fused_attention_qkv.launches``.
 - :func:`attention_fwd` (and :func:`fused_attention_qkv` without ``out_q``):
   the float-output form, ``[B, N, H·hd]`` in the qkv dtype (bf16 or f32),
   optionally with the qkv activation fake-quant applied inside
   (``in_fq=(qmin, qmax)``, scale and zero point in the device tensor
-  ``qs = [scale, zp]``). On CUDA
-  it launches ``attention_fwd`` (``csrc/attention_q.cu``, kernel A, K1's
-  forward); on the CPU it runs :func:`attention_fwd_plain`. Launches are
-  counted in ``attention_fwd.launches``.
+  ``qs = [scale, zp]``). On CUDA it launches kernel A, K1's forward: for
+  bf16 ``qvt_attention_fwd_mma`` (``csrc/attention_q_mma.cu``, tensor
+  cores), for f32 ``qvt_attention_fwd`` (``csrc/attention_q.cu``, the
+  CUDA-core tile); on the CPU it runs :func:`attention_fwd_plain`.
+  Launches are counted in ``attention_fwd.launches``.
 - :func:`flash_attention_qkv` (K8, ``attn_impl="pallas"``): the float
   attention of ``flash_attention.py::_attention_kernel``, f32 or bf16 in
   and out, with the f32 SCORE scaled by ``hd**-0.5`` after the dot (the
@@ -29,8 +30,13 @@ Numerics of the kernels and their plain versions: with ``in_fq`` q, k, v are
 first fake-quantized (f32, half to even, clip, back to the qkv dtype); q
 scaled by ``hd**-0.5`` in the qkv dtype, f32 scores, keys
 ``>= n_valid`` at -1e30, f32 softmax, probabilities cast to the qkv dtype,
-f32 output accumulation, as the TPU kernel; the plain versions pin every
-rounding to the kernels'.
+f32 output accumulation, as the TPU kernel. The plain versions sum in index
+order with the softmax in f64. The CUDA-core kernels (f32 kernel A, K8)
+pin every rounding to them; the tensor-core K3 and bf16 kernel A sum in
+the tensor cores' order with a two-pass softmax (the normalised p rounded
+to bf16), so on the card K3 is held to one int8 step and >= 99.9%
+identical, kernel A to 2^-7 (1 + |plain|) and to twice the plain version's
+distance from the f64 math.
 """
 
 from __future__ import annotations
@@ -50,15 +56,17 @@ from qat_vit_tpu_torch.ops.fused_serve import inv_scale, quantize_mul
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
 
-_WARPS = 8  # WARPS in csrc/attention_q.cu
+_WARPS = 8  # WARPS in csrc/attention_tile.cuh
 # the qkv dtypes of the training attentions' kernels (K1, K5a/K5b)
 TRAIN_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory the attention_q.cu kernels ask for: K (rows padded by
-    one word) and V of one head in ``dtype`` (f32 only for K8's f32 form,
-    twice bf16's), one f32 score row and one q row per warp."""
+    """Shared memory the CUDA-core attention tile asks for
+    (``csrc/attention_tile.cuh``: K8, the f32 kernel A, K9): K (rows padded
+    by one word) and V of one head in ``dtype`` (f32 twice bf16's), one f32
+    score row and one q row per warp. It sets the gate of every form; the
+    tensor-core K3 and kernel A would take any N."""
     words = head_dim * dtype.itemsize // 4
     return 4 * (n * (words + 1) + n * words + _WARPS * n + _WARPS * head_dim)
 
@@ -181,10 +189,10 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, *, qs=None, 
     if b:
         lo, hi = in_fq if in_fq is not None else (0, 0)
         _build.load().call(
-            "qvt_attention_fwd", ptr(qkv), ptr(qs) if in_fq is not None else None, ptr(out),
-            b, n, num_heads, head_dim, n_valid, float(_q_scale(head_dim, qkv.dtype)),
-            int(in_fq is not None), float(lo), float(hi), int(qkv.dtype == torch.float32),
-            stream_of(qkv.device),
+            "qvt_attention_fwd" if qkv.dtype == torch.float32 else "qvt_attention_fwd_mma",
+            ptr(qkv), ptr(qs) if in_fq is not None else None, ptr(out), b, n, num_heads,
+            head_dim, n_valid, float(_q_scale(head_dim, qkv.dtype)), int(in_fq is not None),
+            float(lo), float(hi), stream_of(qkv.device),
         )
         attention_fwd.launches += 1
     return out
@@ -208,7 +216,7 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
     out = torch.empty((b, n, num_heads * head_dim), dtype=torch.int8, device=qkv.device)
     if b:
         _build.load().call(
-            "qvt_attention_q", ptr(qkv), ptr(out), b, n, num_heads, head_dim, n_valid,
+            "qvt_attention_q_mma", ptr(qkv), ptr(out), b, n, num_heads, head_dim, n_valid,
             float(_q_scale(head_dim, torch.bfloat16)), inv_scale(out_q["scale"]),
             f32(out_q["zero_point"]), f32(quant_max), stream_of(qkv.device),
         )

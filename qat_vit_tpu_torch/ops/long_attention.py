@@ -96,6 +96,7 @@ from qat_vit_tpu_torch.ops.flash_attention import (
 )
 from qat_vit_tpu_torch.ops.fused_serve import inv_scale, quantize_mul
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
+from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
 
 # the layout of csrc/attention_long.cu: query rows per block, and the bytes
 # of a key tile's rows (128 keys of bf16, 64 of f32)
@@ -452,12 +453,16 @@ long_attention_bwd.launches = 0
 
 
 def long_attention_f64(qkv: torch.Tensor, num_heads: int, head_dim: int,
-                       do: torch.Tensor = None, *, n_valid: int = None):
-    """The exact math, the yardstick of the bf16 pair's tolerance: attention
-    over ``qkv``'s values in f64 (scores times ``hd**-0.5``, keys ``>=
-    n_valid`` masked) and, with ``do``, its autograd gradient w.r.t. ``qkv``
-    for that cotangent (rows ``>= n_valid`` taken as zero), one image at a
-    time → (out, dqkv or None), both f64."""
+                       do: torch.Tensor = None, *, n_valid: int = None, qs=None, in_fq=None):
+    """The exact math, the yardstick of the tensor-core attentions'
+    tolerance: attention over ``qkv``'s values in f64 (scores times
+    ``hd**-0.5``, keys ``>= n_valid`` masked) and, with ``do``, its autograd
+    gradient w.r.t. ``qkv`` for that cotangent (rows ``>= n_valid`` taken as
+    zero), one image at a time → (out, dqkv or None), both f64. With
+    ``in_fq=(qmin, qmax)`` (forward only) the values are those of the qkv
+    fake-quantized with ``qs``, as kernel A's prologue rounds them."""
+    if in_fq is not None:
+        qkv = fake_quantize_values(qkv, qs[0], qs[1], in_fq[0], in_fq[1])
     b, n, _ = qkv.shape
     d = num_heads * head_dim
     n_valid = n if n_valid is None else n_valid
@@ -508,10 +513,12 @@ def tc_errors(got: torch.Tensor, plain: torch.Tensor, ref: torch.Tensor, section
     for i, label in enumerate(labels):
         g, p, r = (t[..., i * width:(i + 1) * width] for t in (got, plain, ref))
         err = (g.float() - p.float()).abs()
+        inside = err <= TC_ELEM * (1.0 + p.float().abs())
+        # the share from exact counts: a device mean may round 1 to 1 - 2^-53
         e = {"label": label, "worst": float(err.max()),
-             "within": float((err <= TC_ELEM * (1.0 + p.float().abs())).double().mean()),
+             "within": int(inside.sum()) / inside.numel(),
              "rel": rel_l2(g, p), "f64": rel_l2(g, r), "plain_f64": rel_l2(p, r)}
-        close = e["within"] == 1.0 if sections == 1 else e["rel"] <= TC_REL_L2
+        close = bool(inside.all()) if sections == 1 else e["rel"] <= TC_REL_L2
         ok = (ok and close and bool(torch.isfinite(g).all())
               and e["f64"] <= TC_F64_RATIO * e["plain_f64"])
         errs.append(e)

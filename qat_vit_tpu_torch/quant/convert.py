@@ -63,14 +63,19 @@ _ERF_Q = np.array([-1.1791602954361697e-7, 2.3547966471313185e-5, 1.017962527891
 _SQRT2 = np.float32(np.sqrt(2.0))
 
 
-def _horner_fma(x2: torch.Tensor, coeffs: np.ndarray) -> torch.Tensor:
-    """Horner's rule in f32 with each step one fused multiply-add: the
-    product of two f32 values is exact in f64, so ``f32(f64(r)·f64(x²) +
-    c)`` rounds once, as the FMA does."""
-    x2 = x2.to(torch.float64)
-    r = torch.full_like(x2, float(coeffs[0]), dtype=torch.float32)
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a·b + c`` rounded once, as a fused multiply-add: the product of
+    two f32 values is exact in f64."""
+    b = b.to(torch.float64) if isinstance(b, torch.Tensor) else float(b)
+    c = c.to(torch.float64) if isinstance(c, torch.Tensor) else float(c)
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+def _horner_fma(x: torch.Tensor, coeffs: np.ndarray) -> torch.Tensor:
+    """Horner's rule in f32 with each step one fused multiply-add."""
+    r = torch.full_like(x, float(coeffs[0]), dtype=torch.float32)
     for c in coeffs[1:]:
-        r = (r.to(torch.float64) * x2 + float(c)).to(torch.float32)
+        r = _fma(r, x, c)
     return r
 
 
@@ -81,6 +86,44 @@ def xla_erf_f32(x: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(x.to(torch.float32), torch.tensor(-_ERF_CLAMP), torch.tensor(_ERF_CLAMP))
     x2 = x * x
     return (x * _horner_fma(x2, _ERF_P)) / _horner_fma(x2, _ERF_Q)
+
+
+# XLA's f32 exp on the CPU (Cephes' expf): m = min(floor(x log2e + 1/2),
+# 127), r = x - m ln2 in two FMA steps (ln2 = C1 + C2), a degree-5
+# polynomial by FMA Horner steps, exp(r) = 1 + r + r^2 P(r), times 2^m;
+# results below the smallest normal f32 flush to 0. The clamp only keeps
+# the arithmetic finite: below -104 the result is 0 and above 89 inf either
+# way.
+_EXP_CLAMP = (np.float32(-104.0), np.float32(89.0))
+_EXP_LOG2E = np.float32(1.44269504088896341)
+_EXP_C1, _EXP_C2 = np.float32(0.693359375), np.float32(-2.12194440e-4)
+_EXP_P = np.array([1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+                   1.6666665459e-1, 5.0000001201e-1], dtype=np.float32)
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of an f32 tensor with XLA's arithmetic (``jax.numpy.exp`` on the
+    CPU), bit for bit: torch.exp differs from it in the last bit of ~4% of
+    f32 inputs."""
+    x = torch.clamp(x.to(torch.float32), *(torch.tensor(c) for c in _EXP_CLAMP))
+    m = torch.clamp(torch.floor(_fma(x, _EXP_LOG2E, 0.5)), max=127.0)
+    r = _fma(-m, _EXP_C1, x)
+    r = _fma(-m, _EXP_C2, r)
+    y = 1.0 + _fma(_horner_fma(r, _EXP_P), r * r, r)
+    return _flush_subnormal(y.to(torch.float64) * torch.exp2(m.to(torch.float64)))
+
+
+def _flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32 with values below the smallest normal f32 set to 0, as
+    XLA's CPU code flushes them."""
+    return torch.where(x.abs() < float(np.finfo(np.float32).tiny), 0.0, x).to(torch.float32)
+
+
+def xla_logistic_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of an f32 tensor on the CPU, bit for bit: XLA
+    computes it as ``1 / (1 + exp(-x))`` with its own f32 exp, the quotient
+    flushed below the smallest normal f32."""
+    return _flush_subnormal(1.0 / (1.0 + xla_exp_f32(-x)))
 
 
 def _gelu_erf(v: torch.Tensor) -> torch.Tensor:
@@ -105,13 +148,9 @@ def act_output_qparams(min_val, max_val, qcfg: QConfig, act: str = "gelu") -> Di
     """Static qparams for an activation's output given its input range:
     exact for GELU, a 1025-point scan of the interval for quick-GELU.
 
-    GELU's erf is XLA's, emulated bit for bit (:func:`xla_erf_f32`), so the
-    GELU ``gelu_q`` qparams equal the JAX package's (tested). The quick-GELU
-    scan uses ``torch.sigmoid``, which differs from XLA's logistic (its own
-    f32 exp) by a few ulps on some f32 inputs, so the scanned range, and
-    with it the ``gelu_q`` scale and zero point, can differ from the JAX
-    package's in the last bits: within 2 f32 ulps of scale and 1 of zero
-    point (tested)."""
+    GELU's erf and quick-GELU's logistic are XLA's, emulated bit for bit
+    (:func:`xla_erf_f32`, :func:`xla_logistic_f32`), so both activations'
+    ``gelu_q`` qparams equal the JAX package's (tested)."""
     if act == "gelu":
         return gelu_transform_qparams(min_val, max_val, qcfg)
     if act != "quick_gelu":
@@ -119,7 +158,7 @@ def act_output_qparams(min_val, max_val, qcfg: QConfig, act: str = "gelu") -> Di
     a, b = finite_or_zero(min_val).cpu(), finite_or_zero(max_val).cpu()
     ts = torch.linspace(0.0, 1.0, 1025, dtype=torch.float32)
     v = a + (b - a) * ts
-    ys = v * torch.sigmoid(1.702 * v)
+    ys = v * xla_logistic_f32(1.702 * v)
     lo = torch.clamp(ys.min(), max=0.0)
     hi = torch.clamp(ys.max(), min=0.0)
     return act_qparams(lo, hi, qcfg)

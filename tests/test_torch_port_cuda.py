@@ -8,16 +8,22 @@ conftest::
 
 Every kernel pins its roundings to its plain version (f64 LN and softmax
 sums, index-ordered f32 dots), so outputs must be IDENTICAL, int8 and float,
-except the bf16 long attention pair (K5a ``qvt_attention_long_mma``, K5b
-``qvt_attention_long_bwd_mma``): it sums on the tensor cores in their own
-order and is held by :func:`assert_tc_close` to the tolerance of
-``long_attention.tc_errors`` against its plain version and to the plain
-version's own accuracy against the f64 math. K6a
-(``qvt_attention_long_q_mma``, ``qvt_attention_long_q8_mma``) sums there
-too and uses the card's ``ex2``: its int8 outputs are held by
-:func:`_int8_close` (at most one grid step off, >= 99.9% identical), and a
-K6 chain through the kernels to its plain twin with the kernels' attention
-stage (:func:`_plain_ops_with_kernel_attention`): identical.
+except the attentions on the tensor cores, which sum in their own order and
+use the card's ``ex2``; each gives identical bits over two launches:
+
+- the bf16 long attention pair (K5a ``qvt_attention_long_mma``, K5b
+  ``qvt_attention_long_bwd_mma``) and the bf16 kernel A
+  (``qvt_attention_fwd_mma``) are held by :func:`assert_tc_close` to the
+  tolerance of ``long_attention.tc_errors`` against their plain versions and
+  to the plain versions' own accuracy against the f64 math (kernel A's of
+  the fake-quantized qkv);
+- K6a (``qvt_attention_long_q_mma``, ``qvt_attention_long_q8_mma``) and K3
+  (``qvt_attention_q_mma``) give int8 outputs held by :func:`_int8_close`
+  (at most one grid step off, >= 99.9% identical), and a chain through the
+  kernels is held to its plain twin with the kernel as its attention stage
+  (:func:`_plain_ops_with_kernel_attention`, :func:`_plain_ops_with_k3`):
+  identical. K9a / K9b keep the CUDA-core attention tile, K3's plain version
+  bit for bit: identical to the plain chain.
 """
 
 from types import SimpleNamespace
@@ -88,30 +94,41 @@ def _int8_close(got, want):
     assert worst <= 1 and exact >= 0.999, (worst, exact)
 
 
+def _plain_ops_with_kernels(ops, calls=None, **pairs):
+    """The plain ops ``ops`` (``block_kernel.PLAIN_OPS`` or
+    ``long_block_kernel.LONG_PLAIN_OPS``) with each entry of ``pairs``
+    (name -> (kernel, plain version)) as a stage that runs the kernel and the
+    plain version on the same inputs, holds the kernel to
+    :func:`_int8_close`, appends its qkv's shape to ``calls`` and returns the
+    kernel's output. A chain through these equals the kernel chain exactly
+    where everything but the attention replays its plain version."""
+    def held(kernel, plain):
+        def stage(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            _int8_close(got, plain(*args, **kwargs))
+            if calls is not None:
+                calls.append(args[-3].shape)
+            return got
+        return stage
+
+    return SimpleNamespace(**{**vars(ops), **{n: held(*p) for n, p in pairs.items()}})
+
+
+def _plain_ops_with_k3(calls=None):
+    """The short chains' plain ops with K3 as their attention stage."""
+    from qat_vit_tpu_torch.ops import block_kernel as bk
+
+    return _plain_ops_with_kernels(
+        bk.PLAIN_OPS, calls, attention=(fa.fused_attention_qkv, fa.fused_attention_qkv_plain))
+
+
 def _plain_ops_with_kernel_attention():
-    """The long chain's plain ops with K6a as their attention stage: each
-    call runs the kernel and the plain version on the same inputs, holds the
-    kernel to :func:`_int8_close` and returns the kernel's output. A chain
-    through these equals the kernel chain exactly where everything but the
-    attention replays its plain version."""
+    """The long chains' plain ops with K6a as their attention stages."""
     from qat_vit_tpu_torch.ops import long_block_kernel as lbk
 
-    def attention(qkv, h, hd, *, out_q=None, quant_max=255.0, n_valid=None):
-        got = la.long_attention_qkv(qkv, h, hd, out_q=out_q, quant_max=quant_max,
-                                    n_valid=n_valid)
-        _int8_close(got, la.long_attention_qkv_plain(qkv, h, hd, out_q=out_q,
-                                                     quant_max=quant_max, n_valid=n_valid))
-        return got
-
-    def attention_q8(qk8, qkv, h, hd, *, out_q, quant_max=255.0, n_valid=None):
-        got = la.long_attention_q8(qk8, qkv, h, hd, out_q=out_q, quant_max=quant_max,
-                                   n_valid=n_valid)
-        _int8_close(got, la.long_attention_q8_plain(qk8, qkv, h, hd, out_q=out_q,
-                                                    quant_max=quant_max, n_valid=n_valid))
-        return got
-
-    return SimpleNamespace(**{**vars(lbk.LONG_PLAIN_OPS), "attention": attention,
-                              "attention_q8": attention_q8})
+    return _plain_ops_with_kernels(
+        lbk.LONG_PLAIN_OPS, attention=(la.long_attention_qkv, la.long_attention_qkv_plain),
+        attention_q8=(la.long_attention_q8, la.long_attention_q8_plain))
 
 
 @pytest.mark.parametrize("m,k,n,per_channel,out", [
@@ -176,14 +193,27 @@ def test_ln_quantize(dev, dtype):
     _same(fs.ln_quantize(x, ln, OUT_Q), fs.ln_quantize_plain(x, ln, OUT_Q))
 
 
-@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17),
-                                                  (2, 197, 12, 64, 197), (2, 50, 4, 32, 50)])
+# ViT-S and ViT-B heads, masked keys, odd N, hd 8 to 128 and the gate's edges:
+# K and V resident (N 789 at hd 64, 416 at hd 128) or streamed (N 1,411 at hd
+# 32, 710 at hd 72)
+SHORT_SHAPES = [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17), (2, 197, 12, 64, 197),
+                (2, 50, 4, 32, 50), (3, 5, 2, 64, 4), (2, 1, 2, 64, 1), (2, 33, 3, 8, 33),
+                (2, 77, 2, 128, 70), (1, 789, 2, 64, 789), (1, 416, 1, 128, 400),
+                (1, 1411, 1, 32, 1411), (1, 710, 1, 72, 700)]
+
+
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", SHORT_SHAPES)
 def test_attention_q(dev, b, n, heads, hd, n_valid):
+    """K3 on the tensor cores: within the int8 bound of its plain version,
+    two launches identical, one launch per call."""
     rng = np.random.default_rng(n)
     qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32))
     qkv = qkv.to(dev).to(torch.bfloat16)
-    _same(fa.fused_attention_qkv(qkv, heads, hd, out_q=OUT_Q, n_valid=n_valid),
-          fa.fused_attention_qkv_plain(qkv, heads, hd, out_q=OUT_Q, n_valid=n_valid))
+    before = fa.fused_attention_qkv.launches
+    got = fa.fused_attention_qkv(qkv, heads, hd, out_q=OUT_Q, n_valid=n_valid)
+    assert fa.fused_attention_qkv.launches == before + 1
+    _int8_close(got, fa.fused_attention_qkv_plain(qkv, heads, hd, out_q=OUT_Q, n_valid=n_valid))
+    _same(got, fa.fused_attention_qkv(qkv, heads, hd, out_q=OUT_Q, n_valid=n_valid))
 
 
 def _qkv_case(dev, b, n, heads, hd, seed):
@@ -201,13 +231,17 @@ ATTN_SHAPES = [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17), (2, 197, 12, 64, 197),
 
 
 @pytest.mark.parametrize("fq", [False, True])
-@pytest.mark.parametrize("b,n,heads,hd,n_valid", ATTN_SHAPES)
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", SHORT_SHAPES)
 def test_attention_fwd(dev, b, n, heads, hd, n_valid, fq):
-    """Kernel A (float output, with and without the in-kernel fake-quant)."""
+    """Kernel A in bf16 on the tensor cores (with and without the in-kernel
+    fake-quant): within the tolerance of ``tc_errors`` against its plain
+    version and the f64 math, two launches identical."""
     qkv, _, qs = _qkv_case(dev, b, n, heads, hd, n + heads)
     kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
-    _same(fa.attention_fwd(qkv, heads, hd, n_valid=n_valid, **kw),
-          fa.attention_fwd_plain(qkv, heads, hd, n_valid=n_valid, **kw))
+    got = fa.attention_fwd(qkv, heads, hd, n_valid=n_valid, **kw)
+    assert_tc_close(got, fa.attention_fwd_plain(qkv, heads, hd, n_valid=n_valid, **kw),
+                    la.long_attention_f64(qkv, heads, hd, n_valid=n_valid, **kw)[0], 1)
+    _same(got, fa.attention_fwd(qkv, heads, hd, n_valid=n_valid, **kw))
 
 
 @pytest.mark.parametrize("fq", [False, True])
@@ -225,8 +259,10 @@ def test_attention_bwd(dev, b, n, heads, hd, n_valid, fq):
 @pytest.mark.parametrize("fq", [False, True])
 def test_attention_train_autograd(dev, fq):
     """The autograd Functions on the kernels vs the same Functions through
-    the plain versions (``reference_impl``): forward and dqkv identical, and
-    each kernel launches once per direction."""
+    the plain versions (``reference_impl``): the forward within kernel A's
+    tolerance, dqkv identical (kernel B recomputes p from qkv and is
+    bit-identical to its plain version), and each kernel launches once per
+    direction."""
     heads, hd = 6, 64
     qkv, do, qs = _qkv_case(dev, 4, 197, heads, hd, 11)
 
@@ -243,7 +279,8 @@ def test_attention_train_autograd(dev, fq):
     with reference_impl():
         out_p, grad_p = run()
     assert (fa.attention_fwd.launches, fat.attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
-    _same(out_k, out_p)
+    kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
+    assert_tc_close(out_k, out_p, la.long_attention_f64(qkv, heads, hd, **kw)[0], 1)
     _same(grad_k, grad_p)
 
 
@@ -284,9 +321,12 @@ def test_wrappers_check_inputs_and_never_fall_back(dev):
     assert fs.int8_dense.launches == before + 1
 
 
-def test_megamodel_chain_matches_plain_chain(dev):
-    """The whole K4 chain at micro size: kernels and plain versions agree
-    bit for bit, and the predictor's CUDA preset runs through the kernels."""
+def test_megamodel_chain_matches_plain_chain(dev, monkeypatch):
+    """The whole K4 chain at micro size: identical to the plain chain with
+    K3 as its attention stage (each call within the int8 bound) and within
+    the exact-path bound (rel L2 0.2) of the exact f32 path; the
+    predictor's CUDA preset runs through the kernels."""
+    from qat_vit_tpu_torch.serve import int8_vit
     from qat_vit_tpu_torch.models.registry import create_model
     from qat_vit_tpu_torch.serve.calibrate import ptq_convert
     from qat_vit_tpu_torch.serve.int8_vit import export_to_device, int8_apply
@@ -298,8 +338,13 @@ def test_megamodel_chain_matches_plain_chain(dev):
                          .astype(np.float32)).to(dev)
     qp = export_to_device(ptq_convert(m.module.state_dict(), [x], m.cfg), dev)
     a = int8_apply(qp, x, m.cfg, compute_dtype=torch.bfloat16, fused="megamodel")
-    b = int8_apply(qp, x, m.cfg, compute_dtype=torch.bfloat16, fused="megamodel_plain")
-    assert torch.equal(a, b)
+    exact = int8_apply(qp, x, m.cfg)
+    assert la.rel_l2(a, exact) <= 0.2
+    calls = []
+    with monkeypatch.context() as mp:
+        mp.setattr(int8_vit, "PLAIN_OPS", _plain_ops_with_k3(calls))
+        b = int8_apply(qp, x, m.cfg, compute_dtype=torch.bfloat16, fused="megamodel_plain")
+    assert torch.equal(a, b) and len(calls) == m.cfg.depth
     pred = Int8Predictor(qp, m.cfg, batch_size=4, device=dev)
     assert pred.options["fused"] == "megamodel"
     before = fa.fused_attention_qkv.launches
@@ -691,18 +736,23 @@ def serve_export(dev, request):
     return m.cfg, export_to_device(ptq_convert(m.module.state_dict(), [x], m.cfg), dev), x
 
 
-def test_megablock_modes_match_the_chain(dev, serve_export):
+def test_megablock_modes_match_the_chain(dev, serve_export, monkeypatch):
     """K9a (one cooperative launch per block) and K9b (one per forward):
-    logits identical to the K4 chain's and the plain chain's; 1 launch per
-    block and 1 per forward, none of the chain's kernels."""
+    logits identical to the plain chain's (K9 keeps the CUDA-core attention
+    tile, K3's plain version bit for bit); the K4 chain identical to the
+    plain chain with K3's attention; 1 launch per block and 1 per forward,
+    none of the chain's kernels."""
     from qat_vit_tpu_torch.ops import block_kernel as bk
+    from qat_vit_tpu_torch.serve import int8_vit
     from qat_vit_tpu_torch.serve.int8_vit import int8_apply
 
     cfg, qp, x = serve_export
     bf = torch.bfloat16
     chain = int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel")
     plain = int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel_plain")
-    _same(chain, plain)
+    with monkeypatch.context() as mp:
+        mp.setattr(int8_vit, "PLAIN_OPS", _plain_ops_with_k3())
+        _same(chain, int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel_plain"))
     for mode, wrapper, want in (("megablock:4:tight", bk.megablock_forward, cfg.depth),
                                 ("megamodel_res:4:tight", bk.megamodel_res_forward, 1)):
         before, attn = wrapper.launches, fa.fused_attention_qkv.launches
@@ -710,12 +760,13 @@ def test_megablock_modes_match_the_chain(dev, serve_export):
         torch.cuda.synchronize()
         assert wrapper.launches == before + want
         assert fa.fused_attention_qkv.launches == attn
-        _same(got, chain)
+        _same(got, plain)
 
 
 def test_megablock_blocks_match_the_chain(dev, serve_export):
     """At block level, f32 and bf16 streams: K9a's and K9b's x and zq are the
-    chain's, bit for bit."""
+    chain's through the plain ops (K3's plain version is K9's attention
+    tile), bit for bit."""
     from qat_vit_tpu_torch.ops import block_kernel as bk
     from qat_vit_tpu_torch.serve.int8_vit import _embed
 
@@ -727,13 +778,15 @@ def test_megablock_blocks_match_the_chain(dev, serve_export):
         zq = fs.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps)
         n = x.shape[1]
         nxt = qp["blocks"]["1"]["norm1"]
+        plain = bk.PLAIN_OPS
         _same(bk.megablock_forward(zq, x, blk0, nxt, n_valid=n, **kw),
-              bk.block_forward(zq, x, blk0, nxt, n_valid=n, **kw))
+              bk.block_forward(zq, x, blk0, nxt, n_valid=n, ops=plain, **kw))
         _same(bk.megamodel_res_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=n, **kw),
-              bk.model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=n, **kw))
+              bk.model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=n, ops=plain,
+                               **kw))
         # masked keys (n_valid < N) through the same stages
         _same(bk.megablock_forward(zq, x, blk0, nxt, n_valid=n - 3, **kw),
-              bk.block_forward(zq, x, blk0, nxt, n_valid=n - 3, **kw))
+              bk.block_forward(zq, x, blk0, nxt, n_valid=n - 3, ops=plain, **kw))
 
 
 def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypatch):
