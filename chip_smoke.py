@@ -8,8 +8,9 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the time to build the kernels from ``qat_vit_tpu_torch/csrc``;
 2. kernels against their plain PyTorch versions on the card, at ViT-S/16
-   shapes with batch 32 (K3 and kernel A also at the main paths' batch
-   256), each timed (CUDA events around one call, median
+   shapes with batch 32 (K3 and kernels A and B also at the main paths'
+   batch 256; kernels A and B also at N 512, past their old shared-memory
+   plans, with 6 heads of 64 and of 128), each timed (CUDA events around one call, median
    of 30 runs after warm-up; the kernel also as the mean of 10 back-to-back
    calls, printed beside it) beside its plain version (the slow plain
    versions of the attention kernels: the one run that the check makes);
@@ -25,12 +26,13 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    defaults (bf16, fast_math, fq_in_kernel) with a random-init ViT-B/16
    teacher, on 1,024 synthetic CIFAR-10 images: 3 float steps, the QAT
    switch and 3 QAT steps at batch 32, each run from the same state through
-   the kernels, through kernel A with kernel B's plain version (identical)
-   and through the plain versions (``REPLAY_*``, ``VIT_REPLAY_*``), then at
-   batch 256 (teacher logits cached, launch counts of both attention kernels
-   in both phases, 12 each per step, finite losses, train img/s per phase,
-   one more step per phase under torch.profiler), QAT eval, int8 convert and
-   int8 eval through the serving kernels;
+   the kernels, through kernel A with kernel B's plain version and through
+   the plain versions (``REPLAY_*``, ``VIT_REPLAY_*``), then at batch 256
+   (teacher logits cached, launch counts of both attention kernels in both
+   phases, 12 each per step, finite losses, train img/s per phase, one more
+   step per phase under torch.profiler: 12 kernel A kernels and 12 of each
+   of kernel B's two passes), QAT eval, int8 convert and int8 eval through
+   the serving kernels;
 5. detection: a random-init OWLv2-pruned detector (768 px, D 576, depth 9,
    9 heads, 2,305 tokens, quick-GELU) calibrated on 2 seeded images and
    converted; the long attention kernel's two entry points (K5a's bf16
@@ -76,9 +78,10 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    attention tile) with the ms per forward of all three, in turns;
 8. kernel forms: K6's int8 score dots (the ``i8`` flag), the qkv GEMM's
    PLAIN_Q8 epilogue and ``attention_long_q8`` at ``[2, 2305, 1728]``, and
-   the f32 forms of kernels A and B (ViT-S ``[8, 197, 1152]``, with and
-   without the in-kernel fake-quant) and of K5a / K5b (``[2, 2305, 1728]``),
-   each bit-identical to its plain version (``attention_long_q8``: K6a's
+   the f32 forms of kernels A and B (ViT-S ``[8, 197, 1152]``, and streamed
+   at N 512 with 6 heads of 64 and of 128, with and without the in-kernel
+   fake-quant) and of K5a / K5b (``[2, 2305, 1728]``), each bit-identical
+   to its plain version (``attention_long_q8``: K6a's
    int8 bound); the ``i8`` chain on phase 5's
    export at batch 8 x 4 queries (47 launches; against its plain twin
    printed, not held; identical to the plain twin with the kernels'
@@ -88,11 +91,12 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    through the kernels and through ``reference_impl()``: identical.
 
 The bf16 long attention pair (K5a ``attention_long_mma``, K5b
-``attention_long_bwd_mma``, phases 5 and 6) and the bf16 kernel A
-(``attention_q_mma``, phase 2) sum on the tensor cores: each is held to
-``compare_tc``'s tolerance against its plain version and to the plain
-version's own error against the f64 math, and two of its launches on the
-same inputs must be identical. K6a (``attention_long_q_mma``, both score
+``attention_long_bwd_mma``, phases 5 and 6) and the bf16 kernels A
+(``attention_q_mma``) and B (``attention_bwd_mma``, phase 2) sum on the
+tensor cores: each is held to ``compare_tc``'s tolerance against its plain
+version and to the plain version's own error against the f64 math, and
+two of its launches on the same inputs must be identical; kernel B's STE
+zero set must be the plain version's. K6a (``attention_long_q_mma``, both score
 forms, phases 5 and 8) and K3 (``attention_q_mma``, phase 2) sum there too
 and use the card's ``ex2``: their int8 outputs are held to at most one step
 off and ``INT8_MIN_EXACT`` identical against the index-order plain
@@ -165,21 +169,30 @@ TRAIN_B, REPLAY_B, TRAIN_STEPS = 256, 32, 3
 REPLAY_LOSS_REL = 1e-3
 REPLAY_PARAM_REL_L2 = 1e-2
 # phase 4's replay: each step run from the same state through the kernels,
-# through kernel A with kernel B's plain version (identical to the kernels:
-# kernel B is bit-identical to its plain version and recomputes p from qkv)
-# and through the plain versions. Kernel A sums on the tensor cores, so the
-# step moves: held are the float loss (REPLAY_LOSS_REL) and the parameters
-# (REPLAY_PARAM_REL_L2) against the plain step, and in float steps the
-# gradient on the qkv weights against the plain step's
-# (VIT_REPLAY_QKV_GRAD_REL). That limit lies between readings of
-# port_scripts/replay_bounds.py --vit on the H100 over eight seeds (PERF.md
-# §2): at most 9.16e-3 for sound attention (the kernels; kernel A replaced
-# by the exact f64 forward), at least 2.01e-1 for a planted fault (kernel A
-# with one head's output zeroed, or the k and v of one 64-key tile). Printed,
-# not held: the QAT loss and the QAT steps' qkv gradient, where the
-# fake-quant roundings that a sound attention moves already move the
-# gradient by up to 2.50e-1 (faults from 1.72e-1): no limit separates them.
+# through kernel A with kernel B's plain version (the hybrid) and through
+# the plain versions. Both kernels sum on the tensor cores, so the step
+# moves: held are the float loss (REPLAY_LOSS_REL) and the parameters
+# (REPLAY_PARAM_REL_L2) against the plain step, in float steps the gradient
+# on the qkv weights against the plain step's (VIT_REPLAY_QKV_GRAD_REL), and
+# in every step that gradient against the hybrid's, which sees kernel B
+# alone (VIT_REPLAY_QKV_GRAD_HYBRID_REL, float and QAT). The limits lie
+# between readings of port_scripts/replay_bounds.py --vit on the H100 over
+# eight seeds (PERF.md §2):
+# - against the plain step, float steps: at most 8.72e-3 for sound
+#   attention (the kernels; kernel A replaced by the exact f64 forward;
+#   kernel B by the exact f64 backward), at least 3.28e-2 for a planted
+#   fault (kernel B's dk zeroed on one 64-key tile; dv 3.12e-1; kernel A's
+#   k and v of one 64-key tile zeroed 2.80e-1, one head's output 2.01e-1);
+# - against the hybrid: at most 6.41e-3 (float) / 5.68e-3 (QAT) sound (the
+#   kernels; kernel B replaced by the exact backward), at least 3.27e-2 /
+#   3.17e-2 for dk zeroed on one tile (dv: 3.12e-1 / 3.41e-1).
+# Neither separates the exact backward of qkv rounded to float8 (4.33e-3 /
+# 5.06e-3 against the hybrid: inside the sound range). Printed, not held:
+# the QAT loss and the QAT steps' qkv gradient against the plain step,
+# where the fake-quant roundings that a sound attention moves already move
+# the gradient by up to 2.50e-1 (faults from 1.72e-1).
 VIT_REPLAY_QKV_GRAD_REL = 3e-2
+VIT_REPLAY_QKV_GRAD_HYBRID_REL = (1.5e-2, 1.5e-2)
 # int8 detection: the preset's batch and queries (the reference's detection
 # bench), calibration images, the plain chain's batch, timing runs
 DET_B, DET_Q, DET_CALIB, DET_REF_B, DET_TIMING_RUNS = 8, 4, 2, 2, 10
@@ -261,7 +274,9 @@ def kernel_group(name: str) -> str:
                        ("long_attention_kernel", "K5a f32"), ("gemm_resid_ln", "K2c RESID_LN_Q"),
                        ("gemm_tiled_kernel<1,", "K2b GELU_Q"), ("gemm_tiled_kernel", "K2a PLAIN"),
                        ("ln_quantize", "K2d LN"), ("attention_q_mma", "K3 / kernel A"),
-                       ("attention_bwd_kernel", "kernel B"), ("megablock", "K9"),
+                       ("attention_bwd_rows_mma", "kernel B rows"),
+                       ("attention_bwd_keys_mma", "kernel B keys"),
+                       ("attention_bwd", "kernel B f32"), ("megablock", "K9"),
                        ("attention_kernel", "K8 / f32 kernel A")):
         if key in n:
             return group
@@ -417,6 +432,22 @@ def compare_tc(name, got, want, ref, sections):
     if not ok:
         fail(f"{name}: beyond the bf16 pair's tolerance ({'; '.join(notes)})")
     return max(e["worst"] for e in errs), notes
+
+
+def ste_zeros(got, want, qkv, fq=None):
+    """Kernel B's STE zero set against its plain version: (both 0 at every
+    element where the straight-through mask of the raw ``qkv`` is off (the
+    mask of ``fq``'s qs and range; none without ``fq``), the kernel's zeros
+    elsewhere, the plain version's zeros elsewhere). Zeros elsewhere are
+    sums that cancel exactly, a record."""
+    import torch
+
+    from qat_vit_tpu_torch.quant.fake_quant import ste_mask
+
+    keep = (ste_mask(qkv, fq["qs"][0], fq["qs"][1], *fq["in_fq"]) if fq
+            else torch.ones_like(qkv, dtype=torch.bool))
+    same = bool((got[~keep] == 0).all()) and bool((want[~keep] == 0).all())
+    return same, int(((got == 0) & keep).sum()), int(((want == 0) & keep).sum())
 
 
 def rand_int8(torch, np, rng, dev, *shape):
@@ -597,20 +628,42 @@ def phase_kernels(torch, np, fs, fa, fat, la):
          (x_bf16, ln(d), out_q), {}, "qat_vit_tpu/ops/fused_serve.py:105", ln_work(m, d, 2),
          None),
         *short_attention_cases(torch, fa, la, qkv, heads, hd, out_q, fq),
-        ("attention_bwd [32x197x1152] 6 heads", fat.attention_bwd, fat.attention_bwd_plain,
-         (qkv, do, heads, hd), {}, "qat_vit_tpu/ops/flash_attention_train.py:48", attn_bwd,
-         sdpa_backward(torch, qkv, do, heads, hd)),
-        ("attention_bwd:in_fq+ste [32x197x1152] 6 heads", fat.attention_bwd,
-         fat.attention_bwd_plain, (qkv, do, heads, hd), fq,
-         "qat_vit_tpu/ops/flash_attention_train.py:48", attn_bwd,
-         sdpa_backward(torch, qkv, do, heads, hd)),
+        *kernel_b_cases(torch, fat, la, qkv, do, heads, hd, fq),
     ]
-    # K3 and kernel A at the main paths' batch too: serving and training
-    # launch them on [256, 197, 1152]
+    # K3, kernel A and kernel B at the main paths' batch too: serving and
+    # training launch them on [256, 197, 1152]
     qkv_main = torch.from_numpy(rng.normal(0, 1.0, (SERVE_B, n_tok, 3 * d)).astype(
         np.float32)).to(dev).to(bf16)
+    do_main = torch.from_numpy(rng.normal(0, 1.0, (SERVE_B, n_tok, d)).astype(
+        np.float32)).to(dev).to(bf16)
     cases += short_attention_cases(torch, fa, la, qkv_main, heads, hd, out_q, fq)
+    cases += kernel_b_cases(torch, fat, la, qkv_main, do_main, heads, hd, fq)
+    # the bf16 kernels A and B past the old shared-memory plans, at N 512
+    # (JAX's K1 gate admits 6 heads up to N 512): 6 heads of 64 and of 128
+    for k_hd in (64, 128):
+        k_qkv = torch.from_numpy(rng.normal(0, 1.0, (2, 512, 18 * k_hd)).astype(
+            np.float32)).to(dev).to(bf16)
+        k_do = torch.from_numpy(rng.normal(0, 1.0, (2, 512, 6 * k_hd)).astype(
+            np.float32)).to(dev).to(bf16)
+        cases += short_attention_cases(torch, fa, la, k_qkv, heads, k_hd, out_q, fq)[1:]
+        cases += kernel_b_cases(torch, fat, la, k_qkv, k_do, heads, k_hd, fq)
     return check_kernels(torch, cases, "phase 2", slow_plain=(fat.attention_bwd_plain,))
+
+
+def kernel_b_cases(torch, fat, la, qkv, do, heads, hd, fq):
+    """``check_kernels``' cases of the bf16 kernel B with ``in_fq`` off and
+    on, held by :func:`compare_tc` against the f64 math of the same
+    fake-quantized qkv and by its STE zero set (:func:`ste_zeros`)."""
+    b, n_tok, _ = qkv.shape
+    shape = f"[{b}x{n_tok}x{3 * heads * hd}] {heads} heads"
+    work = attention_work(b, n_tok, heads, hd, backward=True)
+    return [
+        (f"attention_bwd{name} {shape}", fat.attention_bwd, fat.attention_bwd_plain,
+         (qkv, do, heads, hd), kw, "qat_vit_tpu/ops/flash_attention_train.py:48", work,
+         sdpa_backward(torch, qkv, do, heads, hd),
+         {"tc": (lambda kw=kw: la.long_attention_f64(qkv, heads, hd, do, **kw)[1], 3),
+          "ste": (qkv, kw)})
+        for name, kw in (("", {}), (":in_fq+ste", fq))]
 
 
 def short_attention_cases(torch, fa, la, qkv, heads, hd, out_q, fq):
@@ -657,10 +710,12 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
     single call computes it) and the bound of ``work`` (one work, or a list
     of them done one after another). ``extra``: ``source`` (where the
     kernel is not its wrapper's usual one), ``int8_bound`` (K3, K6a: int8
-    outputs held by :func:`compare_int8` even where ``exact``) and ``tc`` (the f64 math and its
+    outputs held by :func:`compare_int8` even where ``exact``), ``tc`` (the f64 math and its
     number of output sections: a bf16 tensor-core kernel with float output,
-    K5a / K5b or kernel A, held by :func:`compare_tc`); both kinds sum in
-    their own order and must give identical bits over two launches."""
+    K5a / K5b or kernels A and B, held by :func:`compare_tc`; both kinds sum
+    in their own order and must give identical bits over two launches) and
+    ``ste`` (kernel B's qkv and fake-quant: its STE zero set must be the
+    plain version's, :func:`ste_zeros`)."""
     bf16 = torch.bfloat16
     results = []
     for name, kernel, plain, args, kwargs, replaces, work, library, *extra in cases:
@@ -682,6 +737,12 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
                 fail(f"{name}: kernel gives {g.dtype}{tuple(g.shape)}, plain {w.dtype}{tuple(w.shape)}")
+        if "ste" in extra:
+            same, z_got, z_want = ste_zeros(got[0], want[0], *extra["ste"])
+            notes.append(f"STE zero set identical {same} (other zeros: kernel {z_got}, plain "
+                         f"{z_want});")
+            if not same:
+                fail(f"{name}: the STE zero set differs from the plain version's")
         if "tc" in extra:
             ref, sections = extra["tc"]
             worst, tc_notes = compare_tc(name, got[0], want[0], ref(), sections)
@@ -893,28 +954,27 @@ def phase_training(torch, np, fs, fa, fat):
         return out
 
     # each step from the same state through the kernels, through kernel A
-    # with kernel B's plain version and through the plain versions, held to
-    # the limits VIT_REPLAY_*
+    # with kernel B's plain version (the hybrid) and through the plain
+    # versions, held to the limits VIT_REPLAY_*
     t = trainer(REPLAY_B)
     records = replay(torch, t, TRAIN_STEPS, [("kernels", contextlib.nullcontext)],
-                     reference_impl, lambda: plain_kernel_b(fat), grad_ref="plain")
+                     reference_impl, lambda: plain_kernel_b(fat))
     del t
     bad = []
     for phase, rec in enumerate(records):
         name = ("float", "QAT")[phase]
         limits = {"loss": (REPLAY_LOSS_REL, None)[phase], "params": REPLAY_PARAM_REL_L2,
-                  "qkv_grad": (VIT_REPLAY_QKV_GRAD_REL, None)[phase], "grad": None,
+                  "qkv_grad_plain": (VIT_REPLAY_QKV_GRAD_REL, None)[phase],
+                  "qkv_grad": VIT_REPLAY_QKV_GRAD_HYBRID_REL[phase], "grad": None,
                   "update": None}
         for i, r in enumerate(rec):
             r = r["kernels"]
             print(f"phase 4 replay at batch {REPLAY_B}, {name} step {i + 1} from the same "
-                  f"state: identical to kernel A + plain kernel B {r['hybrid_same']}; vs the "
-                  f"plain step: " + ", ".join(f"{k} {r[k]:.3e} (limit {v})"
-                                              for k, v in limits.items()), flush=True)
+                  f"state: loss, params and qkv_grad_plain vs the plain step, grad, qkv_grad "
+                  f"and update vs kernel A + plain kernel B: " + ", ".join(
+                      f"{k} {r[k]:.3e} (limit {v})" for k, v in limits.items()), flush=True)
             bad += [f"{name} step {i + 1} {k} {r[k]:.3e} > {v}" for k, v in limits.items()
                     if v is not None and r[k] > v]
-            if not r["hybrid_same"]:
-                bad.append(f"{name} step {i + 1} differs from kernel A + plain kernel B")
     if bad:
         fail(f"ViT-S: kernel vs plain steps from the same state: {'; '.join(bad)}")
 
@@ -939,15 +999,16 @@ def phase_training(torch, np, fs, fa, fat):
             fail(f"the {name} steps launched kernel A {nf} and kernel B {nb} times, expected "
                  f"{depth} each per step")
         if groups:
+            kb = (by_group["kernel B rows"], by_group["kernel B keys"])
             print(f"phase 4 {name}, one more step under torch.profiler: host {wall:.1f} ms, "
                   f"device busy {busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%), "
-                  f"{n_kernels} kernels ({by_group['K3 / kernel A']} kernel A, "
-                  f"{by_group['kernel B']} kernel B); " + ", ".join(
+                  f"{n_kernels} kernels ({by_group['K3 / kernel A']} kernel A, kernel B "
+                  f"{kb[0]} rows and {kb[1]} keys passes); " + ", ".join(
                       f"{g} {v:.1f} ms" for g, v in groups.most_common()) + f" on {card}",
                   flush=True)
-            if by_group["K3 / kernel A"] != depth or by_group["kernel B"] != depth:
+            if by_group["K3 / kernel A"] != depth or kb != (depth, depth):
                 fail(f"the profiled {name} step ran {by_group['K3 / kernel A']} kernel A and "
-                     f"{by_group['kernel B']} kernel B kernels, expected {depth} each")
+                     f"{kb} kernel B (rows, keys) kernels, expected {depth} of each")
         else:
             print(f"phase 4 {name}: torch.profiler saw no device activity (breakdown not "
                   f"measured)", flush=True)
@@ -1203,22 +1264,21 @@ def plain_kernel_b(fat):
     return swapped(fat, attention_bwd=bwd)
 
 
-def same_state_step(torch, step, records, variants, plain, hybrid, grad_ref="hybrid"):
+def same_state_step(torch, step, records, variants, plain, hybrid):
     """``step`` (a train step ``(state, batch, loss_hp) -> metrics``) run
     from the same state under each of ``variants`` ((name, context manager
     factory) pairs), under ``hybrid`` (the forward kernel with the
     backward's plain version) and last under ``plain`` (the plain versions),
     whose result the run keeps. ``records`` gets one dict per call, for each
-    variant: against the plain step, the loss's rel difference (``loss``)
-    and the parameters' rel L2 after the step (``params``); against the
-    ``grad_ref`` step (``"hybrid"``: the same forward, so that they see the
-    backward alone, as for K5a / K5b; ``"plain"``: for a bit-identical
-    backward such as kernel B, where the hybrid is the kernels), the rel L2
+    variant: against the plain step, the loss's rel difference (``loss``),
+    the parameters' rel L2 after the step (``params``) and the rel L2 of the
+    gradient on the qkv weights (``qkv_grad_plain``); against the hybrid
+    step (the same forward, so that they see the backward alone) the rel L2
     of the gradient the optimizer took (``grad``), of its part on the qkv
     weights, the first that the attention backward's output reaches
-    (``qkv_grad``), and of the update (``update``: ‖θ − θ_ref‖ / ‖Δθ_ref‖);
-    and whether gradient and parameters equal the hybrid's bit for bit
-    (``hybrid_same``)."""
+    (``qkv_grad``), and of the update (``update``: ‖θ − θ_ref‖ /
+    ‖Δθ_ref‖); and whether gradient and parameters equal the hybrid's bit
+    for bit (``hybrid_same``)."""
     import copy
 
     def flat(tensors):
@@ -1243,19 +1303,19 @@ def same_state_step(torch, step, records, variants, plain, hybrid, grad_ref="hyb
 
         got = {name: run(ctx)[1:] for name, ctx in variants}
         _, _, gh, qh, ph = run(hybrid)
-        mp, lp, gp, qp, pp = run(plain)
-        gr, qr, pr = (gh, qh, ph) if grad_ref == "hybrid" else (gp, qp, pp)
-        moved = float((pr - before).norm())
+        mp, lp, _, qp, pp = run(plain)
+        moved = float((ph - before).norm())
         records.append({name: {"loss": abs(lv - lp) / abs(lp), "params": rel_l2(pv, pp),
-                               "grad": rel_l2(gv, gr), "qkv_grad": rel_l2(qv, qr),
-                               "update": float((pv - pr).norm()) / moved,
+                               "grad": rel_l2(gv, gh), "qkv_grad": rel_l2(qv, qh),
+                               "qkv_grad_plain": rel_l2(qv, qp),
+                               "update": float((pv - ph).norm()) / moved,
                                "hybrid_same": bool(torch.equal(gv, gh) and torch.equal(pv, ph))}
                         for name, (lv, gv, qv, pv) in got.items()})
         return mp
     return call
 
 
-def replay(torch, t, steps, variants, plain, hybrid, grad_ref="hybrid"):
+def replay(torch, t, steps, variants, plain, hybrid):
     """``steps`` float steps of the trainer ``t``, the QAT switch and
     ``steps`` QAT steps, each step compared from the same state
     (:func:`same_state_step`) → (float records, QAT records)."""
@@ -1263,7 +1323,7 @@ def replay(torch, t, steps, variants, plain, hybrid, grad_ref="hybrid"):
 
     records = ([], [])
     t.train_step_float, t.train_step_qat = (
-        same_state_step(torch, step, rec, variants, plain, hybrid, grad_ref)
+        same_state_step(torch, step, rec, variants, plain, hybrid)
         for step, rec in zip((t.train_step_float, t.train_step_qat), records))
     for epoch in (0, 1):
         if epoch:
@@ -1688,7 +1748,6 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
                 "bytes": b * n * 2 * d + 2 * b * n * d + b * n * d},
                {"ops": 2 * b * heads * n * n * hd, "type": "bf16", "bytes": 0}]  # p @ v
     f32_fwd = attention_work(vb, vn, vh, 64, 4, in_bytes=4, op_type="f32")
-    f32_bwd = attention_work(vb, vn, vh, 64, backward=True, in_bytes=4, op_type="f32")
     cases = [
         (f"int8_gemm:plain_q8 qkv [{m}x{d}]@[{d}x{3 * d}] + int8 q,k", fs.int8_dense_q8,
          fs.int8_dense_q8_plain, (x_qkv, l_qkv, in_q, out_q), {},
@@ -1703,14 +1762,7 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
         (f"attention_fwd:in_fq f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fa.attention_fwd,
          fa.attention_fwd_plain, (vqkv, vh, 64), fq, "qat_vit_tpu/ops/flash_attention.py:125",
          f32_fwd, sdpa_forward(torch, vqkv, vh, 64), {"source": CUDA_CORE_ATTENTION}),
-        (f"attention_bwd f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fat.attention_bwd,
-         fat.attention_bwd_plain, (vqkv, vdo, vh, 64), {},
-         "qat_vit_tpu/ops/flash_attention_train.py:48", f32_bwd,
-         sdpa_backward(torch, vqkv, vdo, vh, 64)),
-        (f"attention_bwd:in_fq+ste f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fat.attention_bwd,
-         fat.attention_bwd_plain, (vqkv, vdo, vh, 64), fq,
-         "qat_vit_tpu/ops/flash_attention_train.py:48", f32_bwd,
-         sdpa_backward(torch, vqkv, vdo, vh, 64)),
+        *f32_kernel_b_cases(torch, fat, vqkv, vdo, vh, 64, fq),
         (f"attention_long f32 [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_qkv,
          la.long_attention_qkv_plain, (qkv, heads, hd), {}, "qat_vit_tpu/ops/long_attention.py:63",
          attention_work(b, n, heads, hd, 4, in_bytes=4, op_type="f32"),
@@ -1721,10 +1773,24 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
          attention_work(b, n, heads, hd, backward=True, in_bytes=4, op_type="f32"),
          sdpa_backward(torch, qkv, do, heads, hd)),
     ]
+    # the f32 kernels A and B past their resident plans, streamed, at N 512
+    # (JAX's K1 gate admits 6 heads up to N 512): 6 heads of 64 and of 128
+    for k_hd in (64, 128):
+        k_qkv = torch.from_numpy(rng.normal(0, 1.0, (2, 512, 18 * k_hd)).astype(
+            np.float32)).to(dev)
+        k_do = torch.from_numpy(rng.normal(0, 1.0, (2, 512, 6 * k_hd)).astype(np.float32)).to(dev)
+        shape = f"[2x512x{18 * k_hd}] 6 heads"
+        work = attention_work(2, 512, 6, k_hd, 4, in_bytes=4, op_type="f32")
+        cases += [(f"attention_fwd{name} f32 {shape}", fa.attention_fwd, fa.attention_fwd_plain,
+                   (k_qkv, 6, k_hd), kw, "qat_vit_tpu/ops/flash_attention.py:125", work,
+                   sdpa_forward(torch, k_qkv, 6, k_hd), {"source": CUDA_CORE_ATTENTION})
+                  for name, kw in (("", {}), (":in_fq", fq))]
+        cases += f32_kernel_b_cases(torch, fat, k_qkv, k_do, 6, k_hd, fq)
     kernels = check_kernels(torch, cases, "phase 8", exact=True,
                             slow_plain=(la.long_attention_q8_plain, la.long_attention_qkv_plain,
-                                        la.long_attention_bwd_plain))
-    del x_qkv, qk8, qkv, do, vqkv, vdo, cases
+                                        la.long_attention_bwd_plain, fa.attention_fwd_plain,
+                                        fat.attention_bwd_plain))
+    del x_qkv, qk8, qkv, do, vqkv, vdo, cases, k_qkv, k_do
 
     # the i8 chain on phase 5's export at batch 8 x 4 queries: against its
     # plain twin and the exact path, ms per forward beside megamodel_long
@@ -1786,6 +1852,19 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
         w = k["wrapper"]
         k["launches"] = launches[w] if w in launches else replays[w]
     return kernels
+
+def f32_kernel_b_cases(torch, fat, qkv, do, heads, hd, fq):
+    """``check_kernels``' cases of the f32 kernel B (``csrc/attention_bwd.cu``)
+    with ``in_fq`` off and on, held identical to its plain version."""
+    b, n, _ = qkv.shape
+    shape = f"[{b}x{n}x{3 * heads * hd}] {heads} heads"
+    work = attention_work(b, n, heads, hd, backward=True, in_bytes=4, op_type="f32")
+    return [(f"attention_bwd{name} f32 {shape}", fat.attention_bwd, fat.attention_bwd_plain,
+             (qkv, do, heads, hd), kw, "qat_vit_tpu/ops/flash_attention_train.py:48", work,
+             sdpa_backward(torch, qkv, do, heads, hd),
+             {"source": "qat_vit_tpu_torch/csrc/attention_bwd.cu"})
+            for name, kw in (("", {}), (":in_fq+ste", fq))]
+
 
 def replay_f32_steps(torch, np, fa, fat, la, dev):
     """Depth-2 f32 fast_math train steps (one float, one QAT) at batch 2:
@@ -1897,7 +1976,7 @@ def main() -> None:
                fs.ln_quantize: "qat_vit_tpu_torch/csrc/ln_quantize.cu",
                fa.fused_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q_mma.cu",
                fa.attention_fwd: "qat_vit_tpu_torch/csrc/attention_q_mma.cu",
-               fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd.cu",
+               fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd_mma.cu",
                la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long.cu",
                la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long_q_mma.cu",
                la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd.cu",

@@ -1,10 +1,10 @@
 """Readings behind the limits of chip_smoke.py's training replays: each step
 run from the same state through the plain versions, through the forward
 kernel with the backward's plain version (the hybrid) and through the
-attentions below, each compared by the replay's metrics (the loss and the
-parameters after the step against the plain step; the gradient, its part
-on the qkv weights and the update against the hybrid step, or with
-``--vit`` against the plain step), at several seeds.
+attentions below, each compared by the replay's metrics (the loss, the
+parameters after the step and the qkv weights' gradient against the plain
+step; the gradient, its part on the qkv weights and the update against the
+hybrid step), at several seeds.
 
 Detection (phase 6, ``DT_REPLAY_*``): the replay's trainer (OWLv2-pruned
 student at full width, depth 2, batch 2):
@@ -17,15 +17,18 @@ student at full width, depth 2, batch 2):
   float8 attention (forward and backward).
 
 ViT-S (``--vit``: phase 4, ``VIT_REPLAY_*``): the replay's trainer (ViT-S/16
-student, ViT-B/16 teacher, the trainer's defaults, batch 32); kernel B is
-bit-identical to its plain version, so the hybrid is the kernels and the
-backward's metrics are taken against the plain step:
+student, ViT-B/16 teacher, the trainer's defaults, batch 32); the hybrid is
+kernel A with kernel B's plain version:
 
-- sound: the kernels (kernel A on the tensor cores) and kernel A replaced
-  by the exact forward (``long_attention_f64`` of the fake-quantized qkv,
+- sound: the kernels (kernels A and B on the tensor cores), kernel A
+  replaced by the exact forward (``long_attention_f64`` of the
+  fake-quantized qkv, rounded to bf16), and kernel B replaced by the exact
+  backward (its gradient at the fake-quantized values times the STE mask,
   rounded to bf16);
 - faulty: kernel A with the k and v of one 64-key tile zeroed, and with one
-  head's output zeroed.
+  head's output zeroed; kernel B with dk, or dv, zeroed on one 64-key
+  tile; kernel B replaced by the exact backward of qkv rounded to float8
+  e4m3.
 
 Prints every reading, then per phase and metric the largest sound reading
 and the smallest faulty one (a limit must lie between them), and last
@@ -48,18 +51,20 @@ from qat_vit_tpu_torch.ops import flash_attention_train as fat  # noqa: E402
 from qat_vit_tpu_torch.ops import long_attention as la  # noqa: E402
 from qat_vit_tpu_torch.ops._cuda import reference_impl  # noqa: E402
 
-METRICS = ("loss", "params", "grad", "qkv_grad", "update")
+METRICS = ("loss", "params", "qkv_grad_plain", "grad", "qkv_grad", "update")
 # per metric: the variants that must pass it and those it should catch (the
-# backward's metrics compare variants that share K5a's forward)
+# backward's metrics compare variants that share the forward kernel)
 FWD_SOUND, FWD_FAULTY = ("kernels", "exact"), ("head_zeroed", "float8")
 BWD_SOUND, BWD_FAULTY = ("kernels", "exact_bwd"), ("dk_tile_zeroed", "dv_tile_zeroed", "float8_bwd")
-SOUND = {"loss": FWD_SOUND, "params": FWD_SOUND, "grad": BWD_SOUND, "qkv_grad": BWD_SOUND,
-         "update": BWD_SOUND}
-FAULTY = {"loss": FWD_FAULTY, "params": FWD_FAULTY, "grad": BWD_FAULTY,
-          "qkv_grad": BWD_FAULTY, "update": BWD_FAULTY}
+SOUND = {"loss": FWD_SOUND, "params": FWD_SOUND, "qkv_grad_plain": FWD_SOUND + BWD_SOUND[1:],
+         "grad": BWD_SOUND, "qkv_grad": BWD_SOUND, "update": BWD_SOUND}
+FAULTY = {"loss": FWD_FAULTY, "params": FWD_FAULTY, "qkv_grad_plain": FWD_FAULTY + BWD_FAULTY,
+          "grad": BWD_FAULTY, "qkv_grad": BWD_FAULTY, "update": BWD_FAULTY}
 KEY_TILE = slice(1024, 1088)  # 64 keys of the 2,305
-# ViT-S: every metric against the plain step, the forward's variants
-VIT_SOUND, VIT_FAULTY = ("kernels", "exact"), ("key_tile_zeroed", "head_zeroed")
+# ViT-S: the forward's faults are kernel A's
+VIT_FWD_FAULTY = ("key_tile_zeroed", "head_zeroed")
+VIT_FAULTY = {**FAULTY, "loss": VIT_FWD_FAULTY, "params": VIT_FWD_FAULTY,
+              "qkv_grad_plain": VIT_FWD_FAULTY + BWD_FAULTY}
 VIT_KEY_TILE = slice(64, 128)  # 64 keys of the 197
 
 
@@ -129,8 +134,24 @@ def variants():
 
 def vit_variants():
     """(name, context manager factory) for :func:`chip_smoke.replay` of the
-    ViT-S trainer: kernel A's forward swapped."""
+    ViT-S trainer: kernel A's forward or kernel B's backward swapped."""
     kernel = fat.attention_fwd
+    kernel_b = fat.attention_bwd
+
+    def exact_bwd(round_in):
+        def bwd(qkv, do, heads, hd, *, qs=None, in_fq=None, n_valid=None):
+            return la.long_attention_f64(round_in(qkv), heads, hd, do, n_valid=n_valid, qs=qs,
+                                         in_fq=in_fq)[1].to(qkv.dtype)
+        return bwd
+
+    def zeroed_b(section):
+        def bwd(qkv, do, heads, hd, **kw):
+            dqkv = kernel_b(qkv, do, heads, hd, **kw)
+            d = heads * hd
+            dqkv[:, VIT_KEY_TILE, section * d:(section + 1) * d] = 0
+            return dqkv
+        bwd.launches = 0  # the kernel counts its launches under its module name
+        return bwd
 
     def exact(qkv, heads, hd, *, qs=None, in_fq=None, n_valid=None):
         return la.long_attention_f64(qkv, heads, hd, qs=qs, in_fq=in_fq,
@@ -150,7 +171,11 @@ def vit_variants():
     return [("kernels", contextlib.nullcontext)] + [
         (name, lambda fn=fn: cs.swapped(fat, attention_fwd=fn))
         for name, fn in (("exact", exact), ("key_tile_zeroed", key_tile_zeroed),
-                         ("head_zeroed", head_zeroed))]
+                         ("head_zeroed", head_zeroed))] + [
+        (name, lambda fn=fn: cs.swapped(fat, attention_bwd=fn))
+        for name, fn in (("exact_bwd", exact_bwd(lambda t: t)),
+                         ("dk_tile_zeroed", zeroed_b(1)), ("dv_tile_zeroed", zeroed_b(2)),
+                         ("float8_bwd", exact_bwd(float8)))]
 
 
 def main():
@@ -160,8 +185,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     readings = []
-    sound_of = {k: VIT_SOUND for k in METRICS} if vit else SOUND
-    faulty_of = {k: VIT_FAULTY for k in METRICS} if vit else FAULTY
+    sound_of = SOUND
+    faulty_of = VIT_FAULTY if vit else FAULTY
     for seed in seeds:
         t0 = time.perf_counter()
         torch.manual_seed(seed)
@@ -170,7 +195,7 @@ def main():
             student, teacher = cs.vit_models(torch, seed)
             t = cs.vit_trainer(torch, data, student, teacher, cs.REPLAY_B, seed)
             records = cs.replay(torch, t, cs.TRAIN_STEPS, vit_variants(), reference_impl,
-                                lambda: cs.plain_kernel_b(fat), grad_ref="plain")
+                                lambda: cs.plain_kernel_b(fat))
             del student, teacher
         else:
             data = synthetic_cifar10(n_train=cs.DT_N_TRAIN, n_test=cs.DT_EVAL_B, seed=seed)

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "qvt_attention_q_mma": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],
     "qvt_attention_fwd_mma": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _P],
     "qvt_attention_fwd": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _P],
-    "qvt_attention_bwd": [_P] * 4 + [_I] * 5 + [_F, _I, _F, _F, _I, _P],
+    "qvt_attention_bwd": [_P] * 4 + [_I] * 5 + [_F, _I, _F, _F, _P],
+    "qvt_attention_bwd_mma": [_P] * 5 + [_I] * 5 + [_F, _I, _F, _F, _P],
     "qvt_attention_long": [_P, _P] + [_I] * 5 + [_F, _P],
     "qvt_attention_long_mma": [_P] * 3 + [_I] * 5 + [_F, _P],
     "qvt_attention_long_q_mma": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],

@@ -26,8 +26,10 @@
 // This kernel runs both products on the CUDA cores (f32 FMA, 67 TFLOP/s
 // peak) and is bound by them and by shared-memory reads. One block per
 // (q-tile of 64 queries, head, image); the shared-memory budget bounds N
-// (K and V of one head whole: f32 doubles them, so the gate takes the
-// dtype).
+// where K and V of one head stay whole (f32 doubles them, so K8's gate takes
+// the dtype). The f32 kernel A streams K and V in 32-key tiles past that
+// budget (attention_tile.cuh's STREAM form, the same bits), so it takes any
+// N that JAX's K1 gate admits.
 
 #include "attention_tile.cuh"
 
@@ -36,21 +38,22 @@ namespace {
 using namespace qvt::attn;
 
 // output in the qkv type (the tile's int8-out form is K9's alone)
-template <typename T, bool IN_FQ, bool SCALE_AFTER>
+template <typename T, bool IN_FQ, bool SCALE_AFTER, bool STREAM>
 __global__ void __launch_bounds__(THREADS)
     attention_kernel(const T* qkv, const float* qs, void* out, int N, int H, int hd,
                      int n_valid, float scale, float fq_min, float fq_max) {
   extern __shared__ __align__(16) uint8_t smem[];
-  tile<T, false, IN_FQ, SCALE_AFTER>(qkv, qs, out, N, H, hd, n_valid, scale, 0.0f, 0.0f, 0.0f,
-                                     fq_min, fq_max, smem, blockIdx.x * Q_TILE, blockIdx.y,
-                                     blockIdx.z);
+  tile<T, false, IN_FQ, SCALE_AFTER, STREAM>(qkv, qs, out, N, H, hd, n_valid, scale, 0.0f, 0.0f,
+                                             0.0f, fq_min, fq_max, smem, blockIdx.x * Q_TILE,
+                                             blockIdx.y, blockIdx.z);
 }
 
-template <typename T, bool IN_FQ, bool SCALE_AFTER>
+// STREAM (f32 kernel A past the resident budget): K and V in 32-key tiles
+template <typename T, bool IN_FQ, bool SCALE_AFTER, bool STREAM = false>
 int launch(const void* qkv, const void* qs, void* out, int B, int N, int H, int hd,
            int n_valid, float scale, float fq_min, float fq_max, void* stream) {
-  const size_t smem = smem_bytes(N, hd, sizeof(T));
-  auto kernel = attention_kernel<T, IN_FQ, SCALE_AFTER>;
+  const size_t smem = STREAM ? stream_smem_bytes(N, hd, sizeof(T)) : smem_bytes(N, hd, sizeof(T));
+  auto kernel = attention_kernel<T, IN_FQ, SCALE_AFTER, STREAM>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -59,6 +62,18 @@ int launch(const void* qkv, const void* qs, void* out, int B, int N, int H, int 
       static_cast<const T*>(qkv), static_cast<const float*>(qs), out, N, H, hd, n_valid, scale,
       fq_min, fq_max);
   return static_cast<int>(cudaGetLastError());
+}
+
+// f32 kernel A: K and V of the head resident where they fit, else streamed
+template <bool IN_FQ>
+int launch_f32(const void* qkv, const void* qs, void* out, int B, int N, int H, int hd,
+               int n_valid, float scale, float fq_min, float fq_max, void* stream) {
+  constexpr size_t SMEM_MAX = 232448;  // H100: the dynamic shared memory one block may opt into
+  if (smem_bytes(N, hd, sizeof(float)) <= SMEM_MAX)
+    return launch<float, IN_FQ, false>(qkv, qs, out, B, N, H, hd, n_valid, scale, fq_min, fq_max,
+                                       stream);
+  return launch<float, IN_FQ, false, true>(qkv, qs, out, B, N, H, hd, n_valid, scale, fq_min,
+                                           fq_max, stream);
 }
 
 typedef __nv_bfloat16 bf16;
@@ -71,10 +86,8 @@ extern "C" int qvt_attention_fwd(const void* qkv, const void* qs, void* out, int
                                  int H, int hd, int n_valid, float scale, int in_fq,
                                  float fq_min, float fq_max, void* stream) {
   if (in_fq)
-    return launch<float, true, false>(qkv, qs, out, B, N, H, hd, n_valid, scale, fq_min, fq_max,
-                                      stream);
-  return launch<float, false, false>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0.0f, 0.0f,
-                                     stream);
+    return launch_f32<true>(qkv, qs, out, B, N, H, hd, n_valid, scale, fq_min, fq_max, stream);
+  return launch_f32<false>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0.0f, 0.0f, stream);
 }
 
 // K8: out in the qkv type (is_f32: f32, else bf16); scale is the f32 hd^-0.5

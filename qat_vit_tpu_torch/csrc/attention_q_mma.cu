@@ -107,46 +107,6 @@ constexpr size_t stream_smem() {  // q; K and V per stage
   return sizeof(bf16) * (size_t)SROW<HDP> * (BM + 2 * STAGES<HDP> * BN);
 }
 
-// rows [r0, r0 + rows) of one head's hd columns of the packed qkv (src at
-// row 0, column 0 of the head; row stride ld) into tile rows [0, rows):
-// chunks of 8 columns up to hd rounded to 16, zero-filled past hd and for
-// rows >= n. Part of the caller's commit group.
-template <int HDP>
-__device__ __forceinline__ void stage_rows(bf16* tile, const bf16* src, size_t ld, int r0,
-                                           int rows, int n, int hd) {
-  constexpr int CH = HDP / 8;
-  const int nch = ((hd + 15) & ~15) / 8, hch = hd / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    if (c >= nch) continue;
-    const bool ok = r0 + r < n && c < hch;
-    cp_async16_zfill(tile + r * SROW<HDP> + 8 * c, ok ? src + (size_t)(r0 + r) * ld + 8 * c : src,
-                     ok);
-  }
-}
-
-// the chunks stage_rows copied for this thread (the same loop), once they
-// have landed: every bf16 value x inside rows < n and columns < hd becomes
-// f(x) rounded to bf16; the zero fill stays zero
-template <int HDP, typename F>
-__device__ __forceinline__ void map_rows(bf16* tile, int r0, int rows, int n, int hd, F f) {
-  constexpr int CH = HDP / 8;
-  const int hch = hd / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    if (c >= hch || r0 + r >= n) continue;
-    uint4* const p = reinterpret_cast<uint4*>(tile + r * SROW<HDP> + 8 * c);
-    uint4 w = *p;
-    uint32_t* const u = reinterpret_cast<uint32_t*>(&w);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 v = unpack_bf16(u[e]);
-      u[e] = pack_bf16(f(v.x), f(v.y));
-    }
-    *p = w;
-  }
-}
-
 template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT>
 __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
     attention_q_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qs,
@@ -188,27 +148,27 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
   // and in pass 2 its V tile; one commit group
   const auto load = [&](int t, int stage) {
     const int k0 = (t % nt) * BN;
-    stage_rows<HDP>(Ks + stage * BN * S, img + D, ld, k0, BN, N, hd);
-    if (t >= nt) stage_rows<HDP>(Vs + stage * BN * S, img + 2 * D, ld, k0, BN, N, hd);
+    stage_rows<HDP, THREADS>(Ks + stage * BN * S, img + D, ld, k0, BN, N, hd);
+    if (t >= nt) stage_rows<HDP, THREADS>(Vs + stage * BN * S, img + 2 * D, ld, k0, BN, N, hd);
     cp_async_commit();
   };
   const auto map_tile = [&](int t, int stage) {  // in_fq on a landed ring tile
     const int k0 = (t % nt) * BN;
-    map_rows<HDP>(Ks + stage * BN * S, k0, BN, N, hd, fq);
-    if (t >= nt) map_rows<HDP>(Vs + stage * BN * S, k0, BN, N, hd, fq);
+    map_rows<HDP, THREADS>(Ks + stage * BN * S, k0, BN, N, hd, fq);
+    if (t >= nt) map_rows<HDP, THREADS>(Vs + stage * BN * S, k0, BN, N, hd, fq);
   };
 
-  stage_rows<HDP>(Qs, img, ld, q0, BM, N, hd);
+  stage_rows<HDP, THREADS>(Qs, img, ld, q0, BM, N, hd);
   if constexpr (RESIDENT) {
-    stage_rows<HDP>(Ks, img + D, ld, 0, R, N, hd);
+    stage_rows<HDP, THREADS>(Ks, img + D, ld, 0, R, N, hd);
     cp_async_commit();
     cp_async_wait<0>();
-    if constexpr (IN_FQ) map_rows<HDP>(Ks, 0, R, N, hd, fq);
+    if constexpr (IN_FQ) map_rows<HDP, THREADS>(Ks, 0, R, N, hd, fq);
   } else {
     cp_async_commit();
     cp_async_wait<0>();
   }
-  map_rows<HDP>(Qs, q0, BM, N, hd, q_map);
+  map_rows<HDP, THREADS>(Qs, q0, BM, N, hd, q_map);
   __syncthreads();
 
   // the warp's 16 q rows as A fragments
@@ -219,7 +179,7 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
 
   if constexpr (RESIDENT) {
     __syncthreads();  // every warp has its q fragments: V may land over them
-    stage_rows<HDP>(Vs, img + 2 * D, ld, 0, R, N, hd);
+    stage_rows<HDP, THREADS>(Vs, img + 2 * D, ld, 0, R, N, hd);
     cp_async_commit();
   } else {
     for (int t = 0; t < NS - 1; ++t) {  // the first tiles (empty groups past the last)
@@ -247,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
     if constexpr (RESIDENT) {
       if (t == nt) {  // V has landed (and is fake-quantized) before pass 2
         cp_async_wait<0>();
-        if constexpr (IN_FQ) map_rows<HDP>(Vs, 0, R, N, hd, fq);
+        if constexpr (IN_FQ) map_rows<HDP, THREADS>(Vs, 0, R, N, hd, fq);
         __syncthreads();
       }
       Kt = Ks + k0 * S;

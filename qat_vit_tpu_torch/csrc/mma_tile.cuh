@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the attention kernels (attention_long_mma.cu,
-// attention_long_bwd_mma.cu, attention_long_q_mma.cu, attention_q_mma.cu),
-// for sm_90a: bf16 tiles in shared memory, read into mma.sync fragments with
-// ldmatrix.
+// attention_long_bwd_mma.cu, attention_long_q_mma.cu, attention_q_mma.cu,
+// attention_bwd_mma.cu), for sm_90a: bf16 tiles in shared memory, read into
+// mma.sync fragments with ldmatrix.
 //
 // Fragments of mma.sync.m16n8k16 (bf16 in, f32 accumulate), for lane l of a
 // warp with g = l / 4 and t = l % 4:
@@ -132,6 +132,46 @@ __device__ __forceinline__ void load_tile_scaled(bf16* tile, const bf16* src, si
       }
     }
     *reinterpret_cast<uint4*>(tile + r * SROW + 8 * c) = w;
+  }
+}
+
+// rows [r0, r0 + rows) of one head's hd columns of the packed qkv (src at
+// row 0, column 0 of the head; row stride ld) into tile rows [0, rows):
+// chunks of 8 columns up to hd rounded to 16, zero-filled past hd and for
+// rows >= n. Part of the caller's commit group.
+template <int HDP, int THREADS>
+__device__ __forceinline__ void stage_rows(bf16* tile, const bf16* src, size_t ld, int r0,
+                                           int rows, int n, int hd) {
+  constexpr int CH = HDP / 8;
+  const int nch = ((hd + 15) & ~15) / 8, hch = hd / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    if (c >= nch) continue;
+    const bool ok = r0 + r < n && c < hch;
+    cp_async16_zfill(tile + r * (HDP + 8) + 8 * c, ok ? src + (size_t)(r0 + r) * ld + 8 * c : src,
+                     ok);
+  }
+}
+
+// the chunks stage_rows copied for this thread (the same loop), once they
+// have landed: every bf16 value x inside rows < n and columns < hd becomes
+// f(x) rounded to bf16; the zero fill stays zero
+template <int HDP, int THREADS, typename F>
+__device__ __forceinline__ void map_rows(bf16* tile, int r0, int rows, int n, int hd, F f) {
+  constexpr int CH = HDP / 8;
+  const int hch = hd / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    if (c >= hch || r0 + r >= n) continue;
+    uint4* const p = reinterpret_cast<uint4*>(tile + r * (HDP + 8) + 8 * c);
+    uint4 w = *p;
+    uint32_t* const u = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = unpack_bf16(u[e]);
+      u[e] = pack_bf16(f(v.x), f(v.y));
+    }
+    *p = w;
   }
 }
 

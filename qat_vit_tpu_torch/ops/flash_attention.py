@@ -13,7 +13,9 @@
   ``qs = [scale, zp]``). On CUDA it launches kernel A, K1's forward: for
   bf16 ``qvt_attention_fwd_mma`` (``csrc/attention_q_mma.cu``, tensor
   cores), for f32 ``qvt_attention_fwd`` (``csrc/attention_q.cu``, the
-  CUDA-core tile); on the CPU it runs :func:`attention_fwd_plain`.
+  CUDA-core tile, K and V streamed where they do not fit); on the CPU it
+  runs :func:`attention_fwd_plain`. It takes every N that JAX's K1 gate
+  admits (:func:`attention_fwd_shapes_ok`).
   Launches are counted in ``attention_fwd.launches``.
 - :func:`flash_attention_qkv` (K8, ``attn_impl="pallas"``): the float
   attention of ``flash_attention.py::_attention_kernel``, f32 or bf16 in
@@ -57,6 +59,7 @@ from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
 
 _WARPS = 8  # WARPS in csrc/attention_tile.cuh
+_KT = 32  # KT in csrc/attention_tile.cuh: keys per tile of the STREAM form
 # the qkv dtypes of the training attentions' kernels (K1, K5a/K5b)
 TRAIN_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -65,18 +68,38 @@ def attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloa
     """Shared memory the CUDA-core attention tile asks for
     (``csrc/attention_tile.cuh``: K8, the f32 kernel A, K9): K (rows padded
     by one word) and V of one head in ``dtype`` (f32 twice bf16's), one f32
-    score row and one q row per warp. It sets the gate of every form; the
-    tensor-core K3 and kernel A would take any N."""
+    score row and one q row per warp. It sets the gate of K3, K8 and K9
+    (:func:`attention_shapes_ok`); kernel A streams past it
+    (:func:`attention_fwd_shapes_ok`)."""
     words = head_dim * dtype.itemsize // 4
     return 4 * (n * (words + 1) + n * words + _WARPS * n + _WARPS * head_dim)
 
 
+def attention_stream_smem_bytes(n: int, head_dim: int) -> int:
+    """Shared memory of the tile's STREAM form (the f32 kernel A past
+    :func:`attention_smem_bytes`): one 32-key tile of f32 K or V (rows
+    padded by one word), one f32 score row of ``n`` and one q row per warp."""
+    return 4 * (_KT * (head_dim + 1) + _WARPS * n + _WARPS * head_dim)
+
+
 def attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The kernels' gate: hd a multiple of 8 and <= 128, n within the
-    shared-memory budget for ``dtype`` (at hd 64: n <= 789 in bf16, 420 in
-    f32)."""
+    """The gate of K3 and K8 (and of K9's attention stage): hd a multiple of
+    8 and <= 128, n within the CUDA-core tile's shared-memory budget for
+    ``dtype`` (at hd 64: n <= 789 in bf16, 420 in f32)."""
     return (head_dim % 8 == 0 and 0 < head_dim <= 128
             and attention_smem_bytes(n, head_dim, dtype) <= SMEM_LIMIT)
+
+
+def attention_fwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Kernel A's gate: hd a multiple of 8 and <= 128; in bf16 any n (the
+    tensor-core kernel streams K and V past 227 KB), in f32 the CUDA-core
+    tile resident or streamed (n <= ~6,000 at hd 128, past any N that JAX's
+    K1 gate admits)."""
+    if head_dim % 8 or not 0 < head_dim <= 128 or n < 1:
+        return False
+    return (dtype != torch.float32
+            or min(attention_smem_bytes(n, head_dim, dtype),
+                   attention_stream_smem_bytes(n, head_dim)) <= SMEM_LIMIT)
 
 
 def _q_scale(head_dim: int, dtype: torch.dtype) -> torch.Tensor:
@@ -153,13 +176,14 @@ def attention_fwd_plain(qkv: torch.Tensor, num_heads: int, head_dim: int, *, qs=
     return _attention_plain(qkv, num_heads, head_dim, n_valid, qs, in_fq).to(qkv.dtype)
 
 
-def _check_attention(qkv, num_heads, head_dim, n_valid, name, dtypes=(torch.bfloat16,)):
+def _check_attention(qkv, num_heads, head_dim, n_valid, name, dtypes=(torch.bfloat16,),
+                     shapes_ok=attention_shapes_ok):
     b, n, three_d = qkv.shape
     if three_d != 3 * num_heads * head_dim:
         raise ValueError(f"qkv last dim {three_d} != 3 * {num_heads} * {head_dim}")
     if qkv.dtype not in dtypes:
         raise ValueError(f"{name}: qkv dtype {qkv.dtype}, expected one of {dtypes}")
-    if not attention_shapes_ok(n, head_dim, qkv.dtype):
+    if not shapes_ok(n, head_dim, qkv.dtype):
         raise ValueError(f"{name}: unsupported n={n}, head_dim={head_dim} in {qkv.dtype}")
     n_valid = n if n_valid is None else n_valid
     if not 0 < n_valid <= n:
@@ -181,7 +205,7 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, *, qs=None, 
     if use_plain(qkv):
         return attention_fwd_plain(qkv, num_heads, head_dim, qs=qs, in_fq=in_fq, n_valid=n_valid)
     n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_fwd",
-                               TRAIN_DTYPES)
+                               TRAIN_DTYPES, attention_fwd_shapes_ok)
     if in_fq is not None:
         check_qs(qs, qkv.device)
     b, n, _ = qkv.shape

@@ -5,9 +5,10 @@
 - :func:`attention_train`: MHA over the packed qkv ``[B, N, 3·H·hd]`` (bf16
   or f32) → ``[B, N, H·hd]``, differentiable. Forward: kernel A
   (``ops/flash_attention.attention_fwd``); backward: kernel B
-  (:func:`attention_bwd`, ``csrc/attention_bwd.cu``). Only the raw ``qkv``
-  is saved; the ``[B, H, N, N]`` probabilities never exist in memory in
-  either direction.
+  (:func:`attention_bwd`: in bf16 ``csrc/attention_bwd_mma.cu`` on the
+  tensor cores, in f32 ``csrc/attention_bwd.cu``). Only the raw ``qkv`` is
+  saved; the ``[B, H, N, N]`` probabilities never exist in memory in either
+  direction.
 - :func:`attention_train_fq`: the same over the RAW qkv GEMM output with the
   qkv activation fake-quant inside both kernels (``qs = [scale, zp]``, an f32
   device tensor from the already-updated observer). The backward recomputes
@@ -39,7 +40,6 @@ from qat_vit_tpu_torch.ops.flash_attention import (
     _check_attention,
     attention_fwd,
     attention_fwd_plain,
-    attention_shapes_ok,
     check_qs,
     ordered_dot,
     ordered_matmul,
@@ -49,6 +49,7 @@ from qat_vit_tpu_torch.ops.flash_attention import (
 from qat_vit_tpu_torch.quant.fake_quant import ste_mask
 
 _BWD_WARPS = 8  # WARPS in csrc/attention_bwd.cu
+_BWD_TR = 32  # TR in csrc/attention_bwd.cu: rows per tile of the streamed form
 # the JAX package's gate on its K1 kernels (qat_vit_tpu/ops/_tiling.py
 # shapes_ok and batched_softmax_fits at block_b 4): the packed width a
 # multiple of 128 lanes, hd dividing 128, and the stacked f32 scores of 4
@@ -56,19 +57,32 @@ _BWD_WARPS = 8  # WARPS in csrc/attention_bwd.cu
 _JAX_LANE, _JAX_BLOCK_B, _JAX_SCORE_BYTES = 128, 4, 24 * 1024 * 1024
 
 
-def attention_bwd_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory kernel B asks for: q, k, v and do of one head (rows of
-    ``dtype`` padded by one word), f64 softmax sums and f32 max / rowsum per
-    row, two f32 rows of N and two of hd per warp."""
-    words = head_dim * dtype.itemsize // 4
-    return (16 * n * (words + 1) + 16 * n
-            + 8 * (_BWD_WARPS * n + _BWD_WARPS * head_dim))
+def attention_bwd_smem_bytes(n: int, head_dim: int, streamed: bool = False) -> int:
+    """Shared memory the f32 kernel B (``csrc/attention_bwd.cu``) asks for:
+    f64 softmax sums and f32 max / rowsum per row, two f32 rows of N and two
+    of hd per warp, and either q, k, v and do of the whole head (resident,
+    f32 rows padded by one word: N <= 203 at hd 64) or two 32-row tiles of
+    them (``streamed``, which the kernel takes past that plan). The bf16
+    kernel B (``csrc/attention_bwd_mma.cu``) takes any N."""
+    row = 4 * (head_dim + 1)
+    staged = 2 * _BWD_TR * row if streamed else 4 * n * row
+    return staged + 16 * n + 8 * (_BWD_WARPS * n + _BWD_WARPS * head_dim)
+
+
+def attention_bwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Kernel B's gate: hd a multiple of 8 and <= 128; in bf16 any n, in f32
+    the resident or the streamed plan within the shared memory (n <= ~2,400
+    at hd 128, past any N that JAX's K1 gate admits)."""
+    if head_dim % 8 or not 0 < head_dim <= 128 or n < 1:
+        return False
+    return (dtype != torch.float32
+            or attention_bwd_smem_bytes(n, head_dim, streamed=True) <= SMEM_LIMIT)
 
 
 def _jax_gate_ok(num_heads: int, head_dim: int, seq_len: int = None) -> bool:
     """The JAX package's shape conditions on K1, so that both packages take
     the kernel branch at the same geometries (the TPU's lane layout and its
-    VMEM budget; the Hopper kernels add their own shared-memory plans)."""
+    VMEM budget)."""
     if (num_heads * head_dim) % _JAX_LANE or head_dim > _JAX_LANE or _JAX_LANE % head_dim:
         return False
     if seq_len is None:
@@ -79,20 +93,17 @@ def _jax_gate_ok(num_heads: int, head_dim: int, seq_len: int = None) -> bool:
 
 def attention_train_available(num_heads: int, head_dim: int, seq_len: int = None,
                               dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The kernels' gate: bf16 or f32, the JAX package's K1 conditions
-    (:func:`_jax_gate_ok`), and N within both kernels' shared-memory plans for
-    ``dtype`` (at hd 64: N <= 375 in bf16, 203 in f32; ViT-S and ViT-B at
-    197 tokens pass). Past the plans, where JAX's gate still admits N
-    (ROADMAP Queue 3), the model takes the long-sequence pair. True on the
-    CPU as well, where the plain versions run, so both devices take the same
-    branch of the model."""
-    if (dtype not in TRAIN_DTYPES or num_heads < 1
-            or not _jax_gate_ok(num_heads, head_dim, seq_len)):
-        return False
-    if seq_len is None:
-        return attention_shapes_ok(1, head_dim, dtype)
-    return (attention_shapes_ok(seq_len, head_dim, dtype)
-            and attention_bwd_smem_bytes(seq_len, head_dim, dtype) <= SMEM_LIMIT)
+    """The kernels' gate: JAX's K1 conditions (:func:`_jax_gate_ok`) and
+    nothing more but the dtype (bf16 or f32) and the kernels' own hd % 8 ==
+    0, so that the port takes K1 wherever JAX does, apart from hd < 8 (JAX
+    admits hd 4, 2 and 1 from 32, 64 and 128 heads; ROADMAP Queue 3). Both
+    kernels of each dtype take every N this admits (N <= 1,248, at one head
+    of 128): the bf16 kernels A and B on the tensor cores at any N, the f32
+    ones streaming past their shared-memory plans. True on the CPU as well,
+    where the plain versions run, so both devices take the same branch of
+    the model."""
+    return (dtype in TRAIN_DTYPES and num_heads >= 1 and head_dim % 8 == 0
+            and _jax_gate_ok(num_heads, head_dim, seq_len))
 
 
 def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim: int, *,
@@ -131,27 +142,32 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, hea
 def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim: int, *,
                   qs=None, in_fq=None, n_valid: int = None) -> torch.Tensor:
     """dqkv ``[B, N, 3·H·hd]`` of :func:`attention_fwd` for the output
-    gradient ``do`` of the qkv dtype, bf16 or f32 (kernel B on CUDA, its
-    plain version on the CPU)."""
+    gradient ``do`` of the qkv dtype, bf16 or f32 (kernel B on CUDA: in bf16
+    the two tensor-core launches of ``qvt_attention_bwd_mma``, counted as one
+    call; its plain version on the CPU)."""
     if use_plain(qkv):
         return attention_bwd_plain(qkv, do, num_heads, head_dim, qs=qs, in_fq=in_fq,
                                    n_valid=n_valid)
-    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_bwd", TRAIN_DTYPES)
+    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_bwd", TRAIN_DTYPES,
+                               attention_bwd_shapes_ok)
     b, n, three_d = qkv.shape
-    if attention_bwd_smem_bytes(n, head_dim, qkv.dtype) > SMEM_LIMIT:
-        raise ValueError(f"attention_bwd: unsupported n={n}, head_dim={head_dim} in {qkv.dtype}")
     require(do, "do", qkv.dtype, qkv.device, (b, n, num_heads * head_dim))
     if in_fq is not None:
         check_qs(qs, qkv.device)
     dqkv = torch.empty((b, n, three_d), dtype=qkv.dtype, device=qkv.device)
     if b:
         lo, hi = in_fq if in_fq is not None else (0, 0)
-        _build.load().call(
-            "qvt_attention_bwd", ptr(qkv), ptr(do), ptr(qs) if in_fq is not None else None,
-            ptr(dqkv), b, n, num_heads, head_dim, n_valid,
-            float(bwd_scale_f32(head_dim, "cpu")), int(in_fq is not None), float(lo), float(hi),
-            int(qkv.dtype == torch.float32), stream_of(qkv.device),
-        )
+        fq = (ptr(qs) if in_fq is not None else None, int(in_fq is not None), float(lo), float(hi))
+        scale = float(bwd_scale_f32(head_dim, "cpu"))
+        if qkv.dtype == torch.float32:
+            _build.load().call(
+                "qvt_attention_bwd", ptr(qkv), ptr(do), fq[0], ptr(dqkv), b, n, num_heads,
+                head_dim, n_valid, scale, *fq[1:], stream_of(qkv.device))
+        else:  # the rows pass's statistics for the keys pass: lse2 and rowsum(dp·p)
+            stats = torch.empty((2, b, num_heads, n), dtype=torch.float32, device=qkv.device)
+            _build.load().call(
+                "qvt_attention_bwd_mma", ptr(qkv), ptr(do), fq[0], ptr(stats), ptr(dqkv), b, n,
+                num_heads, head_dim, n_valid, scale, *fq[1:], stream_of(qkv.device))
         attention_bwd.launches += 1
     return dqkv
 

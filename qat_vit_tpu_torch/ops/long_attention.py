@@ -96,7 +96,7 @@ from qat_vit_tpu_torch.ops.flash_attention import (
 )
 from qat_vit_tpu_torch.ops.fused_serve import inv_scale, quantize_mul
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
-from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
+from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values, ste_mask
 
 # the layout of csrc/attention_long.cu: query rows per block, and the bytes
 # of a key tile's rows (128 keys of bf16, 64 of f32)
@@ -459,9 +459,14 @@ def long_attention_f64(qkv: torch.Tensor, num_heads: int, head_dim: int,
     ``hd**-0.5``, keys ``>= n_valid`` masked) and, with ``do``, its autograd
     gradient w.r.t. ``qkv`` for that cotangent (rows ``>= n_valid`` taken as
     zero), one image at a time → (out, dqkv or None), both f64. With
-    ``in_fq=(qmin, qmax)`` (forward only) the values are those of the qkv
-    fake-quantized with ``qs``, as kernel A's prologue rounds them."""
+    ``in_fq=(qmin, qmax)`` the values are those of the qkv fake-quantized
+    with ``qs``, as kernels A and B round them, and dqkv is the gradient at
+    those values times the straight-through estimator's mask of the raw
+    qkv. Neither depends on where a kernel applies the score scale, so one
+    reference serves K5b and kernel B."""
+    keep = None
     if in_fq is not None:
+        keep = ste_mask(qkv, qs[0], qs[1], in_fq[0], in_fq[1]) if do is not None else None
         qkv = fake_quantize_values(qkv, qs[0], qs[1], in_fq[0], in_fq[1])
     b, n, _ = qkv.shape
     d = num_heads * head_dim
@@ -479,7 +484,10 @@ def long_attention_f64(qkv: torch.Tensor, num_heads: int, head_dim: int,
                 g = do[i : i + 1].to(torch.float64).masked_fill(masked[:, None], 0)
                 grads.append(torch.autograd.grad(o, x, g)[0])
         outs.append(o.detach())
-    return torch.cat(outs), (torch.cat(grads) if do is not None else None)
+    if do is None:
+        return torch.cat(outs), None
+    dqkv = torch.cat(grads)
+    return torch.cat(outs), dqkv if keep is None else dqkv * keep
 
 
 # The bf16 pair's tolerance (its tensor cores sum in their own order, so it

@@ -12,11 +12,12 @@ except the attentions on the tensor cores, which sum in their own order and
 use the card's ``ex2``; each gives identical bits over two launches:
 
 - the bf16 long attention pair (K5a ``qvt_attention_long_mma``, K5b
-  ``qvt_attention_long_bwd_mma``) and the bf16 kernel A
-  (``qvt_attention_fwd_mma``) are held by :func:`assert_tc_close` to the
-  tolerance of ``long_attention.tc_errors`` against their plain versions and
-  to the plain versions' own accuracy against the f64 math (kernel A's of
-  the fake-quantized qkv);
+  ``qvt_attention_long_bwd_mma``) and the bf16 kernels A
+  (``qvt_attention_fwd_mma``) and B (``qvt_attention_bwd_mma``) are held by
+  :func:`assert_tc_close` to the tolerance of ``long_attention.tc_errors``
+  against their plain versions and to the plain versions' own accuracy
+  against the f64 math (kernels A's and B's of the fake-quantized qkv;
+  kernel B's zeros where the STE mask is off, as the plain version's);
 - K6a (``qvt_attention_long_q_mma``, ``qvt_attention_long_q8_mma``) and K3
   (``qvt_attention_q_mma``) give int8 outputs held by :func:`_int8_close`
   (at most one grid step off, >= 99.9% identical), and a chain through the
@@ -226,12 +227,17 @@ def _qkv_case(dev, b, n, heads, hd, seed):
     return qkv.to(dev).to(torch.bfloat16), do.to(dev).to(torch.bfloat16), qs
 
 
+# kernel B's shapes, N 512 past the old shared-memory plans (6 heads of 64
+# and of 128) among them
 ATTN_SHAPES = [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17), (2, 197, 12, 64, 197),
-               (2, 50, 4, 32, 50)]
+               (2, 50, 4, 32, 50), (2, 77, 2, 128, 70), (2, 512, 6, 64, 500),
+               (2, 512, 6, 128, 512)]
+# kernel A also at N 512 (K3's gate stops at 416 at hd 128)
+PAST_PLAN = [(2, 512, 6, 64, 512), (2, 512, 6, 128, 500)]
 
 
 @pytest.mark.parametrize("fq", [False, True])
-@pytest.mark.parametrize("b,n,heads,hd,n_valid", SHORT_SHAPES)
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", SHORT_SHAPES + PAST_PLAN)
 def test_attention_fwd(dev, b, n, heads, hd, n_valid, fq):
     """Kernel A in bf16 on the tensor cores (with and without the in-kernel
     fake-quant): within the tolerance of ``tc_errors`` against its plain
@@ -247,22 +253,31 @@ def test_attention_fwd(dev, b, n, heads, hd, n_valid, fq):
 @pytest.mark.parametrize("fq", [False, True])
 @pytest.mark.parametrize("b,n,heads,hd,n_valid", ATTN_SHAPES)
 def test_attention_bwd(dev, b, n, heads, hd, n_valid, fq):
-    """Kernel B (with and without the STE mask)."""
+    """Kernel B in bf16 on the tensor cores (with and without the STE mask):
+    dq, dk, dv within rel L2 1e-2 of its plain version and at most twice the
+    plain version's rel L2 to the f64 math, two launches identical, zero
+    wherever the STE mask of the raw qkv is off, as the plain version."""
+    from qat_vit_tpu_torch.quant.fake_quant import ste_mask
+
     qkv, do, qs = _qkv_case(dev, b, n, heads, hd, 2 * n + heads)
     kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
     got = fat.attention_bwd(qkv, do, heads, hd, n_valid=n_valid, **kw)
-    _same(got, fat.attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid, **kw))
+    want = fat.attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid, **kw)
+    assert_tc_close(got, want, la.long_attention_f64(qkv, heads, hd, do, n_valid=n_valid,
+                                                     **kw)[1], 3)
+    _same(got, fat.attention_bwd(qkv, do, heads, hd, n_valid=n_valid, **kw))
     if fq:
-        assert (got == 0).any() and (got != 0).any()
+        off = ~ste_mask(qkv, qs[0], qs[1], 0, 255)
+        assert off.any() and not got[off].any() and not want[off].any()
+        assert (got != 0).any()
 
 
 @pytest.mark.parametrize("fq", [False, True])
 def test_attention_train_autograd(dev, fq):
     """The autograd Functions on the kernels vs the same Functions through
     the plain versions (``reference_impl``): the forward within kernel A's
-    tolerance, dqkv identical (kernel B recomputes p from qkv and is
-    bit-identical to its plain version), and each kernel launches once per
-    direction."""
+    tolerance, dqkv within kernel B's (both on the tensor cores), and each
+    kernel launches once per direction."""
     heads, hd = 6, 64
     qkv, do, qs = _qkv_case(dev, 4, 197, heads, hd, 11)
 
@@ -280,8 +295,9 @@ def test_attention_train_autograd(dev, fq):
         out_p, grad_p = run()
     assert (fa.attention_fwd.launches, fat.attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
     kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
-    assert_tc_close(out_k, out_p, la.long_attention_f64(qkv, heads, hd, **kw)[0], 1)
-    _same(grad_k, grad_p)
+    out_f64, grad_f64 = la.long_attention_f64(qkv, heads, hd, do, **kw)
+    assert_tc_close(out_k, out_p, out_f64, 1)
+    assert_tc_close(grad_k, grad_p, grad_f64, 3)
 
 
 def test_attention_train_wrappers_raise(dev):
@@ -296,10 +312,10 @@ def test_attention_train_wrappers_raise(dev):
         fat.attention_bwd(qkv, do[:, :16].contiguous(), 2, 64)
     with pytest.raises(ValueError, match="contiguous"):
         fa.attention_fwd(qkv.transpose(0, 1).contiguous().transpose(0, 1), 2, 64)
-    long = torch.zeros(1, 400, 3 * 64, dtype=torch.bfloat16, device=dev)
-    assert not fat.attention_train_available(1, 64, 400)
+    assert not fat.attention_train_available(1, 64, 400)  # JAX's lane condition
     with pytest.raises(ValueError, match="unsupported"):
-        fat.attention_bwd(long, torch.zeros(1, 400, 64, dtype=torch.bfloat16, device=dev), 1, 64)
+        fat.attention_bwd(torch.zeros(1, 17, 3 * 60, dtype=torch.bfloat16, device=dev),
+                          torch.zeros(1, 17, 60, dtype=torch.bfloat16, device=dev), 1, 60)
 
 
 def test_wrappers_check_inputs_and_never_fall_back(dev):
@@ -820,8 +836,11 @@ def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypat
 # the f32 forms of the training attention (K1's kernels A and B, K5a, K5b)
 # ---------------------------------------------------------------------------
 
+# past the resident plans (N 203 for kernel B, 420 for kernel A at hd 64),
+# streamed: N 512 at 6 heads of 64 and of 128, 1,248 at one head of 128
 F32_ATTN_SHAPES = [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17), (2, 197, 12, 64, 190),
-                   (2, 50, 4, 32, 50)]
+                   (2, 50, 4, 32, 50), (2, 512, 6, 64, 500), (2, 512, 6, 128, 512),
+                   (1, 1248, 1, 128, 1248)]
 
 
 @pytest.mark.parametrize("fq", [False, True])
@@ -855,14 +874,16 @@ def test_attention_bwd_f32(dev, b, n, heads, hd, n_valid, fq):
 
 
 def test_attention_f32_gate(dev):
-    """Kernel B's f32 plan ends at N = 203 (hd 64): the gate says so and the
-    wrapper raises past it, launching nothing."""
-    assert fat.attention_train_available(6, 64, 203, torch.float32)
-    assert not fat.attention_train_available(6, 64, 204, torch.float32)
-    qkv = torch.zeros(1, 204, 3 * 64, device=dev)
+    """The f32 kernels stream past their resident plans (kernel B's ends at
+    N = 203 at hd 64): the gate takes JAX's N range, and the wrapper raises,
+    launching nothing, only past the streamed plan (N 3,000 at hd 128)."""
+    assert fat.attention_train_available(6, 64, 204, torch.float32)
+    assert fat.attention_train_available(6, 64, 512, torch.float32)
+    assert not fat.attention_train_available(6, 64, 513, torch.float32)
+    qkv = torch.zeros(1, 3000, 3 * 128, device=dev)
     before = fat.attention_bwd.launches
     with pytest.raises(ValueError, match="unsupported"):
-        fat.attention_bwd(qkv, torch.zeros(1, 204, 64, device=dev), 1, 64)
+        fat.attention_bwd(qkv, torch.zeros(1, 3000, 128, device=dev), 1, 128)
     assert fat.attention_bwd.launches == before
 
 

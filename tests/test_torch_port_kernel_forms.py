@@ -8,9 +8,9 @@ on the CPU:
   against JAX's ``megamodel_long:64:32:i8`` and the exact path;
 - the f32 forms of the training attention: kernels A and B (with and
   without ``in_fq``) and the long pair K5a/K5b through their plain versions
-  against the JAX Pallas kernels in interpret mode; the route an f32
-  fast_math model takes, against JAX's gates (``QVT_ATTN_INTERPRET=1``),
-  and the N ranges where the two differ;
+  against the JAX Pallas kernels in interpret mode; the route an f32 or
+  bf16 fast_math model takes, against JAX's gates (``QVT_ATTN_INTERPRET=1``),
+  equal everywhere but at hd < 8;
 - the serving preset past every kernel gate: ``{}``, the bf16 exact path,
   exactly where JAX's preset gives ``{}``.
 
@@ -343,10 +343,11 @@ def _port_branch(h, hd, n, dtype):
     return "einsum"
 
 
-# N where the port's shared-memory plans refuse kernel B but JAX's gate
-# admits K1 (at hd 64): the port takes the long pair there (ROADMAP Queue 3)
-ACCEPTED = {(6, torch.bfloat16): range(376, 513), (6, torch.float32): range(204, 513),
-            (12, torch.bfloat16): range(0), (12, torch.float32): range(204, 353)}
+# geometries where JAX's gate admits K1 and the port does not, with the
+# reason: the kernels take hd in multiples of 8, JAX any hd dividing 128
+# (hd 1, 2 and 4 from 128, 64 and 32 heads, at short N: 64 here; the port
+# takes the einsum form)
+RESIDUE = {(128 // hd, hd): "hd % 8 != 0" for hd in (1, 2, 4)}
 
 
 @pytest.fixture
@@ -359,21 +360,29 @@ def test_f32_route_matches_jax_gates(interpret):
     or the K5 pair where JAX does, at the micro shapes (2 heads of 64 at 17
     tokens: K1; 3 heads of 16: K5, the packed width 48 is not lane-aligned
     for JAX's K1), at ViT-S / ViT-B (197 tokens: K1) and OWLv2-pruned
-    (2,305: K5); across N = 1..600 at 6 and 12 heads of 64 the two agree
-    except in the listed ranges, where the port's plan for kernel B ends
-    (N 203 in f32, 375 in bf16) and the port takes the K5 pair."""
+    (2,305: K5); across hd 8-128, 1-16 heads wherever the packed width is a
+    multiple of 128 lanes and N = 1..700, in both dtypes, the two agree
+    everywhere; they part only at the listed hd < 8 geometries."""
     for h, hd, n, want in ((2, 64, 17, "k1"), (3, 16, 17, "k5"), (6, 64, 197, "k1"),
                            (12, 64, 197, "k1"), (9, 64, 2305, "k5"), (6, 60, 197, "einsum")):
         assert _jax_branch(h, hd, n) == want, (h, hd, n)
         for dt in (torch.float32, torch.bfloat16):
             assert _port_branch(h, hd, n, dt) == want, (h, hd, n, dt)
-    for (h, dt), accepted in ACCEPTED.items():
-        for n in range(1, 601):
-            want, got = _jax_branch(h, 64, n), _port_branch(h, 64, n, dt)
-            if n in accepted:
-                assert (want, got) == ("k1", "k5"), (h, dt, n)
-            else:
-                assert got == want, (h, dt, n, got, want)
+    scanned = 0
+    for hd in (8, 16, 32, 64, 128):
+        for h in range(1, 17):
+            if (h * hd) % 128:
+                continue
+            for n in range(1, 701):
+                want = _jax_branch(h, hd, n)
+                for dt in (torch.float32, torch.bfloat16):
+                    assert _port_branch(h, hd, n, dt) == want, (h, hd, n, dt, want)
+                scanned += 1
+    assert scanned == 31 * 700
+    for (h, hd), reason in RESIDUE.items():
+        assert _jax_branch(h, hd, 64) == "k1", reason
+        for dt in (torch.float32, torch.bfloat16):
+            assert _port_branch(h, hd, 64, dt) == "einsum", (h, hd, reason)
 
 
 def test_f32_fast_math_models_take_the_kernel_branch(monkeypatch):

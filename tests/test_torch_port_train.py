@@ -112,15 +112,17 @@ def test_attention_train_bf16_matches_jax(fq):
 
 
 def test_attention_train_available_gate():
-    """The Hopper gate: bf16 or f32, JAX's K1 shape conditions, N within
-    both kernels' shared memory for the dtype; True on the CPU as well."""
+    """The Hopper gate: bf16 or f32, JAX's K1 shape conditions and hd % 8
+    (the kernels stream past their shared-memory plans); True on the CPU as
+    well."""
     assert fat.attention_train_available(2, 64, 17)  # micro
     assert fat.attention_train_available(6, 64, 197)  # ViT-S
     assert fat.attention_train_available(12, 64, 197)  # ViT-B
     assert fat.attention_train_available(6, 64, 197, torch.float32)
-    assert not fat.attention_train_available(6, 64, 204, torch.float32)  # kernel B's f32 plan
+    assert fat.attention_train_available(6, 64, 204, torch.float32)  # past kernel B's f32 plan
     assert not fat.attention_train_available(6, 64, 197, torch.float16)
-    assert not fat.attention_train_available(6, 64, 400)  # kernel B's budget
+    assert fat.attention_train_available(6, 64, 400)  # past kernel B's old budget
+    assert not fat.attention_train_available(6, 64, 513)  # JAX's VMEM budget
     assert not fat.attention_train_available(6, 60, 197)
     assert not fat.attention_train_available(2, 256, 17)
 
