@@ -8,8 +8,10 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the time to build the kernels from ``qat_vit_tpu_torch/csrc``;
 2. kernels against their plain PyTorch versions on the card, at ViT-S/16
-   shapes with batch 32 (K3 and kernels A and B also at the main paths'
-   batch 256; kernels A and B also at N 512, past their old shared-memory
+   shapes with batch 32 (the int8 GEMMs, K3 and kernels A and B also at the
+   main paths' batch 256, the GEMMs also at K 480, K = 32 mod 64, each
+   GEMM identical and beside ``torch._int_mm`` by device time too; kernels
+   A and B also at N 512, past their old shared-memory
    plans, with 6 heads of 64 and of 128), each timed (CUDA events around one call, median
    of 30 runs after warm-up; the kernel also as the mean of 10 back-to-back
    calls, printed beside it) beside its plain version (the slow plain
@@ -21,7 +23,7 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    attention stage (each call within the int8 bound), the distance to the
    plain chain (``CHAIN_REL_L2``) and to the exact f32 path, prints the
    serving img/s and profiles one batch-256 forward (device time by kernel
-   group, 12 K3 kernels);
+   group: 12 K3, 14 K2a and 12 K2b kernels, none of the CUDA-core GEMM tile);
 4. training: ``KDQATTrainer`` at full ViT-S/16 geometry under the trainer's
    defaults (bf16, fast_math, fq_in_kernel) with a random-init ViT-B/16
    teacher, on 1,024 synthetic CIFAR-10 images: 3 float steps, the QAT
@@ -63,8 +65,9 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    torch.profiler: device time by kernel group and the idle share), int8
    convert and int8 eval against the fake-quant detector;
 7. the rest of int8 serving on phase 3's ViT-S/16 export: the fused
-   quantize GEMM (K7) against its plain version at the exact path's batch-32
-   shapes (f32 and bf16 input, per-tensor and per-channel), the
+   quantize GEMM (K7) identical to its plain version at the exact path's
+   batch-32 shapes and at K 96 and 480 (f32 and bf16 input, per-tensor and
+   per-channel), the
    scale-after-dot attention (K8) at ``[32, 197, 1152]`` in f32 and bf16,
    with masked keys, and the whole-block kernels (K9a, K9b) against the
    chain through the plain ops at batch 32; the exact path with
@@ -225,6 +228,10 @@ DT_REPLAY_QKV_GRAD_REL = 3e-3
 
 # the CUDA-core attention tile's kernels: K8, and kernel A in f32
 CUDA_CORE_ATTENTION = "qat_vit_tpu_torch/csrc/attention_q.cu"
+# the kernel group of the CUDA-core mma.sync GEMM tile (csrc/gemm_tile.cuh),
+# which only K7 launches: K2a and K2b run csrc/int8_gemm_wgmma.cu
+CORE_TILE = "K7 (CUDA-core tile)"
+WGMMA_GEMM = "qat_vit_tpu_torch/csrc/int8_gemm_wgmma.cu"
 
 # H100 SXM dense peaks (NVIDIA's H100 datasheet): operations per second by
 # type, and the device memory's bytes per second
@@ -272,7 +279,9 @@ def kernel_group(name: str) -> str:
                        ("long_attention_mma", "K5a"), ("long_attention_q_mma", "K6a"),
                        ("long_bwd_rows", "K5b f32 rows"), ("long_bwd_keys", "K5b f32 keys"),
                        ("long_attention_kernel", "K5a f32"), ("gemm_resid_ln", "K2c RESID_LN_Q"),
-                       ("gemm_tiled_kernel<1,", "K2b GELU_Q"), ("gemm_tiled_kernel", "K2a PLAIN"),
+                       ("int8_wgmma_kernel<1,", "K2b GELU_Q"),
+                       ("int8_wgmma_kernel<3,", "K2a PLAIN_Q8"), ("int8_wgmma_kernel", "K2a PLAIN"),
+                       ("gemm_tiled_kernel", CORE_TILE),
                        ("ln_quantize", "K2d LN"), ("attention_q_mma", "K3 / kernel A"),
                        ("attention_bwd_rows_mma", "kernel B rows"),
                        ("attention_bwd_keys_mma", "kernel B keys"),
@@ -455,12 +464,14 @@ def rand_int8(torch, np, rng, dev, *shape):
 
 
 def rand_layer(torch, np, rng, dev, k, n, per_channel=False, bias=True):
-    """A random int8 GEMM layer of the export's layout (w_int8 [K, N])."""
+    """A random int8 GEMM layer of the export's layout (w_int8 [K, N]) with
+    the packed copy export_to_device adds on the card (w_int8_t [N, K])."""
     w = np.clip(np.round(rng.normal(0, 20, (k, n))), -128, 127).astype(np.int8)
     ws = (torch.from_numpy(rng.uniform(1e-3, 3e-3, n).astype(np.float32)).to(dev)
           if per_channel else torch.tensor(0.002))
     return {
         "w_int8": torch.from_numpy(w).to(dev),
+        "w_int8_t": torch.from_numpy(np.ascontiguousarray(w.T)).to(dev),
         "w_colsum": torch.from_numpy(w.astype(np.int32).sum(0, dtype=np.int32)).to(dev),
         "bias": (torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32)).to(dev)
                  if bias else None),
@@ -591,39 +602,17 @@ def phase_kernels(torch, np, fs, fa, fat, la):
     fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=torch.float32, device=dev),
           "in_fq": (0, 255)}
     m = b * n_tok
-    x_qkv, l_qkv = act_int8(b, n_tok, d), layer(d, 3 * d)
-    x_proj, l_proj = act_int8(b, n_tok, d), layer(d, d)
-    x_fc1, l_fc1 = act_int8(b, n_tok, d), layer(d, mlp)
-    x_fc2, l_fc2 = act_int8(b, n_tok, mlp), layer(mlp, d)
-    x_patch, l_patch = act_int8(b, n_tok - 1, 768), layer(768, d)
     attn_bwd = attention_work(b, n_tok, heads, hd, backward=True)
     cases = [
-        # name, wrapper, plain, args, kwargs, replaces, work, library call
-        ("int8_gemm:plain qkv [6304x384]@[384x1152]", fs.int8_dense, fs.int8_dense_plain,
-         (x_qkv, l_qkv, in_q), {"out_dtype": bf16},
-         "qat_vit_tpu/ops/fused_serve.py:57", gemm_work(m, d, 3 * d, 2),
-         int_mm(torch, x_qkv, l_qkv)),
-        ("int8_gemm:resid_ln_q proj [6304x384]@[384x384]", fs.int8_dense_resid_ln_q,
-         fs.int8_dense_resid_ln_q_plain,
-         (x_proj, fs.with_packed_weight(l_proj), in_q, x_bf16, ln(d), out_q),
-         {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:87",
-         gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), int_mm(torch, x_proj, l_proj)),
-        ("int8_gemm:gelu_q fc1 [6304x384]@[384x1536]", fs.int8_dense_gelu_q,
-         fs.int8_dense_gelu_q_plain, (x_fc1, l_fc1, in_q, gelu_q), {},
-         "qat_vit_tpu/ops/fused_serve.py:70", gemm_work(m, d, mlp, 1),
-         int_mm(torch, x_fc1, l_fc1)),
-        ("int8_gemm:resid_ln_q fc2 [6304x1536]@[1536x384]", fs.int8_dense_resid_ln_q,
-         fs.int8_dense_resid_ln_q_plain,
-         (x_fc2, fs.with_packed_weight(l_fc2), in_q, x_f32, ln(d), out_q),
-         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:87",
-         gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d), int_mm(torch, x_fc2, l_fc2)),
-        ("int8_gemm:plain patch_embed [6272x768]@[768x384]", fs.int8_dense, fs.int8_dense_plain,
-         (x_patch, l_patch, in_q), {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:57",
-         gemm_work(m - b, 768, d, 2), int_mm(torch, x_patch, l_patch)),
+        # name, wrapper, plain, args, kwargs, replaces, work, library call[, extra]
+        # the ViT-S GEMMs at batch 32 and at the serving path's batch 256, and
+        # at K 480 (K = 32 mod 64), each held identical, with device times
+        *gemm_cases(torch, fs, act_int8, layer, ln, x_bf16, x_f32, b, n_tok, d, mlp, in_q, out_q,
+                    gelu_q),
         ("int8_gemm:plain head [32x384]@[384x10] per-channel", fs.int8_dense,
          fs.int8_dense_plain, (act_int8(b, d), layer(d, 10, per_channel=True), in_q),
          {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:57",
-         gemm_work(b, d, 10, 4), None),
+         gemm_work(b, d, 10, 4), None, {"exact": True}),
         ("ln_quantize [6304x384] bf16", fs.ln_quantize, fs.ln_quantize_plain,
          (x_bf16, ln(d), out_q), {}, "qat_vit_tpu/ops/fused_serve.py:105", ln_work(m, d, 2),
          None),
@@ -638,6 +627,26 @@ def phase_kernels(torch, np, fs, fa, fat, la):
         np.float32)).to(dev).to(bf16)
     cases += short_attention_cases(torch, fa, la, qkv_main, heads, hd, out_q, fq)
     cases += kernel_b_cases(torch, fat, la, qkv_main, do_main, heads, hd, fq)
+    cases += gemm_cases(torch, fs, act_int8, layer, ln, qkv_main[..., :d].contiguous(),
+                        qkv_main[..., d:2 * d].float().contiguous(), SERVE_B, n_tok, d, mlp,
+                        in_q, out_q, gelu_q)
+    # K = 32 (mod 64), which JAX's gates admit: K2a, K2b and K2c at K 480
+    k32 = 480
+    cases += [
+        (f"int8_gemm:plain qkv K {k32} [{m}x{k32}]@[{k32}x{3 * k32}] per-channel", fs.int8_dense,
+         fs.int8_dense_plain, (act_int8(b, n_tok, k32), layer(k32, 3 * k32, True), in_q),
+         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:57", gemm_work(m, k32, 3 * k32, 2),
+         None, {"exact": True}),
+        (f"int8_gemm:gelu_q fc1 K {k32} [{m}x{k32}]@[{k32}x{4 * k32}]", fs.int8_dense_gelu_q,
+         fs.int8_dense_gelu_q_plain, (act_int8(b, n_tok, k32), layer(k32, 4 * k32), in_q, gelu_q),
+         {}, "qat_vit_tpu/ops/fused_serve.py:70", gemm_work(m, k32, 4 * k32, 1), None,
+         {"exact": True}),
+        (f"int8_gemm:resid_ln_q K {k32} [{m}x{k32}]@[{k32}x{d}]", fs.int8_dense_resid_ln_q,
+         fs.int8_dense_resid_ln_q_plain,
+         (act_int8(b, n_tok, k32), layer(k32, d), in_q, x_bf16, ln(d), out_q),
+         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:87",
+         gemm_work(m, k32, d, 2 + 1, 2 * m * d + 8 * d), None, {"exact": True}),
+    ]
     # the bf16 kernels A and B past the old shared-memory plans, at N 512
     # (JAX's K1 gate admits 6 heads up to N 512): 6 heads of 64 and of 128
     for k_hd in (64, 128):
@@ -648,6 +657,44 @@ def phase_kernels(torch, np, fs, fa, fat, la):
         cases += short_attention_cases(torch, fa, la, k_qkv, heads, k_hd, out_q, fq)[1:]
         cases += kernel_b_cases(torch, fat, la, k_qkv, k_do, heads, k_hd, fq)
     return check_kernels(torch, cases, "phase 2", slow_plain=(fat.attention_bwd_plain,))
+
+
+def gemm_cases(torch, fs, act_int8, layer, ln, res_bf16, res_f32, b, n_tok, d, mlp, in_q, out_q,
+               gelu_q):
+    """``check_kernels``' cases of the ViT-S block and patch GEMMs at batch
+    ``b`` (K2a qkv and patch, K2b fc1, K2c proj and fc2), each held
+    identical to its plain version, timed on the device too, beside
+    ``torch._int_mm`` on the same operands."""
+    bf16 = torch.bfloat16
+    m = b * n_tok
+    x_qkv, l_qkv = act_int8(b, n_tok, d), layer(d, 3 * d)
+    x_proj, l_proj = act_int8(b, n_tok, d), layer(d, d)
+    x_fc1, l_fc1 = act_int8(b, n_tok, d), layer(d, mlp)
+    x_fc2, l_fc2 = act_int8(b, n_tok, mlp), layer(mlp, d)
+    x_patch, l_patch = act_int8(b, n_tok - 1, 768), layer(768, d)
+    held = {"exact": True, "device": True}
+    return [
+        (f"int8_gemm:plain qkv [{m}x{d}]@[{d}x{3 * d}]", fs.int8_dense, fs.int8_dense_plain,
+         (x_qkv, l_qkv, in_q), {"out_dtype": bf16},
+         "qat_vit_tpu/ops/fused_serve.py:57", gemm_work(m, d, 3 * d, 2),
+         int_mm(torch, x_qkv, l_qkv), held),
+        (f"int8_gemm:resid_ln_q proj [{m}x{d}]@[{d}x{d}]", fs.int8_dense_resid_ln_q,
+         fs.int8_dense_resid_ln_q_plain, (x_proj, l_proj, in_q, res_bf16, ln(d), out_q),
+         {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:87",
+         gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), int_mm(torch, x_proj, l_proj), held),
+        (f"int8_gemm:gelu_q fc1 [{m}x{d}]@[{d}x{mlp}]", fs.int8_dense_gelu_q,
+         fs.int8_dense_gelu_q_plain, (x_fc1, l_fc1, in_q, gelu_q), {},
+         "qat_vit_tpu/ops/fused_serve.py:70", gemm_work(m, d, mlp, 1),
+         int_mm(torch, x_fc1, l_fc1), held),
+        (f"int8_gemm:resid_ln_q fc2 [{m}x{mlp}]@[{mlp}x{d}]", fs.int8_dense_resid_ln_q,
+         fs.int8_dense_resid_ln_q_plain, (x_fc2, l_fc2, in_q, res_f32, ln(d), out_q),
+         {"out_dtype": bf16}, "qat_vit_tpu/ops/fused_serve.py:87",
+         gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d), int_mm(torch, x_fc2, l_fc2), held),
+        (f"int8_gemm:plain patch_embed [{m - b}x768]@[768x{d}]", fs.int8_dense,
+         fs.int8_dense_plain, (x_patch, l_patch, in_q), {"out_dtype": bf16},
+         "qat_vit_tpu/ops/fused_serve.py:57", gemm_work(m - b, 768, d, 2),
+         int_mm(torch, x_patch, l_patch), held),
+    ]
 
 
 def kernel_b_cases(torch, fat, la, qkv, do, heads, hd, fq):
@@ -715,7 +762,9 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
     K5a / K5b or kernels A and B, held by :func:`compare_tc`; both kinds sum
     in their own order and must give identical bits over two launches) and
     ``ste`` (kernel B's qkv and fake-quant: its STE zero set must be the
-    plain version's, :func:`ste_zeros`)."""
+    plain version's, :func:`ste_zeros`), ``exact`` (this case bit for bit)
+    and ``device`` (also the kernel's and the library call's device time
+    under torch.profiler, :func:`device_ms`)."""
     bf16 = torch.bfloat16
     results = []
     for name, kernel, plain, args, kwargs, replaces, work, library, *extra in cases:
@@ -750,7 +799,7 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
             notes.append("; ".join(tc_notes))
             got = want = ()
         for g, w in zip(got, want):
-            if exact and not extra.get("int8_bound") and not torch.equal(g, w):
+            if (exact or extra.get("exact")) and not extra.get("int8_bound") and not torch.equal(g, w):
                 fail(f"{name}: not identical to its plain version (max |diff| "
                      f"{float((g.float() - w.float()).abs().max()):.3e})")
             if g.dtype == torch.int8:
@@ -769,6 +818,10 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
         library_ms = median_ms(library) if library is not None else None
         bound_ms, bound_by = roofline(*(work if isinstance(work, list) else [work]))
         lib = f"{library_ms:.4f} ms" if library is not None else "none"
+        if extra.get("device"):
+            dev_lib = f"{device_ms(torch, library):.4f}" if library is not None else "none"
+            notes.append(f"device ms: kernel {device_ms(torch, lambda: kernel(*args, **kwargs)):.4f}"
+                         f" library {dev_lib};")
         print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(notes)}  "
               f"kernel {ms:.4f} ms ({ms_b2b:.4f} ms each of {KERNEL_REPS} back to back)  "
               f"plain {plain_ms:.4f} ms  library {lib}  "
@@ -820,6 +873,11 @@ def phase_serving(torch, np, fs, fa):
               f"({', '.join(f'{w.__name__} {launches[w]}' for w in group)})", flush=True)
         if total == 0 or any(launches[w] == 0 for w in group):
             fail(f"the serving path did not launch every {kernel} kernel: {launches}")
+    batches = N_IMAGES // SERVE_B  # per forward: K2a for qkv, patch and head; K2b for fc1
+    if (launches[fs.int8_dense], launches[fs.int8_dense_gelu_q]) != (
+            batches * (cfg.depth + 2), batches * cfg.depth):
+        fail(f"int8_dense / int8_dense_gelu_q launches {launches[fs.int8_dense]} / "
+             f"{launches[fs.int8_dense_gelu_q]} over {batches} forwards")
     if logits.shape != (N_IMAGES, cfg.num_classes) or not np.isfinite(logits).all():
         fail(f"logits {logits.shape}, finite {np.isfinite(logits).all()}")
 
@@ -876,11 +934,16 @@ def phase_serving(torch, np, fs, fa):
     if groups:
         print(f"phase 3 one profiled batch-{SERVE_B} forward (uint8 images in, logits out): "
               f"device busy {busy:.2f} of {wall:.2f} ms (idle {100 * (1 - busy / wall):.1f}%), "
-              f"{n_kernels} kernels ({counts['K3 / kernel A']} K3); device ms by group: "
-              + ", ".join(f"{g} {t:.2f}" for g, t in groups.most_common()), flush=True)
-        if counts["K3 / kernel A"] != cfg.depth:
-            fail(f"the profiled forward ran {counts['K3 / kernel A']} K3 kernels, expected "
-                 f"{cfg.depth}")
+              f"{n_kernels} kernels ({counts['K3 / kernel A']} K3, {counts['K2a PLAIN']} K2a, "
+              f"{counts['K2b GELU_Q']} K2b, {counts[CORE_TILE]} of the CUDA-core GEMM tile); "
+              "device ms "
+              "by group: " + ", ".join(f"{g} {t:.2f}" for g, t in groups.most_common()),
+              flush=True)
+        if (counts["K3 / kernel A"], counts["K2a PLAIN"], counts["K2b GELU_Q"],
+                counts[CORE_TILE]) != (cfg.depth, cfg.depth + 2, cfg.depth, 0):
+            fail(f"the profiled forward ran {counts['K3 / kernel A']} K3, {counts['K2a PLAIN']} "
+                 f"K2a, {counts['K2b GELU_Q']} K2b and {counts[CORE_TILE]} CUDA-core tile kernels, "
+                 f"expected {cfg.depth}, {cfg.depth + 2}, {cfg.depth} and 0")
     else:
         print("phase 3 one profiled forward: torch.profiler saw no device activity (breakdown "
               "not measured)", flush=True)
@@ -1109,7 +1172,7 @@ def phase_detection(torch, np, fs, la):
          int_mm(torch, x_patch, l_patch)),
         (f"int8_gemm:resid_ln_q proj [{m}x{d}]@[{d}x{d}]", fs.int8_dense_resid_ln_q,
          fs.int8_dense_resid_ln_q_plain,
-         (x_proj, fs.with_packed_weight(l_proj), in_q, x_bf16, rand_ln(torch, np, rng, dev, d),
+         (x_proj, l_proj, in_q, x_bf16, rand_ln(torch, np, rng, dev, d),
           out_q),
          {"out_dtype": torch.float32, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87",
          gemm_work(m, d, d, 4 + 1, 2 * m * d + 8 * d), int_mm(torch, x_proj, l_proj)),
@@ -1119,7 +1182,7 @@ def phase_detection(torch, np, fs, la):
          int_mm(torch, x_fc1, l_fc1)),
         (f"int8_gemm:resid_ln_q fc2 [{m}x{mlp}]@[{mlp}x{d}]", fs.int8_dense_resid_ln_q,
          fs.int8_dense_resid_ln_q_plain,
-         (x_fc2, fs.with_packed_weight(l_fc2), in_q, x_f32, rand_ln(torch, np, rng, dev, d),
+         (x_fc2, l_fc2, in_q, x_f32, rand_ln(torch, np, rng, dev, d),
           out_q),
          {"out_dtype": bf16, "eps": 1e-5}, "qat_vit_tpu/ops/fused_serve.py:87",
          gemm_work(m, mlp, d, 2 + 1, 4 * m * d + 8 * d), int_mm(torch, x_fc2, l_fc2)),
@@ -1546,7 +1609,9 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
     cases = []
     for name, m_rows, k, n in (("patch_embed", b * (n_tok - 1), 3 * cfg.patch_size ** 2, d),
                                ("qkv", b * n_tok, d, 3 * d), ("proj", b * n_tok, d, d),
-                               ("fc1", b * n_tok, d, mlp), ("fc2", b * n_tok, mlp, d)):
+                               ("fc1", b * n_tok, d, mlp), ("fc2", b * n_tok, mlp, d),
+                               # K = 32 (mod 64), which JAX's gate admits
+                               ("K 96", 8, 96, 128), ("K 480", b * n_tok, 480, d)):
         for x_dt, per_channel in ((f32t, False), (bf16, True)):
             x = torch.from_numpy(rng.normal(0, 1.5, (m_rows, k)).astype(np.float32)).to(dev)
             x = x.to(x_dt)
@@ -1563,7 +1628,7 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
                 pg.fused_quantize_matmul, pg.fused_quantize_matmul_plain, (x, layer["w_int8"]),
                 kw, "qat_vit_tpu/ops/pallas_gemm.py:51",
                 gemm_work(m_rows, k, n, 4, (in_bytes - 1) * m_rows * k),
-                int_mm(torch, x_q, layer)))
+                int_mm(torch, x_q, layer), {"exact": True}))
     qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n_tok, 3 * d)).astype(np.float32)).to(dev)
     for dt, n_valid in ((f32t, n_tok), (f32t, 3 * n_tok // 4), (bf16, 3 * n_tok // 4)):
         t = qkv.to(dt)
@@ -1968,10 +2033,10 @@ def main() -> None:
     kernels += phase_serve_modes(torch, np, fs, fa, serve_ctx)
     kernels += phase_kernel_forms(torch, np, fs, fa, fat, la, det_ctx)
 
-    sources = {fs.int8_dense: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
-               fs.int8_dense_q8: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
+    sources = {fs.int8_dense: WGMMA_GEMM,
+               fs.int8_dense_q8: WGMMA_GEMM,
                la.long_attention_q8: "qat_vit_tpu_torch/csrc/attention_long_q_mma.cu",
-               fs.int8_dense_gelu_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
+               fs.int8_dense_gelu_q: WGMMA_GEMM,
                fs.int8_dense_resid_ln_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.ln_quantize: "qat_vit_tpu_torch/csrc/ln_quantize.cu",
                fa.fused_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q_mma.cu",

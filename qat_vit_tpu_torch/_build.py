@@ -38,7 +38,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (all return a cudaError_t as int)
 _SIGNATURES = {
-    "qvt_int8_gemm": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _F, _F, _F, _F, _I, _P],
+    "qvt_int8_gemm": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _F, _F, _F, _I, _P],
     "qvt_int8_gemm_resid_ln": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _F, _F, _F, _F, _P],
     "qvt_ln_quantize": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P],
     "qvt_attention_q_mma": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],

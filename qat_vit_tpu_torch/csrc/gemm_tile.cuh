@@ -1,6 +1,8 @@
-// The int8 GEMM tile bodies, shared by csrc/int8_gemm.cu (one output tile
-// per block) and csrc/megablock.cu (grid-stride loops over the tiles of the
-// four GEMM stages inside one cooperative launch). One definition of the
+// The int8 GEMM tile bodies, shared by csrc/int8_gemm.cu (K7: one output
+// tile per block) and csrc/megablock.cu (grid-stride loops over the tiles of
+// the four GEMM stages inside one cooperative launch), and the epilogue
+// arithmetic: csrc/int8_gemm_wgmma.cu (K2a, K2b) and int8_gemm.cu's K2c call
+// dequant_value / dequant_scale and activation. One definition of the
 // arithmetic is what makes the fused block bit-identical to the launch chain.
 //
 // Math. A is shifted int8 [M, K] (uint8 grid - 128), W is int8 [K, N] in the
@@ -26,7 +28,9 @@
 // __byte_perm) so that a B fragment, four consecutive k of one column, is
 // one 32-bit word; no pre-transposed copy of the weight exists. Rows are
 // padded to 80 bytes (20 words), which makes the fragment reads free of bank
-// conflicts. Ragged M and N are masked; K must be a multiple of 64.
+// conflicts. Ragged M and N are masked. K is a multiple of 16: the A chunks
+// and W rows of the last k-tile that lie past K are zero-filled (a branch
+// never taken at K % 64 = 0, so K9's bits do not depend on it).
 //
 // LayerNorm needs whole rows, so the RESID_LN_Q body owns BM = 32 rows and
 // ALL N columns: it loops over the N/64 column tiles, keeps the f32 y of its
@@ -200,13 +204,13 @@ __device__ __forceinline__ void load_a_tile(const GemmParams& p, uint8_t* As, in
     const int r = c / (BK / 16), col = (c % (BK / 16)) * 16;
     const int gm = m0 + r;
     int4 v = make_int4(0, 0, 0, 0);
-    if (gm < p.M) v = a_chunk16<AT, HINT>(p, (size_t)gm * p.K + k0 + col, pol);
+    if (gm < p.M && k0 + col < p.K) v = a_chunk16<AT, HINT>(p, (size_t)gm * p.K + k0 + col, pol);
     *reinterpret_cast<int4*>(As + r * BKP + col) = v;
   }
 }
 
 // W tile [64 k x 64 n] -> Bs[n][k]: each unit is a 4 x 4 byte block read as
-// four row words and written as four column words.
+// four row words and written as four column words; rows past K are zeros.
 template <bool HINT>
 __device__ __forceinline__ void load_w_tile(const GemmParams& p, uint8_t* Bs, int n0, int k0,
                                             const Group& g) {
@@ -216,7 +220,10 @@ __device__ __forceinline__ void load_w_tile(const GemmParams& p, uint8_t* Bs, in
     const int ku = u / NU, nu = u % NU;
     const int k = k0 + ku * 4, n = n0 + nu * 4;
     uint32_t r[4];
-    if (p.w_vec && n + 3 < p.N) {
+    if (k >= p.K) {  // past K (K % 16 = 0: the unit's four rows together)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = 0;
+    } else if (p.w_vec && n + 3 < p.N) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) r[i] = ld_w32<HINT>(p.w + (size_t)(k + i) * p.N + n, pol);
     } else {
@@ -288,12 +295,23 @@ __device__ __forceinline__ void gemm_tile(const GemmParams& p, uint8_t* As, uint
   }
 }
 
+// column n's dequant scale, s_x * w_scale[n]
+__device__ __forceinline__ float dequant_scale(const GemmParams& p, int n) {
+  return __fmul_rn(p.s_x, p.ws_per_channel ? p.wscale[n] : p.ws0);
+}
+
+// dequant's arithmetic on values (the kernels that stage a tile's colsum,
+// scale and bias in shared memory call it directly)
+__device__ __forceinline__ float dequant_value(int acc, int z_s, int colsum, float sw,
+                                               bool has_bias, float bias) {
+  const float y = __fmul_rn(static_cast<float>(acc - z_s * colsum), sw);
+  return has_bias ? __fadd_rn(y, bias) : y;
+}
+
 __device__ __forceinline__ float dequant(const GemmParams& p, int acc, int n) {
-  const int a = acc - p.z_s * p.colsum[n];
-  const float sw = __fmul_rn(p.s_x, p.ws_per_channel ? p.wscale[n] : p.ws0);
-  float y = __fmul_rn(static_cast<float>(a), sw);
-  if (p.bias != nullptr) y = __fadd_rn(y, p.bias[n]);
-  return y;
+  const bool has_bias = p.bias != nullptr;
+  return dequant_value(acc, p.z_s, p.colsum[n], dequant_scale(p, n), has_bias,
+                       has_bias ? p.bias[n] : 0.0f);
 }
 
 __device__ __forceinline__ float activation(float y, int act) {
@@ -307,7 +325,7 @@ __device__ __forceinline__ float activation(float y, int act) {
   return __fmul_rn(y, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
-// PLAIN, PLAIN_Q8 and GELU_Q: the (64-row, 64-column) output tile at (m0, n0)
+// PLAIN and GELU_Q (K7, K9): the (64-row, 64-column) output tile at (m0, n0)
 template <int EPI, typename OutT, typename AT, bool HINT>
 __device__ __forceinline__ void tiled_body(const GemmParams& p, uint8_t* smem, int m0, int n0,
                                            const Group& grp) {
@@ -331,14 +349,10 @@ __device__ __forceinline__ void tiled_body(const GemmParams& p, uint8_t* smem, i
         if (row >= p.M || col >= p.N) continue;
         const float y = dequant(p, acc[mi][ni][r], col);
         const size_t o = (size_t)row * p.N + col;
-        if constexpr (EPI == EPI_GELU_Q) {
+        if constexpr (EPI == EPI_GELU_Q)
           p.q[o] = quantize_shifted(activation(y, p.act), p.inv_s, p.zp, p.qmax);
-        } else {
+        else
           static_cast<OutT*>(p.y)[o] = from_f32<OutT>(y);
-          if constexpr (EPI == EPI_PLAIN_Q8)
-            if (col < p.q_n)
-              p.q[(size_t)row * p.q_n + col] = quantize_shifted(y, p.inv_s, p.zp, p.qmax);
-        }
       }
 }
 

@@ -1,16 +1,13 @@
-// int8 x int8 -> int32 GEMM with four fused epilogues, and the fused
-// quantize -> int8 GEMM -> dequantize kernel, for sm_90a.
+// The fused quantize -> int8 GEMM -> dequantize kernel (K7) and the int8
+// GEMM with the RESID_LN_Q epilogue (K2c), for sm_90a. (PLAIN, PLAIN_Q8
+// and GELU_Q, K2a and K2b, are int8_gemm_wgmma.cu's qvt_int8_gemm.)
 //
 // Replaces (TPU, Pallas):
-//   qat_vit_tpu/ops/fused_serve.py::_plain_kernel       (K2a)  -> EPI_PLAIN
-//   qat_vit_tpu/ops/long_block_kernel.py::_long_block_impl phase 1 with
-//     int8_scores (K6's qkv GEMM + the q/k requantize)           -> EPI_PLAIN_Q8
-//   qat_vit_tpu/ops/fused_serve.py::_gelu_q_kernel      (K2b)  -> EPI_GELU_Q
 //   qat_vit_tpu/ops/fused_serve.py::_resid_ln_q_kernel  (K2c)  -> qvt_int8_gemm_resid_ln
 //   qat_vit_tpu/ops/pallas_gemm.py::_kernel             (K7)   -> qvt_quantize_gemm:
-//     EPI_PLAIN with an f32 / bf16 A quantized in the A-tile prologue
-// and the four GEMM stages of qat_vit_tpu/ops/block_kernel.py::_model_kernel
-// (K4), which the port runs as a chain of these launches. The tile bodies
+//     the PLAIN epilogue with an f32 / bf16 A quantized in the A-tile prologue
+// and the proj / fc2 stages of qat_vit_tpu/ops/block_kernel.py::_model_kernel
+// (K4), which the port runs as a chain of launches. The tile bodies of K7
 // (math, layout, design) are in gemm_tile.cuh, shared with megablock.cu.
 //
 // What bounds it on an H100. At the ViT-S serving shapes (M = B*197,
@@ -19,9 +16,9 @@
 // tensor cores (1,979 dense int8 TOP/s), not HBM (3.35 TB/s). K7 reads A as
 // f32 (4 bytes per element), which moves its byte count up but not past that.
 //
-// PLAIN / PLAIN_Q8 / GELU_Q (and K7) are a first, correct kernel: mma.sync
-// on synchronously staged tiles, one block of 128 threads per (64-row,
-// 64-column) output tile (gemm_tile.cuh); wgmma/TMA are later work.
+// K7 runs the first, correct tile: mma.sync on synchronously staged tiles,
+// one block of 128 threads per (64-row, 64-column) output tile
+// (gemm_tile.cuh); any K a multiple of 16 (the k-tile past K is zero-filled).
 //
 // RESID_LN_Q (K2c) is pipelined. LayerNorm needs whole rows, so a block owns
 // BM rows (64, 32 or 16, chosen by the wrapper: ops/fused_serve.
@@ -29,7 +26,7 @@
 // of gemm_tile.cuh, resid_ln_body, which re-streams K for every 64-column
 // tile). Here:
 // - W comes pre-packed k-contiguous, [N, K] (serve/int8_vit.export_to_device
-//   packs each RESID_LN_Q weight once, beside the JAX-layout [K, N] copy),
+//   packs every int8 GEMM weight once, beside the JAX-layout [K, N] copy),
 //   so a B tile is NC rows of 64 k-bytes, copied in 16-byte cp.async chunks
 //   and read into mma fragments by ldmatrix, with no register transpose;
 // - 8 warps, column passes of NC = 192 (N 384: two passes, 576: three), so
@@ -135,7 +132,7 @@ __global__ void __launch_bounds__(RL_THREADS) gemm_resid_ln_kernel(GemmParams p)
   // load behind an output store that might alias it
   for (int c = tid; c < p.N; c += RL_THREADS) {
     Cs[c] = p.colsum[c];
-    Sw[c] = __fmul_rn(p.s_x, p.ws_per_channel ? p.wscale[c] : p.ws0);
+    Sw[c] = dequant_scale(p, c);
     Bi[c] = p.bias != nullptr ? p.bias[c] : 0.0f;
     Ga[c] = p.gamma[c];
     Be[c] = p.beta[c];
@@ -199,9 +196,8 @@ __global__ void __launch_bounds__(RL_THREADS) gemm_resid_ln_kernel(GemmParams p)
     qvt_mma::cp_async_wait<0>();
     __syncthreads();  // every warp done with the ring before the next pass refills it
 
-    // the pass's y = dequant + residual (dequant's arithmetic: (acc - z_s
-    // colsum) * (s_x w_scale), + bias), every load first, then to Ys and the
-    // output
+    // the pass's y = dequant + residual (gemm_tile.cuh's dequant_value),
+    // every load first, then to Ys and the output
     float yv[MI][NI][4];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
@@ -213,8 +209,8 @@ __global__ void __launch_bounds__(RL_THREADS) gemm_resid_ln_kernel(GemmParams p)
           const int col = n0 + wc + 8 * ni + 2 * t + (r & 1);
           yv[mi][ni][r] = 0.0f;
           if (row >= p.M || col >= p.N) continue;
-          float y = __fmul_rn(static_cast<float>(acc[mi][ni][r] - p.z_s * Cs[col]), Sw[col]);
-          if (has_bias) y = __fadd_rn(y, Bi[col]);
+          const float y =
+              dequant_value(acc[mi][ni][r], p.z_s, Cs[col], Sw[col], has_bias, Bi[col]);
           yv[mi][ni][r] = __fadd_rn(y, to_f32(res[(size_t)row * p.N + col]));
         }
 #pragma unroll
@@ -290,44 +286,6 @@ GemmParams make_params(const void* a, const void* w, const void* colsum, const v
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched). Pointers are device pointers; the
-// kernel allocates nothing and does not synchronise. The epilogue is PLAIN,
-// GELU_Q or PLAIN_Q8 (RESID_LN_Q: qvt_int8_gemm_resid_ln).
-extern "C" int qvt_int8_gemm(const void* a, const void* w, const void* colsum,
-                             const void* bias, const void* wscale, const void* residual,
-                             const void* gamma, const void* beta, void* y, void* q,
-                             int M, int N, int K, int epilogue, int out_bf16,
-                             int res_bf16, int ws_per_channel, int act, float ws0,
-                             float s_x, int z_s, float inv_s, float zp, float qmax,
-                             float eps, int q_n, void* stream) {
-  GemmParams p = make_params(a, w, colsum, bias, wscale, M, N, K, ws_per_channel, ws0, s_x, z_s);
-  p.residual = residual;
-  p.gamma = static_cast<const float*>(gamma);
-  p.beta = static_cast<const float*>(beta);
-  p.y = y;
-  p.q = static_cast<int8_t*>(q);
-  p.act = act;
-  p.inv_s = inv_s;
-  p.zp = zp;
-  p.qmax = qmax;
-  p.eps = eps;
-  p.q_n = q_n;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef __nv_bfloat16 bf16;
-
-  const dim3 grid((N + BN - 1) / BN, (M + BM_TILED - 1) / BM_TILED);
-  const size_t smem = tiled_smem_bytes();
-  if (epilogue == EPI_GELU_Q)
-    return launch(gemm_tiled_kernel<EPI_GELU_Q, float, int8_t>, grid, smem, s, p);
-  if (epilogue == EPI_PLAIN_Q8) {  // bf16 y, as K6's qkv stage stores it
-    if (!out_bf16 || q_n < 0 || q_n > N) return static_cast<int>(cudaErrorInvalidValue);
-    return launch(gemm_tiled_kernel<EPI_PLAIN_Q8, bf16, int8_t>, grid, smem, s, p);
-  }
-  if (epilogue != EPI_PLAIN) return static_cast<int>(cudaErrorInvalidValue);
-  if (out_bf16) return launch(gemm_tiled_kernel<EPI_PLAIN, bf16, int8_t>, grid, smem, s, p);
-  return launch(gemm_tiled_kernel<EPI_PLAIN, float, int8_t>, grid, smem, s, p);
-}
-
 // K7: x [M, K] f32 (x_bf16 = 0) or bf16 is quantized in the A-tile prologue
 // with (x_inv_s, x_zp, x_qmax), then the PLAIN epilogue writes y (f32 or
 // bf16) with the input scale s_x and z_s = x_zp - 128.
@@ -353,14 +311,15 @@ extern "C" int qvt_quantize_gemm(const void* x, const void* w, const void* colsu
 
 // K2c: y = x_q @ W + residual (f32 or bf16 y), q = quantize(LN(y)). w_t is
 // the weight packed k-contiguous, [N, K]; bm (64, 32 or 16) the rows of a
-// block; K a multiple of 64; N within the shared-memory plan at that bm.
+// block; K a multiple of 16 (k-steps past K zero-filled); N within the
+// shared-memory plan at that bm.
 extern "C" int qvt_int8_gemm_resid_ln(const void* a, const void* w_t, const void* colsum,
                                       const void* bias, const void* wscale, const void* residual,
                                       const void* gamma, const void* beta, void* y, void* q,
                                       int M, int N, int K, int bm, int out_bf16, int res_bf16,
                                       int ws_per_channel, float ws0, float s_x, int z_s,
                                       float inv_s, float zp, float qmax, float eps, void* stream) {
-  if (K <= 0 || K % BK || N <= 0 || M < 0 || rl_smem_bytes(bm, N) > 232448)
+  if (K <= 0 || K % 16 || N <= 0 || M < 0 || rl_smem_bytes(bm, N) > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   GemmParams p = make_params(a, w_t, colsum, bias, wscale, M, N, K, ws_per_channel, ws0, s_x, z_s);
   p.residual = residual;

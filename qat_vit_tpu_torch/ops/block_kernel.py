@@ -182,11 +182,17 @@ def megablock_smem_bytes(n: int, d: int, head_dim: int) -> int:
     return max(2 * group, attention_smem_bytes(n, head_dim))
 
 
+# K9 keeps the CUDA-core tile's whole 64-byte k-steps (csrc/gemm_tile.cuh)
+MEGABLOCK_K_MULTIPLE = 64
+
+
 def megablock_shapes_ok(n: int, num_heads: int, head_dim: int, mlp_dim: int) -> bool:
-    """K9's gate: every GEMM within int8_gemm's, the attention within
-    attention_q's, and the block's shared memory within the limit."""
+    """K9's gate: every GEMM within int8_gemm's with K a multiple of 64, the
+    attention within the CUDA-core attention tile's plan, and the block's
+    shared memory within the limit."""
     d = num_heads * head_dim
-    return (fs.gemm_shapes_ok(d, 3 * d) and fs.gemm_shapes_ok(d, d, resid_ln=True)
+    return (d % MEGABLOCK_K_MULTIPLE == 0 and mlp_dim % MEGABLOCK_K_MULTIPLE == 0
+            and fs.gemm_shapes_ok(d, 3 * d) and fs.gemm_shapes_ok(d, d, resid_ln=True)
             and fs.gemm_shapes_ok(d, mlp_dim) and fs.gemm_shapes_ok(mlp_dim, d, resid_ln=True)
             and attention_shapes_ok(n, head_dim)
             and megablock_smem_bytes(n, d, head_dim) <= SMEM_LIMIT)

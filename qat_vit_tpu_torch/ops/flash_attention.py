@@ -68,8 +68,8 @@ def attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloa
     """Shared memory the CUDA-core attention tile asks for
     (``csrc/attention_tile.cuh``: K8, the f32 kernel A, K9): K (rows padded
     by one word) and V of one head in ``dtype`` (f32 twice bf16's), one f32
-    score row and one q row per warp. It sets the gate of K3, K8 and K9
-    (:func:`attention_shapes_ok`); kernel A streams past it
+    score row and one q row per warp. It sets the gate of K8 and K9
+    (:func:`attention_shapes_ok`); K3 and kernel A stream past it
     (:func:`attention_fwd_shapes_ok`)."""
     words = head_dim * dtype.itemsize // 4
     return 4 * (n * (words + 1) + n * words + _WARPS * n + _WARPS * head_dim)
@@ -83,18 +83,18 @@ def attention_stream_smem_bytes(n: int, head_dim: int) -> int:
 
 
 def attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The gate of K3 and K8 (and of K9's attention stage): hd a multiple of
-    8 and <= 128, n within the CUDA-core tile's shared-memory budget for
-    ``dtype`` (at hd 64: n <= 789 in bf16, 420 in f32)."""
+    """The gate of K8 (and of K9's attention stage): hd a multiple of 8 and
+    <= 128, n within the CUDA-core tile's shared-memory budget for ``dtype``
+    (at hd 64: n <= 789 in bf16, 420 in f32)."""
     return (head_dim % 8 == 0 and 0 < head_dim <= 128
             and attention_smem_bytes(n, head_dim, dtype) <= SMEM_LIMIT)
 
 
 def attention_fwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """Kernel A's gate: hd a multiple of 8 and <= 128; in bf16 any n (the
-    tensor-core kernel streams K and V past 227 KB), in f32 the CUDA-core
-    tile resident or streamed (n <= ~6,000 at hd 128, past any N that JAX's
-    K1 gate admits)."""
+    """The gate of kernel A and of K3 (bf16 only): hd a multiple of 8 and <=
+    128; in bf16 any n (the tensor-core kernels stream K and V past 227 KB),
+    in f32 the CUDA-core tile resident or streamed (n <= ~6,000 at hd 128,
+    past any N that JAX's K1 gate admits)."""
     if head_dim % 8 or not 0 < head_dim <= 128 or n < 1:
         return False
     return (dtype != torch.float32
@@ -235,7 +235,8 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
     if use_plain(qkv):
         return fused_attention_qkv_plain(qkv, num_heads, head_dim, out_q=out_q,
                                          quant_max=quant_max, n_valid=n_valid)
-    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_q")
+    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_q",
+                               shapes_ok=attention_fwd_shapes_ok)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, num_heads * head_dim), dtype=torch.int8, device=qkv.device)
     if b:

@@ -6,22 +6,21 @@
     int8_dense_resid_ln_q   x_q @ W + residual -> (y, LN(y) -> int8)   (K2c)
     ln_quantize             LN(x) -> int8                 (K2d)
 
-On CUDA the first four launch the ``int8_gemm`` kernels
-(``csrc/int8_gemm.cu``: ``qvt_int8_gemm`` with the named epilogue,
-``qvt_int8_gemm_resid_ln`` for RESID_LN_Q) and the last the
-``ln_quantize`` kernel (``csrc/ln_quantize.cu``); on the CPU each runs its
-plain version (``*_plain``, same signature), which ``chip_smoke.py`` also
-runs on the card to check the kernels. Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.
+On CUDA the first four launch the ``int8_gemm`` kernels (PLAIN,
+PLAIN_Q8 and GELU_Q: ``qvt_int8_gemm``, ``csrc/int8_gemm_wgmma.cu``, TMA
+and wgmma; RESID_LN_Q: ``qvt_int8_gemm_resid_ln``, ``csrc/int8_gemm.cu``)
+and the last the ``ln_quantize`` kernel (``csrc/ln_quantize.cu``); on the
+CPU each runs its plain version (``*_plain``, same signature), which
+``chip_smoke.py`` also runs on the card to check the kernels. Each wrapper
+counts its kernel launches in ``<wrapper>.launches``.
 
 Activations are shifted int8; ``in_q``/``out_q`` are ``{"scale",
 "zero_point"}`` dicts of the export. Quantizing multiplies by ``1/scale``
-(f32), as the TPU kernels do. ``W`` stays ``[K, N]`` as exported; PLAIN,
-PLAIN_Q8 and GELU_Q transpose its tiles in shared memory. RESID_LN_Q reads
-a k-contiguous ``[N, K]`` copy, ``layer["w_int8_t"]``
-(:func:`with_packed_weight`), which ``serve/int8_vit.export_to_device``
-adds to every RESID_LN_Q layer of an export placed on a CUDA device; on
-CUDA the wrapper raises for a layer without one.
+(f32), as the TPU kernels do. ``W`` stays ``[K, N]`` as exported, for the
+plain versions, K7, K9 and the file format; the kernels read a k-contiguous
+``[N, K]`` copy, ``layer["w_int8_t"]`` (:func:`with_packed_weight`), which
+``serve/int8_vit.export_to_device`` adds to every GEMM layer of an export
+placed on a CUDA device; on CUDA a wrapper raises for a layer without one.
 """
 
 from __future__ import annotations
@@ -37,10 +36,12 @@ from qat_vit_tpu_torch.ops.quantized_matmul import f32, int8_matmul, is_per_chan
 
 EPI_PLAIN, EPI_GELU_Q, EPI_RESID_LN_Q, EPI_PLAIN_Q8 = 0, 1, 2, 3
 _ACTS = {"gelu": 0, "quick_gelu": 1}
-# the kernels stage K in 64-byte tiles (csrc/gemm_tile.cuh): shared-memory
-# rows of 64 + 16 bytes, output tiles of 64 x 64 (32 rows x N for the
-# RESID_LN_Q body that K9's megablock.cu keeps)
-GEMM_K_MULTIPLE = 64
+# the int8_gemm kernels read A [M, K] and the packed W [N, K] in 16-byte
+# chunks (TMA's and cp.async's row stride), zero-filled past K
+GEMM_K_MULTIPLE = 16
+# the CUDA-core tile (csrc/gemm_tile.cuh: K7, and K9's megablock.cu) stages K
+# in 64-byte tiles: shared-memory rows of 64 + 16 bytes, output tiles of 64
+# x 64 (32 rows x N for K9's RESID_LN_Q body)
 GEMM_ROW_BYTES = 80
 GEMM_TILE_M, GEMM_TILE_N, RESID_LN_ROWS = 64, 64, 32
 # K9's RESID_LN_Q keeps 32 rows x N f32 in shared memory beside 96 x 80 B of
@@ -58,7 +59,8 @@ SM_SMEM_BYTES, BLOCK_SMEM_RESERVE = 233472, 1024
 
 
 def gemm_shapes_ok(k: int, n: int, resid_ln: bool = False) -> bool:
-    """The int8_gemm kernels' shape gate."""
+    """The int8_gemm kernels' shape gate: K a multiple of 16, any N (up to
+    RESID_LN_MAX_N for RESID_LN_Q)."""
     return k > 0 and k % GEMM_K_MULTIPLE == 0 and n >= 1 and (not resid_ln or n <= RESID_LN_MAX_N)
 
 
@@ -97,7 +99,7 @@ def pack_k_major(w_int8: torch.Tensor) -> torch.Tensor:
 
 
 def with_packed_weight(layer: dict) -> dict:
-    """``layer`` with ``w_int8_t``, the k-contiguous copy RESID_LN_Q reads."""
+    """``layer`` with ``w_int8_t``, the k-contiguous copy the kernels read."""
     return {**layer, "w_int8_t": pack_k_major(layer["w_int8"])}
 
 
@@ -224,12 +226,11 @@ def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
     if epi == EPI_PLAIN_Q8 and not 0 < q_cols <= n:
         raise ValueError(f"int8_gemm PLAIN_Q8: q_cols {q_cols} outside (0, {n}]")
     q_n = q_cols if epi == EPI_PLAIN_Q8 else n
-    if epi == EPI_RESID_LN_Q:
-        w_t = layer.get("w_int8_t")
-        if w_t is None:
-            raise ValueError("int8_gemm RESID_LN_Q: the layer has no packed weight w_int8_t "
-                             "(serve.int8_vit.export_to_device or with_packed_weight adds it)")
-        require(w_t, "w_int8_t", torch.int8, dev, (n, k), align=16)
+    w_t = layer.get("w_int8_t")
+    if w_t is None:
+        raise ValueError("int8_gemm: the layer has no packed weight w_int8_t "
+                         "(serve.int8_vit.export_to_device or with_packed_weight adds it)")
+    require(w_t, "w_int8_t", torch.int8, dev, (n, k), align=16)
     y = torch.empty((m, n), dtype=y_dtype, device=dev) if epi != EPI_GELU_Q else None
     q = torch.empty((m, q_n), dtype=torch.int8, device=dev) if epi != EPI_PLAIN else None
     gamma = beta = None
@@ -255,11 +256,10 @@ def _launch_gemm(epi: int, x_q: torch.Tensor, layer: dict, in_q: dict, *,
         )
     elif m:
         _build.load().call(
-            "qvt_int8_gemm", ptr(x_q), ptr(w), ptr(colsum), ptr(bias), ws_ptr,
-            ptr(residual), ptr(gamma), ptr(beta), ptr(y), ptr(q),
-            m, n, k, epi, int(y_dtype == torch.bfloat16), res_bf16, per_channel, _ACTS[act],
+            "qvt_int8_gemm", ptr(x_q), ptr(w_t), ptr(colsum), ptr(bias), ws_ptr, ptr(y), ptr(q),
+            m, n, k, epi, int(y_dtype == torch.bfloat16), per_channel, _ACTS[act],
             ws0, f32(in_q["scale"]), int(f32(in_q["zero_point"])) - 128, inv_s, zp,
-            f32(quant_max), float(eps), q_n, stream_of(dev),
+            f32(quant_max), q_n, stream_of(dev),
         )
     lead = tuple(x_q.shape[:-1])
     return (

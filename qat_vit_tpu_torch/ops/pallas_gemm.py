@@ -14,8 +14,9 @@ On CUDA it launches ``qvt_quantize_gemm`` (``csrc/int8_gemm.cu``: the PLAIN
 epilogue with the quantize in the A-tile prologue); launches are counted in
 ``fused_quantize_matmul.launches``. On the CPU, and inside
 ``_cuda.reference_impl()``, it runs :func:`fused_quantize_matmul_plain`.
-The Hopper kernel stages K in 64-byte tiles: for K not a multiple of 64 it
-raises ``NotImplementedError`` (never a quiet fallback).
+The Hopper kernel stages K in 64-byte tiles and zero-fills the 16-element
+chunks past K, so it takes any K a multiple of 16 (every K JAX's gate
+admits); another K raises (never a quiet fallback).
 
 :func:`fused_quantize_matmul_available` keeps the JAX gate's SHAPE
 conditions (``K % 32``, ``N % 128``, ``K·N`` ≤ 6 MiB) and drops its
@@ -78,9 +79,8 @@ def fused_quantize_matmul(
         raise ValueError(f"w_q: expected [K, N], got {tuple(w_q.shape)}")
     k, n = w_q.shape
     if k % GEMM_K_MULTIPLE:
-        raise NotImplementedError(
-            f"fused_quantize_matmul: K={k} is not a multiple of {GEMM_K_MULTIPLE}, the Hopper "
-            "kernel's k-tile (ROADMAP.md Queue 2, K7)")
+        raise ValueError(f"fused_quantize_matmul: unsupported K={k} (a multiple of "
+                         f"{GEMM_K_MULTIPLE}: the kernel reads x in 16-element chunks)")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_quantize_matmul: x must be f32 or bf16, not {x.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):

@@ -23,10 +23,10 @@
   Feature-mode towers (``num_classes=0``) return the dequantized final-LN
   tokens.
 - :func:`serving_preset`: ``{}`` on the CPU; on CUDA, in bf16 with
-  tanh-GELU (or the model's quick-GELU), the first of JAX's rungs whose
-  Hopper kernels accept the geometry (:func:`_preset_kernel_opts`), or, as
-  in JAX, the exact path in bf16 where no kernel gate of either package
-  does.
+  tanh-GELU (or the model's quick-GELU), JAX's rung on JAX's conditions
+  where the Hopper kernels take the geometry (:func:`_preset_kernel_opts`),
+  or, as in JAX, the exact path in bf16 where no kernel gate of either
+  package does.
 """
 
 from __future__ import annotations
@@ -47,7 +47,6 @@ from qat_vit_tpu_torch.ops.block_kernel import (
 from qat_vit_tpu_torch.ops.flash_attention import (
     attention_fwd,
     attention_fwd_plain,
-    attention_shapes_ok,
     flash_attention_qkv,
     flash_attention_qkv_plain,
     xla_attention_qkv,
@@ -138,16 +137,12 @@ def convert_vit(
     return out
 
 
-# the layers of a block that run RESID_LN_Q (fused_serve.int8_dense_resid_ln_q)
-RESID_LN_LAYERS = ("proj", "fc2")
-
-
 def export_to_device(qp: Any, device) -> Any:
     """The export with every tensor of rank >= 1 on ``device``; 0-d qparams
-    stay on the host. On a CUDA device the RESID_LN_Q layers are also packed
-    (:func:`pack_resid_ln_weights`), the one place the port packs them."""
+    stay on the host. On a CUDA device every GEMM layer is also packed
+    (:func:`pack_gemm_weights`), the one place the port packs them."""
     out = _to_device(qp, device)
-    return pack_resid_ln_weights(out) if torch.device(device).type == "cuda" else out
+    return pack_gemm_weights(out) if torch.device(device).type == "cuda" else out
 
 
 def _to_device(qp: Any, device) -> Any:
@@ -158,20 +153,17 @@ def _to_device(qp: Any, device) -> Any:
     return qp
 
 
-def pack_resid_ln_weights(qp: Any) -> Any:
-    """The export (a tower, or a tree holding towers) with each block's
-    RESID_LN_Q layers (``proj``, ``fc2``) given ``w_int8_t``, their weight
-    packed k-contiguous (``fused_serve.with_packed_weight``), which the K2c
-    kernel reads; the JAX-layout ``w_int8`` stays for every other reader
-    (K9, the plain versions, the file format)."""
+def pack_gemm_weights(qp: Any) -> Any:
+    """The export (a tower, or a tree holding towers) with every GEMM layer
+    (each dict holding ``w_int8``: the blocks' qkv, proj, fc1 and fc2, the
+    patch embedding and the head) given ``w_int8_t``, its weight packed
+    k-contiguous (``fused_serve.with_packed_weight``), which the int8_gemm
+    kernels read; the JAX-layout ``w_int8`` stays for every other reader
+    (K7, K9, the plain versions, the file format)."""
     if not isinstance(qp, dict):
         return qp
-    out = {k: pack_resid_ln_weights(v) for k, v in qp.items()}
-    if isinstance(out.get("blocks"), dict):
-        out["blocks"] = {
-            i: {k: with_packed_weight(v) if k in RESID_LN_LAYERS else v for k, v in blk.items()}
-            for i, blk in out["blocks"].items()}
-    return out
+    out = {k: pack_gemm_weights(v) for k, v in qp.items()}
+    return with_packed_weight(out) if "w_int8" in out else out
 
 
 def _head_or_tokens(qp, zq, cfg: ViTConfig, dense) -> torch.Tensor:
@@ -190,13 +182,16 @@ def _embed(qp, images, cfg: ViTConfig, cdt, dense, use_pallas=None) -> torch.Ten
     ``cdt``, then the pre-encoder LayerNorm where the model has one."""
     patches = extract_patches(images.to(torch.float32), cfg.patch_size)
     iq = qp["input_q"]
-    if use_pallas and fused_quantize_matmul_available(patches.shape,
-                                                      qp["patch_embed"]["w_int8"].shape):
+    k, d = qp["patch_embed"]["w_int8"].shape
+    if use_pallas and fused_quantize_matmul_available(patches.shape, (k, d)):
         x = quantized_dense(patches, qp["patch_embed"], iq, use_pallas=True, out_dtype=cdt)
     else:
         x_q = quantize_act_shifted(patches, iq["scale"], iq["zero_point"],
                                    iq.get("quant_max", 255.0))
-        x = dense(x_q, qp["patch_embed"], iq, out_dtype=cdt)
+        # JAX computes the patch embedding in XLA on every path: a K = 3 p^2
+        # that int8_gemm does not take (p = 14: 588) runs the plain int8 product
+        x = (dense if gemm_shapes_ok(k, d) else int8_dense_plain)(x_q, qp["patch_embed"], iq,
+                                                                  out_dtype=cdt)
     b = x.shape[0]
     cls = qp["cls_token"].to(device=x.device, dtype=cdt).expand(b, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1) + qp["pos_embed"].to(device=x.device, dtype=cdt)
@@ -510,61 +505,81 @@ def jax_long_rung_fits(n: int, d: int, mlp_dim: int) -> bool:
     return scratch + acts + weights + JAX_LONG_Q_TILE * n_pad * 4 <= JAX_LONG_VMEM_LIMIT
 
 
-def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
-    """Kernel-path selection on CUDA, JAX's rungs under Hopper gates:
+# JAX's slab kernels (its rungs 1 and 2; qat_vit_tpu/ops/_tiling.py): the
+# packed width lane-aligned, head slabs tiling the 128-lane register, and
+# block_b images of stacked f32 [n_pad, n_pad] scores within the VMEM budget
+_JAX_LANE = 128
+_JAX_SLAB_BLOCK_B, _JAX_SLAB_BUDGET = 4, 24 * 1024 * 1024
 
-    1. GELU models whose GEMMs and attention the kernels accept: the
-       megamodel chain (K4);
-    2. models within attention_q's gate (any activation; the GEMMs run
-       plain): ``mixed_none`` + ``pallas_fused`` (K3);
+
+def _jax_slab_rung(cfg: ViTConfig) -> int:
+    """JAX's preset rung on its slab kernels for ``cfg``: 1 (megamodel, GELU
+    models whose scores fit with the sequence padded to 32), 2 (``mixed_none``
+    + its fused attention, padded to 128), or 0 (neither):
+    ``_tiling.shapes_ok`` and ``_tiling.batched_softmax_fits`` at block 4."""
+    h, hd, n = cfg.num_heads, cfg.head_dim, cfg.seq_len
+    if not (h * hd % _JAX_LANE == 0 and hd <= _JAX_LANE and _JAX_LANE % hd == 0):
+        return 0
+    for rung, pad in ((1, 32), (2, 128)):
+        n_pad = -(-n // pad) * pad
+        fits = _JAX_SLAB_BLOCK_B * h * n_pad * n_pad * 4 <= _JAX_SLAB_BUDGET
+        if fits and (rung == 2 or cfg.act == "gelu"):
+            return rung
+    return 0
+
+
+def _block_gemms_ok(d: int, mlp_dim: int) -> bool:
+    """int8_gemm takes the four GEMMs of a block of width ``d``."""
+    return (gemm_shapes_ok(d, 3 * d) and gemm_shapes_ok(d, d, resid_ln=True)
+            and gemm_shapes_ok(d, mlp_dim) and gemm_shapes_ok(mlp_dim, d, resid_ln=True))
+
+
+def _preset_kernel_opts(cfg: ViTConfig) -> Dict[str, Any]:
+    """Kernel-path selection on CUDA: JAX's rungs on JAX's conditions, plus
+    what the Hopper kernels themselves need (head dims a multiple of 8, the
+    block GEMMs' K a multiple of 16):
+
+    1. where JAX takes its megamodel rung (:func:`_jax_slab_rung`), the
+       megamodel chain (K4: int8_gemm and K3, which takes any N);
+    2. where JAX takes ``mixed_none`` + its fused attention: the same, K3
+       (any activation; the GEMMs run plain);
     3. GELU or quick-GELU models of >= 1536 tokens whose block GEMMs
-       int8_gemm takes, at any N for a head dim the streaming attention
-       takes, where JAX's own rung 3 fits (:func:`jax_long_rung_fits`):
-       the megamodel_long chain (K6);
-    4. models the streaming attention takes that rung 3 rejects (hd a
-       multiple of 8 and <= 128, any N): ``mixed_none`` + ``pallas_long``
-       (K5a);
+       int8_gemm takes, at a head dim the streaming attention takes, where
+       JAX's own rung 3 fits (:func:`jax_long_rung_fits`): the
+       megamodel_long chain (K6);
+    4. models the streaming attention takes (hd a multiple of 8 and <= 128,
+       any N): ``mixed_none`` + ``pallas_long`` (K5a);
     5. geometries none of them covers and no Pallas gate of the JAX
        package admits either: ``{}``, the exact path (its GEMMs and
        attention are plain PyTorch there, as they are XLA in JAX), which
        :func:`serving_preset` runs in bf16 with tanh-GELU, as JAX's does.
 
-    A geometry that JAX serves on a kernel and no Hopper gate admits (head
-    dims below 8, which only JAX's slab kernels take) raises: the card never
-    quietly runs plain code where JAX runs a kernel. Like JAX's, it never
-    emits ``i8``."""
-    d, p, hd, n = cfg.embed_dim, cfg.patch_size, cfg.head_dim, cfg.seq_len
-    gemms_ok = (gemm_shapes_ok(p * p * 3, d) and gemm_shapes_ok(d, 3 * d)
-                and gemm_shapes_ok(d, d, resid_ln=True) and gemm_shapes_ok(d, cfg.mlp_dim)
-                and gemm_shapes_ok(cfg.mlp_dim, d, resid_ln=True))
-    if cfg.act == "gelu" and gemms_ok and attention_shapes_ok(n, hd):
-        return {"fused": "megamodel"}
-    if attention_shapes_ok(n, hd):
+    The patch embedding is never a condition: JAX computes it in XLA, and
+    ``_embed`` runs a K that int8_gemm does not take as the plain product.
+    Where a Hopper need fails the port takes the next rung down, whose
+    attention is still a kernel and whose GEMMs run plain: a block GEMM
+    past int8_gemm's gate (K not a multiple of 16) at rung 1 gives rung 2,
+    at rung 3 rung 4 (the named residues of the preset tests). A geometry
+    that JAX serves on a slab kernel at a head dim below 8, which no Hopper
+    attention takes, raises: the card never falls to the exact path where
+    JAX runs a kernel. Like JAX's, it never emits ``i8``."""
+    d, hd, n, mlp = cfg.embed_dim, cfg.head_dim, cfg.seq_len, cfg.mlp_dim
+    slab = _jax_slab_rung(cfg)
+    if slab and hd % 8 == 0:
+        if slab == 1 and _block_gemms_ok(d, mlp):
+            return {"fused": "megamodel"}
         return {"fused": "mixed_none", "attn_impl": "pallas_fused"}
-    if (cfg.act in ("gelu", "quick_gelu") and n >= LONG_SEQ_MIN and gemm_shapes_ok(p * p * 3, d)
-            and long_megablock_shapes_ok(n, cfg.num_heads, hd, cfg.mlp_dim)
-            and jax_long_rung_fits(n, d, cfg.mlp_dim)):
+    if (cfg.act in ("gelu", "quick_gelu") and n >= LONG_SEQ_MIN
+            and long_megablock_shapes_ok(n, cfg.num_heads, hd, mlp)
+            and jax_long_rung_fits(n, d, mlp)):
         return {"fused": "megamodel_long"}
     if long_attention_stream_ok(n, hd):
         return {"fused": "mixed_none", "attn_impl": "pallas_long"}
-    if _jax_slab_takes_kernel(cfg):
+    if slab:
         raise NotImplementedError(
             f"{n} tokens at head_dim {hd}: the JAX package serves this geometry on its slab "
             "kernels, and no Hopper kernel's gate admits the head dim")
     return {}
-
-
-def _jax_slab_takes_kernel(cfg: ViTConfig) -> bool:
-    """Whether the JAX package's slab kernels (its rungs 1 and 2) take
-    ``cfg``: lane-aligned widths of head slabs whose four images of stacked
-    f32 scores stay within 24 MiB (sequence padded to 32 for GELU models,
-    128 otherwise). Its long kernels take every head dim that the port's
-    streaming attention takes."""
-    h, hd, n = cfg.num_heads, cfg.head_dim, cfg.seq_len
-    pad = 32 if cfg.act == "gelu" else 128
-    n_pad = -(-n // pad) * pad
-    slab = (h * hd) % 128 == 0 and hd <= 128 and 128 % hd == 0
-    return slab and 4 * h * n_pad * n_pad * 4 <= 24 * 1024 * 1024
 
 
 def serving_preset(cfg: ViTConfig, device) -> Dict[str, Any]:

@@ -50,15 +50,22 @@ def dev():
     return torch.device("cuda")
 
 
-def _layer(rng, k, n, dev, per_channel=False):
+def _layer(rng, k, n, dev, per_channel=False, packed=True):
+    """A random int8 GEMM layer of the export's layout, with the packed
+    ``w_int8_t`` that export_to_device adds on the card (``packed``)."""
     w = np.clip(np.round(rng.normal(0, 20, (k, n))), -128, 127).astype(np.int8)
-    return {
+    layer = {
         "w_int8": torch.from_numpy(w).to(dev),
         "w_colsum": torch.from_numpy(w.astype(np.int32).sum(0, dtype=np.int32)).to(dev),
         "bias": torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32)).to(dev),
         "w_scale": (torch.from_numpy(rng.uniform(1e-3, 3e-3, n).astype(np.float32)).to(dev)
                     if per_channel else torch.tensor(0.002)),
     }
+    return fs.with_packed_weight(layer) if packed else layer
+
+
+def _without_packed(layer):
+    return {k: v for k, v in layer.items() if k != "w_int8_t"}
 
 
 def _ln(rng, n, dev):
@@ -133,26 +140,49 @@ def _plain_ops_with_kernel_attention():
 
 
 @pytest.mark.parametrize("m,k,n,per_channel,out", [
+    # ViT-S qkv, patch embedding and head at batch 32 and 256
     (6304, 384, 1152, False, "bf16"), (6272, 768, 384, False, "bf16"),
-    (32, 384, 10, True, "f32"), (37, 128, 384, False, "f32"),
+    (32, 384, 10, True, "f32"), (50_432, 384, 1152, False, "bf16"),
+    (50_176, 768, 384, False, "bf16"), (256, 384, 10, True, "f32"),
+    # ragged M and N, K = 32 (mod 64), per-channel scales
+    (37, 128, 384, False, "f32"), (1, 96, 200, True, "f32"), (37, 480, 10, False, "bf16"),
+    (37, 96, 200, True, "bf16"), (1, 480, 384, False, "f32"), (6304 + 5, 480, 1440, True, "bf16"),
 ])
 def test_int8_dense(dev, m, k, n, per_channel, out):
+    """K2a (PLAIN, the TMA + wgmma kernel) identical to its plain version;
+    a layer without the packed weight raises before any launch."""
     rng = np.random.default_rng(m + n)
     x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8)).to(dev)
     layer = _layer(rng, k, n, dev, per_channel)
     dt = torch.bfloat16 if out == "bf16" else torch.float32
+    before = fs.int8_dense.launches
     _same(fs.int8_dense(x, layer, IN_Q, out_dtype=dt),
           fs.int8_dense_plain(x, layer, IN_Q, out_dtype=dt))
+    with pytest.raises(ValueError, match="w_int8_t"):
+        fs.int8_dense(x, _without_packed(layer), IN_Q, out_dtype=dt)
+    assert fs.int8_dense.launches == before + 1
 
 
-@pytest.mark.parametrize("act,qmax", [("gelu", 255.0), ("quick_gelu", 127.0)])
-def test_int8_dense_gelu_q(dev, act, qmax):
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.integers(-128, 128, (6304, 384), dtype=np.int8)).to(dev)
-    layer = _layer(rng, 384, 1536, dev)
+@pytest.mark.parametrize("m,k,n,act,qmax,per_channel", [
+    (6304, 384, 1536, "gelu", 255.0, False), (6304, 384, 1536, "quick_gelu", 127.0, False),
+    (50_432, 384, 1536, "gelu", 255.0, False),
+    (4610, 576, 3072, "quick_gelu", 255.0, False),  # OWLv2-pruned fc1 at batch 2
+    (37, 480, 200, "gelu", 255.0, True), (1, 96, 10, "quick_gelu", 255.0, True),
+    (6304 + 5, 480, 1920, "gelu", 127.0, False),
+])
+def test_int8_dense_gelu_q(dev, m, k, n, act, qmax, per_channel):
+    """K2b (GELU_Q, the TMA + wgmma kernel) identical to its plain version;
+    a layer without the packed weight raises."""
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8)).to(dev)
+    layer = _layer(rng, k, n, dev, per_channel)
     gq = {"scale": torch.tensor(4.0 / 255), "zero_point": torch.tensor(11.0)}
+    before = fs.int8_dense_gelu_q.launches
     _same(fs.int8_dense_gelu_q(x, layer, IN_Q, gq, act=act, quant_max=qmax),
           fs.int8_dense_gelu_q_plain(x, layer, IN_Q, gq, act=act, quant_max=qmax))
+    with pytest.raises(ValueError, match="w_int8_t"):
+        fs.int8_dense_gelu_q(x, _without_packed(layer), IN_Q, gq, act=act, quant_max=qmax)
+    assert fs.int8_dense_gelu_q.launches == before + 1
 
 
 @pytest.mark.parametrize("m,k,n,res,out", [
@@ -165,6 +195,8 @@ def test_int8_dense_gelu_q(dev, act, qmax):
     (4610, 3072, 576, "f32", "bf16"), (18_440, 3072, 576, "f32", "bf16"),
     # the largest N the gate admits (16 rows a block), and a short ragged M
     (300, 384, 1756, "bf16", "f32"), (37, 128, 200, "f32", "f32"),
+    # K = 32 (mod 64): the last k-step half zero-filled
+    (37, 96, 200, "f32", "f32"), (6304 + 5, 480, 384, "bf16", "bf16"),
 ])
 def test_int8_dense_resid_ln_q(dev, m, k, n, res, out):
     """K2c (``qvt_int8_gemm_resid_ln``, the pipelined tile) identical to its
@@ -172,7 +204,7 @@ def test_int8_dense_resid_ln_q(dev, m, k, n, res, out):
     raises."""
     rng = np.random.default_rng(k + n)
     x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8)).to(dev)
-    layer = _layer(rng, k, n, dev)
+    layer = _layer(rng, k, n, dev, packed=False)
     rt = torch.bfloat16 if res == "bf16" else torch.float32
     r = torch.from_numpy(rng.normal(0, 1.5, (m, n)).astype(np.float32)).to(dev).to(rt)
     ot = torch.bfloat16 if out == "bf16" else torch.float32
@@ -662,10 +694,13 @@ def test_long_attention_bwd_raises(dev):
 @pytest.mark.parametrize("m,k,n,x_dt,out_dt,per_channel,qmax", [
     (6272, 768, 384, "f32", "f32", False, 255.0), (6304, 384, 1152, "bf16", "bf16", True, 255.0),
     (6304, 1536, 384, "f32", "bf16", True, 127.0), (37, 128, 256, "bf16", "f32", False, 127.0),
+    # K = 32 (mod 64), which JAX's gate admits
+    (8, 96, 128, "f32", "f32", False, 255.0), (6304, 480, 384, "bf16", "bf16", True, 255.0),
 ])
 def test_fused_quantize_matmul(dev, m, k, n, x_dt, out_dt, per_channel, qmax):
     """K7 (qvt_quantize_gemm) against its plain version: identical, f32 and
-    bf16 inputs and outputs, both weight-scale kinds, both grids, ragged M."""
+    bf16 inputs and outputs, both weight-scale kinds, both grids, ragged M,
+    K = 32 (mod 64)."""
     from qat_vit_tpu_torch.ops import pallas_gemm as pg
 
     rng = np.random.default_rng(m + k)
@@ -682,28 +717,34 @@ def test_fused_quantize_matmul(dev, m, k, n, x_dt, out_dt, per_channel, qmax):
 
 
 def test_fused_quantize_matmul_raises(dev):
-    """Outside the kernel's K gate (a multiple of 64) K7 raises, even where
-    JAX's gate admits the shape (K 96), and quantized_dense never swaps in
-    the division path for such a shape; bad inputs raise; nothing launches."""
+    """Where JAX's gate admits K 96 (K = 32 mod 64) K7 runs, through
+    quantized_dense too, identical to its plain version; a K the kernel does
+    not take (not a multiple of 16) and bad inputs raise before any launch."""
     from qat_vit_tpu_torch.ops import pallas_gemm as pg
     from qat_vit_tpu_torch.ops.quantized_matmul import quantized_dense
 
     rng = np.random.default_rng(9)
     layer = _layer(rng, 96, 128, dev)
-    x = torch.zeros(8, 96, device=dev)
+    x = torch.from_numpy(rng.normal(0, 1.5, (8, 96)).astype(np.float32)).to(dev)
     kw = dict(x_scale=0.02, x_zero_point=100.0, w_scale=layer["w_scale"],
               w_colsum=layer["w_colsum"], bias=layer["bias"])
     before = pg.fused_quantize_matmul.launches
     assert pg.fused_quantize_matmul_available(x.shape, layer["w_int8"].shape)
-    with pytest.raises(NotImplementedError, match="multiple of 64"):
-        pg.fused_quantize_matmul(x, layer["w_int8"], **kw)
-    with pytest.raises(NotImplementedError, match="multiple of 64"):
-        quantized_dense(x, layer, IN_Q, use_pallas=True)
+    _same(pg.fused_quantize_matmul(x, layer["w_int8"], **kw),
+          pg.fused_quantize_matmul_plain(x, layer["w_int8"], **kw))
+    in_q = {"scale": 0.02, "zero_point": 100.0}
+    _same(quantized_dense(x, layer, in_q, use_pallas=True),
+          pg.fused_quantize_matmul_plain(x, layer["w_int8"], **kw))
+    assert pg.fused_quantize_matmul.launches == before + 2
+    bad = _layer(rng, 100, 128, dev)
+    with pytest.raises(ValueError, match="unsupported K"):
+        pg.fused_quantize_matmul(torch.zeros(8, 100, device=dev), bad["w_int8"],
+                                 **{**kw, "w_colsum": bad["w_colsum"]})
     layer = _layer(rng, 128, 128, dev)
     with pytest.raises(ValueError, match="f32 or bf16"):
         pg.fused_quantize_matmul(torch.zeros(8, 128, dtype=torch.float16, device=dev),
                                  layer["w_int8"], **{**kw, "w_colsum": layer["w_colsum"]})
-    assert pg.fused_quantize_matmul.launches == before
+    assert pg.fused_quantize_matmul.launches == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -937,10 +978,12 @@ def test_attention_train_f32_autograd(dev, long):
 # K6 with int8 scores: PLAIN_Q8 and qvt_attention_long_q8
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m,d", [(8 * 2305, 576), (2 * 2305, 576), (37, 64), (394, 384)])
+@pytest.mark.parametrize("m,d", [(8 * 2305, 576), (2 * 2305, 576), (37, 64), (394, 384),
+                                 (37, 480), (1, 96)])
 def test_int8_dense_q8(dev, m, d):
     """The PLAIN_Q8 epilogue: the bf16 y and the int8 q/k columns (quantized
-    from the f32 y) identical to the plain version; y identical to PLAIN's."""
+    from the f32 y) identical to the plain version; y identical to PLAIN's;
+    a layer without the packed weight raises."""
     rng = np.random.default_rng(m)
     x = torch.from_numpy(rng.integers(-128, 128, (m, d), dtype=np.int8)).to(dev)
     layer = _layer(rng, d, 3 * d, dev)
@@ -950,6 +993,8 @@ def test_int8_dense_q8(dev, m, d):
     _same(got, fs.int8_dense_q8_plain(x, layer, IN_Q, OUT_Q))
     _same(got[0], fs.int8_dense(x, layer, IN_Q))
     assert got[1].shape == (m, 2 * d)
+    with pytest.raises(ValueError, match="w_int8_t"):
+        fs.int8_dense_q8(x, _without_packed(layer), IN_Q, OUT_Q)
 
 
 @pytest.mark.parametrize("b,n,heads,hd,n_valid", [(8, 2305, 9, 64, 2305), (2, 2305, 9, 64, 2305),

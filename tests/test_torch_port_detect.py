@@ -456,7 +456,9 @@ def test_long_block_and_model_forward_identical(export):
 def test_detection_preset_gates():
     """CPU: the exact defaults. CUDA: megamodel_long for OWLv2-pruned (2,305
     tokens) and OWLv2-base (960 px, 3,601 tokens), megamodel for ViT-S,
-    mixed_none + K3 for short quick-GELU models; at 1,600 px (10,001
+    mixed_none + K3 for short quick-GELU models whose widths JAX's slab
+    kernels take, JAX's rung 4 (mixed_none + the long attention) for
+    OWLv2-pruned's 576 at 224 px, which they do not; at 1,600 px (10,001
     tokens) JAX's rung, which is mixed_none + its long attention there
     (its whole-model kernel's working set does not fit): the streaming
     kernels take any N, so nothing raises; the ``i8`` flag runs the
@@ -468,8 +470,11 @@ def test_detection_preset_gates():
     assert base.seq_len == 3601 and long_attention_shapes_ok(3601, 64)
     assert _preset_kernel_opts(ViTConfig()) == {"fused": "megamodel"}
     assert serving_preset(pruned, "cuda")["fused"] == "megamodel_long"
-    assert _preset_kernel_opts(dataclasses.replace(pruned, image_size=224)) == {
+    assert _preset_kernel_opts(ViTConfig(act="quick_gelu")) == {
         "fused": "mixed_none", "attn_impl": "pallas_fused"}  # 197 quick-GELU tokens
+    assert _preset_kernel_opts(dataclasses.replace(pruned, image_size=224)) == {
+        "fused": "mixed_none", "attn_impl": "pallas_long"} == jax_preset_kernel_opts(
+        jax_detector_config(pruned=True, image_size=224))  # width 576: no slab kernel
     huge = dataclasses.replace(pruned, image_size=1600)  # 10,001 tokens
     long_k5a = {"fused": "mixed_none", "attn_impl": "pallas_long"}
     assert jax_preset_kernel_opts(jax_detector_config(pruned=True, image_size=1600)) == long_k5a

@@ -452,26 +452,30 @@ def rung(opts: dict) -> int:
 
 
 def block_gemms_ok(cfg) -> bool:
-    """int8_gemm takes every GEMM of the model (K a multiple of 64)."""
-    d, p = cfg.embed_dim, cfg.patch_size
-    return (fs.gemm_shapes_ok(p * p * 3, d) and fs.gemm_shapes_ok(d, 3 * d)
-            and fs.gemm_shapes_ok(d, d, resid_ln=True) and fs.gemm_shapes_ok(d, cfg.mlp_dim)
+    """int8_gemm takes every GEMM of a block (K a multiple of 16)."""
+    d = cfg.embed_dim
+    return (fs.gemm_shapes_ok(d, 3 * d) and fs.gemm_shapes_ok(d, d, resid_ln=True)
+            and fs.gemm_shapes_ok(d, cfg.mlp_dim)
             and fs.gemm_shapes_ok(cfg.mlp_dim, d, resid_ln=True))
+
+
+# Where the port's rung departs from JAX's on the grid below, and why: JAX's
+# rung 3 (its whole-model long kernel) at a width d = 8 (mod 16), where
+# int8_gemm cannot take the block GEMMs (TMA and cp.async read rows of 16
+# bytes), so the port serves the next rung down, mixed_none + the long
+# attention (rung 4). Head dim 24 with 1, 3 or 9 heads, at 2,305 and 10,001
+# tokens.
+PRESET_RESIDUE = {(heads, 24, size) for heads in (1, 3, 9) for size in (768, 1600)}
 
 
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 def test_preset_is_empty_exactly_where_jax_is(act):
     """(g) Across head counts, head dims and sequence lengths the port's
-    preset never raises and picks JAX's rung, except where a Hopper gate
-    that differs from JAX's decides: K3 / K4's attention_q admits sequences
-    past JAX's batched-softmax VMEM budget (the port's rung 1 or 2 above
-    JAX's), or int8_gemm's K % 64 or attention_q's shared memory rejects
-    JAX's rung (the port's next rung down). So it is ``{}`` exactly where
-    JAX's is, and at 1,600 px (10,001 tokens) the only departure is JAX's
-    rung 3 on widths int8_gemm rejects."""
-    from qat_vit_tpu_torch.ops.flash_attention import attention_shapes_ok
-
-    departures = {"attention_q above": 0, "gemm or attention_q below": 0}
+    preset never raises and picks JAX's rung on JAX's conditions, apart from
+    the named residue (:data:`PRESET_RESIDUE`: JAX's rung 3 at widths int8_gemm
+    rejects, where the port takes rung 4). So it is ``{}`` exactly where
+    JAX's is, and at 1,600 px (10,001 tokens) both long rungs appear."""
+    residue = set()
     at_1600 = []
     for heads in (1, 2, 3, 6, 9, 12):
         for hd in (12, 16, 24, 32, 60, 64, 96, 128, 136):
@@ -484,17 +488,37 @@ def test_preset_is_empty_exactly_where_jax_is(act):
                 assert (got == 5) == (want == 5), (geo, got, want)
                 if image_size == 1600:
                     at_1600.append((got, want))
-                    assert got == want or (want == 3 and got == 4
-                                           and not block_gemms_ok(cfg)), (geo, got, want)
                 if got == want:
                     continue
-                if got < want:
-                    assert got in (1, 2) and attention_shapes_ok(cfg.seq_len, hd), (geo, got, want)
-                    departures["attention_q above"] += 1
-                else:
-                    assert not (block_gemms_ok(cfg) and attention_shapes_ok(cfg.seq_len, hd)), (
-                        geo, got, want)
-                    departures["gemm or attention_q below"] += 1
+                assert (want, got) == (3, 4) and not block_gemms_ok(cfg), (geo, got, want)
+                residue.add((heads, hd, image_size))
     # the 10,001-token geometries: both long rungs, each where JAX takes it
     assert {(3, 3), (4, 4)} <= set(at_1600), at_1600
-    assert all(departures.values()), departures
+    assert residue == PRESET_RESIDUE, residue ^ PRESET_RESIDUE
+
+
+# The other named departure: JAX's rung 1 (its whole-model slab kernel) at an
+# MLP width of 8 (mod 16), where int8_gemm cannot take fc1's output width as
+# fc2's K, so the port serves rung 2 (mixed_none + K3, its GEMMs plain). The
+# grid above has mlp = 4 d and never reaches it: (heads, head dim, mlp dim).
+MLP_RESIDUE = {(1, 128, 1000), (2, 64, 1000), (4, 64, 1032)}
+
+
+def test_preset_rung1_residue_at_mlp_width_8_mod_16():
+    """(g) At widths JAX serves on its megamodel rung, an MLP width of
+    8 (mod 16) is the port's one departure there: rung 2, named in
+    :data:`MLP_RESIDUE`. At mlp 16 (mod 32) both take rung 1."""
+    residue = set()
+    for heads, hd, mlp in sorted(MLP_RESIDUE) + [(2, 64, 1008), (4, 64, 1040)]:
+        geo = dict(embed_dim=heads * hd, num_heads=heads, mlp_ratio=mlp / (heads * hd))
+        cfg = ViTConfig(**geo)
+        assert cfg.mlp_dim == mlp
+        want, got = rung(jax_preset_kernel_opts(JaxViTConfig(**geo))), rung(
+            _preset_kernel_opts(cfg))
+        assert want == 1, (geo, want)
+        if got != want:
+            assert got == 2 and not block_gemms_ok(cfg), (geo, got)
+            residue.add((heads, hd, mlp))
+        else:
+            assert block_gemms_ok(cfg), geo
+    assert residue == MLP_RESIDUE, residue ^ MLP_RESIDUE

@@ -55,7 +55,7 @@ from qat_vit_tpu_torch.serve.int8_vit import (
     _preset_kernel_opts,
     export_to_device,
     int8_apply,
-    pack_resid_ln_weights,
+    pack_gemm_weights,
 )
 from tests.test_torch_port_detect import (  # noqa: F401 (export, micro: module fixtures)
     _int8_close,
@@ -548,39 +548,44 @@ def _resid_layer(rng, k, n):
 
 
 def test_k2c_weight_packing(export):
-    """``pack_resid_ln_weights`` (which ``export_to_device`` runs for a CUDA
-    device, and only there) adds to every block's proj and fc2 (the
-    RESID_LN_Q layers) ``w_int8_t``, numpy's k-contiguous transpose of
-    ``w_int8``, and changes nothing else: the export's own tree stays the
-    JAX layout, and an export placed on the CPU gets no packed copy."""
+    """``pack_gemm_weights`` (which ``export_to_device`` runs for a CUDA
+    device, and only there) adds to every GEMM layer (each block's qkv,
+    proj, fc1 and fc2, the patch embedding) ``w_int8_t``, numpy's
+    k-contiguous transpose of ``w_int8``, and changes nothing else: the
+    export's own tree stays the JAX layout, and an export placed on the CPU
+    gets no packed copy."""
     _, _, jexp, texp = export
     on_cpu = export_to_device(texp["tower"], "cpu")
     assert all("w_int8_t" not in layer for blk in on_cpu["blocks"].values()
                for layer in blk.values() if isinstance(layer, dict))
-    dev = pack_resid_ln_weights(texp["tower"])
+    dev = pack_gemm_weights(texp["tower"])
     packed = []
+    gemms = ("qkv", "proj", "fc1", "fc2")
     for i, blk in dev["blocks"].items():
         for name, layer in blk.items():
             src = texp["tower"]["blocks"][i][name]
-            if name in ("proj", "fc2"):
+            if name in gemms:
                 w = np.asarray(jexp["tower"]["blocks"][i][name]["w_int8"])
                 t = layer["w_int8_t"]
                 assert t.is_contiguous() and t.dtype == torch.int8
                 np.testing.assert_array_equal(t.numpy(), np.ascontiguousarray(w.T))
                 packed.append(name)
                 assert "w_int8_t" not in src
-            assert set(layer) == set(src) | ({"w_int8_t"} if name in ("proj", "fc2") else set())
+            assert set(layer) == set(src) | ({"w_int8_t"} if name in gemms else set())
             for k, v in src.items() if isinstance(src, dict) else ():
                 if isinstance(v, torch.Tensor):
                     assert torch.equal(layer[k], v), (i, name, k)
-    assert sorted(packed) == sorted(["proj", "fc2"] * len(dev["blocks"]))
+    assert sorted(packed) == sorted(list(gemms) * len(dev["blocks"]))
+    np.testing.assert_array_equal(dev["patch_embed"]["w_int8_t"].numpy(),
+                                  np.ascontiguousarray(texp["tower"]["patch_embed"]["w_int8"].numpy().T))
     np.testing.assert_array_equal(fs.pack_k_major(torch.arange(6, dtype=torch.int8).view(2, 3)),
                                   np.array([[0, 3], [1, 4], [2, 5]], np.int8))
 
 
 def test_k2c_gate_and_block_rows():
-    """The RESID_LN gate is unchanged (K a multiple of 64, 1 <= N <= 1,756,
-    the N K9's 32-row body holds) and the pipelined kernel's plan holds
+    """The RESID_LN gate (K a multiple of 16: the k-steps past K are
+    zero-filled; 1 <= N <= 1,756, the N K9's 32-row body holds) and the
+    pipelined kernel's plan holds
     every N it admits: the block rows of ``resid_ln_rows`` fit the shared
     memory, 16 rows fit at N 1,756, and the height with the most rows in
     flight per SM is taken: OWLv2's N 576 64 rows (one block per SM),
@@ -589,7 +594,7 @@ def test_k2c_gate_and_block_rows():
     for k in (32, 64, 100, 384, 576, 1536, 3072):
         for n in (1, 10, 384, 576, 768, 1024, 1536, 1756, 1757, 3072):
             ok = fs.gemm_shapes_ok(k, n, resid_ln=True)
-            assert ok == (k % 64 == 0 and n <= 1756), (k, n)
+            assert ok == (k % 16 == 0 and n <= 1756), (k, n)
             if ok:
                 for m in (1, 37, 4610, 6304, 18_440, 50_432):
                     r = fs.resid_ln_rows(m, n)

@@ -141,7 +141,7 @@ def test_fused_quantize_matmul_gate():
     assert not fused_quantize_matmul_available((32, 48), (48, 128))  # K % 32
     assert not fused_quantize_matmul_available((32, 4096), (4096, 2048))  # panel > 6 MiB
     assert not fused_quantize_matmul_available((32, 256), (128, 128))  # x K != w K
-    assert fused_quantize_matmul_available((8, 96), (96, 128))  # K % 64 != 0: the card raises
+    assert fused_quantize_matmul_available((8, 96), (96, 128))  # K % 64 != 0: the card runs it
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -363,25 +363,26 @@ def test_raises_as_in_jax(export):
 def test_preset_rungs_match_jax():
     """The port's rungs pick JAX's path (without its TPU padding and block
     options) for ViT-S and ViT-B GELU (megamodel), ViT-S quick-GELU
-    (mixed_none + the fused attention), OWLv2-pruned (megamodel_long) and
-    901-token ViT-S (mixed_none + the long attention). Where the gates
-    differ by hardware, the port keeps its own: a 577-token ViT-S fits
-    attention_q's shared memory on Hopper (megamodel) and not the TPU's
-    batched-softmax VMEM budget (mixed_none + the long attention there)."""
+    (mixed_none + the fused attention), OWLv2-pruned (megamodel_long),
+    577-token ViT-S (384 px: past JAX's batched-softmax budget, so
+    mixed_none + the long attention, on JAX's conditions) and 901-token
+    ViT-S (mixed_none + the long attention)."""
     from qat_vit_tpu.models.vit import ViTConfig as JaxViTConfig
     from qat_vit_tpu_torch.models.owlv2_detect import detector_config
     from qat_vit_tpu_torch.models.vit import ViTConfig
 
     cases = [dict(), dict(embed_dim=768, num_heads=12), dict(act="quick_gelu"),
-             dict(image_size=480)]
+             dict(image_size=384), dict(image_size=480)]
     for kw in cases:
         want = jax_preset_kernel_opts(JaxViTConfig(**kw))
         got = _preset_kernel_opts(ViTConfig(**kw))
         assert got["fused"] == want["fused"].split(":")[0], (kw, got, want)
         assert got.get("attn_impl") == want.get("attn_impl"), (kw, got, want)
     assert jax_preset_kernel_opts(JaxViTConfig(image_size=384))["fused"] == "mixed_none"
-    assert _preset_kernel_opts(ViTConfig(image_size=384)) == {"fused": "megamodel"}
+    assert _preset_kernel_opts(ViTConfig(image_size=384)) == {"fused": "mixed_none",
+                                                              "attn_impl": "pallas_long"}
     pruned = detector_config(pruned=True)
     assert _preset_kernel_opts(pruned) == {"fused": "megamodel_long"}
+    # width 576 is not lane-aligned: JAX's rung 4, on JAX's conditions
     assert _preset_kernel_opts(dataclasses.replace(pruned, image_size=224)) == {
-        "fused": "mixed_none", "attn_impl": "pallas_fused"}
+        "fused": "mixed_none", "attn_impl": "pallas_long"}

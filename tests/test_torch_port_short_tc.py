@@ -191,7 +191,8 @@ def test_launch_arguments(recorder):
     tensor-core entry points with the bf16 q scale, kernel A's fake-quant
     pointer, flag and range only with ``in_fq``; f32 kernel A keeps the
     CUDA-core ``qvt_attention_fwd``; one launch each; past the gate, an
-    unsupported head dim or dtype, they raise before any launch."""
+    unsupported head dim or dtype, they raise before any launch; K3 takes
+    N past the CUDA-core tile's plan (790 at hd 64), as its kernel does."""
     b, n, h, hd = 2, 789, 1, 64
     qkv, _ = _qkv_do(b, n, h, hd, 1)
     scale = float(torch.tensor(hd ** -0.5, dtype=BF16))
@@ -216,10 +217,13 @@ def test_launch_arguments(recorder):
     name, args = recorder.calls[-1]
     assert name == "qvt_attention_fwd" and out.dtype == torch.float32
     assert args[8:12] == (float(np.float32(64 ** -0.5)), 1, 0.0, 255.0)
-    assert (fa.fused_attention_qkv.launches, fa.attention_fwd.launches) == (k3 + 1, a + 3)
+    fa.fused_attention_qkv(torch.zeros(1, 790, 3 * 64, dtype=BF16), 1, 64, out_q=Q_OUT)
+    name, args = recorder.calls[-1]
+    assert name == "qvt_attention_q_mma" and args[2:7] == (1, 790, 1, 64, 790)
+    assert (fa.fused_attention_qkv.launches, fa.attention_fwd.launches) == (k3 + 2, a + 3)
     calls = len(recorder.calls)
     with pytest.raises(ValueError, match="unsupported"):
-        fa.fused_attention_qkv(torch.zeros(1, 790, 3 * 64, dtype=BF16), 1, 64, out_q=Q_OUT)
+        fa.fused_attention_qkv(torch.zeros(1, 17, 3 * 60, dtype=BF16), 1, 60, out_q=Q_OUT)
     with pytest.raises(ValueError, match="unsupported"):
         fa.attention_fwd(torch.zeros(1, 17, 3 * 60, dtype=BF16), 1, 60)
     with pytest.raises(ValueError, match="dtype"):  # K3 is bf16-only

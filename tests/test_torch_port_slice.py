@@ -186,7 +186,10 @@ def test_serving_preset_gates():
         "fused": "megamodel_long"}  # 2305 tokens: K6
     mixed_k3 = {"fused": "mixed_none", "attn_impl": "pallas_fused"}
     assert _preset_kernel_opts(dataclasses.replace(vit_s, act="quick_gelu")) == mixed_k3
-    assert _preset_kernel_opts(ViTConfig(embed_dim=96, num_heads=3)) == mixed_k3  # K % 64 != 0
+    # width 96 is not lane-aligned: JAX's rung 4, on JAX's conditions
+    assert _preset_kernel_opts(ViTConfig(embed_dim=96, num_heads=3)) == {
+        "fused": "mixed_none", "attn_impl": "pallas_long"} == jax_preset_kernel_opts(
+        JaxViTConfig(embed_dim=96, num_heads=3))
     # 901 tokens: over attention_q's gate, under the K6 rung
     assert _preset_kernel_opts(dataclasses.replace(vit_s, image_size=480)) == {
         "fused": "mixed_none", "attn_impl": "pallas_long"}
