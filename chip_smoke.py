@@ -81,11 +81,14 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    attention tile) with the ms per forward of all three, in turns;
 8. kernel forms: K6's int8 score dots (the ``i8`` flag), the qkv GEMM's
    PLAIN_Q8 epilogue and ``attention_long_q8`` at ``[2, 2305, 1728]``, and
-   the f32 forms of kernels A and B (ViT-S ``[8, 197, 1152]``, and streamed
-   at N 512 with 6 heads of 64 and of 128, with and without the in-kernel
-   fake-quant) and of K5a / K5b (``[2, 2305, 1728]``), each bit-identical
-   to its plain version (``attention_long_q8``: K6a's
-   int8 bound); the ``i8`` chain on phase 5's
+   the f32 forms of kernels A and B (``csrc/attention_f32.cu``; ViT-S
+   ``[8, 197, 1152]`` and ``[256, 197, 1152]``, N 512 with 6 heads of 64
+   and of 128, N 1,248 with one head of 128, with and without the
+   in-kernel fake-quant; two launches identical, kernel B's STE zero set
+   the plain version's, device ms beside SDPA's; one kernel-B call
+   profiled must show its rows and keys kernels) and of K5a / K5b
+   (``[2, 2305, 1728]``), each bit-identical to its plain version
+   (``attention_long_q8``: K6a's int8 bound); the ``i8`` chain on phase 5's
    export at batch 8 x 4 queries (47 launches; against its plain twin
    printed, not held; identical to the plain twin with the kernels'
    attention stage; within the detection bounds of the exact path, ms per forward beside
@@ -226,8 +229,9 @@ SERVE_MODE_RUNS = 10
 # whole gradient and the update, where a planted fault hides in the noise.
 DT_REPLAY_QKV_GRAD_REL = 3e-3
 
-# the CUDA-core attention tile's kernels: K8, and kernel A in f32
+# the CUDA-core attention tile's kernel (K8), and the f32 kernels A and B
 CUDA_CORE_ATTENTION = "qat_vit_tpu_torch/csrc/attention_q.cu"
+F32_ATTENTION = "qat_vit_tpu_torch/csrc/attention_f32.cu"
 # the kernel group of the CUDA-core mma.sync GEMM tile (csrc/gemm_tile.cuh),
 # which only K7 launches: K2a and K2b run csrc/int8_gemm_wgmma.cu
 CORE_TILE = "K7 (CUDA-core tile)"
@@ -285,8 +289,10 @@ def kernel_group(name: str) -> str:
                        ("ln_quantize", "K2d LN"), ("attention_q_mma", "K3 / kernel A"),
                        ("attention_bwd_rows_mma", "kernel B rows"),
                        ("attention_bwd_keys_mma", "kernel B keys"),
-                       ("attention_bwd", "kernel B f32"), ("megablock", "K9"),
-                       ("attention_kernel", "K8 / f32 kernel A")):
+                       ("attention_f32_bwd_rows", "kernel B f32 rows"),
+                       ("attention_f32_bwd_keys", "kernel B f32 keys"),
+                       ("attention_f32_fwd", "kernel A f32"), ("megablock", "K9"),
+                       ("attention_kernel", "K8")):
         if key in n:
             return group
     if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90", "nvjet")):
@@ -762,16 +768,17 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
     K5a / K5b or kernels A and B, held by :func:`compare_tc`; both kinds sum
     in their own order and must give identical bits over two launches) and
     ``ste`` (kernel B's qkv and fake-quant: its STE zero set must be the
-    plain version's, :func:`ste_zeros`), ``exact`` (this case bit for bit)
-    and ``device`` (also the kernel's and the library call's device time
-    under torch.profiler, :func:`device_ms`)."""
+    plain version's, :func:`ste_zeros`), ``exact`` (this case bit for bit),
+    ``repeat`` (two launches must give identical bits, as with ``tc``) and
+    ``device`` (also the kernel's and the library call's device time under
+    torch.profiler, :func:`device_ms`)."""
     bf16 = torch.bfloat16
     results = []
     for name, kernel, plain, args, kwargs, replaces, work, library, *extra in cases:
         extra = extra[0] if extra else {}
         got = kernel(*args, **kwargs)
         errs, notes = [], []
-        if "tc" in extra or extra.get("int8_bound"):  # a kernel that sums in its own order
+        if "tc" in extra or extra.get("int8_bound") or extra.get("repeat"):
             same = torch.equal(kernel(*args, **kwargs), got)
             notes.append(f"two launches identical {same};")
             if not same:
@@ -1805,14 +1812,10 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
     qk8 = rand_int8(torch, np, rng, dev, b, n, 2 * d)
     qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n, 3 * d)).astype(np.float32)).to(dev)
     do = torch.from_numpy(rng.normal(0, 1.0, (b, n, d)).astype(np.float32)).to(dev)
-    vb, vh, vn, vd = 8, 6, 197, 384  # ViT-S at batch 8
-    vqkv = torch.from_numpy(rng.normal(0, 1.0, (vb, vn, 3 * vd)).astype(np.float32)).to(dev)
-    vdo = torch.from_numpy(rng.normal(0, 1.0, (vb, vn, vd)).astype(np.float32)).to(dev)
     fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=f32t, device=dev), "in_fq": (0, 255)}
     q8_attn = [{"ops": 2 * b * heads * n * n * hd, "type": "int8",  # the int8 score dot
                 "bytes": b * n * 2 * d + 2 * b * n * d + b * n * d},
                {"ops": 2 * b * heads * n * n * hd, "type": "bf16", "bytes": 0}]  # p @ v
-    f32_fwd = attention_work(vb, vn, vh, 64, 4, in_bytes=4, op_type="f32")
     cases = [
         (f"int8_gemm:plain_q8 qkv [{m}x{d}]@[{d}x{3 * d}] + int8 q,k", fs.int8_dense_q8,
          fs.int8_dense_q8_plain, (x_qkv, l_qkv, in_q, out_q), {},
@@ -1821,13 +1824,6 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
         (f"attention_long_q8 (i8) [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_q8,
          la.long_attention_q8_plain, (qk8, qkv.to(bf16), heads, hd), {"out_q": out_q},
          "qat_vit_tpu/ops/long_block_kernel.py:179", q8_attn, None, {"int8_bound": True}),
-        (f"attention_fwd f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fa.attention_fwd,
-         fa.attention_fwd_plain, (vqkv, vh, 64), {}, "qat_vit_tpu/ops/flash_attention.py:125",
-         f32_fwd, sdpa_forward(torch, vqkv, vh, 64), {"source": CUDA_CORE_ATTENTION}),
-        (f"attention_fwd:in_fq f32 [{vb}x{vn}x{3 * vd}] {vh} heads", fa.attention_fwd,
-         fa.attention_fwd_plain, (vqkv, vh, 64), fq, "qat_vit_tpu/ops/flash_attention.py:125",
-         f32_fwd, sdpa_forward(torch, vqkv, vh, 64), {"source": CUDA_CORE_ATTENTION}),
-        *f32_kernel_b_cases(torch, fat, vqkv, vdo, vh, 64, fq),
         (f"attention_long f32 [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_qkv,
          la.long_attention_qkv_plain, (qkv, heads, hd), {}, "qat_vit_tpu/ops/long_attention.py:63",
          attention_work(b, n, heads, hd, 4, in_bytes=4, op_type="f32"),
@@ -1838,24 +1834,11 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
          attention_work(b, n, heads, hd, backward=True, in_bytes=4, op_type="f32"),
          sdpa_backward(torch, qkv, do, heads, hd)),
     ]
-    # the f32 kernels A and B past their resident plans, streamed, at N 512
-    # (JAX's K1 gate admits 6 heads up to N 512): 6 heads of 64 and of 128
-    for k_hd in (64, 128):
-        k_qkv = torch.from_numpy(rng.normal(0, 1.0, (2, 512, 18 * k_hd)).astype(
-            np.float32)).to(dev)
-        k_do = torch.from_numpy(rng.normal(0, 1.0, (2, 512, 6 * k_hd)).astype(np.float32)).to(dev)
-        shape = f"[2x512x{18 * k_hd}] 6 heads"
-        work = attention_work(2, 512, 6, k_hd, 4, in_bytes=4, op_type="f32")
-        cases += [(f"attention_fwd{name} f32 {shape}", fa.attention_fwd, fa.attention_fwd_plain,
-                   (k_qkv, 6, k_hd), kw, "qat_vit_tpu/ops/flash_attention.py:125", work,
-                   sdpa_forward(torch, k_qkv, 6, k_hd), {"source": CUDA_CORE_ATTENTION})
-                  for name, kw in (("", {}), (":in_fq", fq))]
-        cases += f32_kernel_b_cases(torch, fat, k_qkv, k_do, 6, k_hd, fq)
     kernels = check_kernels(torch, cases, "phase 8", exact=True,
                             slow_plain=(la.long_attention_q8_plain, la.long_attention_qkv_plain,
-                                        la.long_attention_bwd_plain, fa.attention_fwd_plain,
-                                        fat.attention_bwd_plain))
-    del x_qkv, qk8, qkv, do, vqkv, vdo, cases, k_qkv, k_do
+                                        la.long_attention_bwd_plain))
+    del x_qkv, qk8, qkv, do, cases
+    kernels += f32_attention_in_child(fa, fat)
 
     # the i8 chain on phase 5's export at batch 8 x 4 queries: against its
     # plain twin and the exact path, ms per forward beside megamodel_long
@@ -1918,17 +1901,103 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
         k["launches"] = launches[w] if w in launches else replays[w]
     return kernels
 
-def f32_kernel_b_cases(torch, fat, qkv, do, heads, hd, fq):
-    """``check_kernels``' cases of the f32 kernel B (``csrc/attention_bwd.cu``)
-    with ``in_fq`` off and on, held identical to its plain version."""
-    b, n, _ = qkv.shape
-    shape = f"[{b}x{n}x{3 * heads * hd}] {heads} heads"
-    work = attention_work(b, n, heads, hd, backward=True, in_bytes=4, op_type="f32")
-    return [(f"attention_bwd{name} f32 {shape}", fat.attention_bwd, fat.attention_bwd_plain,
-             (qkv, do, heads, hd), kw, "qat_vit_tpu/ops/flash_attention_train.py:48", work,
-             sdpa_backward(torch, qkv, do, heads, hd),
-             {"source": "qat_vit_tpu_torch/csrc/attention_bwd.cu"})
-            for name, kw in (("", {}), (":in_fq+ste", fq))]
+# the f32 kernels A and B in phase 8: ViT-S at batch 8 and 256, N 512 at 6
+# heads of 64 and of 128 (JAX's K1 gate admits 6 heads up to N 512), N 1,248
+# at one head of 128 (the most it admits); (batch, tokens, heads, hd)
+F32_ATTENTION_SHAPES = ((8, 197, 6, 64), (256, 197, 6, 64), (2, 512, 6, 64), (2, 512, 6, 128),
+                        (1, 1248, 1, 128))
+
+
+F32_CHILD = "--f32-attention"
+
+
+def f32_attention_in_child(fa, fat):
+    """Phase 8's f32 kernels A and B (:func:`f32_attention_phase`) in a
+    fresh process of this script. Late in one process, after many profiled
+    sessions, torch.profiler was seen to drop device events (phase 8's
+    kernel device times read 30-50% under a fresh process's, then none),
+    so the device times and the profile come from a process that has
+    profiled nothing before. Its kernel records, as ``check_kernels``
+    returns them, with their wrappers."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), F32_CHILD],
+                       capture_output=True, text=True, timeout=900)
+    lines = r.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if r.returncode or not lines:
+        print(r.stderr[-4000:], file=sys.stderr, flush=True)
+        fail(f"phase 8's f32 kernels A and B (a child process) exited {r.returncode}")
+    records = json.loads(lines[-1])
+    for k in records:
+        k["wrapper"] = {"fwd": fa.attention_fwd, "bwd": fat.attention_bwd}[k.pop("kind")]
+    return records
+
+
+def f32_attention_phase(torch, np, fa, fat):
+    """The f32 kernels A and B against their plain versions at
+    ``F32_ATTENTION_SHAPES`` (:func:`f32_attention_cases`), then one profiled
+    call of each (:func:`f32_kernel_b_profile`); prints the kernel records
+    as a JSON list, last."""
+    rng = np.random.default_rng(SEED + 8)
+    fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=torch.float32, device="cuda"),
+          "in_fq": (0, 255)}
+    f32_kernel_b_profile(torch, np, fa, fat)
+    results = check_kernels(torch, f32_attention_cases(torch, np, fa, fat, rng, fq), "phase 8",
+                            exact=True,
+                            slow_plain=(fa.attention_fwd_plain, fat.attention_bwd_plain))
+    for k in results:
+        k["kind"] = "fwd" if k.pop("wrapper") is fa.attention_fwd else "bwd"
+    print(json.dumps(results), flush=True)
+
+
+def f32_attention_cases(torch, np, fa, fat, rng, fq):
+    """``check_kernels``' cases of the f32 kernels A and B
+    (``csrc/attention_f32.cu``) at ``F32_ATTENTION_SHAPES``, ``in_fq`` off
+    and on: bit-identical to their plain versions, two launches identical,
+    kernel B's STE zero set the plain version's, device times beside SDPA's
+    forward and autograd backward."""
+    dev = torch.device("cuda")
+    cases = []
+    for b, n, heads, hd in F32_ATTENTION_SHAPES:
+        qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n, 3 * heads * hd)).astype(
+            np.float32)).to(dev)
+        do = torch.from_numpy(rng.normal(0, 1.0, (b, n, heads * hd)).astype(np.float32)).to(dev)
+        shape = f"[{b}x{n}x{3 * heads * hd}] {heads} heads"
+        fwd = attention_work(b, n, heads, hd, 4, in_bytes=4, op_type="f32")
+        bwd = attention_work(b, n, heads, hd, backward=True, in_bytes=4, op_type="f32")
+        for name, kw in (("", {}), (":in_fq", fq)):
+            extra = {"source": F32_ATTENTION, "repeat": True, "device": True}
+            cases.append((f"attention_fwd{name} f32 {shape}", fa.attention_fwd,
+                          fa.attention_fwd_plain, (qkv, heads, hd), kw,
+                          "qat_vit_tpu/ops/flash_attention.py:125", fwd,
+                          sdpa_forward(torch, qkv, heads, hd), extra))
+            cases.append((f"attention_bwd{name and ':in_fq+ste'} f32 {shape}", fat.attention_bwd,
+                          fat.attention_bwd_plain, (qkv, do, heads, hd), kw,
+                          "qat_vit_tpu/ops/flash_attention_train.py:48", bwd,
+                          sdpa_backward(torch, qkv, do, heads, hd),
+                          {**extra, "ste": (qkv, kw or None)}))
+    return cases
+
+
+def f32_kernel_b_profile(torch, np, fa, fat):
+    """One f32 kernel-A and one kernel-B call at ViT-S ``[8, 197, 1152]``
+    under torch.profiler: fails unless they show kernel A's kernel and
+    kernel B's rows and keys kernels, once each."""
+    rng = np.random.default_rng(SEED + 10)
+    qkv = torch.from_numpy(rng.normal(0, 1, (8, 197, 1152)).astype(np.float32)).cuda()
+    do = torch.from_numpy(rng.normal(0, 1, (8, 197, 384)).astype(np.float32)).cuda()
+
+    def fn():
+        return fa.attention_fwd(qkv, 6, 64), fat.attention_bwd(qkv, do, 6, 64)
+
+    fn()
+    torch.cuda.synchronize()
+    groups, busy, _, launched, counts = device_breakdown(torch, fn)
+    want = {"kernel A f32": 1, "kernel B f32 rows": 1, "kernel B f32 keys": 1}
+    print("phase 8 the f32 kernels A and B at [8x197x1152] under torch.profiler: "
+          + ", ".join(f"{g} {counts[g]} kernel(s) {groups[g]:.4f} ms" for g in want)
+          + f"; {launched} kernels, busy {busy:.4f} ms", flush=True)
+    if any(counts[g] != k for g, k in want.items()):
+        fail(f"the f32 kernels A and B under the profiler: {dict(counts)}, expected {want}")
 
 
 def replay_f32_steps(torch, np, fa, fat, la, dev):
@@ -2013,6 +2082,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
+    if sys.argv[1:] == [F32_CHILD]:
+        f32_attention_phase(torch, np, fa, fat)
+        return
 
     # phase 1: environment and build
     card = card_line()

@@ -14,7 +14,13 @@ process that imports the package from that checkout, builds its kernels and meas
   logits cached, 4 float steps, the QAT switch, 4 QAT steps: host ms per step ending in
   a synchronize, the median of the steps after the first.
 
-    python3 port_scripts/vit_turns.py PARENT_DIR CHANGE_DIR [--serve-only]
+With --f32, instead of all three: an f32 fast_math ViT-S/16 student (fq_in_kernel, full
+depth, random init from seed 0; the trainer builds fast_math models in bf16 only, so the
+train steps are called directly, as chip_smoke.py's f32 replay does) at batch 256 with
+seeded teacher logits, 4 float steps and 4 QAT steps from one state: host ms per step as
+above, and the device time of one more step of each by kernel.
+
+    python3 port_scripts/vit_turns.py PARENT_DIR CHANGE_DIR [--serve-only | --f32]
 """
 import json
 import os
@@ -26,7 +32,7 @@ import collections, json, re, statistics, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-serve_only = sys.argv[2] == "1"
+mode = sys.argv[2]
 from qat_vit_tpu_torch import _build
 from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
 from qat_vit_tpu_torch.data.pipeline import preprocess_fn
@@ -56,15 +62,6 @@ def median_ms(fn, runs=10):
     return statistics.median(ts)
 
 
-bundle = create_student("vit", generator=torch.Generator().manual_seed(0), device=dev)
-cfg = bundle.cfg
-rng = np.random.default_rng(1)
-prep = preprocess_fn(cfg.image_size, device=dev)
-calib = [prep(torch.from_numpy(rng.integers(0, 256, (32, 32, 32, 3), dtype=np.uint8)))
-         for _ in range(4)]
-qp = export_to_device(ptq_convert(bundle.module.state_dict(), calib, cfg, device=dev), dev)
-x = prep(torch.from_numpy(np.random.default_rng(2).integers(0, 256, (256, 32, 32, 3),
-                                                            dtype=np.uint8)))
 def by_group(fn):
     """device ms of one fn() by kernel: its name and first template argument (for
     the GEMM kernels, the epilogue)"""
@@ -83,6 +80,44 @@ def by_group(fn):
             groups[key + (f"<{first.group(1)}" if first else "")] += (
                 e.time_range.elapsed_us() / 1e3)
     return {k: round(v, 4) for k, v in groups.most_common()}
+
+
+if mode == "f32":
+    from qat_vit_tpu_torch.train import steps
+
+    s = create_student("vit", fast_math=True, fq_in_kernel=True,
+                       generator=torch.Generator().manual_seed(0), device=dev).module
+    r = np.random.default_rng(3)
+    batch = {"image": torch.from_numpy(r.integers(0, 256, (256, 32, 32, 3), dtype=np.uint8)),
+             "label": torch.from_numpy(r.integers(0, 10, 256)),
+             "teacher_logits": torch.from_numpy(r.normal(0, 2, (256, 10)).astype(np.float32))}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    hp = steps.loss_hparams({"kd_alpha": 0.5, "kd_temperature": 4.0, "label_smoothing": 0.1}, dev)
+    state = steps.TrainState(s, steps.make_optimizer(s.parameters(), 1e-3, 1e-2))
+    out = {"dtype": str(next(s.parameters()).dtype)}
+    for name, qat in (("float", False), ("qat", True)):
+        step = steps.make_train_step(None, qat=qat, image_size=224)
+        ts = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch, hp)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        out.update({f"{name}_ms": statistics.median(ts[1:]), f"{name}_steps": ts,
+                    f"{name}_groups": by_group(lambda: step(state, batch, hp))})
+    print(json.dumps(out), flush=True)
+    sys.exit(0)
+
+bundle = create_student("vit", generator=torch.Generator().manual_seed(0), device=dev)
+cfg = bundle.cfg
+rng = np.random.default_rng(1)
+prep = preprocess_fn(cfg.image_size, device=dev)
+calib = [prep(torch.from_numpy(rng.integers(0, 256, (32, 32, 32, 3), dtype=np.uint8)))
+         for _ in range(4)]
+qp = export_to_device(ptq_convert(bundle.module.state_dict(), calib, cfg, device=dev), dev)
+x = prep(torch.from_numpy(np.random.default_rng(2).integers(0, 256, (256, 32, 32, 3),
+                                                            dtype=np.uint8)))
 
 
 def serve_fn():
@@ -119,7 +154,7 @@ detect_groups = by_group(lambda: fwd(dexp, dx, dq))
 del det, params, dexp, dx, dq
 out = {"serve_ms": serve, "serve_groups": serve_groups, "detect_ms": detect,
        "detect_groups": detect_groups, "detect_preset": fwd.options.get("fused")}
-if serve_only:
+if mode == "serve":
     print(json.dumps(out), flush=True)
     sys.exit(0)
 
@@ -159,22 +194,30 @@ print(json.dumps(out), flush=True)
 
 def main():
     parent, change = sys.argv[1:3]
-    serve_only = "--serve-only" in sys.argv[3:]
+    flags = sys.argv[3:]
+    mode = "f32" if "--f32" in flags else "serve" if "--serve-only" in flags else "all"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
     runs = []
     for name, root in (("parent", parent), ("change", change), ("change", change),
                        ("parent", parent)):
-        r = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(root),
-                            str(int(serve_only))], capture_output=True, text=True)
+        r = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(root), mode],
+                           capture_output=True, text=True)
         if r.returncode:
             sys.exit(f"{name} ({root}) failed:\n{r.stderr[-3000:]}")
         m = json.loads(r.stdout.strip().splitlines()[-1])
         runs.append((name, m))
+        if mode == "f32":
+            print(f"{name}: f32 fast_math ViT-S/16 at batch 256 ({m['dtype']}): float step "
+                  f"{m['float_ms']:.1f} ms, QAT step {m['qat_ms']:.1f} ms (steps "
+                  f"{', '.join(f'{v:.1f}' for v in m['float_steps'])} / "
+                  f"{', '.join(f'{v:.1f}' for v in m['qat_steps'])}); device ms by kernel, "
+                  f"float {m['float_groups']}; QAT {m['qat_groups']}", flush=True)
+            continue
         line = (f"{name}: serving {m['serve_ms']:.2f} ms per batch-256 forward, detection "
                 f"{m['detect_ms']:.2f} ms per batch-8 forward ({m['detect_preset']})")
-        if not serve_only:
+        if mode == "all":
             line += (f"; float step {m['float_ms']:.1f} ms, QAT step {m['qat_ms']:.1f} ms "
                      f"(steps {', '.join(f'{v:.1f}' for v in m['float_steps'])} / "
                      f"{', '.join(f'{v:.1f}' for v in m['qat_steps'])})")

@@ -5,7 +5,7 @@
 // Replaces (TPU, Pallas): qat_vit_tpu/ops/flash_attention_train.py::
 // _attention_bwd_kernel (launched by _attention_bwd_call), with and without
 // in_fq, for a bf16 qkv: the VJP of attention_train and attention_train_fq.
-// The f32 form stays on the CUDA cores (csrc/attention_bwd.cu).
+// The f32 form stays on the CUDA cores (csrc/attention_f32.cu).
 //
 // Math, per (image, head), as the TPU kernel. The forward saves only the
 // raw qkv (the custom-VJP contract), so this kernel recomputes the softmax
@@ -29,7 +29,7 @@
 // written): at ViT-S's 197 tokens ~140 operations per byte, under the
 // card's ~295 in bf16, so the bound is the bytes; only the tensor cores
 // keep the operations near it (989 TFLOP/s in bf16 against 67 for f32 on
-// the CUDA cores, where csrc/attention_bwd.cu runs). The two passes below
+// the CUDA cores, where csrc/attention_f32.cu runs). The two passes below
 // recompute s and dp twice more (18*N*N*hd in all), the price of having no
 // atomics: the TPU kernel sums dk and dv over one resident [N, N] tile,
 // while blocks here run in no order, and atomic sums change from run to

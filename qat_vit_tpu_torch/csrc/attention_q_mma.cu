@@ -10,8 +10,8 @@
 //   K1's forward). Replaces: _fused_attention_kernel with quantize=False,
 //   with and without in_fq, as qat_vit_tpu/ops/flash_attention_train.py's
 //   attention_train and attention_train_fq launch it for bf16 qkv.
-// (The f32 forms of kernel A and K8 keep the CUDA-core tile of
-// attention_tile.cuh, in attention_q.cu.)
+// (The f32 kernel A runs on the CUDA cores in attention_f32.cu, K8 on the
+// CUDA-core tile of attention_tile.cuh in attention_q.cu.)
 //
 // What bounds it on an H100. Per (image, head) the work is 4*N*N*hd
 // operations on ~4*N*hd bytes: at ViT's 197 tokens and hd 64 ~200

@@ -43,15 +43,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Fake-quant both bf16 halves of a 32-bit word, back to bf16.
-__device__ __forceinline__ uint32_t fake_quant_pair(uint32_t w, float s, float zp, float qmin,
-                                                    float qmax) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
-  __nv_bfloat162 r = __floats2bfloat162_rn(fake_quant(f.x, s, zp, qmin, qmax),
-                                           fake_quant(f.y, s, zp, qmin, qmax));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -113,16 +104,6 @@ __device__ __forceinline__ void unpack_word(uint32_t w, float (&f)[4 / sizeof(T)
   } else {
     f[0] = __uint_as_float(w);
   }
-}
-
-// Fake-quant of the elements of one 32-bit word of T, back to T
-template <typename T>
-__device__ __forceinline__ uint32_t fake_quant_word(uint32_t w, float s, float zp, float qmin,
-                                                   float qmax) {
-  if constexpr (sizeof(T) == 2)
-    return fake_quant_pair(w, s, zp, qmin, qmax);
-  else
-    return __float_as_uint(fake_quant(__uint_as_float(w), s, zp, qmin, qmax));
 }
 
 // 16-byte asynchronous copies from global to shared memory (cp.async)

@@ -145,10 +145,10 @@ __global__ void __launch_bounds__(BLOCK_THREADS) megablock_kernel(MegaParams mp)
 
     // 2. attention, int8 out on the qkv out_q grid: all 8 warps per tile
     for (int tile = blockIdx.x; tile < nq * mp.H * mp.B; tile += gridDim.x) {
-      qvt::attn::tile<bf16, true, false, false>(
-          mp.qkv, nullptr, mp.o_q, mp.N, mp.H, mp.hd, mp.n_valid, mp.attn_scale, t.inv_so,
-          t.zp_o, mp.qmax, 0.0f, 0.0f, smem, (tile % nq) * qvt::attn::Q_TILE,
-          (tile / nq) % mp.H, tile / (nq * mp.H));
+      qvt::attn::tile<bf16, true, false>(
+          mp.qkv, mp.o_q, mp.N, mp.H, mp.hd, mp.n_valid, mp.attn_scale, t.inv_so, t.zp_o,
+          mp.qmax, smem, (tile % nq) * qvt::attn::Q_TILE, (tile / nq) % mp.H,
+          tile / (nq * mp.H));
       __syncthreads();  // K and V of the next tile overwrite this one's
     }
     grid.sync();

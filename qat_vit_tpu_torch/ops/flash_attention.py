@@ -12,10 +12,10 @@
   (``in_fq=(qmin, qmax)``, scale and zero point in the device tensor
   ``qs = [scale, zp]``). On CUDA it launches kernel A, K1's forward: for
   bf16 ``qvt_attention_fwd_mma`` (``csrc/attention_q_mma.cu``, tensor
-  cores), for f32 ``qvt_attention_fwd`` (``csrc/attention_q.cu``, the
-  CUDA-core tile, K and V streamed where they do not fit); on the CPU it
-  runs :func:`attention_fwd_plain`. It takes every N that JAX's K1 gate
-  admits (:func:`attention_fwd_shapes_ok`).
+  cores), for f32 ``qvt_attention_fwd`` (``csrc/attention_f32.cu``,
+  register tiles on the CUDA cores, :func:`attention_f32_rows` queries per
+  block); on the CPU it runs :func:`attention_fwd_plain`. It takes every N
+  that JAX's K1 gate admits (:func:`attention_fwd_shapes_ok`).
   Launches are counted in ``attention_fwd.launches``.
 - :func:`flash_attention_qkv` (K8, ``attn_impl="pallas"``): the float
   attention of ``flash_attention.py::_attention_kernel``, f32 or bf16 in
@@ -37,8 +37,8 @@ order with the softmax in f64. The CUDA-core kernels (f32 kernel A, K8)
 pin every rounding to them; the tensor-core K3 and bf16 kernel A sum in
 the tensor cores' order with a two-pass softmax (the normalised p rounded
 to bf16), so on the card K3 is held to one int8 step and >= 99.9%
-identical, kernel A to 2^-7 (1 + |plain|) and to twice the plain version's
-distance from the f64 math.
+identical, the bf16 kernel A to 2^-7 (1 + |plain|) and to twice the plain
+version's distance from the f64 math.
 """
 
 from __future__ import annotations
@@ -59,27 +59,48 @@ from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
 
 _WARPS = 8  # WARPS in csrc/attention_tile.cuh
-_KT = 32  # KT in csrc/attention_tile.cuh: keys per tile of the STREAM form
+_F32_KT = 64  # KT in csrc/attention_f32.cu: keys per G1 tile
 # the qkv dtypes of the training attentions' kernels (K1, K5a/K5b)
 TRAIN_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory the CUDA-core attention tile asks for
-    (``csrc/attention_tile.cuh``: K8, the f32 kernel A, K9): K (rows padded
+    (``csrc/attention_tile.cuh``: K8, K9): K (rows padded
     by one word) and V of one head in ``dtype`` (f32 twice bf16's), one f32
     score row and one q row per warp. It sets the gate of K8 and K9
-    (:func:`attention_shapes_ok`); K3 and kernel A stream past it
+    (:func:`attention_shapes_ok`); K3 and kernel A take any N past it
     (:func:`attention_fwd_shapes_ok`)."""
     words = head_dim * dtype.itemsize // 4
     return 4 * (n * (words + 1) + n * words + _WARPS * n + _WARPS * head_dim)
 
 
-def attention_stream_smem_bytes(n: int, head_dim: int) -> int:
-    """Shared memory of the tile's STREAM form (the f32 kernel A past
-    :func:`attention_smem_bytes`): one 32-key tile of f32 K or V (rows
-    padded by one word), one f32 score row of ``n`` and one q row per warp."""
-    return 4 * (_KT * (head_dim + 1) + _WARPS * n + _WARPS * head_dim)
+def _f32_strip_words(n: int) -> int:
+    """Words per row of a score strip in ``csrc/attention_f32.cu``: ``n``
+    rounded up to 4, then to 8 mod 32."""
+    n4 = -(-n // 4) * 4
+    return n4 + (8 - n4) % 32
+
+
+def attention_f32_smem_bytes(n: int, head_dim: int, rows: int, backward: bool = False) -> int:
+    """Shared memory of a block of ``rows`` queries of the f32 kernel A
+    (``backward``: of kernel B's rows pass) in ``csrc/attention_f32.cu``:
+    the block's q rows (and do rows), at least 16 of each, a 128-key K / V
+    tile, all f32 rows padded to hd + 4 words, and the score strip (and the
+    dp strip) of ``rows`` x ``n``."""
+    ld = head_dim + 4
+    strips = (2 if backward else 1) * rows * _f32_strip_words(n)
+    return 4 * ((2 if backward else 1) * max(rows, 16) * ld + 2 * _F32_KT * ld + strips)
+
+
+def attention_f32_rows(n: int, head_dim: int, backward: bool = False) -> int:
+    """Queries per block of the f32 kernel A (``backward``: kernel B's rows
+    pass), as the kernel picks them: the most of 32, 16, .., 1 whose plan
+    fits in the shared memory; 0 where none does."""
+    for rows in (32, 16, 8, 4, 2, 1):
+        if attention_f32_smem_bytes(n, head_dim, rows, backward) <= SMEM_LIMIT:
+            return rows
+    return 0
 
 
 def attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
@@ -93,13 +114,11 @@ def attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat
 def attention_fwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """The gate of kernel A and of K3 (bf16 only): hd a multiple of 8 and <=
     128; in bf16 any n (the tensor-core kernels stream K and V past 227 KB),
-    in f32 the CUDA-core tile resident or streamed (n <= ~6,000 at hd 128,
-    past any N that JAX's K1 gate admits)."""
+    in f32 every n with a plan (:func:`attention_f32_rows`: n <= ~39,000 at
+    hd 128, past any N that JAX's K1 gate admits)."""
     if head_dim % 8 or not 0 < head_dim <= 128 or n < 1:
         return False
-    return (dtype != torch.float32
-            or min(attention_smem_bytes(n, head_dim, dtype),
-                   attention_stream_smem_bytes(n, head_dim)) <= SMEM_LIMIT)
+    return dtype != torch.float32 or attention_f32_rows(n, head_dim) > 0
 
 
 def _q_scale(head_dim: int, dtype: torch.dtype) -> torch.Tensor:
@@ -206,6 +225,8 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, *, qs=None, 
         return attention_fwd_plain(qkv, num_heads, head_dim, qs=qs, in_fq=in_fq, n_valid=n_valid)
     n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_fwd",
                                TRAIN_DTYPES, attention_fwd_shapes_ok)
+    if qkv.dtype == torch.float32:  # the f32 kernel stages 16-byte chunks
+        require(qkv, "qkv", qkv.dtype, qkv.device, align=16)
     if in_fq is not None:
         check_qs(qs, qkv.device)
     b, n, _ = qkv.shape

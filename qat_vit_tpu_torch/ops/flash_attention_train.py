@@ -6,9 +6,9 @@
   or f32) → ``[B, N, H·hd]``, differentiable. Forward: kernel A
   (``ops/flash_attention.attention_fwd``); backward: kernel B
   (:func:`attention_bwd`: in bf16 ``csrc/attention_bwd_mma.cu`` on the
-  tensor cores, in f32 ``csrc/attention_bwd.cu``). Only the raw ``qkv`` is
-  saved; the ``[B, H, N, N]`` probabilities never exist in memory in either
-  direction.
+  tensor cores, in f32 ``csrc/attention_f32.cu`` on the CUDA cores). Only
+  the raw ``qkv`` is saved; the ``[B, H, N, N]`` probabilities never exist
+  in memory in either direction.
 - :func:`attention_train_fq`: the same over the RAW qkv GEMM output with the
   qkv activation fake-quant inside both kernels (``qs = [scale, zp]``, an f32
   device tensor from the already-updated observer). The backward recomputes
@@ -27,7 +27,6 @@ import torch
 
 from qat_vit_tpu_torch import _build
 from qat_vit_tpu_torch.ops._cuda import (
-    SMEM_LIMIT,
     bwd_scale_f32,
     ptr,
     reference_on,
@@ -38,6 +37,7 @@ from qat_vit_tpu_torch.ops._cuda import (
 from qat_vit_tpu_torch.ops.flash_attention import (
     TRAIN_DTYPES,
     _check_attention,
+    attention_f32_rows,
     attention_fwd,
     attention_fwd_plain,
     check_qs,
@@ -48,8 +48,9 @@ from qat_vit_tpu_torch.ops.flash_attention import (
 )
 from qat_vit_tpu_torch.quant.fake_quant import ste_mask
 
-_BWD_WARPS = 8  # WARPS in csrc/attention_bwd.cu
-_BWD_TR = 32  # TR in csrc/attention_bwd.cu: rows per tile of the streamed form
+# C_KEYS and QT in csrc/attention_f32.cu: keys per block and queries per
+# tile of the f32 kernel B's keys pass
+_F32_KEYS, _F32_QT = 32, 64
 # the JAX package's gate on its K1 kernels (qat_vit_tpu/ops/_tiling.py
 # shapes_ok and batched_softmax_fits at block_b 4): the packed width a
 # multiple of 128 lanes, hd dividing 128, and the stacked f32 scores of 4
@@ -57,26 +58,25 @@ _BWD_TR = 32  # TR in csrc/attention_bwd.cu: rows per tile of the streamed form
 _JAX_LANE, _JAX_BLOCK_B, _JAX_SCORE_BYTES = 128, 4, 24 * 1024 * 1024
 
 
-def attention_bwd_smem_bytes(n: int, head_dim: int, streamed: bool = False) -> int:
-    """Shared memory the f32 kernel B (``csrc/attention_bwd.cu``) asks for:
-    f64 softmax sums and f32 max / rowsum per row, two f32 rows of N and two
-    of hd per warp, and either q, k, v and do of the whole head (resident,
-    f32 rows padded by one word: N <= 203 at hd 64) or two 32-row tiles of
-    them (``streamed``, which the kernel takes past that plan). The bf16
-    kernel B (``csrc/attention_bwd_mma.cu``) takes any N."""
-    row = 4 * (head_dim + 1)
-    staged = 2 * _BWD_TR * row if streamed else 4 * n * row
-    return staged + 16 * n + 8 * (_BWD_WARPS * n + _BWD_WARPS * head_dim)
+def attention_bwd_keys_smem_bytes(head_dim: int) -> int:
+    """Shared memory of a block of the f32 kernel B's keys pass
+    (``csrc/attention_f32.cu``), whatever N: the row statistics of a query
+    tile (f64 sum, f32 max and rowsum), the block's K and V and the tile's q
+    and do rows (f32, padded to hd + 4 words), and its p^T and ds^T tiles
+    (rows of 72 words). The rows pass: ``attention_f32_smem_bytes(n, hd,
+    rows, backward=True)``."""
+    ld = head_dim + 4
+    return 16 * _F32_QT + 4 * (2 * (_F32_KEYS + _F32_QT) * ld + 2 * _F32_KEYS * (_F32_QT + 8))
 
 
 def attention_bwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Kernel B's gate: hd a multiple of 8 and <= 128; in bf16 any n, in f32
-    the resident or the streamed plan within the shared memory (n <= ~2,400
-    at hd 128, past any N that JAX's K1 gate admits)."""
+    every n with a rows-pass plan (:func:`attention_f32_rows` with
+    ``backward``: n <= ~18,000 at hd 128, past any N that JAX's K1 gate
+    admits; the keys pass's plan does not depend on n)."""
     if head_dim % 8 or not 0 < head_dim <= 128 or n < 1:
         return False
-    return (dtype != torch.float32
-            or attention_bwd_smem_bytes(n, head_dim, streamed=True) <= SMEM_LIMIT)
+    return dtype != torch.float32 or attention_f32_rows(n, head_dim, backward=True) > 0
 
 
 def _jax_gate_ok(num_heads: int, head_dim: int, seq_len: int = None) -> bool:
@@ -99,7 +99,7 @@ def attention_train_available(num_heads: int, head_dim: int, seq_len: int = None
     admits hd 4, 2 and 1 from 32, 64 and 128 heads; ROADMAP Queue 3). Both
     kernels of each dtype take every N this admits (N <= 1,248, at one head
     of 128): the bf16 kernels A and B on the tensor cores at any N, the f32
-    ones streaming past their shared-memory plans. True on the CPU as well,
+    ones with fewer rows per block as N grows. True on the CPU as well,
     where the plain versions run, so both devices take the same branch of
     the model."""
     return (dtype in TRAIN_DTYPES and num_heads >= 1 and head_dim % 8 == 0
@@ -142,9 +142,11 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, hea
 def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim: int, *,
                   qs=None, in_fq=None, n_valid: int = None) -> torch.Tensor:
     """dqkv ``[B, N, 3·H·hd]`` of :func:`attention_fwd` for the output
-    gradient ``do`` of the qkv dtype, bf16 or f32 (kernel B on CUDA: in bf16
-    the two tensor-core launches of ``qvt_attention_bwd_mma``, counted as one
-    call; its plain version on the CPU)."""
+    gradient ``do`` of the qkv dtype, bf16 or f32 (kernel B on CUDA, two
+    launches counted as one call: in bf16 the tensor-core passes of
+    ``qvt_attention_bwd_mma``, in f32 ``qvt_attention_bwd_rows`` then
+    ``qvt_attention_bwd_keys`` over an f64 ``[3, B, H, N]`` scratch of the
+    rows' statistics; its plain version on the CPU)."""
     if use_plain(qkv):
         return attention_bwd_plain(qkv, do, num_heads, head_dim, qs=qs, in_fq=in_fq,
                                    n_valid=n_valid)
@@ -152,6 +154,9 @@ def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim:
                                attention_bwd_shapes_ok)
     b, n, three_d = qkv.shape
     require(do, "do", qkv.dtype, qkv.device, (b, n, num_heads * head_dim))
+    if qkv.dtype == torch.float32:  # the f32 kernels stage 16-byte chunks
+        require(qkv, "qkv", qkv.dtype, qkv.device, align=16)
+        require(do, "do", do.dtype, do.device, align=16)
     if in_fq is not None:
         check_qs(qs, qkv.device)
     dqkv = torch.empty((b, n, three_d), dtype=qkv.dtype, device=qkv.device)
@@ -159,13 +164,15 @@ def attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head_dim:
         lo, hi = in_fq if in_fq is not None else (0, 0)
         fq = (ptr(qs) if in_fq is not None else None, int(in_fq is not None), float(lo), float(hi))
         scale = float(bwd_scale_f32(head_dim, "cpu"))
-        if qkv.dtype == torch.float32:
-            _build.load().call(
-                "qvt_attention_bwd", ptr(qkv), ptr(do), fq[0], ptr(dqkv), b, n, num_heads,
-                head_dim, n_valid, scale, *fq[1:], stream_of(qkv.device))
+        lib = _build.load()
+        if qkv.dtype == torch.float32:  # the rows pass's statistics: max, sum, rowsum(dp·p)
+            stats = torch.empty((3, b, num_heads, n), dtype=torch.float64, device=qkv.device)
+            for name in ("qvt_attention_bwd_rows", "qvt_attention_bwd_keys"):
+                lib.call(name, ptr(qkv), ptr(do), fq[0], ptr(stats), ptr(dqkv), b, n, num_heads,
+                         head_dim, n_valid, scale, *fq[1:], stream_of(qkv.device))
         else:  # the rows pass's statistics for the keys pass: lse2 and rowsum(dp·p)
             stats = torch.empty((2, b, num_heads, n), dtype=torch.float32, device=qkv.device)
-            _build.load().call(
+            lib.call(
                 "qvt_attention_bwd_mma", ptr(qkv), ptr(do), fq[0], ptr(stats), ptr(dqkv), b, n,
                 num_heads, head_dim, n_valid, scale, *fq[1:], stream_of(qkv.device))
         attention_bwd.launches += 1

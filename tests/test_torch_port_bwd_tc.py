@@ -229,9 +229,11 @@ def test_launch_arguments(recorder):
     library): bf16 goes to ``qvt_attention_bwd_mma`` with an f32
     ``[2, B, H, N]`` statistics scratch, the f32 scale hd^-0.5 and the
     fake-quant pointer, flag and range only with ``in_fq``, at any N (here
-    past the old plan); f32 keeps the CUDA-core ``qvt_attention_bwd``; one
-    counted launch per call; an unsupported head dim or dtype, or an f32 N
-    past the streamed plan, raises before any launch."""
+    past the old plan); f32 goes to the CUDA-core rows and keys passes
+    (``qvt_attention_bwd_rows`` then ``qvt_attention_bwd_keys``, the same
+    arguments, an f64 statistics scratch); one counted call each; an
+    unsupported head dim or dtype, or an f32 N past the rows pass's plan,
+    raises before any launch."""
     b, n, h, hd = 2, 600, 6, 64
     qkv, do = torch.zeros(b, n, 3 * h * hd, dtype=BF16), torch.zeros(b, n, h * hd, dtype=BF16)
     qs = torch.tensor(FQ)
@@ -249,18 +251,20 @@ def test_launch_arguments(recorder):
     assert args[5:10] == (b, n, h, hd, n) and args[10:14] == (scale, 1, 0.0, 255.0)
     x32, g32 = torch.zeros(1, 700, 3 * 128), torch.zeros(1, 700, 128)
     out = fat.attention_bwd(x32, g32, 1, 128, qs=qs, in_fq=IN_FQ)
-    name, args = recorder.calls[-1]
-    assert name == "qvt_attention_bwd" and out.dtype == torch.float32
-    assert args[:4] == (x32.data_ptr(), g32.data_ptr(), qs.data_ptr(), out.data_ptr())
-    assert args[4:9] == (1, 700, 1, 128, 700)
-    assert args[9:13] == (float(np.float32(128 ** -0.5)), 1, 0.0, 255.0)
+    (rows, args), (keys, args2) = recorder.calls[-2:]
+    assert (rows, keys) == ("qvt_attention_bwd_rows", "qvt_attention_bwd_keys")
+    assert args == args2 and out.dtype == torch.float32
+    assert args[:3] == (x32.data_ptr(), g32.data_ptr(), qs.data_ptr())
+    assert isinstance(args[3], int) and args[4] == out.data_ptr()
+    assert args[5:10] == (1, 700, 1, 128, 700)
+    assert args[10:14] == (float(np.float32(128 ** -0.5)), 1, 0.0, 255.0)
     assert fat.attention_bwd.launches == before + 3
     calls = len(recorder.calls)
     with pytest.raises(ValueError, match="unsupported"):
         fat.attention_bwd(torch.zeros(1, 17, 3 * 60, dtype=BF16), torch.zeros(1, 17, 60,
                                                                                dtype=BF16), 1, 60)
-    with pytest.raises(ValueError, match="unsupported"):  # past the f32 streamed plan
-        fat.attention_bwd(torch.zeros(1, 3000, 3 * 128), torch.zeros(1, 3000, 128), 1, 128)
+    with pytest.raises(ValueError, match="unsupported"):  # past the f32 rows pass's plan
+        fat.attention_bwd(torch.zeros(1, 18473, 3 * 128), torch.zeros(1, 18473, 128), 1, 128)
     with pytest.raises(ValueError, match="dtype"):
         fat.attention_bwd(qkv.half(), do.half(), h, hd)
     with pytest.raises(ValueError, match="qs: missing"):
@@ -271,8 +275,9 @@ def test_launch_arguments(recorder):
 def test_kernels_take_every_n_the_jax_gate_admits():
     """Wherever the K1 gate (``attention_train_available``) is true, kernel
     A's and kernel B's own shape checks pass in both dtypes: the bf16
-    kernels at any N, the f32 ones resident or streamed (the widest N, 1,248,
-    at one head of 128); the old resident plans stop well before."""
+    kernels at any N, the f32 ones with a plan of R rows per block (the
+    widest N, 1,248, at one head of 128, where kernel A takes 16 rows and
+    kernel B's rows pass 8); the old resident plans stop well before."""
     widest = 0
     for hd in (8, 16, 32, 64, 128):
         for h in range(1, 17):
@@ -283,7 +288,8 @@ def test_kernels_take_every_n_the_jax_gate_admits():
                         assert fa.attention_fwd_shapes_ok(n, hd, dt), (h, hd, n, dt)
                         assert fat.attention_bwd_shapes_ok(n, hd, dt), (h, hd, n, dt)
     assert widest == 1248 and fat.attention_train_available(1, 128, 1248, torch.float32)
-    assert fat.attention_bwd_smem_bytes(204, 64) > 232_448 >= fat.attention_bwd_smem_bytes(203, 64)
     assert fa.attention_smem_bytes(1248, 128, torch.float32) > 232_448
-    assert fat.attention_bwd_smem_bytes(1248, 128, streamed=True) <= 232_448
-    assert fa.attention_stream_smem_bytes(1248, 128) <= 232_448
+    assert fa.attention_f32_rows(1248, 128) == 16 and fa.attention_f32_rows(1248, 128, True) == 8
+    assert fa.attention_f32_smem_bytes(1248, 128, 8, backward=True) <= 232_448
+    assert fa.attention_f32_smem_bytes(1248, 128, 16) <= 232_448
+    assert fat.attention_bwd_keys_smem_bytes(128) <= 232_448

@@ -877,18 +877,20 @@ def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypat
 # the f32 forms of the training attention (K1's kernels A and B, K5a, K5b)
 # ---------------------------------------------------------------------------
 
-# past the resident plans (N 203 for kernel B, 420 for kernel A at hd 64),
-# streamed: N 512 at 6 heads of 64 and of 128, 1,248 at one head of 128
+# ViT-S at batch 8 and 256, an odd N, N 512 at 6 heads of 64 and of 128
+# (kernel B's rows pass at 16 rows per block there), 1,248 at one head of
+# 128 (kernel A at 16 rows, kernel B at 8)
 F32_ATTN_SHAPES = [(8, 197, 6, 64, 197), (4, 32, 2, 64, 17), (2, 197, 12, 64, 190),
                    (2, 50, 4, 32, 50), (2, 512, 6, 64, 500), (2, 512, 6, 128, 512),
-                   (1, 1248, 1, 128, 1248)]
+                   (1, 1248, 1, 128, 1248), (256, 197, 6, 64, 197), (3, 333, 6, 64, 301)]
 
 
 @pytest.mark.parametrize("fq", [False, True])
 @pytest.mark.parametrize("b,n,heads,hd,n_valid", F32_ATTN_SHAPES)
 def test_attention_fwd_f32(dev, b, n, heads, hd, n_valid, fq):
     """Kernel A in f32 (with and without the in-kernel fake-quant, which
-    rounds nothing back): identical to its plain version, f32 out."""
+    rounds nothing back): identical to its plain version, f32 out, and two
+    launches identical."""
     qkv, _, qs = _qkv_case(dev, b, n, heads, hd, n + heads + 1)
     qkv = qkv.float() + 1e-3 * torch.randn(qkv.shape, device=dev,
                                            generator=torch.Generator(dev).manual_seed(n))
@@ -897,12 +899,14 @@ def test_attention_fwd_f32(dev, b, n, heads, hd, n_valid, fq):
     got = fa.attention_fwd(qkv, heads, hd, n_valid=n_valid, **kw)
     assert fa.attention_fwd.launches == before + 1 and got.dtype == torch.float32
     _same(got, fa.attention_fwd_plain(qkv, heads, hd, n_valid=n_valid, **kw))
+    _same(got, fa.attention_fwd(qkv, heads, hd, n_valid=n_valid, **kw))
 
 
 @pytest.mark.parametrize("fq", [False, True])
 @pytest.mark.parametrize("b,n,heads,hd,n_valid", F32_ATTN_SHAPES)
 def test_attention_bwd_f32(dev, b, n, heads, hd, n_valid, fq):
-    """Kernel B in f32 (with and without the STE mask): identical dqkv."""
+    """Kernel B in f32 (with and without the STE mask): identical dqkv, and
+    two launches identical."""
     qkv, do, qs = _qkv_case(dev, b, n, heads, hd, 2 * n + heads + 1)
     qkv, do = qkv.float() * 1.01, do.float() * 0.99
     kw = {"qs": qs, "in_fq": (0, 255)} if fq else {}
@@ -910,21 +914,22 @@ def test_attention_bwd_f32(dev, b, n, heads, hd, n_valid, fq):
     got = fat.attention_bwd(qkv, do, heads, hd, n_valid=n_valid, **kw)
     assert fat.attention_bwd.launches == before + 1 and got.dtype == torch.float32
     _same(got, fat.attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid, **kw))
+    _same(got, fat.attention_bwd(qkv, do, heads, hd, n_valid=n_valid, **kw))
     if fq:
         assert (got == 0).any() and (got != 0).any()
 
 
 def test_attention_f32_gate(dev):
-    """The f32 kernels stream past their resident plans (kernel B's ends at
-    N = 203 at hd 64): the gate takes JAX's N range, and the wrapper raises,
-    launching nothing, only past the streamed plan (N 3,000 at hd 128)."""
+    """The f32 kernels take fewer rows per block as N grows: the gate takes
+    JAX's N range, and the wrapper raises, launching nothing, only past the
+    rows pass's plan at one row per block (N 18,473 at hd 128)."""
     assert fat.attention_train_available(6, 64, 204, torch.float32)
     assert fat.attention_train_available(6, 64, 512, torch.float32)
     assert not fat.attention_train_available(6, 64, 513, torch.float32)
-    qkv = torch.zeros(1, 3000, 3 * 128, device=dev)
+    qkv = torch.zeros(1, 18473, 3 * 128, device=dev)
     before = fat.attention_bwd.launches
     with pytest.raises(ValueError, match="unsupported"):
-        fat.attention_bwd(qkv, torch.zeros(1, 3000, 128, device=dev), 1, 128)
+        fat.attention_bwd(qkv, torch.zeros(1, 18473, 128, device=dev), 1, 128)
     assert fat.attention_bwd.launches == before
 
 
