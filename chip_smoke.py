@@ -68,14 +68,18 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    quantize GEMM (K7) identical to its plain version at the exact path's
    batch-32 shapes and at K 96 and 480 (f32 and bf16 input, per-tensor and
    per-channel), the
-   scale-after-dot attention (K8) at ``[32, 197, 1152]`` in f32 and bf16,
-   with masked keys, and the whole-block kernels (K9a, K9b) against the
-   chain through the plain ops at batch 32; the exact path with
+   scale-after-dot attention (K8: f32 on ``attention_f32.cu``, bf16 on the
+   tensor cores in ``attention_q_mma.cu``) at ``[32, 197, 1152]`` in f32
+   and bf16, with masked keys, and at ViT-S/16's 577 tokens at 384 px
+   (``[8, 577, 1152]``) in both, and the whole-block kernels (K9a, K9b)
+   against the chain through the plain ops at batch 32; the exact path with
    ``use_pallas=True, attn_impl="pallas"`` (49 K7 and 12 K8 launches,
    identical to the same path through the plain K7/K8, within
    ``EXACT_REL_L2`` of the exact path); ``mixed_none`` + ``pallas_fused``
    against its ``*_plain`` twin with K3's attention and ``mixed`` +
-   ``pallas`` against its ``*_plain`` twin; then ``megablock:4:tight`` and
+   ``pallas`` against its ``*_plain`` twin with K8's attention (each call
+   held by ``compare_tc``) and within ``MIXED_CHAIN_REL_L2`` of the
+   all-plain twin; then ``megablock:4:tight`` and
    ``megamodel_res:4:tight`` at batch 256 (12 and 1 cooperative launches,
    logits bit-identical to the plain megamodel chain: K9 keeps the CUDA-core
    attention tile) with the ms per forward of all three, in turns;
@@ -87,7 +91,8 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    in-kernel fake-quant; two launches identical, kernel B's STE zero set
    the plain version's, device ms beside SDPA's; one kernel-B call
    profiled must show its rows and keys kernels) and of K5a / K5b
-   (``[2, 2305, 1728]``), each bit-identical to its plain version
+   (``[2, 2305, 1728]``; K5a, kernel A's f32 kernel, also at 7,000 tokens,
+   past the earlier kernel's plan), each bit-identical to its plain version
    (``attention_long_q8``: K6a's int8 bound); the ``i8`` chain on phase 5's
    export at batch 8 x 4 queries (47 launches; against its plain twin
    printed, not held; identical to the plain twin with the kernels'
@@ -97,9 +102,9 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    through the kernels and through ``reference_impl()``: identical.
 
 The bf16 long attention pair (K5a ``attention_long_mma``, K5b
-``attention_long_bwd_mma``, phases 5 and 6) and the bf16 kernels A
-(``attention_q_mma``) and B (``attention_bwd_mma``, phase 2) sum on the
-tensor cores: each is held to ``compare_tc``'s tolerance against its plain
+``attention_long_bwd_mma``, phases 5 and 6), the bf16 kernels A
+(``attention_q_mma``) and B (``attention_bwd_mma``, phase 2) and the bf16
+K8 (``attention_q_mma``, phase 7) sum on the tensor cores: each is held to ``compare_tc``'s tolerance against its plain
 version and to the plain version's own error against the f64 math, and
 two of its launches on the same inputs must be identical; kernel B's STE
 zero set must be the plain version's. K6a (``attention_long_q_mma``, both score
@@ -160,9 +165,17 @@ INT8_MIN_EXACT = 0.999
 # - OWLv2-pruned's K6 chain (phase 5, K6a): logits within 3.2e-2, between
 #   the readings of port_scripts/k6_chain_check.py at batch 2 (sound
 #   attentions 2.44-2.94e-2, planted faults 3.54-3.88e-2); the i8 chain
-#   (phase 8), which that control does not read, is printed against it.
+#   (phase 8), which that control does not read, is printed against it;
+# - ViT-S's mixed + pallas chain (phase 7, the bf16 K8): logits within
+#   3e-2 of the all-plain twin; port_scripts/k8_chain_check.py at batch 32
+#   read sound attentions 0-1.927e-2 (K8 1.927e-2, exp2 p 1.823e-2, 16-dim
+#   score chunks 1.039e-2, 16-key p.v chunks 8.66e-3) and planted faults
+#   4.768e-2-3.778e-1 (block 0 one bf16 step up 4.768e-2, the last key
+#   tile dropped 8.005e-2, scores scaled twice 8.943e-2, a head zeroed
+#   3.778e-1).
 CHAIN_REL_L2 = 4e-2
 LONG_CHAIN_REL_L2 = 3.2e-2
+MIXED_CHAIN_REL_L2 = 3e-2
 # megamodel chain (bf16 stream, tanh-GELU, multiply-quantize) vs the exact
 # f32 path (erf-GELU, divide-quantize): ~2.5e-2 on the micro model
 EXACT_REL_L2 = 0.2
@@ -210,8 +223,12 @@ DET_BOX_MEAN_ERR, DET_CORR = 0.03, 0.97
 # synthetic images behind the teacher cache, the eval batch and batches
 DT_B, DT_STEPS, DT_REPLAY_B, DT_REPLAY_STEPS, DT_REPLAY_DEPTH = 16, 3, 2, 2, 2
 DT_N_TRAIN, DT_EVAL_B, DT_EVAL_BATCHES = 64, 16, 2
-# phase 7: timing runs of each serving mode's forward
+# phase 7: timing runs of each serving mode's forward; K8's batch and tokens
+# at ViT-S/16's 384 px (past the earlier kernel's plan)
 SERVE_MODE_RUNS = 10
+K8_B384, K8_N384 = 8, 577
+# phase 8: K5a in f32 past the earlier kernel's plan (6,048 tokens at hd 64)
+K5A_LONG_N = 7000
 # phase 6's replay: each step run from the same state through the kernels,
 # through K5a with K5b's plain version (the hybrid: the same forward) and
 # through the plain versions. The bf16 long pair sums on the tensor cores,
@@ -229,8 +246,9 @@ SERVE_MODE_RUNS = 10
 # whole gradient and the update, where a planted fault hides in the noise.
 DT_REPLAY_QKV_GRAD_REL = 3e-3
 
-# the CUDA-core attention tile's kernel (K8), and the f32 kernels A and B
-CUDA_CORE_ATTENTION = "qat_vit_tpu_torch/csrc/attention_q.cu"
+# the bf16 kernels K3, A and K8 on the tensor cores, and the f32 kernels A
+# and B (the f32 K5a and K8 run kernel A's)
+SHORT_MMA_ATTENTION = "qat_vit_tpu_torch/csrc/attention_q_mma.cu"
 F32_ATTENTION = "qat_vit_tpu_torch/csrc/attention_f32.cu"
 # the kernel group of the CUDA-core mma.sync GEMM tile (csrc/gemm_tile.cuh),
 # which only K7 launches: K2a and K2b run csrc/int8_gemm_wgmma.cu
@@ -282,7 +300,7 @@ def kernel_group(name: str) -> str:
     for key, group in (("long_bwd_rows_mma", "K5b rows"), ("long_bwd_keys_mma", "K5b keys"),
                        ("long_attention_mma", "K5a"), ("long_attention_q_mma", "K6a"),
                        ("long_bwd_rows", "K5b f32 rows"), ("long_bwd_keys", "K5b f32 keys"),
-                       ("long_attention_kernel", "K5a f32"), ("gemm_resid_ln", "K2c RESID_LN_Q"),
+                       ("gemm_resid_ln", "K2c RESID_LN_Q"),
                        ("int8_wgmma_kernel<1,", "K2b GELU_Q"),
                        ("int8_wgmma_kernel<3,", "K2a PLAIN_Q8"), ("int8_wgmma_kernel", "K2a PLAIN"),
                        ("gemm_tiled_kernel", CORE_TILE),
@@ -291,8 +309,7 @@ def kernel_group(name: str) -> str:
                        ("attention_bwd_keys_mma", "kernel B keys"),
                        ("attention_f32_bwd_rows", "kernel B f32 rows"),
                        ("attention_f32_bwd_keys", "kernel B f32 keys"),
-                       ("attention_f32_fwd", "kernel A f32"), ("megablock", "K9"),
-                       ("attention_kernel", "K8")):
+                       ("attention_f32_fwd", "kernel A f32"), ("megablock", "K9")):
         if key in n:
             return group
     if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90", "nvjet")):
@@ -390,6 +407,32 @@ def k3_in_plain_chain(fa):
 
     with plain_ops_with("PLAIN_OPS", attention=attention):
         yield calls
+
+
+@contextlib.contextmanager
+def k8_in_plain_chain(fa, la):
+    """Within the block, the short chains' plain twins take the bf16 K8 as
+    their float attention stage (``attn_impl="pallas"``): each call runs the
+    kernel and its plain version on the same inputs, holds the kernel by
+    :func:`compare_tc` against the plain version and the f64 math and
+    returns the kernel's output. Yields the list of worst |diff| per call."""
+    from qat_vit_tpu_torch.serve import int8_vit
+
+    calls = []
+    plain = int8_vit.flash_attention_qkv_plain
+
+    def attention(qkv, h, hd, *, n_valid=None):
+        got = fa.flash_attention_qkv(qkv, h, hd, n_valid=n_valid)
+        ref = la.long_attention_f64(qkv, h, hd, n_valid=n_valid)[0]
+        calls.append(compare_tc("flash_attention in the chain", got,
+                                plain(qkv, h, hd, n_valid=n_valid), ref, 1)[0])
+        return got
+
+    int8_vit.flash_attention_qkv_plain = attention
+    try:
+        yield calls
+    finally:
+        int8_vit.flash_attention_qkv_plain = plain
 
 
 @contextlib.contextmanager
@@ -1597,6 +1640,7 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
 
     from qat_vit_tpu_torch import _build
     from qat_vit_tpu_torch.ops import block_kernel as bk
+    from qat_vit_tpu_torch.ops import long_attention as la
     from qat_vit_tpu_torch.ops import pallas_gemm as pg
     from qat_vit_tpu_torch.ops._cuda import reference_impl
     from qat_vit_tpu_torch.serve.int8_vit import _embed, int8_apply
@@ -1636,18 +1680,31 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
                 kw, "qat_vit_tpu/ops/pallas_gemm.py:51",
                 gemm_work(m_rows, k, n, 4, (in_bytes - 1) * m_rows * k),
                 int_mm(torch, x_q, layer), {"exact": True}))
+    # K8 at [32, 197, 1152] and, past the earlier kernel's plan, at ViT-S/16's
+    # 577 tokens at 384 px: f32 identical, bf16 by compare_tc
     qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n_tok, 3 * d)).astype(np.float32)).to(dev)
-    for dt, n_valid in ((f32t, n_tok), (f32t, 3 * n_tok // 4), (bf16, 3 * n_tok // 4)):
-        t = qkv.to(dt)
+    qkv384 = torch.from_numpy(rng.normal(0, 1.0, (K8_B384, K8_N384, 3 * d)).astype(
+        np.float32)).to(dev)
+    for x, dt, n_valid in ((qkv, f32t, n_tok), (qkv, f32t, 3 * n_tok // 4),
+                           (qkv, bf16, 3 * n_tok // 4), (qkv384, f32t, K8_N384),
+                           (qkv384, bf16, K8_N384 - 7)):
+        t = x.to(dt)
+        xb, xn = t.shape[:2]
         eb = 4 if dt == f32t else 2
+        if dt == f32t:
+            extra = {"source": F32_ATTENTION, "exact": True, "repeat": True}
+        else:
+            extra = {"source": SHORT_MMA_ATTENTION,
+                     "tc": (lambda t=t, nv=n_valid: la.long_attention_f64(t, heads, hd,
+                                                                          n_valid=nv)[0], 1)}
         cases.append((
-            f"flash_attention [{b}x{n_tok}x{3 * d}] {heads} heads "
+            f"flash_attention [{xb}x{xn}x{3 * d}] {heads} heads "
             f"{'f32' if dt == f32t else 'bf16'} n_valid {n_valid}",
             fa.flash_attention_qkv, fa.flash_attention_qkv_plain, (t, heads, hd),
             {"n_valid": n_valid}, "qat_vit_tpu/ops/flash_attention.py:36",
-            attention_work(b, n_tok, heads, hd, eb, in_bytes=eb,
+            attention_work(xb, xn, heads, hd, eb, in_bytes=eb,
                            op_type="f32" if dt == f32t else "bf16"),
-            sdpa_forward(torch, t, heads, hd)))
+            sdpa_forward(torch, t, heads, hd), extra))
     # K9a (block 0) and K9b (all 12 blocks) at batch 32 on this export's
     # own activations, against the chain through the plain ops
     x32 = prep(torch.from_numpy(images[:b]))
@@ -1664,7 +1721,7 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
                   (zq, xe, qp["blocks"], qp["norm"]), {**kw9, "depth": depth},
                   "qat_vit_tpu/ops/block_kernel.py:404", one_block * depth, None))
     kernels = check_kernels(torch, cases, "phase 7", slow_plain=(bk.megamodel_res_forward_plain,))
-    del qkv, cases
+    del qkv, qkv384, cases
     ms_chain = median_ms(lambda: bk.model_forward(zq, xe, qp["blocks"], qp["norm"], depth=depth,
                                                   **kw9))
     print(f"phase 7 the K4 chain over the same {depth} blocks at batch {b}: {ms_chain:.4f} ms "
@@ -1709,11 +1766,12 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
         torch.cuda.synchronize()
         counts = (fs.int8_dense.launches, fs.int8_dense_gelu_q.launches,
                   fa.fused_attention_qkv.launches, fa.flash_attention_qkv.launches)
-        # the twin with K3 as its attention stage where the chain takes K3 (K8
-        # is bit-identical to its plain version)
-        with k3_in_plain_chain(fa) if attn_impl == "pallas_fused" else contextlib.nullcontext():
+        # the twin with the chain's tensor-core attention as its attention
+        # stage: K3 (pallas_fused) or the bf16 K8 (pallas)
+        k3 = attn_impl == "pallas_fused"
+        with k3_in_plain_chain(fa) if k3 else k8_in_plain_chain(fa, la) as calls:
             want = int8_apply(qp, x32, cfg, fused=mode + "_plain", attn_impl=attn_impl, **preset)
-        twin = mode + "_plain" + (" with K3's attention" if attn_impl == "pallas_fused" else "")
+        twin = f"{mode}_plain with {'K3' if k3 else 'K8'}'s attention"
         ms = median_ms(lambda: int8_apply(qp, x32, cfg, fused=mode, attn_impl=attn_impl,
                                           **preset), runs=SERVE_MODE_RUNS)
         print(f"phase 7 {mode} + {attn_impl} at batch {b}: launches int8_dense {counts[0]} "
@@ -1721,11 +1779,19 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
               f"identical to {twin} {torch.equal(got, want)}; {ms:.2f} ms per forward "
               f"(median of {SERVE_MODE_RUNS})", flush=True)
         expect = (0, 0, depth, 0) if mode == "mixed_none" else (2 * depth, depth, 0, depth)
-        if counts != expect or not torch.equal(got, want):
-            fail(f"{mode} + {attn_impl}: launches {counts} (expected {expect}), identical to "
-                 f"{twin} {torch.equal(got, want)}")
+        if counts != expect or len(calls) != depth or not torch.equal(got, want):
+            fail(f"{mode} + {attn_impl}: launches {counts} (expected {expect}), {len(calls)} "
+                 f"attention calls in the twin, identical to {twin} {torch.equal(got, want)}")
         if mode == "mixed":
             launches["flash_attention bf16"] = counts[3]
+            plain = int8_apply(qp, x32, cfg, fused="mixed_plain", attn_impl=attn_impl, **preset)
+            rel = rel_l2(got.float(), plain.float())
+            print(f"phase 7 {mode} + {attn_impl} at batch {b}: K8 per call within the "
+                  f"tolerance (worst |diff| {max(calls):.3e}); logits vs the all-plain twin rel "
+                  f"L2 {rel:.3e} (bound {MIXED_CHAIN_REL_L2}), top-1 agreement "
+                  f"{float((got.argmax(-1) == plain.argmax(-1)).float().mean()):.4f}", flush=True)
+            if rel > MIXED_CHAIN_REL_L2:
+                fail(f"{mode} + {attn_impl}: logits rel L2 {rel:.3e} from the all-plain twin")
 
     # (e) K9a / K9b at batch 256: logits bit-identical to the plain megamodel
     # chain (K9 keeps the CUDA-core attention tile, K3's plain version bit
@@ -1813,6 +1879,10 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
     qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n, 3 * d)).astype(np.float32)).to(dev)
     do = torch.from_numpy(rng.normal(0, 1.0, (b, n, d)).astype(np.float32)).to(dev)
     fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=f32t, device=dev), "in_fq": (0, 255)}
+    qkv_long = torch.from_numpy(rng.normal(0, 1.0, (1, K5A_LONG_N, 3 * d)).astype(
+        np.float32)).to(dev)
+    # K5a in f32 runs kernel A's f32 kernel
+    k5a_f32 = {"source": F32_ATTENTION, "repeat": True}
     q8_attn = [{"ops": 2 * b * heads * n * n * hd, "type": "int8",  # the int8 score dot
                 "bytes": b * n * 2 * d + 2 * b * n * d + b * n * d},
                {"ops": 2 * b * heads * n * n * hd, "type": "bf16", "bytes": 0}]  # p @ v
@@ -1827,7 +1897,14 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
         (f"attention_long f32 [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_qkv,
          la.long_attention_qkv_plain, (qkv, heads, hd), {}, "qat_vit_tpu/ops/long_attention.py:63",
          attention_work(b, n, heads, hd, 4, in_bytes=4, op_type="f32"),
-         sdpa_forward(torch, qkv, heads, hd)),
+         sdpa_forward(torch, qkv, heads, hd), k5a_f32),
+        # past the earlier f32 kernel's plan (6,048 tokens at hd 64)
+        (f"attention_long f32 [1x{K5A_LONG_N}x{3 * d}] {heads} heads n_valid "
+         f"{K5A_LONG_N - 10}", la.long_attention_qkv, la.long_attention_qkv_plain,
+         (qkv_long, heads, hd), {"n_valid": K5A_LONG_N - 10},
+         "qat_vit_tpu/ops/long_attention.py:63",
+         attention_work(1, K5A_LONG_N, heads, hd, 4, in_bytes=4, op_type="f32"),
+         sdpa_forward(torch, qkv_long, heads, hd), k5a_f32),
         (f"attention_long_bwd f32 [{b}x{n}x{3 * d}] {heads} heads", la.long_attention_bwd,
          la.long_attention_bwd_plain, (qkv, do, heads, hd), {},
          "qat_vit_tpu/ops/long_attention.py:173",
@@ -1837,7 +1914,7 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
     kernels = check_kernels(torch, cases, "phase 8", exact=True,
                             slow_plain=(la.long_attention_q8_plain, la.long_attention_qkv_plain,
                                         la.long_attention_bwd_plain))
-    del x_qkv, qk8, qkv, do, cases
+    del x_qkv, qk8, qkv, qkv_long, do, cases
     kernels += f32_attention_in_child(fa, fat)
 
     # the i8 chain on phase 5's export at batch 8 x 4 queries: against its
@@ -2111,14 +2188,14 @@ def main() -> None:
                fs.int8_dense_gelu_q: WGMMA_GEMM,
                fs.int8_dense_resid_ln_q: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
                fs.ln_quantize: "qat_vit_tpu_torch/csrc/ln_quantize.cu",
-               fa.fused_attention_qkv: "qat_vit_tpu_torch/csrc/attention_q_mma.cu",
-               fa.attention_fwd: "qat_vit_tpu_torch/csrc/attention_q_mma.cu",
+               fa.fused_attention_qkv: SHORT_MMA_ATTENTION,
+               fa.attention_fwd: SHORT_MMA_ATTENTION,
                fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd_mma.cu",
-               la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long.cu",
+               la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long_mma.cu",
                la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long_q_mma.cu",
                la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd.cu",
                pg.fused_quantize_matmul: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
-               fa.flash_attention_qkv: CUDA_CORE_ATTENTION,
+               fa.flash_attention_qkv: SHORT_MMA_ATTENTION,
                bk.megablock_forward: "qat_vit_tpu_torch/csrc/megablock.cu",
                bk.megamodel_res_forward: "qat_vit_tpu_torch/csrc/megablock.cu"}
     record = {"kernels": [

@@ -3,11 +3,17 @@ one process: each variant is the source with text patches, built by its own nvcc
 into its own library (registers and spills printed), checked bit for bit against
 the unpatched build where it keeps the arithmetic (`sound`), and timed launch by
 launch (kernel A, kernel B's rows and keys passes) at ViT-S [256, 197, 1152] and
-[2, 512, 2304], in_fq off and on: CUDA events around 10 back-to-back launches,
-median of 10, two rounds in opposite orders. Ablations (not sound) show where the
-time goes: the f64 exp or division made cheap, a micro-GEMM skipped.
+[2, 512, 2304], in_fq off and on, and kernel A alone at K5a's f32 shape, OWLv2's
+[2, 2305, 1728] (in_fq off): CUDA events around 10 back-to-back launches, median
+of 10, two rounds in opposite orders. Ablations (not sound) show where the time
+goes: the f64 exp or division made cheap, a micro-GEMM skipped. The `r8` / `r4`
+variants cap the rows per block (R) at 8 / 4: at 2,305 tokens the plan picks 16
+(one block of ~187 KB per SM), 8 fits two blocks per SM and re-reads each
+head's K and V from L2 twice as often.
 
-    python3 port_scripts/k1f32_variants.py [VARIANT ...]
+    python3 port_scripts/k1f32_variants.py [VARIANT ...] [--long]
+
+--long times K5a's shape alone.
 """
 import ctypes
 import os
@@ -50,7 +56,22 @@ VARIANTS = {
                 ("t < C_KEYS * QT; t += THREADS) {  // p^T", "t < 0; t += THREADS) {  // p^T")],
                False),
     "su8": ([("constexpr int SU = 4;", "constexpr int SU = 8;")], True),
+    "r8": ([("if (plan(N, hd, R) <= SMEM_MAX) return R;",
+             "if (R <= 8 && plan(N, hd, R) <= SMEM_MAX) return R;")], True),
+    "r4": ([("if (plan(N, hd, R) <= SMEM_MAX) return R;",
+             "if (R <= 4 && plan(N, hd, R) <= SMEM_MAX) return R;")], True),
+    # kernel A's pieces at R <= 16: its 16-row G1, its sweep-1 (K) and
+    # sweep-2 (V) staging
+    "nog1n": ([("if (c0 < cols) g1_tile<2>", "if (false) g1_tile<2>")], False),
+    "nostA1": ([("    stage(Ts, ld, img + D + k0 * stride, stride, 2 * KT, nk, hd, kv);\n", "")],
+               False),
+    "nostA2": ([("    stage(Ts, ld, img + 2 * D + k0 * stride, stride, 2 * KT, min(2 * KT, N - k0), "
+                 "hd, kv);\n", "")], False),
 }
+# (batch, tokens, heads, hd, the passes timed, in_fq settings)
+SHAPES = ((256, 197, 6, 64, ("A", "rows", "keys"), (0, 1)),
+          (2, 512, 6, 128, ("A", "rows", "keys"), (0, 1)),
+          (2, 2305, 9, 64, ("A",), (0,)))
 ENTRIES = ("qvt_attention_fwd", "qvt_attention_bwd_rows", "qvt_attention_bwd_keys")
 
 
@@ -88,6 +109,7 @@ def build_all(tmp, variants):
 
 def main():
     names = [a for a in sys.argv[1:] if a in VARIANTS]
+    shapes = SHAPES[2:] if "--long" in sys.argv else SHAPES
     variants = {k: v for k, v in VARIANTS.items() if k == "base" or k in names or not names}
     dev = torch.device("cuda")
     qs = torch.tensor([4.2 / 255, 127.0], dtype=torch.float32, device=dev)
@@ -96,16 +118,16 @@ def main():
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(tmp, variants)
-        for b, n, h, hd in ((256, 197, 6, 64), (2, 512, 6, 128)):
+        for b, n, h, hd, passes, fqs in shapes:
             rng = np.random.default_rng(n)
             qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * h * hd)).astype(np.float32)).to(dev)
             do = torch.from_numpy(rng.normal(0, 1, (b, n, h * hd)).astype(np.float32)).to(dev)
             scale_a = float(torch.tensor(hd ** -0.5, dtype=torch.float32))
-            for fq in (0, 1):
+            for fq in fqs:
                 qp = qs.data_ptr() if fq else None
 
                 def launches(lib, out, dq, st):
-                    return {
+                    fns = {
                         "A": lambda: lib.qvt_attention_fwd(
                             qkv.data_ptr(), qp, out.data_ptr(), b, n, h, hd, n, scale_a, fq, 0.0,
                             255.0, stream),
@@ -115,6 +137,7 @@ def main():
                         "keys": lambda: lib.qvt_attention_bwd_keys(
                             qkv.data_ptr(), do.data_ptr(), qp, st.data_ptr(), dq.data_ptr(), b, n,
                             h, hd, n, scale_a, fq, 0.0, 255.0, stream)}
+                    return {k: f for k, f in fns.items() if k in passes}
 
                 results, ref, bufs = {}, None, {}
                 for name, lib in libs.items():
@@ -136,7 +159,8 @@ def main():
                         results.setdefault(name, {}).setdefault(k, []).append(t)
                 for name in libs:
                     got = bufs[name][1]
-                    same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                    same = torch.equal(got[0], ref[0]) and (
+                        "rows" not in passes or torch.equal(got[1], ref[1]))
                     r = results[name]
                     print(f"[{b}x{n}x{3 * h * hd}] {'in_fq' if fq else 'float'} {name}"
                           f"{' (sound)' if variants[name][1] else ''}: identical to base {same}; "

@@ -14,13 +14,19 @@ process that imports the package from that checkout, builds its kernels and meas
   logits cached, 4 float steps, the QAT switch, 4 QAT steps: host ms per step ending in
   a synchronize, the median of the steps after the first.
 
+With --modes, instead of all three: phase 7's serving modes of chip_smoke.py on the
+serving export at batch 32 (the first 32 images): the exact path on K7 + K8
+(use_pallas=True, attn_impl="pallas", f32 attention), mixed + pallas (the bf16 K8) and,
+as a control whose kernels are shared by both checkouts, mixed_none + pallas_fused (K3),
+each ms per forward as above and its device time by kernel.
+
 With --f32, instead of all three: an f32 fast_math ViT-S/16 student (fq_in_kernel, full
 depth, random init from seed 0; the trainer builds fast_math models in bf16 only, so the
 train steps are called directly, as chip_smoke.py's f32 replay does) at batch 256 with
 seeded teacher logits, 4 float steps and 4 QAT steps from one state: host ms per step as
 above, and the device time of one more step of each by kernel.
 
-    python3 port_scripts/vit_turns.py PARENT_DIR CHANGE_DIR [--serve-only | --f32]
+    python3 port_scripts/vit_turns.py PARENT_DIR CHANGE_DIR [--serve-only | --modes | --f32]
 """
 import json
 import os
@@ -120,6 +126,22 @@ x = prep(torch.from_numpy(np.random.default_rng(2).integers(0, 256, (256, 32, 32
                                                             dtype=np.uint8)))
 
 
+if mode == "modes":
+    x32 = x[:32]
+    preset = {"attn_dtype": torch.bfloat16, "compute_dtype": torch.bfloat16, "gelu_approx": True}
+    fns = {"exact_k7_k8": lambda: int8_apply(qp, x32, cfg, use_pallas=True, attn_impl="pallas"),
+           "mixed_pallas": lambda: int8_apply(qp, x32, cfg, fused="mixed", attn_impl="pallas",
+                                              **preset),
+           "mixed_none_pallas_fused": lambda: int8_apply(qp, x32, cfg, fused="mixed_none",
+                                                         attn_impl="pallas_fused", **preset)}
+    out = {}
+    for k, fn in fns.items():
+        out[k + "_ms"] = median_ms(fn)
+        out[k + "_groups"] = by_group(fn)
+    print(json.dumps(out), flush=True)
+    sys.exit(0)
+
+
 def serve_fn():
     return int8_apply(qp, x, cfg, fused="megamodel", compute_dtype=torch.bfloat16)
 
@@ -195,7 +217,8 @@ print(json.dumps(out), flush=True)
 def main():
     parent, change = sys.argv[1:3]
     flags = sys.argv[3:]
-    mode = "f32" if "--f32" in flags else "serve" if "--serve-only" in flags else "all"
+    mode = ("f32" if "--f32" in flags else "serve" if "--serve-only" in flags
+            else "modes" if "--modes" in flags else "all")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
@@ -214,6 +237,14 @@ def main():
                   f"{', '.join(f'{v:.1f}' for v in m['float_steps'])} / "
                   f"{', '.join(f'{v:.1f}' for v in m['qat_steps'])}); device ms by kernel, "
                   f"float {m['float_groups']}; QAT {m['qat_groups']}", flush=True)
+            continue
+        if mode == "modes":
+            print(f"{name}: ms per batch-32 forward, " + ", ".join(
+                f"{k} {m[k + '_ms']:.2f}" for k in ("exact_k7_k8", "mixed_pallas",
+                                                    "mixed_none_pallas_fused"))
+                  + "; device ms by kernel, " + "; ".join(
+                      f"{k} {m[k + '_groups']}" for k in ("exact_k7_k8", "mixed_pallas",
+                                                          "mixed_none_pallas_fused")), flush=True)
             continue
         line = (f"{name}: serving {m['serve_ms']:.2f} ms per batch-256 forward, detection "
                 f"{m['detect_ms']:.2f} ms per batch-8 forward ({m['detect_preset']})")

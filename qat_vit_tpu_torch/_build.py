@@ -47,14 +47,14 @@ _SIGNATURES = {
     "qvt_attention_bwd_rows": [_P] * 5 + [_I] * 5 + [_F, _I, _F, _F, _P],
     "qvt_attention_bwd_keys": [_P] * 5 + [_I] * 5 + [_F, _I, _F, _F, _P],
     "qvt_attention_bwd_mma": [_P] * 5 + [_I] * 5 + [_F, _I, _F, _F, _P],
-    "qvt_attention_long": [_P, _P] + [_I] * 5 + [_F, _P],
     "qvt_attention_long_mma": [_P] * 3 + [_I] * 5 + [_F, _P],
     "qvt_attention_long_q_mma": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],
     "qvt_attention_long_q8_mma": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _F, _P],
     "qvt_attention_long_bwd": [_P] * 4 + [_I] * 5 + [_F, _F, _P],
     "qvt_attention_long_bwd_mma": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
     "qvt_quantize_gemm": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _F, _F, _F, _P],
-    "qvt_flash_attention": [_P, _P] + [_I] * 5 + [_F, _I, _P],
+    "qvt_flash_attention_mma": [_P, _P] + [_I] * 5 + [_F, _P],
+    "qvt_flash_attention_f32": [_P, _P] + [_I] * 5 + [_F, _P],
     "qvt_megablock": [_P, _I] + [_P] * 9 + [_I] * 8 + [_F] * 3 + [_P],
     "qvt_megablock_residency": [_I] * 5 + [_P],
 }

@@ -1,21 +1,27 @@
 // Multi-head attention over the packed f32 qkv on the CUDA cores, for
-// sm_90a: kernel A (K1's forward) and kernel B (K1's backward) of f32
-// models, register-tiled, many blocks per head, bit-identical to their
-// plain versions.
+// sm_90a: kernel A (K1's forward, and in the same kernel K5a's and K8's
+// f32 forms) and kernel B (K1's backward) of f32 models, register-tiled,
+// many blocks per head, bit-identical to their plain versions.
 //
-// Replaces (TPU, Pallas), for an f32 qkv, with and without in_fq:
+// Replaces (TPU, Pallas), for an f32 qkv:
 // - qat_vit_tpu/ops/flash_attention.py::_fused_attention_kernel with
-//   quantize=False (kernel A), as qat_vit_tpu/ops/flash_attention_train.py's
-//   attention_train and attention_train_fq launch it;
+//   quantize=False (kernel A, with and without in_fq), as
+//   qat_vit_tpu/ops/flash_attention_train.py's attention_train and
+//   attention_train_fq launch it;
+// - qat_vit_tpu/ops/long_attention.py::_long_attention_kernel (K5a), the
+//   same arithmetic as kernel A without in_fq (qvt_attention_fwd);
+// - qat_vit_tpu/ops/flash_attention.py::_attention_kernel (K8), kernel A
+//   with the score scaled after its dot (qvt_flash_attention_f32);
 // - qat_vit_tpu/ops/flash_attention_train.py::_attention_bwd_kernel
 //   (launched by _attention_bwd_call; kernel B), their VJP.
 // The bf16 forms run on the tensor cores (attention_q_mma.cu,
-// attention_bwd_mma.cu).
+// attention_bwd_mma.cu, attention_long_mma.cu).
 //
 // Math, per (image, head), as the TPU kernels. q, k, v are the raw qkv or,
 // with in_fq, its fake-quantized values (f32, round half to even, clip;
 // scale and zero point from the device pointer qs).
-//   kernel A: s = (q * scale) k^T, q scaled in f32 BEFORE the dot;
+//   kernel A: s = (q * scale) k^T, q scaled in f32 BEFORE the dot (K8:
+//             s = (q k^T) * scale, AFTER the dot, SCALE_AFTER);
 //             keys >= n_valid at -1e30; p = softmax(s); o = p v.
 //   kernel B: s = (q k^T) * scale, scaled in f32 AFTER the dot; p as above;
 //             dp = do v^T; r = rowsum(dp * p); ds = p * (dp - r);
@@ -53,11 +59,17 @@
 // - G2 (o, dq, dk, dv, over keys or queries): a thread owns MR rows x 4
 //   consecutive head dims; the A operand is read 4 keys at a time from a
 //   row of p or ds, the B operand 4 dims at a time from a row of v, k, q or
-//   do. MR = 2 for hd <= 64, 4 above (hd / 4 threads per row).
+//   do. MR = 2 for hd <= 64, 4 above (hd / 4 threads per row); kernel A
+//   takes the fewest of 1, 2, 4 that cover its R rows.
 // Kernel A: one block per (R queries, head, image). Sweep 1 stages K in
-// 128-key tiles (both groups of G1) and writes the scores into a
+// 128-key tiles (both groups of G1; with R <= 16 all 8 warps on 16 rows,
+// 16 keys a warp, 4 x 2 register tiles) and writes the scores into a
 // [R][~N] strip in shared memory; one warp per row takes the max, the f64
 // sum and p in place; sweep 2 stages V in 128-key tiles for o = p v (G2).
+// Long sequences hold R down (16 at OWLv2's 2,305 tokens, 4 at 7,000, hd
+// 64): one ~187 KB block per SM at 2,305, and every block re-reads its
+// head's K and V from L2 for its R rows (port_scripts/k1f32_variants.py
+// times R 16 against 8 and 4 there).
 // Kernel B, two launches:
 // 1. rows: one block per (R query rows, head, image), q and do staged; per
 //    64-key tile K and V are staged and G1 writes s (group 0) and dp
@@ -72,8 +84,9 @@
 // (attention_f32_rows in ops/flash_attention.py mirrors the plans), so any
 // N up to ~18,000 at hd 128. Tiles are staged by 16-byte loads, several in
 // flight per thread (the wrappers require 16-byte aligned qkv and do).
-// Kernel A and the keys pass ask for 3 blocks per SM at hd <= 64 (their
-// plans fit 3 at ViT's 197 tokens), the rows pass (~101 KB there) for 2.
+// Kernel A (MR <= 2) and the keys pass (hd <= 64) ask for 3 blocks per SM
+// (their plans fit 3 at ViT's 197 tokens), the rows pass (~101 KB there)
+// for 2.
 // With in_fq each staged K / V / q element is fake-quantized on its way in
 // (an IEEE division each): kernel A stages K and V once per block, kernel
 // B's rows pass K twice and V once, its keys pass q once per block, so a
@@ -146,41 +159,60 @@ __device__ __forceinline__ void stage(float* dst, int ld, const float* src, size
   }
 }
 
+// The register tile of one thread of G1: out[r][c] = sum_d A[r][d] * B[c][d]
+// for rows r0 + ty + 4m (m < 4) and columns c0 + tx + 8c (c < NC), ty and
+// tx the lane's row and column in its warp; emit(r, c, value) takes each.
+template <int NC, typename Emit>
+__device__ __forceinline__ void g1_tile(const float* A, const float* B, int ld, int hd, int r0,
+                                        int c0, int lane, Emit emit) {
+  const int ty = lane >> 3, tx = lane & 7;
+  const float* a = A + (r0 + ty) * ld;
+  const float* b = B + (c0 + tx) * ld;
+  float acc[4][NC];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[m][c] = 0.0f;
+  for (int d = 0; d < hd; d += 4) {
+    float4 av[4], bv[NC];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) av[m] = lds4(a + 4 * m * ld + d);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) bv[c] = lds4(b + 8 * c * ld + d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          acc[m][c] = qvt::mac<float>(comp(av[m], e), comp(bv[c], e), acc[m][c]);
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) emit(r0 + ty + 4 * m, c0 + tx + 8 * c, acc[m][c]);
+}
+
 // G1 (header): out[r][c] = sum_d A[r][d] * B[c][d] for r < rows, c < cols
 // of a 32 x 64 tile, on one group of 4 warps (g4: the thread's index in
 // it); emit(r, c, value) takes each result of the thread's 4 x 4 tile.
 template <typename Emit>
 __device__ __forceinline__ void g1(const float* A, const float* B, int ld, int hd, int rows,
                                    int cols, int g4, Emit emit) {
-  const int w = g4 >> 5, lane = g4 & 31;
+  const int w = g4 >> 5;
   const int r0 = (w & 1) * 16, c0 = (w >> 1) * 32;
   if (r0 >= rows || c0 >= cols) return;  // the warp's slab is empty
-  const int ty = lane >> 3, tx = lane & 7;
-  const float* a = A + (r0 + ty) * ld;
-  const float* b = B + (c0 + tx) * ld;
-  float acc[4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.0f;
-  for (int d = 0; d < hd; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) av[m] = lds4(a + 4 * m * ld + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = lds4(b + 8 * c * ld + d);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[m][c] = qvt::mac<float>(comp(av[m], e), comp(bv[c], e), acc[m][c]);
-  }
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) emit(r0 + ty + 4 * m, c0 + tx + 8 * c, acc[m][c]);
+  g1_tile<4>(A, B, ld, hd, r0, c0, g4 & 31, emit);
+}
+
+// G1 over 16 rows and a 128-column tile on all 8 warps (kernel A with R <=
+// 16, where g1's second row slab would idle half the warps): warp w takes
+// columns [16 w, 16 w + 16), each thread a 4 x 2 tile.
+template <typename Emit>
+__device__ __forceinline__ void g1_rows16(const float* A, const float* B, int ld, int hd,
+                                          int cols, Emit emit) {
+  const int c0 = (threadIdx.x >> 5) * 16;
+  if (c0 < cols) g1_tile<2>(A, B, ld, hd, 0, c0, threadIdx.x & 31, emit);
 }
 
 // G2's thread map: hd / 4 consecutive threads per row, each 4 consecutive
@@ -271,15 +303,16 @@ __device__ __forceinline__ float fq_value(float v, const FqArgs& fq) {
   return IN_FQ ? qvt::fake_quant(v, fq.s, fq.z, fq.lo, fq.hi) : v;
 }
 
-// kernel A: one block per (R queries, head, image)
-template <bool IN_FQ, int MR>
-__global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
+// kernel A: one block per (R queries, head, image); SCALE_AFTER (K8): q
+// staged unscaled, the score scaled as it leaves G1
+template <bool IN_FQ, int MR, bool SCALE_AFTER>
+__global__ void __launch_bounds__(THREADS, MR == 4 ? 2 : 3)
     attention_f32_fwd_kernel(const float* qkv, const float* qs, float* out, int N, int H, int hd,
                              int n_valid, float scale, float fq_min, float fq_max, int R) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * R, rows = min(R, N - i0);
   const int D = H * hd, ld = op_ld(hd), ns = strip_ld(N), n4 = (N + 3) & ~3;
-  float* Qs = reinterpret_cast<float*>(smem);  // [a_rows(R)][ld] q * scale
+  float* Qs = reinterpret_cast<float*>(smem);  // [a_rows(R)][ld] q * scale (K8: q)
   float* Ts = Qs + a_rows(R) * ld;              // [2 KT][ld] K, then V
   float* Ss = Ts + 2 * KT * ld;                 // [R][ns] scores, then p
   const FqArgs fq = fq_args<IN_FQ>(qs, fq_min, fq_max);
@@ -287,19 +320,25 @@ __global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
   const size_t stride = (size_t)3 * D;
   const auto kv = [&](float v) { return fq_value<IN_FQ>(v, fq); };
 
-  stage(Qs, ld, img + i0 * stride, stride, a_rows(R), rows, hd,
-        [&](float v) { return __fmul_rn(fq_value<IN_FQ>(v, fq), scale); });
+  stage(Qs, ld, img + i0 * stride, stride, a_rows(R), rows, hd, [&](float v) {
+    return SCALE_AFTER ? fq_value<IN_FQ>(v, fq) : __fmul_rn(fq_value<IN_FQ>(v, fq), scale);
+  });
   const int g = threadIdx.x >> 7;
   for (int k0 = 0; k0 < N; k0 += 2 * KT) {  // sweep 1: the score strip
     const int nk = min(2 * KT, N - k0);
     __syncthreads();
     stage(Ts, ld, img + D + k0 * stride, stride, 2 * KT, nk, hd, kv);
     __syncthreads();
-    g1(Qs, Ts + g * KT * ld, ld, hd, rows, nk - g * KT, threadIdx.x & 127,
-       [&](int r, int c, float s) {
-         const int j = k0 + g * KT + c;
-         if (r < rows && j < N) Ss[r * ns + j] = j < n_valid ? s : -1e30f;
-       });
+    const auto put = [&](int r, int c, float s) {  // c: the key within the tile
+      const int j = k0 + c;
+      if (r < rows && j < N)
+        Ss[r * ns + j] = j < n_valid ? (SCALE_AFTER ? __fmul_rn(s, scale) : s) : -1e30f;
+    };
+    if (R <= 16)
+      g1_rows16(Qs, Ts, ld, hd, nk, put);
+    else
+      g1(Qs, Ts + g * KT * ld, ld, hd, rows, nk - g * KT, threadIdx.x & 127,
+         [&](int r, int c, float s) { put(r, g * KT + c, s); });
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -551,28 +590,48 @@ int allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-}  // namespace
-
-// kernel A in f32: out [B, N, H*hd] f32; in_fq != 0 fake-quantizes q, k, v
-// with (qs[0], qs[1], fq_min, fq_max); scale is hd^-0.5, applied to q before
-// the score dot
-extern "C" int qvt_attention_fwd(const void* qkv, const void* qs, void* out, int B, int N,
-                                 int H, int hd, int n_valid, float scale, int in_fq,
-                                 float fq_min, float fq_max, void* stream) {
+// kernel A (or K8): R rows per block from the plan, and G2's rows per
+// thread the fewest of 1, 2, 4 whose THREADS / (hd / 4) row slots cover R
+template <bool IN_FQ, bool SCALE_AFTER>
+int launch_fwd(const void* qkv, const void* qs, void* out, int B, int N, int H, int hd,
+               int n_valid, float scale, float fq_min, float fq_max, void* stream) {
   if (bad_shape(B, N, H, hd, n_valid)) return static_cast<int>(cudaErrorInvalidValue);
   const int R = pick_rows(fwd_smem, N, hd);
   if (!R) return static_cast<int>(cudaErrorInvalidValue);
+  const int slots = THREADS / (hd / 4);
+  auto kernel = R <= slots       ? attention_f32_fwd_kernel<IN_FQ, 1, SCALE_AFTER>
+                : R <= 2 * slots ? attention_f32_fwd_kernel<IN_FQ, 2, SCALE_AFTER>
+                                 : attention_f32_fwd_kernel<IN_FQ, 4, SCALE_AFTER>;
   const size_t smem = fwd_smem(N, hd, R);
-  auto kernel = in_fq ? (hd <= 64 ? attention_f32_fwd_kernel<true, 2>
-                                  : attention_f32_fwd_kernel<true, 4>)
-                      : (hd <= 64 ? attention_f32_fwd_kernel<false, 2>
-                                  : attention_f32_fwd_kernel<false, 4>);
   const int e = allow_smem(kernel, smem);
   if (e) return e;
   kernel<<<dim3((N + R - 1) / R, H, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(qs), static_cast<float*>(out), N,
       H, hd, n_valid, scale, fq_min, fq_max, R);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// kernel A in f32 (and K5a in f32, in_fq 0): out [B, N, H*hd] f32; in_fq != 0
+// fake-quantizes q, k, v with (qs[0], qs[1], fq_min, fq_max); scale is
+// hd^-0.5, applied to q before the score dot
+extern "C" int qvt_attention_fwd(const void* qkv, const void* qs, void* out, int B, int N,
+                                 int H, int hd, int n_valid, float scale, int in_fq,
+                                 float fq_min, float fq_max, void* stream) {
+  if (in_fq)
+    return launch_fwd<true, false>(qkv, qs, out, B, N, H, hd, n_valid, scale, fq_min, fq_max,
+                                   stream);
+  return launch_fwd<false, false>(qkv, qs, out, B, N, H, hd, n_valid, scale, fq_min, fq_max,
+                                  stream);
+}
+
+// K8 in f32: out [B, N, H*hd] f32; scale is hd^-0.5, applied to the f32 score
+// after the dot
+extern "C" int qvt_flash_attention_f32(const void* qkv, void* out, int B, int N, int H, int hd,
+                                       int n_valid, float scale, void* stream) {
+  return launch_fwd<false, true>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0.0f, 0.0f,
+                                 stream);
 }
 
 // kernel B in f32, launch 1: the row statistics of the softmax into stats

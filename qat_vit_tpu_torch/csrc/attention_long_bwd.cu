@@ -1,5 +1,5 @@
 // Backward of the long-sequence attention over the packed qkv, for sm_90a
-// (K5b, the VJP of qvt_attention_long).
+// (K5b in f32, the VJP of K5a).
 //
 // Replaces (TPU, Pallas): qat_vit_tpu/ops/long_attention.py::
 // _long_attention_bwd_kernel (launched by _long_attention_bwd_call).
@@ -40,8 +40,8 @@
 // each deterministic:
 // 1. rows: one block per (WARPS query rows, head, image), one row per warp.
 //    K, V, then K again stream through two shared-memory tile buffers
-//    (cp.async, 16-byte chunks, 128 keys of bf16 or 64 of f32 per tile, as
-//    qvt_attention_long). The row's f32 scores
+//    (cp.async, 16-byte chunks, 128 keys of bf16 or 64 of f32 per tile).
+//    The row's f32 scores
 //    and dp stay in shared memory (2 x 9.2 KB at N = 2,305); then the warp
 //    softmaxes the row, takes rowsum and ds in place, writes (max, f64 sum,
 //    rowsum) of the row to `stats`, and the last sweep sums dq = ds k.
@@ -72,7 +72,7 @@ constexpr int QC = 32;                  // query rows per chunk
 constexpr int QPT = QC / 8;             // query rows per thread for s and dp
 
 // keys per shared-memory tile of pass 1: 128 of bf16, 64 of f32 (the same
-// bytes; csrc/attention_long.cu's tiles)
+// bytes)
 template <typename T>
 constexpr int KEY_TILE = 256 / static_cast<int>(sizeof(T));
 
@@ -464,7 +464,7 @@ int launch(const void* qkv, const void* dout, void* dqkv, void* stats, int B, in
 
 }  // namespace
 
-// dqkv [B, N, 3*H*hd] f32 of qvt_attention_long for the output gradient do
+// dqkv [B, N, 3*H*hd] f32 of K5a in f32 for the output gradient do
 // [B, N, H*hd] f32 (the bf16 form runs on the tensor cores,
 // attention_long_bwd_mma.cu); stats: [B, H, N, 4] f64 scratch (the rows'
 // max, softmax sum and rowsum, from pass 1 to pass 2). Two launches on

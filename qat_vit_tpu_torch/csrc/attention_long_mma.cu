@@ -2,8 +2,9 @@
 // cores, for sm_90a: a streaming online-softmax forward (K5a in bf16).
 //
 // Replaces (TPU, Pallas): qat_vit_tpu/ops/long_attention.py::
-// _long_attention_kernel, for a bf16 qkv. The f32 form and K6's two int8
-// forms stay on csrc/attention_long.cu.
+// _long_attention_kernel, for a bf16 qkv. The f32 form runs on
+// csrc/attention_f32.cu (kernel A's f32 kernel), K6's two int8-output forms
+// on csrc/attention_long_q_mma.cu.
 //
 // What bounds it on an H100. Per (image, head) the work is 4*N*N*hd
 // operations (two products) on 4*N*hd*2 bytes: ~1,150 operations per byte

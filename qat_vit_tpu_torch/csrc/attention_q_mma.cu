@@ -1,5 +1,5 @@
 // Short-sequence multi-head attention over the packed bf16 qkv on the tensor
-// cores, for sm_90a, in two forms:
+// cores, for sm_90a, in three forms:
 //
 // - qvt_attention_q_mma: output quantized to shifted int8 (K3).
 //   Replaces (TPU, Pallas): qat_vit_tpu/ops/flash_attention.py::
@@ -10,8 +10,10 @@
 //   K1's forward). Replaces: _fused_attention_kernel with quantize=False,
 //   with and without in_fq, as qat_vit_tpu/ops/flash_attention_train.py's
 //   attention_train and attention_train_fq launch it for bf16 qkv.
-// (The f32 kernel A runs on the CUDA cores in attention_f32.cu, K8 on the
-// CUDA-core tile of attention_tile.cuh in attention_q.cu.)
+// - qvt_flash_attention_mma: output in bf16, the f32 score scaled by
+//   hd^-0.5 AFTER the dot (K8). Replaces: qat_vit_tpu/ops/flash_attention.py::
+//   _attention_kernel for bf16 qkv (attn_impl="pallas"), at any N.
+// (The f32 kernel A and K8 run on the CUDA cores in attention_f32.cu.)
 //
 // What bounds it on an H100. Per (image, head) the work is 4*N*N*hd
 // operations on ~4*N*hd bytes: at ViT's 197 tokens and hd 64 ~200
@@ -43,7 +45,9 @@
 // - with in_fq every staged element of q, k and v is fake-quantized in
 //   place by the thread that copied it (f32, round half to even, clip,
 //   back to bf16), with (scale, zero point) read from the device tensor qs;
-//   q is then scaled by hd^-0.5 in bf16. The zero fill is never touched;
+//   q is then scaled by hd^-0.5 in bf16 (K8: q stays as it is, and each
+//   f32 score is multiplied by the f32 hd^-0.5 as it leaves the dot, before
+//   the mask). The zero fill is never touched;
 // - pass 1 computes each row's running max m and sum l of exp2((s - m)
 //   log2e) in f32 over 64-key tiles (the online rescale of K5a); pass 2
 //   recomputes s, forms p = exp2((s - m) log2e) * (1 / l), rounds p to bf16
@@ -52,16 +56,17 @@
 // - keys >= n_valid get -1e30; hd is any multiple of 8 up to 128 (the dot
 //   zero-filled to a multiple of 16); any N >= 1;
 // - epilogue: quantize_shifted(o) with round-half-even (K3) or o rounded to
-//   bf16 (kernel A), two values a lane, into the packed [B, N, H*hd] output
-//   at column h*hd.
+//   bf16 (kernel A, K8), two values a lane, into the packed [B, N, H*hd]
+//   output at column h*hd.
 //
-// Roundings kept from the TPU kernel: the fake-quant; q scaled in bf16; the
-// normalised p rounded to bf16 for p @ v; f32 accumulators; masking at
-// -1e30. Against the plain versions (ops/flash_attention.
-// fused_attention_qkv_plain, attention_fwd_plain: index-order f32 sums, exp
-// in f64) the sums of the score dot, of l and of p @ v run in the tensor
-// cores' order and ex2.approx replaces the f64 exp, so K3's int8 output is
-// held to max |diff| 1 and >= 99.9% identical, and kernel A's bf16 output
+// Roundings kept from the TPU kernels: the fake-quant; q scaled in bf16
+// (K8: the f32 score scaled in f32); the normalised p rounded to bf16 for
+// p @ v; f32 accumulators; masking at -1e30. Against the plain versions
+// (ops/flash_attention.fused_attention_qkv_plain, attention_fwd_plain,
+// flash_attention_qkv_plain: index-order f32 sums, exp in f64) the sums of
+// the score dot, of l and of p @ v run in the tensor cores' order and
+// ex2.approx replaces the f64 exp, so K3's int8 output is held to max
+// |diff| 1 and >= 99.9% identical, and the bf16 output of kernel A and K8
 // to 2^-7 (1 + |plain|) and to twice the plain version's distance from the
 // f64 math (chip_smoke.py, tests/test_torch_port_cuda.py).
 
@@ -107,7 +112,8 @@ constexpr size_t stream_smem() {  // q; K and V per stage
   return sizeof(bf16) * (size_t)SROW<HDP> * (BM + 2 * STAGES<HDP> * BN);
 }
 
-template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT>
+// SCALE_AFTER (K8): q enters the dot unscaled and the f32 score is scaled
+template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT, bool SCALE_AFTER>
 __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
     attention_q_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qs,
                            void* __restrict__ out, int N, int H, int hd, int n_valid, float scale,
@@ -135,7 +141,7 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
   const auto fq = [=](float x) { return qvt::fake_quant(x, fs, fz, fq_min, fq_max); };
   const auto q_map = [=](float x) {  // (fake-quant, back to bf16,) times hd^-0.5
     if constexpr (IN_FQ) x = qvt::round_bf16(qvt::fake_quant(x, fs, fz, fq_min, fq_max));
-    return __fmul_rn(x, scale);
+    return SCALE_AFTER ? x : __fmul_rn(x, scale);
   };
 
   // resident: K [R][S], V [R][S] (q staged in V's place first);
@@ -168,7 +174,7 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
     cp_async_commit();
     cp_async_wait<0>();
   }
-  map_rows<HDP, THREADS>(Qs, q0, BM, N, hd, q_map);
+  if constexpr (IN_FQ || !SCALE_AFTER) map_rows<HDP, THREADS>(Qs, q0, BM, N, hd, q_map);
   __syncthreads();
 
   // the warp's 16 q rows as A fragments
@@ -242,6 +248,12 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
         mma(s[2 * np], qf[ks], kb[0], kb[1]);
         mma(s[2 * np + 1], qf[ks], kb[2], kb[3]);
       }
+    }
+    if constexpr (SCALE_AFTER) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
     }
     if (k0 + BN > n_valid) {
 #pragma unroll
@@ -334,11 +346,11 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
   }
 }
 
-template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT>
+template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT, bool SCALE_AFTER>
 int go(size_t smem, const void* qkv, const void* qs, void* out, int B, int N, int H, int hd,
        int n_valid, float scale, float inv_s, float zp, float qmax, float fq_min, float fq_max,
        cudaStream_t stream) {
-  auto kernel = attention_q_mma_kernel<HDP, QOUT, IN_FQ, RESIDENT>;
+  auto kernel = attention_q_mma_kernel<HDP, QOUT, IN_FQ, RESIDENT, SCALE_AFTER>;
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -349,19 +361,21 @@ int go(size_t smem, const void* qkv, const void* qs, void* out, int B, int N, in
 }
 
 // K and V resident where one head's fit the shared memory, else streamed
-template <int HDP, bool QOUT, bool IN_FQ>
+template <int HDP, bool QOUT, bool IN_FQ, bool SCALE_AFTER>
 int launch(const void* qkv, const void* qs, void* out, int B, int N, int H, int hd, int n_valid,
            float scale, float inv_s, float zp, float qmax, float fq_min, float fq_max,
            cudaStream_t stream) {
   const size_t resident = resident_smem<HDP>(N);
   if (resident <= SMEM_MAX)
-    return go<HDP, QOUT, IN_FQ, true>(resident, qkv, qs, out, B, N, H, hd, n_valid, scale, inv_s,
-                                      zp, qmax, fq_min, fq_max, stream);
-  return go<HDP, QOUT, IN_FQ, false>(stream_smem<HDP>(), qkv, qs, out, B, N, H, hd, n_valid,
-                                     scale, inv_s, zp, qmax, fq_min, fq_max, stream);
+    return go<HDP, QOUT, IN_FQ, true, SCALE_AFTER>(resident, qkv, qs, out, B, N, H, hd, n_valid,
+                                                   scale, inv_s, zp, qmax, fq_min, fq_max,
+                                                   stream);
+  return go<HDP, QOUT, IN_FQ, false, SCALE_AFTER>(stream_smem<HDP>(), qkv, qs, out, B, N, H, hd,
+                                                  n_valid, scale, inv_s, zp, qmax, fq_min, fq_max,
+                                                  stream);
 }
 
-template <bool QOUT, bool IN_FQ>
+template <bool QOUT, bool IN_FQ, bool SCALE_AFTER = false>
 int dispatch(const void* qkv, const void* qs, void* out, int B, int N, int H, int hd, int n_valid,
              float scale, float inv_s, float zp, float qmax, float fq_min, float fq_max,
              void* stream) {
@@ -369,10 +383,10 @@ int dispatch(const void* qkv, const void* qs, void* out, int B, int N, int H, in
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return launch<64, QOUT, IN_FQ>(qkv, qs, out, B, N, H, hd, n_valid, scale, inv_s, zp, qmax,
-                                   fq_min, fq_max, st);
-  return launch<128, QOUT, IN_FQ>(qkv, qs, out, B, N, H, hd, n_valid, scale, inv_s, zp, qmax,
-                                  fq_min, fq_max, st);
+    return launch<64, QOUT, IN_FQ, SCALE_AFTER>(qkv, qs, out, B, N, H, hd, n_valid, scale, inv_s,
+                                                zp, qmax, fq_min, fq_max, st);
+  return launch<128, QOUT, IN_FQ, SCALE_AFTER>(qkv, qs, out, B, N, H, hd, n_valid, scale, inv_s,
+                                               zp, qmax, fq_min, fq_max, st);
 }
 
 }  // namespace
@@ -397,4 +411,12 @@ extern "C" int qvt_attention_fwd_mma(const void* qkv, const void* qs, void* out,
                                  fq_min, fq_max, stream);
   return dispatch<false, false>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0.0f, 0.0f, 0.0f,
                                 0.0f, 0.0f, stream);
+}
+
+// K8 in bf16: out bf16 [B, N, H*hd]; scale: the f32 hd^-0.5, applied to the
+// f32 score after the dot
+extern "C" int qvt_flash_attention_mma(const void* qkv, void* out, int B, int N, int H, int hd,
+                                       int n_valid, float scale, void* stream) {
+  return dispatch<false, false, true>(qkv, nullptr, out, B, N, H, hd, n_valid, scale, 0.0f, 0.0f,
+                                      0.0f, 0.0f, 0.0f, stream);
 }

@@ -1,10 +1,10 @@
-// The CUDA-core attention tile body over the packed qkv. Its users: in
-// csrc/attention_q.cu (one tile per block) K8 in f32 and bf16; in
-// csrc/megablock.cu (a grid-stride loop over the tiles of the
-// attention stage inside one cooperative launch) K9a / K9b's int8-out
-// attention, which is therefore bit-identical to K3's plain version. The
-// bf16 K3 and kernel A run on the tensor cores instead
-// (csrc/attention_q_mma.cu), the f32 kernel A on csrc/attention_f32.cu.
+// The CUDA-core attention tile body over the packed bf16 qkv, with the
+// output quantized to shifted int8: K9a / K9b's attention stage. Its one
+// user is csrc/megablock.cu (a grid-stride loop over the tiles of the
+// attention stage inside one cooperative launch), whose attention is
+// therefore bit-identical to K3's plain version. K3, kernel A and K8 run on
+// the tensor cores (csrc/attention_q_mma.cu) in bf16, kernel A and K8 in f32
+// on csrc/attention_f32.cu.
 //
 // A tile is (64 queries, one head, one image) on 8 warps (256 threads). K
 // and V of that head are staged whole in shared memory (N x hd elements
@@ -15,19 +15,17 @@
 // then split the head dims for p @ v. Layout in attention_smem_bytes
 // (ops/flash_attention.py mirrors it).
 //
-// Numerics, as the TPU kernels. T is the qkv (and output) type: bf16 (K8,
-// K9), or f32 (K8). Without SCALE_AFTER (K9's K3 stage) q is
-// scaled by hd^-0.5 in the qkv type before the score dot; with SCALE_AFTER
-// (K8) the f32 score is scaled after it. Keys >= n_valid get
-// -1e30; f32 softmax; p is rounded to T before the value product; o
-// accumulates in f32 and is either quantized with (inv_s, zp, qmax) or
-// rounded to T, into the packed [B, N, H*hd] output at column h*hd.
+// Numerics, as the TPU kernel (K3's form of _fused_attention_kernel): q is
+// scaled by hd^-0.5 in bf16 before the score dot; keys >= n_valid get
+// -1e30; f32 softmax; p is rounded to bf16 before the value product; o
+// accumulates in f32 and is quantized with (inv_s, zp, qmax) into the
+// packed [B, N, H*hd] output at column h*hd.
 //
-// Every rounding is pinned so that the plain versions reproduce it bit for
+// Every rounding is pinned so that the plain version reproduces it bit for
 // bit: both dots accumulate in f32 in index order (d, then j), exp and the
 // softmax sum run in f64 before one rounding to f32; products go through
-// mac<T> (common.cuh), an FMA for bf16 and __fmul_rn then __fadd_rn for
-// f32, as ordered_dot's multiply-then-add.
+// mac<bf16> (common.cuh), an FMA whose bf16 products are exact in f32, as
+// ordered_dot's multiply-then-add.
 
 #pragma once
 
@@ -41,17 +39,16 @@ constexpr int THREADS = WARPS * 32;
 constexpr int Q_TILE = 64;
 
 // shared-memory bytes of one tile (words per K row padded by one)
-__host__ __device__ constexpr size_t smem_bytes(int N, int hd, int elem_bytes) {
-  return sizeof(uint32_t) * ((size_t)N * (hd * elem_bytes / 4 + 1) +
-                             (size_t)N * (hd * elem_bytes / 4)) +
+__host__ __device__ constexpr size_t smem_bytes(int N, int hd) {
+  return sizeof(uint32_t) * ((size_t)N * (hd / 2 + 1) + (size_t)N * (hd / 2)) +
          sizeof(float) * ((size_t)WARPS * N + (size_t)WARPS * hd);
 }
 
-template <typename T, bool QUANT_OUT, bool SCALE_AFTER>
-__device__ __forceinline__ void tile(const T* qkv, void* out, int N, int H, int hd, int n_valid,
-                                     float scale, float inv_s, float zp, float qmax,
+__device__ __forceinline__ void tile(const __nv_bfloat16* qkv, int8_t* out, int N, int H, int hd,
+                                     int n_valid, float scale, float inv_s, float zp, float qmax,
                                      uint8_t* smem, int q0, int h, int b) {
-  constexpr int EPW = 4 / sizeof(T);  // elements per 32-bit word
+  using T = __nv_bfloat16;
+  constexpr int EPW = 2;  // elements per 32-bit word
   const int D = H * hd, hw = hd / EPW, kst = hw + 1;  // words per row; kst is odd
   uint32_t* Ks = reinterpret_cast<uint32_t*>(smem);  // [N][kst]
   uint32_t* Vs = Ks + (size_t)N * kst;               // [N][hw]
@@ -76,7 +73,7 @@ __device__ __forceinline__ void tile(const T* qkv, void* out, int N, int H, int 
     const T* qrow = img + (size_t)i * 3 * D + h * hd;
     for (int d = lane; d < hd; d += 32) {
       const float x = to_f32(qrow[d]);
-      qv[d] = SCALE_AFTER ? x : round_to<T>(__fmul_rn(x, scale));
+      qv[d] = round_to<T>(__fmul_rn(x, scale));
     }
     __syncwarp();
 
@@ -92,7 +89,6 @@ __device__ __forceinline__ void tile(const T* qkv, void* out, int N, int H, int 
 #pragma unroll
           for (int e = 0; e < EPW; ++e) s = mac<T>(qv[EPW * w2 + e], kf[e], s);
         }
-        if (SCALE_AFTER) s = __fmul_rn(s, scale);
       }
       ps[j] = s;
       mx = fmaxf(mx, s);
@@ -112,11 +108,7 @@ __device__ __forceinline__ void tile(const T* qkv, void* out, int N, int H, int 
     for (int d = lane; d < hd; d += 32) {
       float o = 0.0f;
       for (int j = 0; j < N; ++j) o = mac<T>(ps[j], to_f32(vb[(size_t)j * hd + d]), o);
-      const size_t at = ((size_t)b * N + i) * D + h * hd + d;
-      if (QUANT_OUT)
-        static_cast<int8_t*>(out)[at] = quantize_shifted(o, inv_s, zp, qmax);
-      else
-        static_cast<T*>(out)[at] = from_f32<T>(o);
+      out[((size_t)b * N + i) * D + h * hd + d] = quantize_shifted(o, inv_s, zp, qmax);
     }
     __syncwarp();
   }

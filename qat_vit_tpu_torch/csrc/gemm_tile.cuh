@@ -11,7 +11,7 @@
 // PLAIN writes y (f32 or bf16). PLAIN_Q8 writes y and, for the first q_n
 // columns, quantize(y) from the f32 y (not from the rounded output) into an
 // [M, q_n] int8 array: the q and k of a qkv GEMM on the qkv out_q grid, for
-// the int8 score dots of csrc/attention_long.cu (K6's int8_scores, JAX
+// the int8 score dots of csrc/attention_long_q_mma.cu (K6's int8_scores, JAX
 // ops/long_block_kernel.py `_q8(y[:, :2D], ...)`). GELU_Q writes
 // quantize(act(y)), act = the
 // tanh GELU of jax.nn.gelu(approximate=True) or quick-GELU y*sigmoid(1.702y).

@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) megablock_kernel(MegaParams mp)
 
     // 2. attention, int8 out on the qkv out_q grid: all 8 warps per tile
     for (int tile = blockIdx.x; tile < nq * mp.H * mp.B; tile += gridDim.x) {
-      qvt::attn::tile<bf16, true, false>(
+      qvt::attn::tile(
           mp.qkv, mp.o_q, mp.N, mp.H, mp.hd, mp.n_valid, mp.attn_scale, t.inv_so, t.zp_o,
           mp.qmax, smem, (tile % nq) * qvt::attn::Q_TILE, (tile / nq) % mp.H,
           tile / (nq * mp.H));
@@ -246,7 +246,7 @@ int group_smem_bytes(int D) {
 
 size_t block_smem_bytes(int N, int H, int hd) {
   const size_t g = 2 * static_cast<size_t>(group_smem_bytes(H * hd));
-  const size_t a = qvt::attn::smem_bytes(N, hd, sizeof(__nv_bfloat16));
+  const size_t a = qvt::attn::smem_bytes(N, hd);
   return g > a ? g : a;
 }
 

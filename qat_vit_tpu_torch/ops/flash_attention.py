@@ -21,9 +21,13 @@
   attention of ``flash_attention.py::_attention_kernel``, f32 or bf16 in
   and out, with the f32 SCORE scaled by ``hd**-0.5`` after the dot (the
   kernels above scale q in the qkv dtype before it). On CUDA it launches
-  ``qvt_flash_attention`` (``csrc/attention_q.cu``); on the CPU, and inside
-  ``_cuda.reference_impl()``, :func:`flash_attention_qkv_plain`. Launches in
-  ``flash_attention_qkv.launches``. The TPU wrapper pads N to 128 with
+  kernel A's kernels in their scale-after form: for bf16
+  ``qvt_flash_attention_mma`` (``csrc/attention_q_mma.cu``, tensor cores),
+  for f32 ``qvt_flash_attention_f32`` (``csrc/attention_f32.cu``); on the
+  CPU, and inside ``_cuda.reference_impl()``,
+  :func:`flash_attention_qkv_plain`. Launches in
+  ``flash_attention_qkv.launches``. It takes every N that kernel A takes
+  (:func:`flash_attention_shapes_ok`). The TPU wrapper pads N to 128 with
   masked keys; padded keys get exactly zero probability, so the port runs
   the unpadded N.
 - :func:`xla_attention_qkv`: the exact path's plain attention.
@@ -33,12 +37,12 @@ first fake-quantized (f32, half to even, clip, back to the qkv dtype); q
 scaled by ``hd**-0.5`` in the qkv dtype, f32 scores, keys
 ``>= n_valid`` at -1e30, f32 softmax, probabilities cast to the qkv dtype,
 f32 output accumulation, as the TPU kernel. The plain versions sum in index
-order with the softmax in f64. The CUDA-core kernels (f32 kernel A, K8)
-pin every rounding to them; the tensor-core K3 and bf16 kernel A sum in
+order with the softmax in f64. The f32 kernels (kernel A, K8) pin every
+rounding to them; the tensor-core K3, bf16 kernel A and bf16 K8 sum in
 the tensor cores' order with a two-pass softmax (the normalised p rounded
 to bf16), so on the card K3 is held to one int8 step and >= 99.9%
-identical, the bf16 kernel A to 2^-7 (1 + |plain|) and to twice the plain
-version's distance from the f64 math.
+identical, the bf16 kernel A and K8 to 2^-7 (1 + |plain|) and to twice
+the plain version's distance from the f64 math.
 """
 
 from __future__ import annotations
@@ -64,14 +68,13 @@ _F32_KT = 64  # KT in csrc/attention_f32.cu: keys per G1 tile
 TRAIN_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
+def attention_smem_bytes(n: int, head_dim: int) -> int:
     """Shared memory the CUDA-core attention tile asks for
-    (``csrc/attention_tile.cuh``: K8, K9): K (rows padded
-    by one word) and V of one head in ``dtype`` (f32 twice bf16's), one f32
-    score row and one q row per warp. It sets the gate of K8 and K9
-    (:func:`attention_shapes_ok`); K3 and kernel A take any N past it
-    (:func:`attention_fwd_shapes_ok`)."""
-    words = head_dim * dtype.itemsize // 4
+    (``csrc/attention_tile.cuh``, K9's attention stage): K (rows padded by
+    one word) and V of one head in bf16, one f32 score row and one q row per
+    warp. It sets K9's gate (:func:`attention_shapes_ok`); K3, kernel A and
+    K8 take any N past it (:func:`attention_fwd_shapes_ok`)."""
+    words = head_dim // 2
     return 4 * (n * (words + 1) + n * words + _WARPS * n + _WARPS * head_dim)
 
 
@@ -103,12 +106,11 @@ def attention_f32_rows(n: int, head_dim: int, backward: bool = False) -> int:
     return 0
 
 
-def attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The gate of K8 (and of K9's attention stage): hd a multiple of 8 and
-    <= 128, n within the CUDA-core tile's shared-memory budget for ``dtype``
-    (at hd 64: n <= 789 in bf16, 420 in f32)."""
+def attention_shapes_ok(n: int, head_dim: int) -> bool:
+    """The gate of K9's attention stage: hd a multiple of 8 and <= 128, n
+    within the CUDA-core tile's shared-memory budget (n <= 789 at hd 64)."""
     return (head_dim % 8 == 0 and 0 < head_dim <= 128
-            and attention_smem_bytes(n, head_dim, dtype) <= SMEM_LIMIT)
+            and attention_smem_bytes(n, head_dim) <= SMEM_LIMIT)
 
 
 def attention_fwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
@@ -119,6 +121,16 @@ def attention_fwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bf
     if head_dim % 8 or not 0 < head_dim <= 128 or n < 1:
         return False
     return dtype != torch.float32 or attention_f32_rows(n, head_dim) > 0
+
+
+def flash_attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """K8's gate. K8 runs kernel A's kernels with the score scaled after the
+    dot, so it takes what they take (:func:`attention_fwd_shapes_ok`): in
+    bf16 any n >= 1, in f32 every n with a plan, at hd a multiple of 8 up
+    to 128. JAX's ``flash_attention_qkv`` has no gate at all; the head dims
+    it takes and the port does not (hd % 8 != 0 or hd > 128) are a named
+    residue (ROADMAP Queue 3)."""
+    return attention_fwd_shapes_ok(n, head_dim, dtype)
 
 
 def _q_scale(head_dim: int, dtype: torch.dtype) -> torch.Tensor:
@@ -196,7 +208,7 @@ def attention_fwd_plain(qkv: torch.Tensor, num_heads: int, head_dim: int, *, qs=
 
 
 def _check_attention(qkv, num_heads, head_dim, n_valid, name, dtypes=(torch.bfloat16,),
-                     shapes_ok=attention_shapes_ok):
+                     shapes_ok=attention_fwd_shapes_ok):
     b, n, three_d = qkv.shape
     if three_d != 3 * num_heads * head_dim:
         raise ValueError(f"qkv last dim {three_d} != 3 * {num_heads} * {head_dim}")
@@ -256,8 +268,7 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
     if use_plain(qkv):
         return fused_attention_qkv_plain(qkv, num_heads, head_dim, out_q=out_q,
                                          quant_max=quant_max, n_valid=n_valid)
-    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_q",
-                               shapes_ok=attention_fwd_shapes_ok)
+    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "attention_q")
     b, n, _ = qkv.shape
     out = torch.empty((b, n, num_heads * head_dim), dtype=torch.int8, device=qkv.device)
     if b:
@@ -295,24 +306,17 @@ def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
     bf16), the score scaled after its dot (K8, ``attn_impl="pallas"``)."""
     if use_plain(qkv) or reference_on():
         return flash_attention_qkv_plain(qkv, num_heads, head_dim, n_valid=n_valid)
-    b, n, three_d = qkv.shape
-    if three_d != 3 * num_heads * head_dim:
-        raise ValueError(f"qkv last dim {three_d} != 3 * {num_heads} * {head_dim}")
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attention: qkv dtype {qkv.dtype}, expected f32 or bf16")
-    if not attention_shapes_ok(n, head_dim, qkv.dtype):
-        raise ValueError(f"flash_attention: unsupported n={n}, head_dim={head_dim} in "
-                         f"{qkv.dtype} ({attention_smem_bytes(n, head_dim, qkv.dtype)} "
-                         f"bytes of shared memory > {SMEM_LIMIT})")
-    n_valid = n if n_valid is None else n_valid
-    if not 0 < n_valid <= n:
-        raise ValueError(f"n_valid {n_valid} outside (0, {n}]")
-    require(qkv, "qkv", qkv.dtype, qkv.device, (b, n, three_d))
+    n_valid = _check_attention(qkv, num_heads, head_dim, n_valid, "flash_attention",
+                               TRAIN_DTYPES, flash_attention_shapes_ok)
+    if qkv.dtype == torch.float32:  # the f32 kernel stages 16-byte chunks
+        require(qkv, "qkv", qkv.dtype, qkv.device, align=16)
+    b, n, _ = qkv.shape
     out = torch.empty((b, n, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     if b:
         _build.load().call(
-            "qvt_flash_attention", ptr(qkv), ptr(out), b, n, num_heads, head_dim, n_valid,
-            head_dim ** -0.5, int(qkv.dtype == torch.float32), stream_of(qkv.device),
+            "qvt_flash_attention_f32" if qkv.dtype == torch.float32 else "qvt_flash_attention_mma",
+            ptr(qkv), ptr(out), b, n, num_heads, head_dim, n_valid, head_dim ** -0.5,
+            stream_of(qkv.device),
         )
         flash_attention_qkv.launches += 1
     return out

@@ -5,10 +5,11 @@ stage of ``qat_vit_tpu/ops/long_block_kernel.py``, K6).
 - :func:`long_attention_qkv`: MHA over ``[B, N, 3·H·hd]`` → ``[B, N, H·hd]``
   in the qkv dtype, bf16 or f32 (K5a). On CUDA a bf16 qkv launches
   ``qvt_attention_long_mma`` (``csrc/attention_long_mma.cu``: a streaming
-  online-softmax forward on the tensor cores), an f32 one
-  ``qvt_attention_long`` (``csrc/attention_long.cu``); launches are counted
-  in ``long_attention_qkv.launches``. With ``out_q`` it is
-  :func:`long_attention_q`.
+  online-softmax forward on the tensor cores), an f32 one kernel A's f32
+  kernel, ``qvt_attention_fwd`` without ``in_fq`` (``csrc/attention_f32.cu``:
+  the plain version below does kernel A's arithmetic, rounding for
+  rounding); launches are counted in ``long_attention_qkv.launches``. With
+  ``out_q`` it is :func:`long_attention_q`.
 - :func:`long_attention_q`: the same attention with the output quantized to
   shifted int8 on the ``out_q`` grid (K6's attention stage, the proj GEMM's
   input; the ``out_q`` / ``quant_max`` contract of
@@ -30,11 +31,12 @@ p rounded to the qkv dtype, keys ``>= n_valid`` at -1e30), one image and one
 stripe of query rows at a time: a batch-8 f64 score tensor at 2,305 tokens
 would hold ~3 GB.
 
-Two kinds of kernel, two gates. The f32 forms keep score rows, not K and
-V, in shared memory (one head's K and V at 2,305 × 64 in f32 are 590 KB
-each, over the 227 KB a block may use) and replay their plain versions bit
-for bit; their gate is that plan, hd a multiple of 8 and at most 128 and
-:func:`long_attention_smem_bytes` within the limit. The bf16 pair K5a /
+Two kinds of kernel, two kinds of gate. The f32 forms keep score rows, not
+K and V, in shared memory (one head's K and V at 2,305 × 64 in f32 are 590
+KB each, over the 227 KB a block may use) and replay their plain versions
+bit for bit; their gates are their plans at hd a multiple of 8 and at most
+128: K5a's kernel A's (:func:`long_attention_shapes_ok`, N to ~39,000 at
+hd 128), K5b's :func:`long_attention_bwd_smem_bytes`. The bf16 pair K5a /
 K5b and K6's two int8-output forms stream K and V through tiles on the
 tensor cores, keep only tiles in shared memory and so take any N at such an
 hd (:func:`long_attention_stream_ok`, JAX's ``long_attention_shapes_ok``);
@@ -89,6 +91,7 @@ from qat_vit_tpu_torch.ops._cuda import (
 from qat_vit_tpu_torch.ops.flash_attention import (
     TRAIN_DTYPES,
     _q_scale,
+    attention_fwd_shapes_ok,
     ordered_dot,
     ordered_matmul,
     softmax_pinned,
@@ -98,9 +101,9 @@ from qat_vit_tpu_torch.ops.fused_serve import inv_scale, quantize_mul
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values, ste_mask
 
-# the layout of csrc/attention_long.cu: query rows per block, and the bytes
-# of a key tile's rows (128 keys of bf16, 64 of f32)
-Q_TILE, KEY_TILE_ELEM_BYTES = 8, 256
+# the bytes of a key tile's rows in csrc/attention_long_bwd.cu (128 keys of
+# bf16, 64 of f32)
+KEY_TILE_ELEM_BYTES = 256
 # query rows per block of pass 1 of csrc/attention_long_bwd.cu
 BWD_ROWS = 4
 # query rows per step of the plain versions
@@ -116,20 +119,12 @@ def _key_tiles_bytes(head_dim: int, dtype: torch.dtype) -> int:
     return 16 * 2 * keys * (head_dim * dtype.itemsize // 16 + 1)
 
 
-def long_attention_smem_bytes(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory the kernel asks for: the block's f32 score rows (row
-    stride rounded up to 4), its scaled q rows (f32), and two key tiles of
-    ``dtype``."""
-    n4 = -(-n // 4) * 4
-    return 4 * (Q_TILE * n4 + Q_TILE * head_dim) + _key_tiles_bytes(head_dim, dtype)
-
-
 def long_attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The score-row plan's gate (``csrc/attention_long.cu``, which the f32
-    forward runs): hd a multiple of 8 and <= 128, n within the shared-memory
-    plan for ``dtype`` (N <= 6,048 at hd 64 with bf16-sized tiles)."""
-    return (head_dim % 8 == 0 and 0 < head_dim <= 128 and n > 0
-            and long_attention_smem_bytes(n, head_dim, dtype) <= SMEM_LIMIT)
+    """K5a's gate: in bf16 the streaming gate (:func:`long_attention_stream_ok`,
+    any n), in f32 the plan of kernel A's f32 kernel, which it runs
+    (``flash_attention.attention_fwd_shapes_ok``: n <= 39,080 at hd 128);
+    hd a multiple of 8 and <= 128."""
+    return attention_fwd_shapes_ok(n, head_dim, dtype)
 
 
 def long_attention_bwd_smem_bytes(n: int, head_dim: int,
@@ -165,12 +160,6 @@ def _stream_gate(n: int, head_dim: int, dtype: torch.dtype) -> bool:
     return long_attention_stream_ok(n, head_dim)
 
 
-def _fwd_gate(n: int, head_dim: int, dtype: torch.dtype) -> bool:
-    if dtype == torch.bfloat16:
-        return long_attention_stream_ok(n, head_dim)
-    return long_attention_shapes_ok(n, head_dim, dtype)
-
-
 def _bwd_gate(n: int, head_dim: int, dtype: torch.dtype) -> bool:
     if dtype == torch.bfloat16:
         return long_attention_stream_ok(n, head_dim)
@@ -188,7 +177,8 @@ def long_attention_train_available(num_heads: int, head_dim: int, seq_len: int,
         return False
     if -(-seq_len // TRAIN_Q_TILE) * TRAIN_Q_TILE > TRAIN_MAX_N_PAD:
         return False
-    return _fwd_gate(seq_len, head_dim, dtype) and _bwd_gate(seq_len, head_dim, dtype)
+    return (long_attention_shapes_ok(seq_len, head_dim, dtype)
+            and _bwd_gate(seq_len, head_dim, dtype))
 
 
 def _long_attention_f32(qkv, num_heads, head_dim, n_valid, qk8=None,
@@ -293,8 +283,7 @@ def long_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int, *,
 def _attention_launch(qkv, num_heads, head_dim, n_valid, want_lse=False):
     """K5a on CUDA → (out, lse): the f32 ``[B, H, N]`` log-sum-exp of each
     row's scores with ``want_lse`` (bf16 only), else None."""
-    n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long", TRAIN_DTYPES,
-                     gate=_fwd_gate)
+    n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long", TRAIN_DTYPES)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
@@ -304,9 +293,9 @@ def _attention_launch(qkv, num_heads, head_dim, n_valid, want_lse=False):
         if qkv.dtype == torch.bfloat16:
             _build.load().call("qvt_attention_long_mma", ptr(qkv), ptr(out), ptr(lse), b, n,
                                num_heads, head_dim, n_valid, scale, stream_of(qkv.device))
-        else:
-            _build.load().call("qvt_attention_long", ptr(qkv), ptr(out), b, n, num_heads,
-                               head_dim, n_valid, scale, stream_of(qkv.device))
+        else:  # kernel A's f32 kernel, no in_fq
+            _build.load().call("qvt_attention_fwd", ptr(qkv), None, ptr(out), b, n, num_heads,
+                               head_dim, n_valid, scale, 0, 0.0, 0.0, stream_of(qkv.device))
         long_attention_qkv.launches += 1
     return out, lse
 

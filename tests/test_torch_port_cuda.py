@@ -12,8 +12,9 @@ except the attentions on the tensor cores, which sum in their own order and
 use the card's ``ex2``; each gives identical bits over two launches:
 
 - the bf16 long attention pair (K5a ``qvt_attention_long_mma``, K5b
-  ``qvt_attention_long_bwd_mma``) and the bf16 kernels A
-  (``qvt_attention_fwd_mma``) and B (``qvt_attention_bwd_mma``) are held by
+  ``qvt_attention_long_bwd_mma``), the bf16 kernels A
+  (``qvt_attention_fwd_mma``) and B (``qvt_attention_bwd_mma``) and the
+  bf16 K8 (``qvt_flash_attention_mma``) are held by
   :func:`assert_tc_close` to the tolerance of ``long_attention.tc_errors``
   against their plain versions and to the plain versions' own accuracy
   against the f64 math (kernels A's and B's of the fake-quantized qkv;
@@ -466,12 +467,13 @@ def test_long_attention_q_streaming(dev, b, n, heads, hd, n_valid, form):
 def test_long_attention_gate_raises(dev):
     """The gates are split: the bf16 forms (K5a, and K6a's two int8-output
     forms) stream K and V on the tensor cores and take any N at hd a
-    multiple of 8 up to 128; the f32 form keeps one f32 score row per query
-    of a block in shared memory and, beyond that plan (7,000 tokens here),
-    raises instead of falling back."""
+    multiple of 8 up to 128; the f32 form runs kernel A's f32 kernel, whose
+    strips of score rows take N to 39,080 at hd 128 (7,000 tokens here run),
+    and past that plan it raises instead of falling back."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
-    assert la.long_attention_shapes_ok(6048, 64) and not la.long_attention_shapes_ok(6049, 64)
+    assert la.long_attention_shapes_ok(7000, 64, torch.float32)
+    assert not la.long_attention_shapes_ok(39_081, 128, torch.float32)
     assert la.long_attention_stream_ok(7000, 64) and la.long_attention_stream_ok(100_000, 128)
     assert not la.long_attention_stream_ok(7000, 60) and not la.long_attention_stream_ok(64, 136)
     qkv = torch.zeros(1, 7000, 3 * 64, dtype=torch.bfloat16, device=dev)
@@ -479,7 +481,7 @@ def test_long_attention_gate_raises(dev):
     with pytest.raises(ValueError, match="unsupported"):
         la.long_attention_qkv(qkv[..., :3 * 60].contiguous(), 1, 60, out_q=OUT_Q)
     with pytest.raises(ValueError, match="unsupported"):
-        la.long_attention_qkv(qkv.float(), 1, 64)
+        la.long_attention_qkv(torch.zeros(1, 39_081, 3 * 128, device=dev), 1, 128)
     with pytest.raises(ValueError, match="unsupported"):
         la.long_attention_qkv(torch.zeros(1, 64, 3 * 60, dtype=torch.bfloat16, device=dev), 1, 60)
     with pytest.raises(ValueError, match="dtype"):
@@ -487,6 +489,8 @@ def test_long_attention_gate_raises(dev):
     with pytest.raises(ValueError, match="dtype"):  # the int8 forms are bf16-only
         la.long_attention_qkv(torch.zeros(1, 64, 3 * 64, device=dev), 1, 64, out_q=OUT_Q)
     assert (la.long_attention_qkv.launches, la.long_attention_q.launches) == before
+    la.long_attention_qkv(qkv.float(), 1, 64)
+    assert la.long_attention_qkv.launches == before[0] + 1
 
 
 @pytest.fixture(scope="module")
@@ -751,29 +755,56 @@ def test_fused_quantize_matmul_raises(dev):
 @pytest.mark.parametrize("b,n,heads,hd,n_valid", [(32, 197, 6, 64, 197), (4, 32, 2, 64, 17),
                                                   (2, 50, 4, 32, 41), (2, 130, 2, 128, 130)])
 def test_flash_attention(dev, dtype, b, n, heads, hd, n_valid):
-    """K8 (qvt_flash_attention) against its plain version: identical in f32
-    (explicit multiply-then-add, no contracted FMA) and bf16, masked keys."""
+    """K8 against its plain version, masked keys: in f32
+    (``qvt_flash_attention_f32``: explicit multiply-then-add, no contracted
+    FMA) identical; in bf16 (``qvt_flash_attention_mma``, tensor cores)
+    within the tolerance of ``tc_errors`` against its plain version and the
+    f64 math; two launches identical."""
+    _check_flash_attention(dev, dtype, b, n, heads, hd, n_valid)
+
+
+def _check_flash_attention(dev, dtype, b, n, heads, hd, n_valid):
     rng = np.random.default_rng(n + hd)
     qkv = torch.from_numpy(rng.normal(0, 1.5, (b, n, 3 * heads * hd)).astype(np.float32))
     qkv = qkv.to(dev).to(dtype)
     before = fa.flash_attention_qkv.launches
     got = fa.flash_attention_qkv(qkv, heads, hd, n_valid=n_valid)
     assert fa.flash_attention_qkv.launches == before + 1
-    _same(got, fa.flash_attention_qkv_plain(qkv, heads, hd, n_valid=n_valid))
+    plain = fa.flash_attention_qkv_plain(qkv, heads, hd, n_valid=n_valid)
+    if dtype == torch.float32:
+        _same(got, plain)
+    else:
+        assert_tc_close(got, plain, la.long_attention_f64(qkv, heads, hd, n_valid=n_valid)[0], 1)
+    _same(got, fa.flash_attention_qkv(qkv, heads, hd, n_valid=n_valid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(2, 577, 6, 64, 577), (1, 1025, 4, 64, 1000),
+                                                  (1, 577, 2, 128, 570)])
+def test_flash_attention_past_the_tile(dev, dtype, b, n, heads, hd, n_valid):
+    """K8 past the CUDA-core tile's plan of the earlier kernel (789 / 420
+    tokens at hd 64 in bf16 / f32, 416 / 208 at hd 128): ViT-S/16 at 384 px
+    (577 tokens) and N 1,025, as :func:`test_flash_attention` holds it."""
+    _check_flash_attention(dev, dtype, b, n, heads, hd, n_valid)
 
 
 def test_flash_attention_gate_raises(dev):
-    """f32 K and V take twice the shared memory: past K8's f32 gate it
-    raises (bf16 still fits), and nothing launches."""
+    """K8 takes kernel A's plans: 421 f32 tokens at hd 64 (past the earlier
+    CUDA-core tile) run, as does bf16; an f32 N past kernel A's plan
+    (39,081 at hd 128), hd 60 and a float16 qkv raise, and nothing
+    launches."""
     before = fa.flash_attention_qkv.launches
     qkv = torch.zeros(1, 421, 3 * 64, device=dev)
     with pytest.raises(ValueError, match="unsupported"):
-        fa.flash_attention_qkv(qkv, 1, 64)
+        fa.flash_attention_qkv(torch.zeros(1, 39_081, 3 * 128, device=dev), 1, 128)
+    with pytest.raises(ValueError, match="unsupported"):
+        fa.flash_attention_qkv(torch.zeros(1, 17, 3 * 60, device=dev), 1, 60)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention_qkv(qkv.half(), 1, 64)
     assert fa.flash_attention_qkv.launches == before
+    fa.flash_attention_qkv(qkv, 1, 64)
     fa.flash_attention_qkv(qkv.to(torch.bfloat16), 1, 64)
-    assert fa.flash_attention_qkv.launches == before + 1
+    assert fa.flash_attention_qkv.launches == before + 2
 
 
 @pytest.fixture(scope="module", params=["micro", "vit_s_depth2"])
@@ -953,6 +984,20 @@ def test_long_attention_f32(dev, b, n, heads, hd, n_valid):
     _same(out, la.long_attention_qkv_plain(qkv, heads, hd, n_valid=n_valid))
     _same(got, la.long_attention_bwd_plain(qkv, do, heads, hd, n_valid=n_valid))
     assert not got[:, n_valid:].any() and got[:, :n_valid].any()
+
+
+@pytest.mark.parametrize("b,n,heads,hd,n_valid", [(2, 2305, 9, 64, 2305), (1, 7000, 2, 64, 6990)])
+def test_long_attention_f32_forward(dev, b, n, heads, hd, n_valid):
+    """K5a in f32 on kernel A's f32 kernel at OWLv2's 2,305 tokens and at
+    7,000, past the earlier kernel's plan (6,048 at hd 64): identical to
+    its plain version, two launches identical."""
+    rng = np.random.default_rng(n + hd + 2)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * heads * hd)).astype(np.float32)).to(dev)
+    before = la.long_attention_qkv.launches
+    out = la.long_attention_qkv(qkv, heads, hd, n_valid=n_valid)
+    assert la.long_attention_qkv.launches == before + 1 and out.dtype == torch.float32
+    _same(out, la.long_attention_qkv_plain(qkv, heads, hd, n_valid=n_valid))
+    _same(out, la.long_attention_qkv(qkv, heads, hd, n_valid=n_valid))
 
 
 @pytest.mark.parametrize("long", [False, True])

@@ -39,6 +39,7 @@ from qat_vit_tpu_torch.models.registry import create_model
 from qat_vit_tpu_torch.ops import block_kernel as bk
 from qat_vit_tpu_torch.ops.flash_attention import (
     attention_shapes_ok,
+    flash_attention_shapes_ok,
     flash_attention_qkv,
     flash_attention_qkv_plain,
 )
@@ -173,12 +174,19 @@ def test_flash_attention_matches_jax(dtype, n):
 
 
 def test_flash_attention_gate():
-    """f32 K and V take twice the shared memory: K8's own gate."""
-    assert attention_shapes_ok(789, 64, torch.bfloat16)
-    assert not attention_shapes_ok(790, 64, torch.bfloat16)
-    assert attention_shapes_ok(420, 64, torch.float32)
-    assert not attention_shapes_ok(421, 64, torch.float32)
-    assert not attention_shapes_ok(197, 60, torch.float32)
+    """K8's own gate runs kernel A's plans: past the CUDA-core tile's 789
+    (bf16) and 420 (f32) tokens at hd 64 of the earlier kernel, bf16 at
+    any N and f32 to the end of its plan; hd a multiple of 8 up to 128.
+    K9's gate (``attention_shapes_ok``) keeps the tile's 789."""
+    for dt in (torch.bfloat16, torch.float32):
+        assert flash_attention_shapes_ok(789, 64, dt) and flash_attention_shapes_ok(790, 64, dt)
+        assert flash_attention_shapes_ok(421, 64, dt) and flash_attention_shapes_ok(577, 64, dt)
+        assert not flash_attention_shapes_ok(197, 60, dt)
+        assert not flash_attention_shapes_ok(197, 136, dt)
+    assert flash_attention_shapes_ok(100_000, 128, torch.bfloat16)
+    assert flash_attention_shapes_ok(39_080, 128, torch.float32)
+    assert not flash_attention_shapes_ok(39_081, 128, torch.float32)
+    assert attention_shapes_ok(789, 64) and not attention_shapes_ok(790, 64)
 
 
 # ---------------------------------------------------------------------------
