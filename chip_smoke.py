@@ -23,7 +23,7 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    attention stage (each call within the int8 bound), the distance to the
    plain chain (``CHAIN_REL_L2``) and to the exact f32 path, prints the
    serving img/s and profiles one batch-256 forward (device time by kernel
-   group: 12 K3, 14 K2a and 12 K2b kernels, none of the CUDA-core GEMM tile);
+   group: 12 K3, 14 K2a and 12 K2b kernels, no K7 kernel);
 4. training: ``KDQATTrainer`` at full ViT-S/16 geometry under the trainer's
    defaults (bf16, fast_math, fq_in_kernel) with a random-init ViT-B/16
    teacher, on 1,024 synthetic CIFAR-10 images: 3 float steps, the QAT
@@ -65,8 +65,10 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    torch.profiler: device time by kernel group and the idle share), int8
    convert and int8 eval against the fake-quant detector;
 7. the rest of int8 serving on phase 3's ViT-S/16 export: the fused
-   quantize GEMM (K7) identical to its plain version at the exact path's
-   batch-32 shapes and at K 96 and 480 (f32 and bf16 input, per-tensor and
+   quantize GEMM (K7, TMA + ``wgmma`` in ``int8_gemm_wgmma.cu``, given the
+   packed weight as ``quantized_dense`` passes it) identical to its plain
+   version, two launches identical, at the exact path's batch-32 shapes and
+   at K 96 and 480 and a ragged M (f32 and bf16 input, per-tensor and
    per-channel), the
    scale-after-dot attention (K8: f32 on ``attention_f32.cu``, bf16 on the
    tensor cores in ``attention_q_mma.cu``) at ``[32, 197, 1152]`` in f32
@@ -92,7 +94,9 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    the plain version's, device ms beside SDPA's; one kernel-B call
    profiled must show its rows and keys kernels) and of K5a / K5b
    (``[2, 2305, 1728]``; K5a, kernel A's f32 kernel, also at 7,000 tokens,
-   past the earlier kernel's plan), each bit-identical to its plain version
+   past the earlier kernel's plan; K5b, kernel B's f32 passes with K5b's
+   arithmetic, also at 4,096 tokens with padded queries; two launches
+   identical), each bit-identical to its plain version
    (``attention_long_q8``: K6a's int8 bound); the ``i8`` chain on phase 5's
    export at batch 8 x 4 queries (47 launches; against its plain twin
    printed, not held; identical to the plain twin with the kernels'
@@ -130,6 +134,7 @@ time. The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -229,6 +234,7 @@ SERVE_MODE_RUNS = 10
 K8_B384, K8_N384 = 8, 577
 # phase 8: K5a in f32 past the earlier kernel's plan (6,048 tokens at hd 64)
 K5A_LONG_N = 7000
+K5B_CAP_N = 4096  # JAX's cap on the training pair
 # phase 6's replay: each step run from the same state through the kernels,
 # through K5a with K5b's plain version (the hybrid: the same forward) and
 # through the plain versions. The bf16 long pair sums on the tensor cores,
@@ -250,9 +256,9 @@ DT_REPLAY_QKV_GRAD_REL = 3e-3
 # and B (the f32 K5a and K8 run kernel A's)
 SHORT_MMA_ATTENTION = "qat_vit_tpu_torch/csrc/attention_q_mma.cu"
 F32_ATTENTION = "qat_vit_tpu_torch/csrc/attention_f32.cu"
-# the kernel group of the CUDA-core mma.sync GEMM tile (csrc/gemm_tile.cuh),
-# which only K7 launches: K2a and K2b run csrc/int8_gemm_wgmma.cu
-CORE_TILE = "K7 (CUDA-core tile)"
+# the kernel group of K7 (csrc/int8_gemm_wgmma.cu's quantize_gemm_kernel),
+# which serving never launches; K2a and K2b run the same file's int8 kernel
+K7_GROUP = "K7"
 WGMMA_GEMM = "qat_vit_tpu_torch/csrc/int8_gemm_wgmma.cu"
 
 # H100 SXM dense peaks (NVIDIA's H100 datasheet): operations per second by
@@ -299,11 +305,12 @@ def kernel_group(name: str) -> str:
     n = name.lower()
     for key, group in (("long_bwd_rows_mma", "K5b rows"), ("long_bwd_keys_mma", "K5b keys"),
                        ("long_attention_mma", "K5a"), ("long_attention_q_mma", "K6a"),
-                       ("long_bwd_rows", "K5b f32 rows"), ("long_bwd_keys", "K5b f32 keys"),
+                       ("long_attention_f32_bwd_rows", "K5b f32 rows"),
+                       ("long_attention_f32_bwd_keys", "K5b f32 keys"),
                        ("gemm_resid_ln", "K2c RESID_LN_Q"),
                        ("int8_wgmma_kernel<1,", "K2b GELU_Q"),
                        ("int8_wgmma_kernel<3,", "K2a PLAIN_Q8"), ("int8_wgmma_kernel", "K2a PLAIN"),
-                       ("gemm_tiled_kernel", CORE_TILE),
+                       ("quantize_gemm_kernel", K7_GROUP),
                        ("ln_quantize", "K2d LN"), ("attention_q_mma", "K3 / kernel A"),
                        ("attention_bwd_rows_mma", "kernel B rows"),
                        ("attention_bwd_keys_mma", "kernel B keys"),
@@ -876,7 +883,9 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
               f"kernel {ms:.4f} ms ({ms_b2b:.4f} ms each of {KERNEL_REPS} back to back)  "
               f"plain {plain_ms:.4f} ms  library {lib}  "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        results.append({"name": name, "wrapper": kernel, "source": extra.get("source"),
+        # a functools.partial's counts are its function's
+        results.append({"name": name, "wrapper": getattr(kernel, "func", kernel),
+                        "source": extra.get("source"),
                         "replaces": replaces,
                         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
@@ -985,14 +994,14 @@ def phase_serving(torch, np, fs, fa):
         print(f"phase 3 one profiled batch-{SERVE_B} forward (uint8 images in, logits out): "
               f"device busy {busy:.2f} of {wall:.2f} ms (idle {100 * (1 - busy / wall):.1f}%), "
               f"{n_kernels} kernels ({counts['K3 / kernel A']} K3, {counts['K2a PLAIN']} K2a, "
-              f"{counts['K2b GELU_Q']} K2b, {counts[CORE_TILE]} of the CUDA-core GEMM tile); "
+              f"{counts['K2b GELU_Q']} K2b, {counts[K7_GROUP]} K7); "
               "device ms "
               "by group: " + ", ".join(f"{g} {t:.2f}" for g, t in groups.most_common()),
               flush=True)
         if (counts["K3 / kernel A"], counts["K2a PLAIN"], counts["K2b GELU_Q"],
-                counts[CORE_TILE]) != (cfg.depth, cfg.depth + 2, cfg.depth, 0):
+                counts[K7_GROUP]) != (cfg.depth, cfg.depth + 2, cfg.depth, 0):
             fail(f"the profiled forward ran {counts['K3 / kernel A']} K3, {counts['K2a PLAIN']} "
-                 f"K2a, {counts['K2b GELU_Q']} K2b and {counts[CORE_TILE]} CUDA-core tile kernels, "
+                 f"K2a, {counts['K2b GELU_Q']} K2b and {counts[K7_GROUP]} K7 kernels, "
                  f"expected {cfg.depth}, {cfg.depth + 2}, {cfg.depth} and 0")
     else:
         print("phase 3 one profiled forward: torch.profiler saw no device activity (breakdown "
@@ -1661,8 +1670,10 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
     for name, m_rows, k, n in (("patch_embed", b * (n_tok - 1), 3 * cfg.patch_size ** 2, d),
                                ("qkv", b * n_tok, d, 3 * d), ("proj", b * n_tok, d, d),
                                ("fc1", b * n_tok, d, mlp), ("fc2", b * n_tok, mlp, d),
-                               # K = 32 (mod 64), which JAX's gate admits
-                               ("K 96", 8, 96, 128), ("K 480", b * n_tok, 480, d)):
+                               # K = 32 (mod 64), which JAX's gate admits, and a
+                               # ragged M at a unit past N
+                               ("K 96", 8, 96, 128), ("K 480", b * n_tok, 480, d),
+                               ("K 96 ragged", 2 * n_tok, 96, 640)):
         for x_dt, per_channel in ((f32t, False), (bf16, True)):
             x = torch.from_numpy(rng.normal(0, 1.5, (m_rows, k)).astype(np.float32)).to(dev)
             x = x.to(x_dt)
@@ -1676,10 +1687,11 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
                 f"fused_quantize_matmul {name} [{m_rows}x{k}]@[{k}x{n}] "
                 f"{'f32' if x_dt == f32t else 'bf16'} in, "
                 f"{'per-channel' if per_channel else 'per-tensor'}",
-                pg.fused_quantize_matmul, pg.fused_quantize_matmul_plain, (x, layer["w_int8"]),
+                functools.partial(pg.fused_quantize_matmul, w_t=layer["w_int8_t"]),
+                pg.fused_quantize_matmul_plain, (x, layer["w_int8"]),
                 kw, "qat_vit_tpu/ops/pallas_gemm.py:51",
                 gemm_work(m_rows, k, n, 4, (in_bytes - 1) * m_rows * k),
-                int_mm(torch, x_q, layer), {"exact": True}))
+                int_mm(torch, x_q, layer), {"exact": True, "repeat": True}))
     # K8 at [32, 197, 1152] and, past the earlier kernel's plan, at ViT-S/16's
     # 577 tokens at 384 px: f32 identical, bf16 by compare_tc
     qkv = torch.from_numpy(rng.normal(0, 1.0, (b, n_tok, 3 * d)).astype(np.float32)).to(dev)
@@ -1881,7 +1893,11 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
     fq = {"qs": torch.tensor([4.2 / 255, 127.0], dtype=f32t, device=dev), "in_fq": (0, 255)}
     qkv_long = torch.from_numpy(rng.normal(0, 1.0, (1, K5A_LONG_N, 3 * d)).astype(
         np.float32)).to(dev)
-    # K5a in f32 runs kernel A's f32 kernel
+    # K5b in f32 at JAX's cap of 4,096 tokens, with padded queries
+    qkv_cap = torch.from_numpy(rng.normal(0, 1.0, (1, K5B_CAP_N, 3 * d)).astype(
+        np.float32)).to(dev)
+    do_cap = torch.from_numpy(rng.normal(0, 1.0, (1, K5B_CAP_N, d)).astype(np.float32)).to(dev)
+    # K5a and K5b in f32 run kernel A's and kernel B's f32 kernels
     k5a_f32 = {"source": F32_ATTENTION, "repeat": True}
     q8_attn = [{"ops": 2 * b * heads * n * n * hd, "type": "int8",  # the int8 score dot
                 "bytes": b * n * 2 * d + 2 * b * n * d + b * n * d},
@@ -1909,12 +1925,18 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
          la.long_attention_bwd_plain, (qkv, do, heads, hd), {},
          "qat_vit_tpu/ops/long_attention.py:173",
          attention_work(b, n, heads, hd, backward=True, in_bytes=4, op_type="f32"),
-         sdpa_backward(torch, qkv, do, heads, hd)),
+         sdpa_backward(torch, qkv, do, heads, hd), k5a_f32),
+        (f"attention_long_bwd f32 [1x{K5B_CAP_N}x{3 * d}] {heads} heads n_valid "
+         f"{K5B_CAP_N - 6}", la.long_attention_bwd, la.long_attention_bwd_plain,
+         (qkv_cap, do_cap, heads, hd), {"n_valid": K5B_CAP_N - 6},
+         "qat_vit_tpu/ops/long_attention.py:173",
+         attention_work(1, K5B_CAP_N, heads, hd, backward=True, in_bytes=4, op_type="f32"),
+         sdpa_backward(torch, qkv_cap, do_cap, heads, hd), k5a_f32),
     ]
     kernels = check_kernels(torch, cases, "phase 8", exact=True,
                             slow_plain=(la.long_attention_q8_plain, la.long_attention_qkv_plain,
                                         la.long_attention_bwd_plain))
-    del x_qkv, qk8, qkv, qkv_long, do, cases
+    del x_qkv, qk8, qkv, qkv_long, qkv_cap, do, do_cap, cases
     kernels += f32_attention_in_child(fa, fat)
 
     # the i8 chain on phase 5's export at batch 8 x 4 queries: against its
@@ -2193,8 +2215,8 @@ def main() -> None:
                fat.attention_bwd: "qat_vit_tpu_torch/csrc/attention_bwd_mma.cu",
                la.long_attention_qkv: "qat_vit_tpu_torch/csrc/attention_long_mma.cu",
                la.long_attention_q: "qat_vit_tpu_torch/csrc/attention_long_q_mma.cu",
-               la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd.cu",
-               pg.fused_quantize_matmul: "qat_vit_tpu_torch/csrc/int8_gemm.cu",
+               la.long_attention_bwd: "qat_vit_tpu_torch/csrc/attention_long_bwd_mma.cu",
+               pg.fused_quantize_matmul: WGMMA_GEMM,
                fa.flash_attention_qkv: SHORT_MMA_ATTENTION,
                bk.megablock_forward: "qat_vit_tpu_torch/csrc/megablock.cu",
                bk.megamodel_res_forward: "qat_vit_tpu_torch/csrc/megablock.cu"}

@@ -9,11 +9,14 @@ of 10, two rounds in opposite orders. Ablations (not sound) show where the time
 goes: the f64 exp or division made cheap, a micro-GEMM skipped. The `r8` / `r4`
 variants cap the rows per block (R) at 8 / 4: at 2,305 tokens the plan picks 16
 (one block of ~187 KB per SM), 8 fits two blocks per SM and re-reads each
-head's K and V from L2 twice as often.
+head's K and V from L2 twice as often. K5b in f32 runs kernel B's passes with
+K5b's arithmetic (qvt_attention_long_bwd_rows / _keys): at [2, 2305, 1728] its
+rows pass gets R 8 (`r4` caps it at 4), G1 on the narrow form (`k5b_wide`: on
+g1's 32-row tiles, as kernel B).
 
-    python3 port_scripts/k1f32_variants.py [VARIANT ...] [--long]
+    python3 port_scripts/k1f32_variants.py [VARIANT ...] [--long | --k5b]
 
---long times K5a's shape alone.
+--long times K5a's shape alone, --k5b K5b's passes at [2, 2305, 1728].
 """
 import ctypes
 import os
@@ -45,11 +48,12 @@ VARIANTS = {
     # the rest of each pass, one piece at a time: the staging of sweep 1's K and V
     # tiles (rows), of sweep 2's K tiles (rows), of the q and do tiles (keys); the
     # row softmax (A), the row statistics (rows), the elementwise p^T / ds^T (keys)
-    "nostage1": ([("    stage(Ks, ld, img + D + k0 * stride, stride, KT, nk, hd, kv);\n"
-                   "    stage(Vs, ld, img + 2 * D + k0 * stride, stride, KT, nk, hd, kv);\n", "")],
-                 False),
-    "nostage2": ([("    stage(Ks, ld, img + D + k0 * stride, stride, 2 * KT, min(2 * KT, N - k0), hd, "
-                   "kv);\n", "")], False),
+    "nostage1": ([("      stage(Ks, ld, img + D + k0 * stride, stride, KT, nk, hd, kv);\n"
+                   "      stage(Vs, ld, img + 2 * D + k0 * stride, stride, KT, nk, hd, kv);\n", ""),
+                  ("      stage_pair(Ks, img + D + k0 * stride, nk, Vs, img + 2 * D + k0 * stride, "
+                   "nk, ld, stride,\n                 stride, KT, hd);\n", "")], False),
+    "nostage2": ([("    stage<K5B ? 2 * SU : SU>(Ks, ld, img + D + k0 * stride, stride, 2 * KT, "
+                   "min(2 * KT, N - k0),\n                             hd, kv);\n", "")], False),
     "noqstage": ([("    stage(Qt, ld, img + q0 * stride, stride, QT, nq, hd, kv);\n", "")], False),
     "nosoft": ([("r < rows; r += WARPS) {  // softmax", "r < 0; r += WARPS) {  // softmax"),
                 ("r < rows; r += WARPS) {  // statistics", "r < 0; r += WARPS) {  // statistics"),
@@ -67,12 +71,17 @@ VARIANTS = {
                False),
     "nostA2": ([("    stage(Ts, ld, img + 2 * D + k0 * stride, stride, 2 * KT, min(2 * KT, N - k0), "
                  "hd, kv);\n", "")], False),
+    "nog1k5b": ([("if (c0 < cols) g1_tile<2, MM>", "if (false) g1_tile<2, MM>")], False),
+    "k5b_wide": ([("const int g1m = R <= 4 ? 1 : R <= 8 ? 2 : R <= 16 ? 4 : 0;",
+                   "const int g1m = 0;")], True),
 }
 # (batch, tokens, heads, hd, the passes timed, in_fq settings)
 SHAPES = ((256, 197, 6, 64, ("A", "rows", "keys"), (0, 1)),
           (2, 512, 6, 128, ("A", "rows", "keys"), (0, 1)),
           (2, 2305, 9, 64, ("A",), (0,)))
-ENTRIES = ("qvt_attention_fwd", "qvt_attention_bwd_rows", "qvt_attention_bwd_keys")
+K5B_SHAPES = ((2, 2305, 9, 64, ("k5b_rows", "k5b_keys"), (0,)),)
+ENTRIES = ("qvt_attention_fwd", "qvt_attention_bwd_rows", "qvt_attention_bwd_keys",
+           "qvt_attention_long_bwd_rows", "qvt_attention_long_bwd_keys")
 
 
 def build_all(tmp, variants):
@@ -109,7 +118,8 @@ def build_all(tmp, variants):
 
 def main():
     names = [a for a in sys.argv[1:] if a in VARIANTS]
-    shapes = SHAPES[2:] if "--long" in sys.argv else SHAPES
+    shapes = (SHAPES[2:] if "--long" in sys.argv else K5B_SHAPES if "--k5b" in sys.argv
+              else SHAPES)
     variants = {k: v for k, v in VARIANTS.items() if k == "base" or k in names or not names}
     dev = torch.device("cuda")
     qs = torch.tensor([4.2 / 255, 127.0], dtype=torch.float32, device=dev)
@@ -136,7 +146,13 @@ def main():
                             h, hd, n, scale_a, fq, 0.0, 255.0, stream),
                         "keys": lambda: lib.qvt_attention_bwd_keys(
                             qkv.data_ptr(), do.data_ptr(), qp, st.data_ptr(), dq.data_ptr(), b, n,
-                            h, hd, n, scale_a, fq, 0.0, 255.0, stream)}
+                            h, hd, n, scale_a, fq, 0.0, 255.0, stream),
+                        "k5b_rows": lambda: lib.qvt_attention_long_bwd_rows(
+                            qkv.data_ptr(), do.data_ptr(), st.data_ptr(), dq.data_ptr(), b, n, h,
+                            hd, n, scale_a, scale_a, stream),
+                        "k5b_keys": lambda: lib.qvt_attention_long_bwd_keys(
+                            qkv.data_ptr(), do.data_ptr(), st.data_ptr(), dq.data_ptr(), b, n, h,
+                            hd, n, scale_a, scale_a, stream)}
                     return {k: f for k, f in fns.items() if k in passes}
 
                 results, ref, bufs = {}, None, {}
@@ -160,7 +176,7 @@ def main():
                 for name in libs:
                     got = bufs[name][1]
                     same = torch.equal(got[0], ref[0]) and (
-                        "rows" not in passes or torch.equal(got[1], ref[1]))
+                        passes == ("A",) or torch.equal(got[1], ref[1]))
                     r = results[name]
                     print(f"[{b}x{n}x{3 * h * hd}] {'in_fq' if fq else 'float'} {name}"
                           f"{' (sound)' if variants[name][1] else ''}: identical to base {same}; "

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "qvt_attention_long_mma": [_P] * 3 + [_I] * 5 + [_F, _P],
     "qvt_attention_long_q_mma": [_P, _P] + [_I] * 5 + [_F] * 4 + [_P],
     "qvt_attention_long_q8_mma": [_P] * 3 + [_I] * 5 + [_F, _I, _F, _F, _F, _P],
-    "qvt_attention_long_bwd": [_P] * 4 + [_I] * 5 + [_F, _F, _P],
+    "qvt_attention_long_bwd_rows": [_P] * 4 + [_I] * 5 + [_F, _F, _P],
+    "qvt_attention_long_bwd_keys": [_P] * 4 + [_I] * 5 + [_F, _F, _P],
     "qvt_attention_long_bwd_mma": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
     "qvt_quantize_gemm": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _F, _F, _F, _P],
     "qvt_flash_attention_mma": [_P, _P] + [_I] * 5 + [_F, _P],

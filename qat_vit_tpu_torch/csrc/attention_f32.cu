@@ -13,7 +13,10 @@
 // - qat_vit_tpu/ops/flash_attention.py::_attention_kernel (K8), kernel A
 //   with the score scaled after its dot (qvt_flash_attention_f32);
 // - qat_vit_tpu/ops/flash_attention_train.py::_attention_bwd_kernel
-//   (launched by _attention_bwd_call; kernel B), their VJP.
+//   (launched by _attention_bwd_call; kernel B), their VJP;
+// - qat_vit_tpu/ops/long_attention.py::_long_attention_bwd_kernel (K5b),
+//   kernel B's two launches with K5b's arithmetic (K5B, below;
+//   qvt_attention_long_bwd_rows / _keys).
 // The bf16 forms run on the tensor cores (attention_q_mma.cu,
 // attention_bwd_mma.cu, attention_long_mma.cu).
 //
@@ -29,6 +32,10 @@
 //             with in_fq the straight-through estimator's mask, recomputed
 //             from the raw qkv (qmin <= rint(raw / s + zp) <= qmax), zeroes
 //             dq, dk and dv at the store.
+//   K5b (K5B): kernel B with s = (q * scale) k^T, q scaled in f32 before the
+//             dot as in kernel A (dk keeps the unscaled q), and the rows of
+//             do >= n_valid taken as zero (they then add +0 to dk and dv,
+//             as in the plain version, which zeroes them the same way).
 // Every rounding is the plain versions' (ops/flash_attention.
 // attention_fwd_plain, ops/flash_attention_train.attention_bwd_plain), so
 // the outputs are the same bits: each f32 dot accumulates from +0 in index
@@ -80,6 +87,11 @@
 //    do and the row statistics stream through in 64-query tiles, in query
 //    order: G1 gives s^T and dp^T, every thread then forms p^T and ds^T
 //    from the statistics, and G2 adds dk += ds^T q and dv += p^T do.
+// K5b at OWLv2's 2,305 tokens gets R = 8 (two ~9 KB strip rows each): its
+// rows pass then runs G1 on g1_narrow (each group's 4 warps on 16 keys
+// each, 2 x 2 register tiles over R rows) and G2 with one row per thread;
+// its keys pass scales q as G1 loads it (port_scripts/k1f32_variants.py
+// times R 8 against 4).
 // R is the largest of 32, 16, .., 1 whose strips fit in the shared memory
 // (attention_f32_rows in ops/flash_attention.py mirrors the plans), so any
 // N up to ~18,000 at hd 128. Tiles are staged by 16-byte loads, several in
@@ -135,22 +147,22 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 // two round trips to memory; 8 in flight cost the register-bound rows
 // pass more than they saved, port_scripts/k1f32_variants.py).
 constexpr int SU = 4;
-template <typename F>
+template <int SUN = SU, typename F>
 __device__ __forceinline__ void stage(float* dst, int ld, const float* src, size_t stride, int nr,
                                       int nvalid, int hd, F f) {
   const int nc = hd >> 2, rstep = THREADS / nc, t = threadIdx.x;
   if (t >= rstep * nc) return;
   const int r1 = t / nc, c = (t - r1 * nc) * 4;
-  for (int r0 = r1; r0 < nr; r0 += rstep * SU) {
-    float4 v[SU];
+  for (int r0 = r1; r0 < nr; r0 += rstep * SUN) {
+    float4 v[SUN];
 #pragma unroll
-    for (int u = 0; u < SU; ++u) {
+    for (int u = 0; u < SUN; ++u) {
       const int r = r0 + u * rstep;
       v[u] = r < nvalid ? *reinterpret_cast<const float4*>(src + (size_t)r * stride + c)
                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
 #pragma unroll
-    for (int u = 0; u < SU; ++u) {
+    for (int u = 0; u < SUN; ++u) {
       const int r = r0 + u * rstep;
       if (r >= nr) continue;
       if (r < nvalid) v[u] = make_float4(f(v[u].x), f(v[u].y), f(v[u].z), f(v[u].w));
@@ -159,36 +171,71 @@ __device__ __forceinline__ void stage(float* dst, int ld, const float* src, size
   }
 }
 
+// two stage()s of nr rows at once (K5b: K and V, or q and do), the loads of
+// both issued before any store: twice the loads in flight per round trip.
+// Rows of a past nvalid_a, of b past nvalid_b, are zeros; no transform.
+__device__ __forceinline__ void stage_pair(float* da, const float* sa, int nvalid_a, float* db,
+                                           const float* sb, int nvalid_b, int ld, size_t stride_a,
+                                           size_t stride_b, int nr, int hd) {
+  const int nc = hd >> 2, rstep = THREADS / nc, t = threadIdx.x;
+  if (t >= rstep * nc) return;
+  const int r1 = t / nc, c = (t - r1 * nc) * 4;
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int r0 = r1; r0 < nr; r0 += rstep * SU) {
+    float4 va[SU], vb[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int r = r0 + u * rstep;
+      va[u] = r < nvalid_a ? *reinterpret_cast<const float4*>(sa + (size_t)r * stride_a + c) : z;
+      vb[u] = r < nvalid_b ? *reinterpret_cast<const float4*>(sb + (size_t)r * stride_b + c) : z;
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int r = r0 + u * rstep;
+      if (r >= nr) continue;
+      *reinterpret_cast<float4*>(da + r * ld + c) = va[u];
+      *reinterpret_cast<float4*>(db + r * ld + c) = vb[u];
+    }
+  }
+}
+
 // The register tile of one thread of G1: out[r][c] = sum_d A[r][d] * B[c][d]
-// for rows r0 + ty + 4m (m < 4) and columns c0 + tx + 8c (c < NC), ty and
+// for rows r0 + ty + 4m (m < MM) and columns c0 + tx + 8c (c < NC), ty and
 // tx the lane's row and column in its warp; emit(r, c, value) takes each.
-template <int NC, typename Emit>
+// SCALE_B (K5b's keys pass): B[c][d] is used as __fmul_rn(B[c][d], bscale),
+// the scaled q that K5b's plain version dots, rounded as it rounds it.
+template <int NC, int MM = 4, bool SCALE_B = false, typename Emit>
 __device__ __forceinline__ void g1_tile(const float* A, const float* B, int ld, int hd, int r0,
-                                        int c0, int lane, Emit emit) {
+                                        int c0, int lane, Emit emit, float bscale = 1.0f) {
   const int ty = lane >> 3, tx = lane & 7;
   const float* a = A + (r0 + ty) * ld;
   const float* b = B + (c0 + tx) * ld;
-  float acc[4][NC];
+  float acc[MM][NC];
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < MM; ++m)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[m][c] = 0.0f;
   for (int d = 0; d < hd; d += 4) {
-    float4 av[4], bv[NC];
+    float4 av[MM], bv[NC];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) av[m] = lds4(a + 4 * m * ld + d);
+    for (int m = 0; m < MM; ++m) av[m] = lds4(a + 4 * m * ld + d);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) bv[c] = lds4(b + 8 * c * ld + d);
+    for (int c = 0; c < NC; ++c) {
+      bv[c] = lds4(b + 8 * c * ld + d);
+      if constexpr (SCALE_B)
+        bv[c] = make_float4(__fmul_rn(bv[c].x, bscale), __fmul_rn(bv[c].y, bscale),
+                            __fmul_rn(bv[c].z, bscale), __fmul_rn(bv[c].w, bscale));
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e)
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
+      for (int m = 0; m < MM; ++m)
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           acc[m][c] = qvt::mac<float>(comp(av[m], e), comp(bv[c], e), acc[m][c]);
   }
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < MM; ++m)
 #pragma unroll
     for (int c = 0; c < NC; ++c) emit(r0 + ty + 4 * m, c0 + tx + 8 * c, acc[m][c]);
 }
@@ -196,13 +243,24 @@ __device__ __forceinline__ void g1_tile(const float* A, const float* B, int ld, 
 // G1 (header): out[r][c] = sum_d A[r][d] * B[c][d] for r < rows, c < cols
 // of a 32 x 64 tile, on one group of 4 warps (g4: the thread's index in
 // it); emit(r, c, value) takes each result of the thread's 4 x 4 tile.
-template <typename Emit>
+template <bool SCALE_B = false, typename Emit>
 __device__ __forceinline__ void g1(const float* A, const float* B, int ld, int hd, int rows,
-                                   int cols, int g4, Emit emit) {
+                                   int cols, int g4, Emit emit, float bscale = 1.0f) {
   const int w = g4 >> 5;
   const int r0 = (w & 1) * 16, c0 = (w >> 1) * 32;
   if (r0 >= rows || c0 >= cols) return;  // the warp's slab is empty
-  g1_tile<4>(A, B, ld, hd, r0, c0, g4 & 31, emit);
+  g1_tile<4, 4, SCALE_B>(A, B, ld, hd, r0, c0, g4 & 31, emit, bscale);
+}
+
+// G1 over the first 4 MM rows and a 64-column tile on one group of 4 warps
+// (K5b's rows pass with R <= 16, where g1's second row slab would idle half
+// the group and its 16-row slab compute rows past R): warp w of the group
+// takes columns [16 w, 16 w + 16), each thread an MM x 2 tile.
+template <int MM, typename Emit>
+__device__ __forceinline__ void g1_narrow(const float* A, const float* B, int ld, int hd,
+                                          int cols, int g4, Emit emit) {
+  const int c0 = (g4 >> 5) * 16;
+  if (c0 < cols) g1_tile<2, MM>(A, B, ld, hd, 0, c0, g4 & 31, emit);
 }
 
 // G1 over 16 rows and a 128-column tile on all 8 warps (kernel A with R <=
@@ -378,13 +436,15 @@ __global__ void __launch_bounds__(THREADS, MR == 4 ? 2 : 3)
   }
 }
 
-// kernel B, launch 1 (rows): one block per (R query rows, head, image)
-template <bool IN_FQ, int MR>
-__global__ void __launch_bounds__(THREADS, 2)
-    attention_f32_bwd_rows_kernel(const float* qkv, const float* dout, const float* qs,
-                                  double* stats, float* dqkv, int N, int H, int hd, int n_valid,
-                                  float scale, float fq_min, float fq_max, int R) {
-  extern __shared__ __align__(16) uint8_t smem[];
+// kernel B, launch 1 (rows): one block per (R query rows, head, image).
+// K5B (K5b's arithmetic): q staged scaled by qscale, the score left unscaled,
+// do rows >= n_valid taken as zero; G1M 1, 2 or 4: G1 on g1_narrow's 4 G1M
+// rows (R <= 4 G1M), 0: on g1's 32-row tiles
+template <bool IN_FQ, int MR, bool K5B, int G1M>
+__device__ __forceinline__ void bwd_rows(uint8_t* smem, const float* qkv, const float* dout,
+                                         const float* qs, double* stats, float* dqkv, int N,
+                                         int H, int hd, int n_valid, float scale, float fq_min,
+                                         float fq_max, int R, float qscale) {
   const int h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * R, rows = min(R, N - i0);
   const int D = H * hd, ld = op_ld(hd), ns = strip_ld(N), n4 = (N + 3) & ~3;
   float* Qs = reinterpret_cast<float*>(smem);  // [a_rows(R)][ld] q
@@ -398,25 +458,41 @@ __global__ void __launch_bounds__(THREADS, 2)
   const size_t stride = (size_t)3 * D;
   const auto kv = [&](float v) { return fq_value<IN_FQ>(v, fq); };
 
-  stage(Qs, ld, img + i0 * stride, stride, a_rows(R), rows, hd, kv);
-  stage(Os, ld, dout + ((size_t)b * N + i0) * D + h * hd, D, a_rows(R), rows, hd,
-        [](float v) { return v; });
+  stage(Qs, ld, img + i0 * stride, stride, a_rows(R), rows, hd, [&](float v) {
+    return K5B ? __fmul_rn(v, qscale) : fq_value<IN_FQ>(v, fq);
+  });
+  stage(Os, ld, dout + ((size_t)b * N + i0) * D + h * hd, D, a_rows(R),
+        K5B ? max(0, min(rows, n_valid - i0)) : rows, hd, [](float v) { return v; });
   const int g = threadIdx.x >> 7;
   for (int k0 = 0; k0 < N; k0 += KT) {  // sweep 1: the s and dp strips
     const int nk = min(KT, N - k0);
     __syncthreads();
-    stage(Ks, ld, img + D + k0 * stride, stride, KT, nk, hd, kv);
-    stage(Vs, ld, img + 2 * D + k0 * stride, stride, KT, nk, hd, kv);
+    if constexpr (K5B) {
+      stage_pair(Ks, img + D + k0 * stride, nk, Vs, img + 2 * D + k0 * stride, nk, ld, stride,
+                 stride, KT, hd);
+    } else {
+      stage(Ks, ld, img + D + k0 * stride, stride, KT, nk, hd, kv);
+      stage(Vs, ld, img + 2 * D + k0 * stride, stride, KT, nk, hd, kv);
+    }
     __syncthreads();
-    if (g == 0)
-      g1(Qs, Ks, ld, hd, rows, nk, threadIdx.x & 127, [&](int r, int c, float s) {
-        const int j = k0 + c;
-        if (r < rows && j < N) Ss[r * ns + j] = j < n_valid ? __fmul_rn(s, scale) : -1e30f;
-      });
-    else
-      g1(Os, Vs, ld, hd, rows, nk, threadIdx.x & 127, [&](int r, int c, float dp) {
-        if (r < rows && k0 + c < N) Ds[r * ns + k0 + c] = dp;
-      });
+    const auto put_s = [&](int r, int c, float s) {
+      const int j = k0 + c;
+      if (r < rows && j < N) Ss[r * ns + j] = j < n_valid ? (K5B ? s : __fmul_rn(s, scale)) : -1e30f;
+    };
+    const auto put_dp = [&](int r, int c, float dp) {
+      if (r < rows && k0 + c < N) Ds[r * ns + k0 + c] = dp;
+    };
+    if constexpr (G1M == 0) {
+      if (g == 0)
+        g1(Qs, Ks, ld, hd, rows, nk, threadIdx.x & 127, put_s);
+      else
+        g1(Os, Vs, ld, hd, rows, nk, threadIdx.x & 127, put_dp);
+    } else {
+      if (g == 0)
+        g1_narrow<G1M>(Qs, Ks, ld, hd, nk, threadIdx.x & 127, put_s);
+      else
+        g1_narrow<G1M>(Os, Vs, ld, hd, nk, threadIdx.x & 127, put_dp);
+    }
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -454,7 +530,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   zero(acc);
   for (int k0 = 0; k0 < N; k0 += 2 * KT) {  // sweep 2: dq = ds k
     __syncthreads();
-    stage(Ks, ld, img + D + k0 * stride, stride, 2 * KT, min(2 * KT, N - k0), hd, kv);
+    stage<K5B ? 2 * SU : SU>(Ks, ld, img + D + k0 * stride, stride, 2 * KT, min(2 * KT, N - k0),
+                             hd, kv);
     __syncthreads();
     const float* A[1] = {Ds + k0};
     const float* Bm[1] = {Ks};
@@ -474,13 +551,35 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// kernel B, launch 2 (keys): one block per (C_KEYS keys, head, image)
 template <bool IN_FQ, int MR>
-__global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
-    attention_f32_bwd_keys_kernel(const float* qkv, const float* dout, const float* qs,
-                                  const double* stats, float* dqkv, int N, int H, int hd,
-                                  int n_valid, float scale, float fq_min, float fq_max) {
+__global__ void __launch_bounds__(THREADS, 2)
+    attention_f32_bwd_rows_kernel(const float* qkv, const float* dout, const float* qs,
+                                  double* stats, float* dqkv, int N, int H, int hd, int n_valid,
+                                  float scale, float fq_min, float fq_max, int R) {
   extern __shared__ __align__(16) uint8_t smem[];
+  bwd_rows<IN_FQ, MR, false, 0>(smem, qkv, dout, qs, stats, dqkv, N, H, hd, n_valid, scale,
+                                fq_min, fq_max, R, 1.0f);
+}
+
+// K5b in f32: kernel B's rows pass with K5b's arithmetic
+template <int MR, int G1M>
+__global__ void __launch_bounds__(THREADS, 2)
+    long_attention_f32_bwd_rows_kernel(const float* qkv, const float* dout, double* stats,
+                                       float* dqkv, int N, int H, int hd, int n_valid,
+                                       float qscale, float scale, int R) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  bwd_rows<false, MR, true, G1M>(smem, qkv, dout, nullptr, stats, dqkv, N, H, hd, n_valid, scale,
+                                 0.0f, 0.0f, R, qscale);
+}
+
+// kernel B, launch 2 (keys): one block per (C_KEYS keys, head, image).
+// K5B: s^T from the q scaled by qscale as G1 loads it (dk keeps the raw q),
+// the score unscaled, do rows >= n_valid taken as zero
+template <bool IN_FQ, int MR, bool K5B>
+__device__ __forceinline__ void bwd_keys(uint8_t* smem, const float* qkv, const float* dout,
+                                         const float* qs, const double* stats, float* dqkv,
+                                         int N, int H, int hd, int n_valid, float scale,
+                                         float fq_min, float fq_max, float qscale) {
   const int h = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * C_KEYS;
   const int keys = min(C_KEYS, N - j0);
   const int D = H * hd, ld = op_ld(hd);
@@ -508,9 +607,14 @@ __global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
   for (int q0 = 0; q0 < N; q0 += QT) {
     const int nq = min(QT, N - q0);
     __syncthreads();
-    stage(Qt, ld, img + q0 * stride, stride, QT, nq, hd, kv);
-    stage(Ot, ld, dout + ((size_t)b * N + q0) * D + h * hd, D, QT, nq, hd,
-          [](float v) { return v; });
+    if constexpr (K5B) {
+      stage_pair(Qt, img + q0 * stride, nq, Ot, dout + ((size_t)b * N + q0) * D + h * hd,
+                 max(0, min(nq, n_valid - q0)), ld, stride, D, QT, hd);
+    } else {
+      stage(Qt, ld, img + q0 * stride, stride, QT, nq, hd, kv);
+      stage(Ot, ld, dout + ((size_t)b * N + q0) * D + h * hd, D, QT, nq, hd,
+            [](float v) { return v; });
+    }
     for (int t = threadIdx.x; t < nq; t += THREADS) {
       Mt[t] = static_cast<float>(stats[at0 + q0 + t]);
       Lt[t] = stats[bhn + at0 + q0 + t];
@@ -518,9 +622,12 @@ __global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
     }
     __syncthreads();
     if (g == 0)
-      g1(Kc, Qt, ld, hd, keys, nq, threadIdx.x & 127, [&](int r, int c, float s) {
-        St[r * NQ + c] = j0 + r < n_valid ? __fmul_rn(s, scale) : -1e30f;
-      });
+      g1<K5B>(
+          Kc, Qt, ld, hd, keys, nq, threadIdx.x & 127,
+          [&](int r, int c, float s) {
+            St[r * NQ + c] = j0 + r < n_valid ? (K5B ? s : __fmul_rn(s, scale)) : -1e30f;
+          },
+          qscale);
     else
       g1(Vc, Ot, ld, hd, keys, nq, threadIdx.x & 127,
          [&](int r, int c, float dp) { Dt[r * NQ + c] = dp; });
@@ -555,6 +662,27 @@ __global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
     store4<IN_FQ>(raw, dimg, at + 2 * D,
                   make_float4(acc[1][m][0], acc[1][m][1], acc[1][m][2], acc[1][m][3]), fq);
   }
+}
+
+template <bool IN_FQ, int MR>
+__global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
+    attention_f32_bwd_keys_kernel(const float* qkv, const float* dout, const float* qs,
+                                  const double* stats, float* dqkv, int N, int H, int hd,
+                                  int n_valid, float scale, float fq_min, float fq_max) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  bwd_keys<IN_FQ, MR, false>(smem, qkv, dout, qs, stats, dqkv, N, H, hd, n_valid, scale, fq_min,
+                             fq_max, 1.0f);
+}
+
+// K5b in f32: kernel B's keys pass with K5b's arithmetic
+template <int MR>
+__global__ void __launch_bounds__(THREADS, MR == 2 ? 3 : 2)
+    long_attention_f32_bwd_keys_kernel(const float* qkv, const float* dout, const double* stats,
+                                       float* dqkv, int N, int H, int hd, int n_valid,
+                                       float qscale, float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  bwd_keys<false, MR, true>(smem, qkv, dout, nullptr, stats, dqkv, N, H, hd, n_valid, scale,
+                            0.0f, 0.0f, qscale);
 }
 
 // shared-memory plans (bytes); ops/flash_attention.py mirrors them
@@ -676,5 +804,67 @@ extern "C" int qvt_attention_bwd_keys(const void* qkv, const void* dout, const v
       static_cast<const float*>(qkv), static_cast<const float*>(dout),
       static_cast<const float*>(qs), static_cast<const double*>(stats),
       static_cast<float*>(dqkv), N, H, hd, n_valid, scale, fq_min, fq_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+using LongRows = void (*)(const float*, const float*, double*, float*, int, int, int, int, float,
+                          float, int);
+
+// K5b's rows kernel for MR rows per G2 thread and G1's form (g1m, below)
+template <int MR>
+LongRows long_rows_kernel(int g1m) {
+  return g1m == 1   ? long_attention_f32_bwd_rows_kernel<MR, 1>
+         : g1m == 2 ? long_attention_f32_bwd_rows_kernel<MR, 2>
+         : g1m == 4 ? long_attention_f32_bwd_rows_kernel<MR, 4>
+                    : long_attention_f32_bwd_rows_kernel<MR, 0>;
+}
+
+}  // namespace
+
+// K5b in f32, launch 1 (kernel B's rows pass with K5b's arithmetic): the row
+// statistics into stats [3, B, H, N] f64 and dq into dqkv [B, N, 3*H*hd].
+// qscale (hd^-0.5 in f32) scales q before the score dot, scale (the same
+// f32 value) dq and dk after theirs; query rows >= n_valid have a zero do.
+// R from kernel B's plan; G2 takes the fewest of 1, 2, 4 rows per thread
+// that cover R, G1 the narrow form for R <= 16.
+extern "C" int qvt_attention_long_bwd_rows(const void* qkv, const void* dout, void* stats,
+                                           void* dqkv, int B, int N, int H, int hd, int n_valid,
+                                           float qscale, float scale, void* stream) {
+  if (bad_shape(B, N, H, hd, n_valid)) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = pick_rows(rows_smem, N, hd);
+  if (!R) return static_cast<int>(cudaErrorInvalidValue);
+  const int slots = THREADS / (hd / 4);
+  const int g1m = R <= 4 ? 1 : R <= 8 ? 2 : R <= 16 ? 4 : 0;
+  const LongRows kernel = R <= slots       ? long_rows_kernel<1>(g1m)
+                          : R <= 2 * slots ? long_rows_kernel<2>(g1m)
+                                           : long_rows_kernel<4>(g1m);
+  const size_t smem = rows_smem(N, hd, R);
+  const int e = allow_smem(kernel, smem);
+  if (e) return e;
+  kernel<<<dim3((N + R - 1) / R, H, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dout),
+      static_cast<double*>(stats), static_cast<float*>(dqkv), N, H, hd, n_valid, qscale, scale,
+      R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5b in f32, launch 2 (kernel B's keys pass with K5b's arithmetic): dk and
+// dv into dqkv from the rows pass's stats
+extern "C" int qvt_attention_long_bwd_keys(const void* qkv, const void* dout, void* stats,
+                                           void* dqkv, int B, int N, int H, int hd, int n_valid,
+                                           float qscale, float scale, void* stream) {
+  if (bad_shape(B, N, H, hd, n_valid)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = keys_smem(hd);
+  auto kernel = hd <= 64 ? long_attention_f32_bwd_keys_kernel<2>
+                         : long_attention_f32_bwd_keys_kernel<4>;
+  const int e = allow_smem(kernel, smem);
+  if (e) return e;
+  kernel<<<dim3((N + C_KEYS - 1) / C_KEYS, H, B), THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dout),
+      static_cast<const double*>(stats), static_cast<float*>(dqkv), N, H, hd, n_valid, qscale,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }

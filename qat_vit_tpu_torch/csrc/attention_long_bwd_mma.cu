@@ -4,7 +4,7 @@
 //
 // Replaces (TPU, Pallas): qat_vit_tpu/ops/long_attention.py::
 // _long_attention_bwd_kernel (launched by _long_attention_bwd_call), for a
-// bf16 qkv. The f32 form stays on csrc/attention_long_bwd.cu.
+// bf16 qkv. The f32 form runs kernel B's f32 passes (csrc/attention_f32.cu).
 //
 // Math, per (image, head), FlashAttention-2's backward with the forward's
 // statistics: with qs = bf16(q * scale) (the q scaling in bf16 before the

@@ -1,8 +1,7 @@
-// The int8 GEMM tile bodies, shared by csrc/int8_gemm.cu (K7: one output
-// tile per block) and csrc/megablock.cu (grid-stride loops over the tiles of
-// the four GEMM stages inside one cooperative launch), and the epilogue
-// arithmetic: csrc/int8_gemm_wgmma.cu (K2a, K2b) and int8_gemm.cu's K2c call
-// dequant_value / dequant_scale and activation. One definition of the
+// The int8 GEMM tile bodies of csrc/megablock.cu (K9: grid-stride loops over
+// the tiles of the four GEMM stages inside one cooperative launch), and the
+// epilogue arithmetic: csrc/int8_gemm_wgmma.cu (K2a, K2b, K7) and
+// int8_gemm.cu's K2c call dequant_value / dequant_scale and activation. One definition of the
 // arithmetic is what makes the fused block bit-identical to the launch chain.
 //
 // Math. A is shifted int8 [M, K] (uint8 grid - 128), W is int8 [K, N] in the
@@ -16,9 +15,9 @@
 // quantize(act(y)), act = the
 // tanh GELU of jax.nn.gelu(approximate=True) or quick-GELU y*sigmoid(1.702y).
 // RESID_LN_Q adds the residual in f32, writes y, and writes quantize(LN(y))
-// with f32 statistics over the whole row. With a float A (f32 or bf16; the
-// port of ops/pallas_gemm.py, K7) the A tile is quantized on its way into
-// shared memory: clamp(rint(x * (1/s_x) + zp), 0, qmax) - 128.
+// with f32 statistics over the whole row. K7 (int8_gemm_wgmma.cu) quantizes
+// a float A (f32 or bf16) with the a_* grid first: clamp(rint(x * (1/s_x) +
+// zp), 0, qmax) - 128.
 //
 // A tile body runs on a group of 128 threads = 2 x 2 warps. Each k-step of
 // 64 bytes stages an A tile [BM x 64] and a W tile [64 x 64] in shared
@@ -59,7 +58,7 @@ constexpr int BM_ROWS = 32;    // rows per tile, RESID_LN_Q
 enum Epilogue { EPI_PLAIN = 0, EPI_GELU_Q = 1, EPI_RESID_LN_Q = 2, EPI_PLAIN_Q8 = 3 };
 
 struct GemmParams {
-  const void* a;           // [M, K] int8, or f32 / bf16 with the quantize prologue
+  const void* a;           // [M, K] shifted int8 (K7: f32 or bf16, quantized first)
   const int8_t* w;         // [K, N]
   const int32_t* colsum;   // [N]
   const float* bias;       // [N] or null
@@ -150,53 +149,8 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// 16 consecutive A values from element offset `off` as 16 shifted-int8
-// bytes: loaded as they are (int8), or quantized from f32 / bf16 (K7's
-// prologue, the arithmetic of quantize_shifted with the input's grid).
-template <typename AT, bool HINT>
-__device__ __forceinline__ int4 a_chunk16(const GemmParams& p, size_t off, uint64_t pol) {
-  if constexpr (sizeof(AT) == 1) {
-    return ld_a128<HINT>(static_cast<const int8_t*>(p.a) + off, pol);
-  } else {
-    float f[16];
-    if constexpr (sizeof(AT) == 4) {
-      const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(p.a) + off);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = src[i];
-        f[4 * i] = v.x;
-        f[4 * i + 1] = v.y;
-        f[4 * i + 2] = v.z;
-        f[4 * i + 3] = v.w;
-      }
-    } else {
-      const uint4* src =
-          reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.a) + off);
-      float h[8];
-      unpack8(src[0], h);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = h[i];
-      unpack8(src[1], h);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[8 + i] = h[i];
-    }
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t v = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v |= static_cast<uint32_t>(static_cast<uint8_t>(
-                 quantize_shifted(f[4 * i + j], p.a_inv_s, p.a_zp, p.a_qmax)))
-             << (8 * j);
-      w[i] = v;
-    }
-    return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
-                     static_cast<int>(w[3]));
-  }
-}
-
-template <int BM, typename AT, bool HINT>
+// the [BM x BK] tile of the shifted-int8 A at (m0, k0), zeros past M and K
+template <int BM, bool HINT>
 __device__ __forceinline__ void load_a_tile(const GemmParams& p, uint8_t* As, int m0, int k0,
                                             const Group& g) {
   const uint64_t pol = HINT ? l2_evict_first() : 0;
@@ -204,7 +158,8 @@ __device__ __forceinline__ void load_a_tile(const GemmParams& p, uint8_t* As, in
     const int r = c / (BK / 16), col = (c % (BK / 16)) * 16;
     const int gm = m0 + r;
     int4 v = make_int4(0, 0, 0, 0);
-    if (gm < p.M && k0 + col < p.K) v = a_chunk16<AT, HINT>(p, (size_t)gm * p.K + k0 + col, pol);
+    if (gm < p.M && k0 + col < p.K)
+      v = ld_a128<HINT>(static_cast<const int8_t*>(p.a) + (size_t)gm * p.K + k0 + col, pol);
     *reinterpret_cast<int4*>(As + r * BKP + col) = v;
   }
 }
@@ -250,7 +205,7 @@ __device__ __forceinline__ void load_w_tile(const GemmParams& p, uint8_t* Bs, in
 }
 
 // acc[mi][ni][r]: rows wm + mi*16 + g (+8 for r >= 2), cols wn + ni*8 + 2t (+1 for odd r)
-template <int BM, typename AT, bool HINT>
+template <int BM, bool HINT>
 __device__ __forceinline__ void gemm_tile(const GemmParams& p, uint8_t* As, uint8_t* Bs,
                                           int m0, int n0, int (&acc)[BM / 32][4][4],
                                           const Group& grp) {
@@ -266,7 +221,7 @@ __device__ __forceinline__ void gemm_tile(const GemmParams& p, uint8_t* As, uint
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
 
   for (int k0 = 0; k0 < p.K; k0 += BK) {
-    load_a_tile<BM, AT, HINT>(p, As, m0, k0, grp);
+    load_a_tile<BM, HINT>(p, As, m0, k0, grp);
     load_w_tile<HINT>(p, Bs, n0, k0, grp);
     grp.sync();
 #pragma unroll
@@ -325,15 +280,15 @@ __device__ __forceinline__ float activation(float y, int act) {
   return __fmul_rn(y, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
-// PLAIN and GELU_Q (K7, K9): the (64-row, 64-column) output tile at (m0, n0)
-template <int EPI, typename OutT, typename AT, bool HINT>
+// PLAIN and GELU_Q (K9): the (64-row, 64-column) output tile at (m0, n0)
+template <int EPI, typename OutT, bool HINT>
 __device__ __forceinline__ void tiled_body(const GemmParams& p, uint8_t* smem, int m0, int n0,
                                            const Group& grp) {
   constexpr int BM = BM_TILED;
   uint8_t* As = smem;
   uint8_t* Bs = smem + BM * BKP;
   int acc[BM / 32][4][4];
-  gemm_tile<BM, AT, HINT>(p, As, Bs, m0, n0, acc, grp);
+  gemm_tile<BM, HINT>(p, As, Bs, m0, n0, acc, grp);
 
   const int lane = grp.tid & 31, warp = grp.tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -371,7 +326,7 @@ __device__ __forceinline__ void resid_ln_body(const GemmParams& p, uint8_t* smem
 
   for (int n0 = 0; n0 < p.N; n0 += BN) {
     int acc[BM / 32][4][4];
-    gemm_tile<BM, int8_t, HINT>(p, As, Bs, m0, n0, acc, grp);
+    gemm_tile<BM, HINT>(p, As, Bs, m0, n0, acc, grp);
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll

@@ -1,24 +1,16 @@
-// The fused quantize -> int8 GEMM -> dequantize kernel (K7) and the int8
-// GEMM with the RESID_LN_Q epilogue (K2c), for sm_90a. (PLAIN, PLAIN_Q8
-// and GELU_Q, K2a and K2b, are int8_gemm_wgmma.cu's qvt_int8_gemm.)
+// The int8 GEMM with the RESID_LN_Q epilogue (K2c), for sm_90a. (PLAIN,
+// PLAIN_Q8 and GELU_Q, K2a and K2b, and the fused quantize GEMM K7 are
+// int8_gemm_wgmma.cu's.)
 //
 // Replaces (TPU, Pallas):
 //   qat_vit_tpu/ops/fused_serve.py::_resid_ln_q_kernel  (K2c)  -> qvt_int8_gemm_resid_ln
-//   qat_vit_tpu/ops/pallas_gemm.py::_kernel             (K7)   -> qvt_quantize_gemm:
-//     the PLAIN epilogue with an f32 / bf16 A quantized in the A-tile prologue
 // and the proj / fc2 stages of qat_vit_tpu/ops/block_kernel.py::_model_kernel
-// (K4), which the port runs as a chain of launches. The tile bodies of K7
-// (math, layout, design) are in gemm_tile.cuh, shared with megablock.cu.
+// (K4), which the port runs as a chain of launches.
 //
 // What bounds it on an H100. At the ViT-S serving shapes (M = B*197,
-// K = 384..1536, N = 384..1536) each GEMM does 2*M*N*K int8 operations on
-// M*K + K*N + M*N*(1..4) bytes: ~100-700 ops per byte, so the bound is the
-// tensor cores (1,979 dense int8 TOP/s), not HBM (3.35 TB/s). K7 reads A as
-// f32 (4 bytes per element), which moves its byte count up but not past that.
-//
-// K7 runs the first, correct tile: mma.sync on synchronously staged tiles,
-// one block of 128 threads per (64-row, 64-column) output tile
-// (gemm_tile.cuh); any K a multiple of 16 (the k-tile past K is zero-filled).
+// K = 384..1536, N = 384) it does 2*M*N*K int8 operations on M*K + K*N +
+// M*N*(2..4 + 1) bytes plus the residual: near the ridge of the tensor
+// cores (1,979 dense int8 TOP/s) and HBM (3.35 TB/s).
 //
 // RESID_LN_Q (K2c) is pipelined. LayerNorm needs whole rows, so a block owns
 // BM rows (64, 32 or 16, chosen by the wrapper: ops/fused_serve.
@@ -52,13 +44,6 @@ namespace {
 
 using namespace qvt;
 using namespace qvt::gemm;
-
-template <int EPI, typename OutT, typename AT>
-__global__ void __launch_bounds__(THREADS) gemm_tiled_kernel(GemmParams p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  tiled_body<EPI, OutT, AT, false>(p, smem, blockIdx.y * BM_TILED, blockIdx.x * BN,
-                                   Group{static_cast<int>(threadIdx.x), 0});
-}
 
 // ---- RESID_LN_Q (K2c), pipelined ----
 constexpr int RL_THREADS = 256;  // 8 warps
@@ -242,7 +227,7 @@ __global__ void __launch_bounds__(RL_THREADS) gemm_resid_ln_kernel(GemmParams p)
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const GemmParams& p,
-           int threads = THREADS) {
+           int threads) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -285,29 +270,6 @@ GemmParams make_params(const void* a, const void* w, const void* colsum, const v
 }
 
 }  // namespace
-
-// K7: x [M, K] f32 (x_bf16 = 0) or bf16 is quantized in the A-tile prologue
-// with (x_inv_s, x_zp, x_qmax), then the PLAIN epilogue writes y (f32 or
-// bf16) with the input scale s_x and z_s = x_zp - 128.
-extern "C" int qvt_quantize_gemm(const void* x, const void* w, const void* colsum,
-                                 const void* bias, const void* wscale, void* y, int M, int N,
-                                 int K, int x_bf16, int out_bf16, int ws_per_channel, float ws0,
-                                 float s_x, int z_s, float x_inv_s, float x_zp, float x_qmax,
-                                 void* stream) {
-  GemmParams p = make_params(x, w, colsum, bias, wscale, M, N, K, ws_per_channel, ws0, s_x, z_s);
-  p.y = y;
-  p.a_inv_s = x_inv_s;
-  p.a_zp = x_zp;
-  p.a_qmax = x_qmax;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef __nv_bfloat16 bf16;
-  const dim3 grid((N + BN - 1) / BN, (M + BM_TILED - 1) / BM_TILED);
-  const size_t smem = tiled_smem_bytes();
-  if (x_bf16 && out_bf16) return launch(gemm_tiled_kernel<EPI_PLAIN, bf16, bf16>, grid, smem, s, p);
-  if (x_bf16) return launch(gemm_tiled_kernel<EPI_PLAIN, float, bf16>, grid, smem, s, p);
-  if (out_bf16) return launch(gemm_tiled_kernel<EPI_PLAIN, bf16, float>, grid, smem, s, p);
-  return launch(gemm_tiled_kernel<EPI_PLAIN, float, float>, grid, smem, s, p);
-}
 
 // K2c: y = x_q @ W + residual (f32 or bf16 y), q = quantize(LN(y)). w_t is
 // the weight packed k-contiguous, [N, K]; bm (64, 32 or 16) the rows of a

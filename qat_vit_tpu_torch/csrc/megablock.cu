@@ -138,7 +138,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) megablock_kernel(MegaParams mp)
       p.y = mp.qkv;
       const int n_tiles = (3 * D + BN - 1) / BN;
       for (int tile = me; tile < m_tiles * n_tiles; tile += workers)
-        tiled_body<EPI_PLAIN, bf16, int8_t, HINT>(p, gsmem, (tile / n_tiles) * BM_TILED,
+        tiled_body<EPI_PLAIN, bf16, HINT>(p, gsmem, (tile / n_tiles) * BM_TILED,
                                                   (tile % n_tiles) * BN, grp);
     }
     grid.sync();
@@ -180,7 +180,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) megablock_kernel(MegaParams mp)
       p.qmax = mp.qmax;
       const int n_tiles = (mp.MLP + BN - 1) / BN;
       for (int tile = me; tile < m_tiles * n_tiles; tile += workers)
-        tiled_body<EPI_GELU_Q, float, int8_t, HINT>(p, gsmem, (tile / n_tiles) * BM_TILED,
+        tiled_body<EPI_GELU_Q, float, HINT>(p, gsmem, (tile / n_tiles) * BM_TILED,
                                                     (tile % n_tiles) * BN, grp);
     }
     grid.sync();

@@ -36,7 +36,8 @@ K and V, in shared memory (one head's K and V at 2,305 × 64 in f32 are 590
 KB each, over the 227 KB a block may use) and replay their plain versions
 bit for bit; their gates are their plans at hd a multiple of 8 and at most
 128: K5a's kernel A's (:func:`long_attention_shapes_ok`, N to ~39,000 at
-hd 128), K5b's :func:`long_attention_bwd_smem_bytes`. The bf16 pair K5a /
+hd 128), K5b's kernel B's rows pass (:func:`long_attention_bwd_shapes_ok`,
+N to ~18,000 at hd 128). The bf16 pair K5a /
 K5b and K6's two int8-output forms stream K and V through tiles on the
 tensor cores, keep only tiles in shared memory and so take any N at such an
 hd (:func:`long_attention_stream_ok`, JAX's ``long_attention_shapes_ok``);
@@ -55,8 +56,12 @@ Training (K5 with its backward, K5b):
   gradient ``do``; on CUDA a bf16 qkv calls ``qvt_attention_long_bwd_mma``
   (``csrc/attention_long_bwd_mma.cu``, from the forward's output and
   log-sum-exp, which it computes first unless ``out`` and ``lse`` are
-  given), an f32 one ``qvt_attention_long_bwd`` (``csrc/attention_long_bwd.cu``);
-  either launches two kernels, the deterministic rows and keys passes, and
+  given), an f32 one kernel B's f32 passes with K5b's arithmetic,
+  ``qvt_attention_long_bwd_rows`` then ``qvt_attention_long_bwd_keys``
+  (``csrc/attention_f32.cu``: q scaled before the score dot, dk from the
+  unscaled q, the rows of ``do`` past ``n_valid`` taken as zero; the
+  statistics in a ``[3, B, H, N]`` f64 scratch; bit-identical to the plain
+  version); either launches two kernels, the deterministic rows and keys passes, and
   ``long_attention_bwd.launches`` counts both, 2 per call; on the CPU
   :func:`long_attention_bwd_plain`, the TPU backward's numerics (q scaled in
   the qkv dtype before the score dot; dq and dk scaled in f32 after their
@@ -91,6 +96,7 @@ from qat_vit_tpu_torch.ops._cuda import (
 from qat_vit_tpu_torch.ops.flash_attention import (
     TRAIN_DTYPES,
     _q_scale,
+    attention_f32_rows,
     attention_fwd_shapes_ok,
     ordered_dot,
     ordered_matmul,
@@ -101,22 +107,11 @@ from qat_vit_tpu_torch.ops.fused_serve import inv_scale, quantize_mul
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values, ste_mask
 
-# the bytes of a key tile's rows in csrc/attention_long_bwd.cu (128 keys of
-# bf16, 64 of f32)
-KEY_TILE_ELEM_BYTES = 256
-# query rows per block of pass 1 of csrc/attention_long_bwd.cu
-BWD_ROWS = 4
 # query rows per step of the plain versions
 PLAIN_Q_STRIPE = 1024
 # the JAX package's cap on the training pair (qat_vit_tpu/ops/long_attention.py:
 # _MAX_N_PAD at its q_tile 256)
 TRAIN_MAX_N_PAD, TRAIN_Q_TILE = 4096, 256
-
-
-def _key_tiles_bytes(head_dim: int, dtype: torch.dtype) -> int:
-    """Two key tiles of 16-byte chunks (rows padded by one chunk)."""
-    keys = KEY_TILE_ELEM_BYTES // dtype.itemsize
-    return 16 * 2 * keys * (head_dim * dtype.itemsize // 16 + 1)
 
 
 def long_attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:
@@ -127,24 +122,16 @@ def long_attention_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.b
     return attention_fwd_shapes_ok(n, head_dim, dtype)
 
 
-def long_attention_bwd_smem_bytes(n: int, head_dim: int,
-                                  dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory pass 1 of the backward asks for: the block's f32 score
-    and dp rows (row stride rounded up to 4), its scaled q and do rows
-    (f32), and two key tiles of ``dtype``. Pass 2 needs at most ~93 KB at
-    any N."""
-    n4 = -(-n // 4) * 4
-    return (4 * (2 * BWD_ROWS * n4 + 2 * BWD_ROWS * head_dim)
-            + _key_tiles_bytes(head_dim, dtype))
-
-
 def long_attention_bwd_shapes_ok(n: int, head_dim: int,
                                  dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The backward kernel's gate: hd a multiple of 8 and <= 128, n within
-    pass 1's shared-memory plan (N <= 6,048 at hd 64, 4,960 at hd 128 in
-    bf16; 5,024 at hd 128 in f32)."""
-    return (head_dim % 8 == 0 and 0 < head_dim <= 128 and n > 0
-            and long_attention_bwd_smem_bytes(n, head_dim, dtype) <= SMEM_LIMIT)
+    """K5b's gate: hd a multiple of 8 and <= 128; in bf16 any n (the
+    tensor-core pair streams, :func:`long_attention_stream_ok`), in f32
+    every n with a plan of kernel B's rows pass, which it runs
+    (``flash_attention.attention_f32_rows(n, hd, backward=True)``: n <=
+    18,472 at hd 128)."""
+    if not long_attention_stream_ok(n, head_dim):
+        return False
+    return dtype != torch.float32 or attention_f32_rows(n, head_dim, backward=True) > 0
 
 
 def long_attention_stream_ok(n: int, head_dim: int) -> bool:
@@ -160,12 +147,6 @@ def _stream_gate(n: int, head_dim: int, dtype: torch.dtype) -> bool:
     return long_attention_stream_ok(n, head_dim)
 
 
-def _bwd_gate(n: int, head_dim: int, dtype: torch.dtype) -> bool:
-    if dtype == torch.bfloat16:
-        return long_attention_stream_ok(n, head_dim)
-    return long_attention_bwd_shapes_ok(n, head_dim, dtype)
-
-
 def long_attention_train_available(num_heads: int, head_dim: int, seq_len: int,
                                    dtype: torch.dtype = torch.bfloat16) -> bool:
     """The training pair's gate: bf16 or f32, both kernels' gates for that
@@ -178,7 +159,7 @@ def long_attention_train_available(num_heads: int, head_dim: int, seq_len: int,
     if -(-seq_len // TRAIN_Q_TILE) * TRAIN_Q_TILE > TRAIN_MAX_N_PAD:
         return False
     return (long_attention_shapes_ok(seq_len, head_dim, dtype)
-            and _bwd_gate(seq_len, head_dim, dtype))
+            and long_attention_bwd_shapes_ok(seq_len, head_dim, dtype))
 
 
 def _long_attention_f32(qkv, num_heads, head_dim, n_valid, qk8=None,
@@ -408,7 +389,7 @@ def long_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head
     if use_plain(qkv):
         return long_attention_bwd_plain(qkv, do, num_heads, head_dim, n_valid=n_valid)
     n_valid = _check(qkv, num_heads, head_dim, n_valid, "attention_long_bwd", TRAIN_DTYPES,
-                     gate=_bwd_gate)
+                     gate=long_attention_bwd_shapes_ok)
     b, n, three_d = qkv.shape
     dev, d = qkv.device, num_heads * head_dim
     require(do, "do", qkv.dtype, dev, (b, n, d), align=16)
@@ -428,12 +409,12 @@ def long_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int, head
             "qvt_attention_long_bwd_mma", ptr(qkv), ptr(out), ptr(do), ptr(lse), ptr(dsum),
             ptr(qsc), ptr(dqkv), b, n, num_heads, head_dim, n_valid, qscale, scale,
             stream_of(dev))
-    else:
-        # pass 1 -> pass 2: each row's max, f64 softmax sum and rowsum
-        stats = torch.empty((b, num_heads, n, 4), dtype=torch.float64, device=dev)
-        _build.load().call(
-            "qvt_attention_long_bwd", ptr(qkv), ptr(do), ptr(dqkv), ptr(stats), b, n, num_heads,
-            head_dim, n_valid, qscale, scale, stream_of(dev))
+    else:  # kernel B's f32 passes: each row's max, f64 softmax sum and rowsum between
+        stats = torch.empty((3, b, num_heads, n), dtype=torch.float64, device=dev)
+        lib, stream = _build.load(), stream_of(dev)
+        for entry in ("qvt_attention_long_bwd_rows", "qvt_attention_long_bwd_keys"):
+            lib.call(entry, ptr(qkv), ptr(do), ptr(stats), ptr(dqkv), b, n, num_heads,
+                     head_dim, n_valid, qscale, scale, stream)
     long_attention_bwd.launches += 2  # the rows pass and the keys pass
     return dqkv
 

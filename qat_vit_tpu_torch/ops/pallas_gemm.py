@@ -10,13 +10,20 @@ runs the int8 product with ``w_q [K, N]`` and dequantizes,
 first, per column; per-tensor or per-channel ``w_scale``), cast once to
 ``out_dtype``.
 
-On CUDA it launches ``qvt_quantize_gemm`` (``csrc/int8_gemm.cu``: the PLAIN
-epilogue with the quantize in the A-tile prologue); launches are counted in
-``fused_quantize_matmul.launches``. On the CPU, and inside
-``_cuda.reference_impl()``, it runs :func:`fused_quantize_matmul_plain`.
-The Hopper kernel stages K in 64-byte tiles and zero-fills the 16-element
-chunks past K, so it takes any K a multiple of 16 (every K JAX's gate
-admits); another K raises (never a quiet fallback).
+On CUDA it launches ``qvt_quantize_gemm`` (``csrc/int8_gemm_wgmma.cu``:
+each block quantizes a 64-row strip of x into shared memory once and runs
+``wgmma`` on it against the weight streamed by TMA, the PLAIN epilogue
+after); launches are counted in ``fused_quantize_matmul.launches``. The
+kernel reads the weight packed k-contiguous, ``[N, K]``: the export's
+``layer["w_int8_t"]`` passed as ``w_t`` (``quantized_dense`` does), which
+must be ``fused_serve.pack_k_major(w_q)`` (checked on the device the first
+time a ``w_t`` comes with a given ``w_q`` tensor: a stale or foreign packed
+weight raises), else packed here from ``w_q`` on every call. On
+the CPU, and inside ``_cuda.reference_impl()``, it runs
+:func:`fused_quantize_matmul_plain`. The kernel zero-fills the 16-element
+chunks past K in x's strip and TMA the weight's, so it takes any K a
+multiple of 16 (every K JAX's gate admits); another K raises (never a
+quiet fallback).
 
 :func:`fused_quantize_matmul_available` keeps the JAX gate's SHAPE
 conditions (``K % 32``, ``N % 128``, ``K·N`` ≤ 6 MiB) and drops its
@@ -25,13 +32,19 @@ backend test, so the port takes K7 for the same layers on every device.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Tuple
 
 import torch
 
 from qat_vit_tpu_torch import _build
 from qat_vit_tpu_torch.ops._cuda import ptr, reference_on, require, stream_of, use_plain
-from qat_vit_tpu_torch.ops.fused_serve import GEMM_K_MULTIPLE, inv_scale, quantize_mul
+from qat_vit_tpu_torch.ops.fused_serve import (
+    GEMM_K_MULTIPLE,
+    inv_scale,
+    pack_k_major,
+    quantize_mul,
+)
 from qat_vit_tpu_torch.ops.quantized_matmul import f32, int8_matmul, is_per_channel
 
 # the JAX gate's shape rules (TPU lane 128, int8 sublane 32, panel budget)
@@ -50,7 +63,8 @@ def fused_quantize_matmul_available(x_shape: Tuple[int, ...], w_shape: Tuple[int
 
 def fused_quantize_matmul_plain(x, w_q, *, x_scale, x_zero_point, w_scale, w_colsum,
                                 bias=None, x_quant_max=255.0, out_dtype=torch.float32):
-    """K7's arithmetic in plain PyTorch (``int8_matmul`` after the multiply-quantize)."""
+    """K7's arithmetic in plain PyTorch (``int8_matmul`` after the
+    multiply-quantize)."""
     x_q = quantize_mul(x.to(torch.float32), inv_scale(x_scale), f32(x_zero_point),
                        f32(x_quant_max))
     return int8_matmul(x_q, w_q, x_scale=x_scale, x_zero_point=x_zero_point, w_scale=w_scale,
@@ -68,12 +82,14 @@ def fused_quantize_matmul(
     bias: Optional[torch.Tensor] = None,
     x_quant_max=255.0,
     out_dtype=torch.float32,
+    w_t: Optional[torch.Tensor] = None,  # [N, K] int8: w_q packed k-contiguous
 ) -> torch.Tensor:
-    """quantize(x) @ w_q, dequantized, in one kernel → ``[..., N]`` ``out_dtype``."""
-    kw = dict(x_scale=x_scale, x_zero_point=x_zero_point, w_scale=w_scale, w_colsum=w_colsum,
-              bias=bias, x_quant_max=x_quant_max, out_dtype=out_dtype)
+    """quantize(x) @ w_q, dequantized, in one kernel → ``[..., N]`` ``out_dtype``;
+    ``w_t``, where given, is ``pack_k_major(w_q)``."""
     if use_plain(x) or reference_on():
-        return fused_quantize_matmul_plain(x, w_q, **kw)
+        return fused_quantize_matmul_plain(
+            x, w_q, x_scale=x_scale, x_zero_point=x_zero_point, w_scale=w_scale,
+            w_colsum=w_colsum, bias=bias, x_quant_max=x_quant_max, out_dtype=out_dtype)
     dev = x.device
     if w_q.ndim != 2:
         raise ValueError(f"w_q: expected [K, N], got {tuple(w_q.shape)}")
@@ -87,7 +103,12 @@ def fused_quantize_matmul(
         raise ValueError(f"fused_quantize_matmul writes f32 or bf16, not {out_dtype}")
     lead = tuple(x.shape[:-1])
     require(x, "x", x.dtype, dev, lead + (k,), align=16)
-    require(w_q, "w_q", torch.int8, dev, (k, n), align=16)
+    require(w_q, "w_q", torch.int8, dev, (k, n))
+    if w_t is None:
+        w_t = pack_k_major(w_q)
+    else:
+        require(w_t, "w_t", torch.int8, dev, (n, k), align=16)
+        _check_packed(w_q, w_t)
     require(w_colsum, "w_colsum", torch.int32, dev, (n,))
     if bias is not None:
         require(bias, "bias", torch.float32, dev, (n,))
@@ -99,14 +120,28 @@ def fused_quantize_matmul(
     m = x.numel() // k
     y = torch.empty(lead + (n,), dtype=out_dtype, device=dev)
     if m:
+        s_x, zp = f32(x_scale), f32(x_zero_point)
         _build.load().call(
-            "qvt_quantize_gemm", ptr(x), ptr(w_q), ptr(w_colsum), ptr(bias), ws_ptr, ptr(y),
+            "qvt_quantize_gemm", ptr(x), ptr(w_t), ptr(w_colsum), ptr(bias), ws_ptr, ptr(y),
             m, n, k, int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            per_channel, ws0, f32(x_scale), int(f32(x_zero_point)) - 128,
-            inv_scale(x_scale), f32(x_zero_point), f32(x_quant_max), stream_of(dev),
+            per_channel, ws0, s_x, int(zp) - 128, inv_scale(s_x), zp,
+            f32(x_quant_max), stream_of(dev),
         )
         fused_quantize_matmul.launches += 1
     return y
 
 
 fused_quantize_matmul.launches = 0
+
+
+def _check_packed(w_q: torch.Tensor, w_t: torch.Tensor) -> None:
+    """Raise unless ``w_t`` is ``pack_k_major(w_q)``: compared on the device
+    the first time ``w_t`` comes with this ``w_q`` tensor, then remembered on
+    ``w_t`` (a weak reference to ``w_q``), so a served model pays it once per
+    layer."""
+    seen = getattr(w_t, "_qvt_packed_of", None)
+    if seen is not None and seen() is w_q:
+        return
+    if not torch.equal(w_t, w_q.t()):
+        raise ValueError("w_t is not pack_k_major(w_q): a stale or foreign packed weight")
+    w_t._qvt_packed_of = weakref.ref(w_q)

@@ -83,6 +83,7 @@ def quantized_dense(x: torch.Tensor, layer: dict, in_q: dict, *,
                 x, layer["w_int8"], x_scale=in_q["scale"], x_zero_point=in_q["zero_point"],
                 x_quant_max=in_q.get("quant_max", 255.0), w_scale=layer["w_scale"],
                 w_colsum=layer["w_colsum"], bias=layer.get("bias"), out_dtype=out_dtype,
+                w_t=layer.get("w_int8_t"),
             )
     x_q = quantize_act_shifted(x, in_q["scale"], in_q["zero_point"], in_q.get("quant_max", 255.0))
     return int8_matmul(

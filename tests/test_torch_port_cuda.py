@@ -662,19 +662,19 @@ def test_long_attention_train_autograd(dev):
 def test_long_attention_bwd_raises(dev):
     """Outside its gate or on bad inputs the backward raises instead of
     falling back, and launches nothing. The gates are split: bf16 takes any
-    N (the tensor-core pair), f32 keeps pass 1's shared-memory plan (5,024
-    tokens at hd 128)."""
+    N (the tensor-core pair), f32 kernel B's rows-pass plan (18,472 tokens
+    at hd 128; its own earlier plan ended at 5,024)."""
     from qat_vit_tpu_torch.ops import long_attention as la
 
-    assert la.long_attention_bwd_shapes_ok(4960, 128) and not la.long_attention_bwd_shapes_ok(4961, 128)
-    assert (la.long_attention_bwd_shapes_ok(5024, 128, torch.float32)
-            and not la.long_attention_bwd_shapes_ok(5025, 128, torch.float32))
+    assert la.long_attention_bwd_shapes_ok(4961, 128) and la.long_attention_bwd_shapes_ok(100_000, 128)
+    assert (la.long_attention_bwd_shapes_ok(18_472, 128, torch.float32)
+            and not la.long_attention_bwd_shapes_ok(18_473, 128, torch.float32))
     qkv = torch.zeros(1, 64, 3 * 64, dtype=torch.bfloat16, device=dev)
     do = torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=dev)
     before = la.long_attention_bwd.launches
     with pytest.raises(ValueError, match="unsupported"):
-        la.long_attention_bwd(torch.zeros(1, 5100, 3 * 128, device=dev),
-                              torch.zeros(1, 5100, 128, device=dev), 1, 128)
+        la.long_attention_bwd(torch.zeros(1, 18_473, 3 * 128, device=dev),
+                              torch.zeros(1, 18_473, 128, device=dev), 1, 128)
     with pytest.raises(ValueError, match="unsupported"):
         la.long_attention_bwd(torch.zeros(1, 64, 3 * 60, dtype=torch.bfloat16, device=dev),
                               torch.zeros(1, 64, 60, dtype=torch.bfloat16, device=dev), 1, 60)
@@ -698,13 +698,18 @@ def test_long_attention_bwd_raises(dev):
 @pytest.mark.parametrize("m,k,n,x_dt,out_dt,per_channel,qmax", [
     (6272, 768, 384, "f32", "f32", False, 255.0), (6304, 384, 1152, "bf16", "bf16", True, 255.0),
     (6304, 1536, 384, "f32", "bf16", True, 127.0), (37, 128, 256, "bf16", "f32", False, 127.0),
-    # K = 32 (mod 64), which JAX's gate admits
+    # K = 32 (mod 64), which JAX's gate admits, also at a ragged M
     (8, 96, 128, "f32", "f32", False, 255.0), (6304, 480, 384, "bf16", "bf16", True, 255.0),
+    (394, 96, 384, "bf16", "f32", True, 255.0), (394, 480, 640, "f32", "bf16", False, 127.0),
+    # K past the strip's 1,536 bytes: two chunks
+    (300, 1664, 256, "f32", "f32", True, 255.0),
 ])
 def test_fused_quantize_matmul(dev, m, k, n, x_dt, out_dt, per_channel, qmax):
-    """K7 (qvt_quantize_gemm) against its plain version: identical, f32 and
-    bf16 inputs and outputs, both weight-scale kinds, both grids, ragged M,
-    K = 32 (mod 64)."""
+    """K7 (qvt_quantize_gemm, TMA + wgmma) against its plain version:
+    identical, f32 and bf16 inputs and outputs, both weight-scale kinds,
+    both grids, ragged M, K = 32 (mod 64), a unit past N, K in two chunks;
+    the packed weight given (``w_t``) or packed by the wrapper; two
+    launches identical."""
     from qat_vit_tpu_torch.ops import pallas_gemm as pg
 
     rng = np.random.default_rng(m + k)
@@ -715,9 +720,10 @@ def test_fused_quantize_matmul(dev, m, k, n, x_dt, out_dt, per_channel, qmax):
               w_scale=layer["w_scale"], w_colsum=layer["w_colsum"], bias=layer["bias"],
               x_quant_max=qmax, out_dtype=dts[out_dt])
     before = pg.fused_quantize_matmul.launches
-    got = pg.fused_quantize_matmul(x, layer["w_int8"], **kw)
+    got = pg.fused_quantize_matmul(x, layer["w_int8"], **kw, w_t=layer["w_int8_t"])
     assert pg.fused_quantize_matmul.launches == before + 1
     _same(got, pg.fused_quantize_matmul_plain(x, layer["w_int8"], **kw))
+    _same(pg.fused_quantize_matmul(x, layer["w_int8"], **kw), got)
 
 
 def test_fused_quantize_matmul_raises(dev):
@@ -749,6 +755,24 @@ def test_fused_quantize_matmul_raises(dev):
         pg.fused_quantize_matmul(torch.zeros(8, 128, dtype=torch.float16, device=dev),
                                  layer["w_int8"], **{**kw, "w_colsum": layer["w_colsum"]})
     assert pg.fused_quantize_matmul.launches == before + 2
+
+
+@pytest.mark.parametrize("b,n,n_valid", [(2, 2305, 2305), (1, 4096, 4090)])
+def test_long_attention_bwd_f32_on_kernel_b(dev, b, n, n_valid):
+    """K5b in f32 on kernel B's rows and keys passes (K5b's arithmetic; R 8
+    at 2,305 tokens, R 4 at 4,096) identical to its plain version at
+    OWLv2-pruned's width (9 heads of 64), padded queries included; two
+    launches identical; two kernels per call."""
+    from qat_vit_tpu_torch.ops import long_attention as la
+
+    rng = np.random.default_rng(n)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, n, 3 * 9 * 64)).astype(np.float32)).to(dev)
+    do = torch.from_numpy(rng.normal(0, 1, (b, n, 9 * 64)).astype(np.float32)).to(dev)
+    before = la.long_attention_bwd.launches
+    got = la.long_attention_bwd(qkv, do, 9, 64, n_valid=n_valid)
+    assert la.long_attention_bwd.launches == before + 2
+    _same(got, la.long_attention_bwd_plain(qkv, do, 9, 64, n_valid=n_valid))
+    _same(la.long_attention_bwd(qkv, do, 9, 64, n_valid=n_valid), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

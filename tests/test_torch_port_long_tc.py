@@ -389,8 +389,9 @@ def test_tc_errors_is_the_pair_tolerance(fault, sections, ok):
 def test_split_gates():
     """The bf16 pair's gate is JAX's ``long_attention_shapes_ok`` at any N;
     K5a in f32 takes kernel A's f32 plan (N to 39,080 at hd 128), K5b in
-    f32 keeps its shared-memory plan; the training pair's gate keeps JAX's
-    N cap (4,096), so it routes as before."""
+    f32 kernel B's rows-pass plan (N to 18,472 at hd 128; its own earlier
+    plan took 5,024); the training pair's gate keeps JAX's N cap (4,096),
+    so it routes as before."""
     for hd in (8, 16, 60, 64, 72, 128, 136, 256):
         for n in (1, 2305, 6048, 6049, 7000, 100_000):
             assert la.long_attention_stream_ok(n, hd) == jax_long_shapes_ok(9, hd), (n, hd)
@@ -401,8 +402,8 @@ def test_split_gates():
     assert not la.long_attention_stream_ok(0, 64) and not la.long_attention_shapes_ok(0, 64)
     assert la.long_attention_shapes_ok(7000, 64, torch.float32)
     assert not la.long_attention_shapes_ok(39_081, 128, torch.float32)
-    assert (la.long_attention_bwd_shapes_ok(5024, 128, torch.float32)
-            and not la.long_attention_bwd_shapes_ok(5025, 128, torch.float32))
+    assert (la.long_attention_bwd_shapes_ok(18_472, 128, torch.float32)
+            and not la.long_attention_bwd_shapes_ok(18_473, 128, torch.float32))
     for dt in (BF16, torch.float32):
         assert la.long_attention_train_available(9, 64, 4096, dt)
         assert not la.long_attention_train_available(9, 64, 4097, dt)
@@ -454,8 +455,8 @@ def test_launch_arguments(recorder):
     library): bf16 goes to the tensor-core entry points with the bf16 q
     scale, a log-sum-exp pointer only for training, the backward runs the
     forward first unless given ``out`` and ``lse``; f32 goes to kernel A's
-    f32 kernel without ``in_fq`` and to K5b's shared-memory form; every
-    argument list matches its C signature."""
+    f32 kernel without ``in_fq`` and to kernel B's f32 rows and keys passes
+    with K5b's arithmetic; every argument list matches its C signature."""
     b, n, h, hd = 2, 7000, 1, 72
     qkv, do = _qkv_do(b, n, h, hd, 1)
     f0, b0 = la.long_attention_qkv.launches, la.long_attention_bwd.launches
@@ -478,13 +479,16 @@ def test_launch_arguments(recorder):
     x = torch.zeros(1, 130, 3 * 64)
     la.long_attention_qkv(x, 1, 64)
     la.long_attention_bwd(x, torch.zeros(1, 130, 64), 1, 64)
-    assert [c[0] for c in recorder.calls[-2:]] == ["qvt_attention_fwd", "qvt_attention_long_bwd"]
-    assert recorder.calls[-2][1][1] is None and recorder.calls[-2][1][9:12] == (0, 0.0, 0.0)
+    assert [c[0] for c in recorder.calls[-3:]] == [
+        "qvt_attention_fwd", "qvt_attention_long_bwd_rows", "qvt_attention_long_bwd_keys"]
+    assert recorder.calls[-3][1][1] is None and recorder.calls[-3][1][9:12] == (0, 0.0, 0.0)
     x = torch.zeros(1, 7000, 3 * 64)
     la.long_attention_qkv(x, 1, 64)  # past the old plan: kernel A's plan takes it
     assert recorder.calls[-1][0] == "qvt_attention_fwd"
-    with pytest.raises(ValueError, match="unsupported"):  # K5b in f32 keeps its plan
-        la.long_attention_bwd(x, torch.zeros(1, 7000, 64), 1, 64)
+    la.long_attention_bwd(x, torch.zeros(1, 7000, 64), 1, 64)  # and kernel B's rows plan
+    assert recorder.calls[-1][0] == "qvt_attention_long_bwd_keys"
+    with pytest.raises(ValueError, match="unsupported"):  # past kernel B's rows plan
+        la.long_attention_bwd(torch.zeros(1, 18_473, 3 * 128), torch.zeros(1, 18_473, 128), 1, 128)
 
 
 def test_training_pair_saves_the_statistics(recorder):
