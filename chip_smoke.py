@@ -74,7 +74,10 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    tensor cores in ``attention_q_mma.cu``) at ``[32, 197, 1152]`` in f32
    and bf16, with masked keys, and at ViT-S/16's 577 tokens at 384 px
    (``[8, 577, 1152]``) in both, and the whole-block kernels (K9a, K9b)
-   against the chain through the plain ops at batch 32; the exact path with
+   at batch 32 identical to their plain twin (the chain through the plain
+   ops with K3 as its attention stage) and to the megamodel kernel chain,
+   and at ViT-S/16's 901 tokens at 480 px (batch 8, a calibrated 480 px
+   export) identical to the kernel chain; the exact path with
    ``use_pallas=True, attn_impl="pallas"`` (49 K7 and 12 K8 launches,
    identical to the same path through the plain K7/K8, within
    ``EXACT_REL_L2`` of the exact path); ``mixed_none`` + ``pallas_fused``
@@ -83,8 +86,10 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    held by ``compare_tc``) and within ``MIXED_CHAIN_REL_L2`` of the
    all-plain twin; then ``megablock:4:tight`` and
    ``megamodel_res:4:tight`` at batch 256 (12 and 1 cooperative launches,
-   logits bit-identical to the plain megamodel chain: K9 keeps the CUDA-core
-   attention tile) with the ms per forward of all three, in turns;
+   none of the chain's attention, GELU_Q or RESID_LN_Q kernels, logits
+   bit-identical to the megamodel kernel chain over two launches, within
+   ``CHAIN_REL_L2`` of the all-plain chain) with the ms per forward of all
+   three, in turns;
 8. kernel forms: K6's int8 score dots (the ``i8`` flag), the qkv GEMM's
    PLAIN_Q8 epilogue and ``attention_long_q8`` at ``[2, 2305, 1728]``, and
    the f32 forms of kernels A and B (``csrc/attention_f32.cu``; ViT-S
@@ -232,6 +237,9 @@ DT_N_TRAIN, DT_EVAL_B, DT_EVAL_BATCHES = 64, 16, 2
 # at ViT-S/16's 384 px (past the earlier kernel's plan)
 SERVE_MODE_RUNS = 10
 K8_B384, K8_N384 = 8, 577
+# phase 7: K9's batch at ViT-S/16's 480 px (901 tokens, past the CUDA-core
+# attention tile's 789 that K9 ran before)
+K9_B480 = 8
 # phase 8: K5a in f32 past the earlier kernel's plan (6,048 tokens at hd 64)
 K5A_LONG_N = 7000
 K5B_CAP_N = 4096  # JAX's cap on the training pair
@@ -414,6 +422,65 @@ def k3_in_plain_chain(fa):
 
     with plain_ops_with("PLAIN_OPS", attention=attention):
         yield calls
+
+
+def k9_with_k3(fa, bk, plain):
+    """K9's plain version ``plain`` (the chain through ``bk.PLAIN_OPS``) with
+    K3 as its attention stage, each call held to :func:`compare_int8`: K9
+    runs K3's tile, so K9 equals this twin bit for bit."""
+    from types import SimpleNamespace
+
+    def attention(qkv, h, hd, *, out_q, quant_max=255.0, n_valid=None):
+        got = fa.fused_attention_qkv(qkv, h, hd, out_q=out_q, quant_max=quant_max,
+                                     n_valid=n_valid)
+        compare_int8("attention_q in K9's twin", got, fa.fused_attention_qkv_plain(
+            qkv, h, hd, out_q=out_q, quant_max=quant_max, n_valid=n_valid))
+        return got
+
+    def twin(*args, **kwargs):
+        old = bk.PLAIN_OPS
+        bk.PLAIN_OPS = SimpleNamespace(**{**vars(old), "attention": attention})
+        try:
+            return plain(*args, **kwargs)
+        finally:
+            bk.PLAIN_OPS = old
+
+    return twin
+
+
+def k9_at_480(torch, fa, bk, ctx):
+    """K9a and K9b at ViT-S/16's 901 tokens (480 px), batch 8, past the 789
+    tokens of the attention tile K9 ran before: on a 480 px export (phase
+    3's seed, calibrated on the same 8 images), ``megablock:4:tight`` and
+    ``megamodel_res:4:tight`` logits identical to the megamodel kernel
+    chain, 12 and 1 launches."""
+    from qat_vit_tpu_torch.data.pipeline import preprocess_fn
+    from qat_vit_tpu_torch.models.registry import create_student
+    from qat_vit_tpu_torch.serve.calibrate import ptq_convert
+    from qat_vit_tpu_torch.serve.int8_vit import export_to_device, int8_apply
+
+    dev = torch.device("cuda")
+    bundle = create_student("vit", generator=torch.Generator().manual_seed(SEED), device=dev,
+                            image_size=480)
+    cfg = bundle.cfg
+    prep = preprocess_fn(cfg.image_size, device=dev)
+    x = prep(torch.from_numpy(ctx["images"][:K9_B480]))
+    qp = export_to_device(ptq_convert(bundle.module.state_dict(), [x], cfg, device=dev), dev)
+    del bundle
+    preset = {"attn_dtype": torch.bfloat16, "compute_dtype": torch.bfloat16, "gelu_approx": True}
+    chain = int8_apply(qp, x, cfg, fused="megamodel", **preset)
+    for mode, wrapper, want in (("megablock:4:tight", bk.megablock_forward, cfg.depth),
+                                ("megamodel_res:4:tight", bk.megamodel_res_forward, 1)):
+        wrapper.launches = fa.fused_attention_qkv.launches = 0
+        got = int8_apply(qp, x, cfg, fused=mode, **preset)
+        torch.cuda.synchronize()
+        n, n_attn = wrapper.launches, fa.fused_attention_qkv.launches
+        print(f"phase 7 {mode} at ViT-S/16 480 px ({cfg.seq_len} tokens), batch {K9_B480}: "
+              f"{n} cooperative launches, logits identical to the megamodel kernel chain "
+              f"{torch.equal(got, chain)}", flush=True)
+        if n != want or n_attn or not torch.equal(got, chain) or not torch.isfinite(got).all():
+            fail(f"{mode} at 480 px: {n} launches (expected {want}), chain attention {n_attn}, "
+                 f"identical to the kernel chain {torch.equal(got, chain)}")
 
 
 @contextlib.contextmanager
@@ -829,7 +896,9 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
         got = kernel(*args, **kwargs)
         errs, notes = [], []
         if "tc" in extra or extra.get("int8_bound") or extra.get("repeat"):
-            same = torch.equal(kernel(*args, **kwargs), got)
+            again = kernel(*args, **kwargs)
+            same = (all(map(torch.equal, again, got)) if isinstance(got, tuple)
+                    else torch.equal(again, got))
             notes.append(f"two launches identical {same};")
             if not same:
                 fail(f"{name}: two launches on the same inputs differ")
@@ -1718,26 +1787,40 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
                            op_type="f32" if dt == f32t else "bf16"),
             sdpa_forward(torch, t, heads, hd), extra))
     # K9a (block 0) and K9b (all 12 blocks) at batch 32 on this export's
-    # own activations, against the chain through the plain ops
+    # own activations, against their twin: the chain through the plain ops
+    # with K3 as its attention stage (K9 runs K3's tile)
     x32 = prep(torch.from_numpy(images[:b]))
     xe = _embed(qp, x32, cfg, bf16, fs.int8_dense)
     blk0 = qp["blocks"]["0"]
     zq = fs.ln_quantize(xe, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps)
     kw9 = {"num_heads": heads, "head_dim": hd, "eps": cfg.layer_norm_eps, "n_valid": n_tok}
     one_block = block_works(b, n_tok, d, mlp, heads, hd)
+    k9_twin = {"exact": True, "repeat": True}
     cases.append((f"megablock (K9a) one ViT-S block [{b}x{n_tok}x{d}]", bk.megablock_forward,
-                  bk.megablock_forward_plain, (zq, xe, blk0, qp["blocks"]["1"]["norm1"]), kw9,
-                  "qat_vit_tpu/ops/block_kernel.py:202", one_block, None))
+                  k9_with_k3(fa, bk, bk.megablock_forward_plain),
+                  (zq, xe, blk0, qp["blocks"]["1"]["norm1"]), kw9,
+                  "qat_vit_tpu/ops/block_kernel.py:202", one_block, None, k9_twin))
+    k9b_twin = k9_with_k3(fa, bk, bk.megamodel_res_forward_plain)
     cases.append((f"megamodel_res (K9b) {depth} ViT-S blocks [{b}x{n_tok}x{d}]",
-                  bk.megamodel_res_forward, bk.megamodel_res_forward_plain,
+                  bk.megamodel_res_forward, k9b_twin,
                   (zq, xe, qp["blocks"], qp["norm"]), {**kw9, "depth": depth},
-                  "qat_vit_tpu/ops/block_kernel.py:404", one_block * depth, None))
-    kernels = check_kernels(torch, cases, "phase 7", slow_plain=(bk.megamodel_res_forward_plain,))
+                  "qat_vit_tpu/ops/block_kernel.py:404", one_block * depth, None, k9_twin))
+    kernels = check_kernels(torch, cases, "phase 7", slow_plain=(k9b_twin,))
     del qkv, qkv384, cases
+    one = bk.megablock_forward(zq, xe, blk0, qp["blocks"]["1"]["norm1"], **kw9)
+    whole = bk.megamodel_res_forward(zq, xe, qp["blocks"], qp["norm"], depth=depth, **kw9)
+    same = (all(map(torch.equal, one, bk.block_forward(zq, xe, blk0, qp["blocks"]["1"]["norm1"],
+                                                       **kw9))),
+            all(map(torch.equal, whole, bk.model_forward(zq, xe, qp["blocks"], qp["norm"],
+                                                         depth=depth, **kw9))))
     ms_chain = median_ms(lambda: bk.model_forward(zq, xe, qp["blocks"], qp["norm"], depth=depth,
                                                   **kw9))
-    print(f"phase 7 the K4 chain over the same {depth} blocks at batch {b}: {ms_chain:.4f} ms "
-          f"({5 * depth} launches; its plain version is K9b's above)", flush=True)
+    print(f"phase 7 K9a / K9b at batch {b}: x, zq identical to the megamodel kernel chain "
+          f"{same[0]} / {same[1]}; the chain over the same {depth} blocks {ms_chain:.4f} ms "
+          f"({5 * depth} launches)", flush=True)
+    if not all(same):
+        fail(f"K9a / K9b at batch {b}: identical to the kernel chain {same}")
+    k9_at_480(torch, fa, bk, ctx)
 
     # (c) the exact path on K7 + K8 (f32 stream and attention) at batch 32
     launches = {}
@@ -1805,32 +1888,39 @@ def phase_serve_modes(torch, np, fs, fa, ctx):
             if rel > MIXED_CHAIN_REL_L2:
                 fail(f"{mode} + {attn_impl}: logits rel L2 {rel:.3e} from the all-plain twin")
 
-    # (e) K9a / K9b at batch 256: logits bit-identical to the plain megamodel
-    # chain (K9 keeps the CUDA-core attention tile, K3's plain version bit
-    # for bit); the megamodel chain identical to phase 3's
+    # (e) K9a / K9b at batch 256: logits bit-identical to the megamodel
+    # kernel chain (phase 3 holds it identical to the plain chain with K3's
+    # attention) and within CHAIN_REL_L2 of the all-plain chain; the
+    # megamodel chain identical to phase 3's
     x256 = prep(torch.from_numpy(images[:SERVE_B]))
     chain = int8_apply(qp, x256, cfg, fused="megamodel", **preset)
     same_p3 = np.array_equal(chain.cpu().numpy(), ctx["logits"][:SERVE_B])
     plain = int8_apply(qp, x256, cfg, fused="megamodel_plain", **preset)
-    res = (ctypes.c_int * 2)()
+    res = (ctypes.c_int * 6)()
+    stages = (fa.fused_attention_qkv, fs.int8_dense_gelu_q, fs.int8_dense_resid_ln_q)
     for mode, wrapper, want in (("megablock:4:tight", bk.megablock_forward, depth),
                                 ("megamodel_res:4:tight", bk.megamodel_res_forward, 1)):
-        wrapper.launches = fa.fused_attention_qkv.launches = 0
+        for w in (wrapper, *stages):
+            w.launches = 0
         got = int8_apply(qp, x256, cfg, fused=mode, **preset)
         torch.cuda.synchronize()
-        n_launch, n_attn = wrapper.launches, fa.fused_attention_qkv.launches
+        n_launch, n_chain = wrapper.launches, sum(w.launches for w in stages)
         launches[wrapper] = n_launch
+        again = torch.equal(got, int8_apply(qp, x256, cfg, fused=mode, **preset))
+        rel = rel_l2(got.float(), plain.float())
         _build.load().call("qvt_megablock_residency", n_tok, heads, hd, 1,
-                           int(wrapper is bk.megamodel_res_forward),
                            ctypes.addressof(res))
         print(f"phase 7 {mode} at batch {SERVE_B}: {n_launch} cooperative launches "
-              f"({res[0]} blocks of 256 threads per SM x {res[1]} SMs), logits identical to "
-              f"the plain megamodel chain {torch.equal(got, plain)} (the megamodel chain to "
-              f"phase 3's {same_p3})", flush=True)
-        if n_launch != want or n_attn or not torch.equal(got, plain) or not same_p3:
-            fail(f"{mode}: {n_launch} launches (expected {want}), chain attention {n_attn}, "
-                 f"identical to the plain chain {torch.equal(got, plain)}, the chain to phase "
-                 f"3 {same_p3}")
+              f"({res[0]} blocks of {res[2]} threads per SM x {res[1]} SMs, {res[3]} bytes of "
+              f"shared memory), the chain's kernels {n_chain}; logits identical to the "
+              f"megamodel kernel chain {torch.equal(got, chain)}, two launches identical "
+              f"{again}, vs the all-plain chain rel L2 {rel:.3e} (bound {CHAIN_REL_L2}) (the "
+              f"megamodel chain identical to phase 3's {same_p3})", flush=True)
+        if (n_launch != want or n_chain or not torch.equal(got, chain) or not again
+                or rel > CHAIN_REL_L2 or not same_p3):
+            fail(f"{mode}: {n_launch} launches (expected {want}), chain kernels {n_chain}, "
+                 f"identical to the kernel chain {torch.equal(got, chain)}, two launches "
+                 f"identical {again}, rel L2 vs plain {rel:.3e}, the chain to phase 3 {same_p3}")
     times = {}
     for mode in ("megamodel", "megablock:4:tight", "megamodel_res:4:tight") * 2:
         ms = median_ms(lambda: int8_apply(qp, x256, cfg, fused=mode, **preset),

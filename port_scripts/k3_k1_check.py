@@ -91,7 +91,7 @@ for shape in ((32, 197, 6, 64, 197), (256, 197, 6, 64, 197), (2, 1, 2, 64, 1), (
               (2, 97, 2, 32, 90), (2, 130, 2, 72, 130), (2, 77, 2, 128, 77),
               (1, 789, 2, 64, 789), (1, 416, 2, 128, 400), (1, 1411, 1, 32, 1411),
               (1, 710, 1, 72, 710), (1, 3414, 1, 8, 3000)):
-    assert fa.attention_shapes_ok(shape[1], shape[3]), shape
+    assert fa.attention_fwd_shapes_ok(shape[1], shape[3]), shape
     check(*shape)
 print("checks ok", flush=True)
 if args.quick:

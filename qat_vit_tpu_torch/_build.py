@@ -56,8 +56,9 @@ _SIGNATURES = {
     "qvt_quantize_gemm": [_P] * 6 + [_I] * 6 + [_F, _F, _I, _F, _F, _F, _P],
     "qvt_flash_attention_mma": [_P, _P] + [_I] * 5 + [_F, _P],
     "qvt_flash_attention_f32": [_P, _P] + [_I] * 5 + [_F, _P],
-    "qvt_megablock": [_P, _I] + [_P] * 9 + [_I] * 8 + [_F] * 3 + [_P],
-    "qvt_megablock_residency": [_I] * 5 + [_P],
+    "qvt_megablock": [_P, _I] + [_P] * 9 + [_I] * 7 + [_F] * 3 + [_P],
+    "qvt_megablock_residency": [_I] * 4 + [_P],
+    "qvt_megablock_weight_map": [_P, _I, _I, _P],
 }
 
 

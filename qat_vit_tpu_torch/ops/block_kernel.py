@@ -25,8 +25,12 @@ The same five stages also run inside ONE cooperative launch
   block in one launch, weights kept in L2 (:func:`model_forward` with
   ``resident=True``); gated on the stacked int8 weight bytes.
 
-Both call the chain's own tile bodies, so their x and zq are bit-identical
-to the chain's; their plain versions are the chain through the plain ops.
+Both run the chain kernels' own stage code (the wgmma GEMM of K2a / K2b,
+K2c's RESID_LN_Q row tile, K3's tensor-core attention tile) behind grid
+barriers, so their x and zq are bit-identical to the kernel chain's; their
+plain versions are the chain through the plain ops (K3's tensor-core sums
+differ from its plain version's, so the kernels equal that plain chain only
+with K3 as its attention stage).
 The TPU's ``block_b`` (images per grid step) and sequence padding change
 nothing here: the kernels take the unpadded N, and padded keys would get
 exactly zero probability, so valid rows are the same either way.
@@ -34,6 +38,7 @@ exactly zero probability, so valid rows are the same either way.
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from types import SimpleNamespace
 from typing import Any, Dict, List, Tuple
@@ -46,8 +51,7 @@ from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, ptr, require, stream_of, use_plain
 from qat_vit_tpu_torch.ops.flash_attention import (
     _q_scale,
-    attention_shapes_ok,
-    attention_smem_bytes,
+    attention_fwd_shapes_ok,
     fused_attention_qkv,
     fused_attention_qkv_plain,
 )
@@ -167,35 +171,69 @@ def model_forward(
 # K9b keeps the stacked int8 weights in the H100's 50 MB L2 (ViT-S: 21.2 MB);
 # above this, the stack takes the megamodel chain
 MEGAMODEL_RES_MAX_WEIGHT_BYTES = 40 * 2 ** 20
-# csrc/megablock.cu BlockTable: 20 pointers, then ws0[4], ws_pc[4], s_x[4],
+# csrc/megablock.cu BlockTable (512 bytes, 64-byte aligned): the tensor maps
+# of the packed qkv and fc1 weights (2 x 128 bytes, encoded by
+# qvt_megablock_weight_map), then 20 pointers, ws0[4], ws_pc[4], s_x[4],
 # z_s[4] and the 8 output grids (inv_so, zp_o, inv_s2, zp_2, inv_sg, zp_g,
 # inv_sn, zp_n)
+_MAP_BYTES = 128
 _BLOCK_TABLE = struct.Struct("<20Q4f4i4f4i8f")
+BLOCK_TABLE_BYTES = 2 * _MAP_BYTES + _BLOCK_TABLE.size
+
+# csrc/megablock.cu's block shape: the wgmma GEMM's narrow form (2 consumer
+# warpgroups of 64 rows; thread 0 fills the ring), a ring of K9_STAGES stages
+# of (128 + 128) x 128 bytes, at most K9_MIN_BLOCKS blocks per SM
+K9_CONSUMERS, K9_STAGES, K9_MIN_BLOCKS = 2, 4, 1
+K9_THREADS = 128 * K9_CONSUMERS
+K9_TILE_ROWS, K9_TILE_COLS, K9_K_BYTES = 64 * K9_CONSUMERS, 128, 128
+ATTN_ROWS = 128  # K3's query rows per tile (csrc/attention_q_mma.cuh)
+_ALIGN = 1024  # the slack that aligns the ring to 1024 bytes
 
 
-def megablock_smem_bytes(n: int, d: int, head_dim: int) -> int:
-    """Shared memory of one K9 block: two GEMM groups (each the RESID_LN_Q
-    tile at N = d) or one attention tile, whichever is larger."""
-    resid = (fs.RESID_LN_ROWS + fs.GEMM_TILE_N) * fs.GEMM_ROW_BYTES + fs.RESID_LN_ROWS * d * 4
-    tiled = (fs.GEMM_TILE_M + fs.GEMM_TILE_N) * fs.GEMM_ROW_BYTES
-    group = -(-max(resid, tiled) // 16) * 16
-    return max(2 * group, attention_smem_bytes(n, head_dim))
+def _gemm_region() -> int:
+    """The wgmma stages' shared memory: the ring, then per consumer
+    warpgroup the qkv stage's bf16 staging tile (64 rows of 128 x 2 + 16
+    bytes) and the per-column constants (3 x 4 x 128 bytes)."""
+    ring = K9_STAGES * (K9_TILE_ROWS + K9_TILE_COLS) * K9_K_BYTES
+    return ring + K9_CONSUMERS * (64 * (K9_TILE_COLS * 2 + 16) + 3 * 4 * K9_TILE_COLS)
 
 
-# K9 keeps the CUDA-core tile's whole 64-byte k-steps (csrc/gemm_tile.cuh)
-MEGABLOCK_K_MULTIPLE = 64
+def _attention_bytes(n: int, head_dim: int, resident: bool) -> int:
+    """K3's tile (``csrc/attention_q_mma.cuh``): K and V of the head resident
+    (rows: n rounded up to 16, at least 128) or streamed (the q rows and
+    3 (hd <= 64) or 2 stages of 64-key K and V tiles), bf16 rows of hdp + 8."""
+    hdp = 64 if head_dim <= 64 else 128
+    row = 2 * (hdp + 8)
+    if resident:
+        return 2 * row * max(-(-n // 16) * 16, ATTN_ROWS)
+    return row * (ATTN_ROWS + 2 * (3 if hdp == 64 else 2) * 64)
+
+
+def megablock_plan(n: int, d: int, head_dim: int) -> Tuple[int, bool, int, int]:
+    """``csrc/megablock.cu``'s ``plan``: (K2c's rows per tile, K3 resident,
+    the stages' common region, the block's dynamic shared memory). Under the
+    cap (the GEMM stages' region, or what two blocks per SM leave) K2c takes
+    the most rows of 64, 32 and 16 that fit (16 where none does) and K3
+    keeps K and V resident, else streams them."""
+    gemm = _gemm_region()
+    bars = 2 * 8 * K9_STAGES
+    cap = max(gemm, fs.SM_SMEM_BYTES // 2 - fs.BLOCK_SMEM_RESERVE - _ALIGN - bars)
+    rows = max([r for r in (32, 64) if fs.resid_ln_smem_bytes(r, d) <= cap], default=16)
+    resident = _attention_bytes(n, head_dim, True) <= cap
+    region = max(gemm, fs.resid_ln_smem_bytes(rows, d), _attention_bytes(n, head_dim, resident))
+    region = -(-region // 16) * 16
+    return rows, resident, region, _ALIGN + region + bars
 
 
 def megablock_shapes_ok(n: int, num_heads: int, head_dim: int, mlp_dim: int) -> bool:
-    """K9's gate: every GEMM within int8_gemm's with K a multiple of 64, the
-    attention within the CUDA-core attention tile's plan, and the block's
-    shared memory within the limit."""
+    """K9's gate: the chain kernels' own gates (every GEMM's K a multiple of
+    16, RESID_LN_Q's N within its plan; K3's hd a multiple of 8 up to 128,
+    any N) and the stages' shared memory within the limit."""
     d = num_heads * head_dim
-    return (d % MEGABLOCK_K_MULTIPLE == 0 and mlp_dim % MEGABLOCK_K_MULTIPLE == 0
-            and fs.gemm_shapes_ok(d, 3 * d) and fs.gemm_shapes_ok(d, d, resid_ln=True)
+    return (fs.gemm_shapes_ok(d, 3 * d) and fs.gemm_shapes_ok(d, d, resid_ln=True)
             and fs.gemm_shapes_ok(d, mlp_dim) and fs.gemm_shapes_ok(mlp_dim, d, resid_ln=True)
-            and attention_shapes_ok(n, head_dim)
-            and megablock_smem_bytes(n, d, head_dim) <= SMEM_LIMIT)
+            and attention_fwd_shapes_ok(n, head_dim)
+            and megablock_plan(n, d, head_dim)[3] <= SMEM_LIMIT)
 
 
 def stacked_weight_bytes(blocks: Dict[str, Any], depth: int) -> int:
@@ -205,8 +243,11 @@ def stacked_weight_bytes(blocks: Dict[str, Any], depth: int) -> int:
 
 
 def _gemm_entry(layer: Dict[str, Any], in_q: Dict[str, Any], k: int, n: int, dev):
-    w, cs, bias, ws = layer["w_int8"], layer["w_colsum"], layer.get("bias"), layer["w_scale"]
-    require(w, "w_int8", torch.int8, dev, (k, n), align=16)
+    w, cs, bias, ws = layer.get("w_int8_t"), layer["w_colsum"], layer.get("bias"), layer["w_scale"]
+    if w is None:
+        raise ValueError("megablock: the layer has no packed weight w_int8_t "
+                         "(serve.int8_vit.export_to_device or fs.with_packed_weight adds it)")
+    require(w, "w_int8_t", torch.int8, dev, (n, k), align=16)
     require(cs, "w_colsum", torch.int32, dev, (n,))
     if bias is not None:
         require(bias, "bias", torch.float32, dev, (n,))
@@ -219,8 +260,10 @@ def _gemm_entry(layer: Dict[str, Any], in_q: Dict[str, Any], k: int, n: int, dev
     return ptrs, ws0, pc, f32(in_q["scale"]), int(f32(in_q["zero_point"])) - 128
 
 
-def _block_table(blk: Dict[str, Any], next_ln: Dict[str, Any], d: int, mlp: int, dev) -> bytes:
-    """One BlockTable record: the parameters the chain's five launches get."""
+def _block_table(blk: Dict[str, Any], next_ln: Dict[str, Any], d: int, mlp: int, dev,
+                 lib) -> bytes:
+    """One BlockTable record: the packed qkv and fc1 weights' tensor maps
+    (encoded by ``lib``), then the parameters the chain's five launches get."""
     gemms = [
         _gemm_entry(blk["qkv"], blk["norm1"]["out_q"], d, 3 * d, dev),
         _gemm_entry(blk["proj"], blk["qkv"]["out_q"], d, d, dev),
@@ -235,14 +278,18 @@ def _block_table(blk: Dict[str, Any], next_ln: Dict[str, Any], d: int, mlp: int,
     grids = []
     for q in (blk["qkv"]["out_q"], blk["norm2"]["out_q"], blk["gelu_q"], next_ln["out_q"]):
         grids += [fs.inv_scale(q["scale"]), f32(q["zero_point"])]
-    return _BLOCK_TABLE.pack(
+    maps = (ctypes.c_char * (2 * _MAP_BYTES))()
+    for i, rows in enumerate((3 * d, mlp)):  # qkv's and fc1's packed weights
+        lib.call("qvt_megablock_weight_map", gemms[2 * i][0][0], rows, d,
+                 ctypes.addressof(maps) + i * _MAP_BYTES)
+    return maps.raw + _BLOCK_TABLE.pack(
         *[p for g in gemms for p in g[0]], *lns,
         *[g[1] for g in gemms], *[g[2] for g in gemms], *[g[3] for g in gemms],
         *[g[4] for g in gemms], *grids)
 
 
 def _launch_megablock(zq, x, pairs: List[Tuple[Dict, Dict]], *, num_heads, head_dim, eps,
-                      n_valid, quant_max, hint: bool, name: str):
+                      n_valid, quant_max, name: str):
     """One cooperative launch over ``pairs`` = [(block, next LN), ...] →
     (x', zq'); the activations between stages in one workspace."""
     dev = zq.device
@@ -252,7 +299,7 @@ def _launch_megablock(zq, x, pairs: List[Tuple[Dict, Dict]], *, num_heads, head_
         raise ValueError(f"{name}: D {d} != {num_heads} x {head_dim}")
     if not megablock_shapes_ok(n, num_heads, head_dim, mlp):
         raise ValueError(f"{name}: unsupported N={n}, D={d}, head_dim={head_dim}, MLP={mlp} "
-                         f"(int8_gemm / attention_q gates, {megablock_smem_bytes(n, d, head_dim)} "
+                         f"(int8_gemm / attention_q gates, {megablock_plan(n, d, head_dim)[3]} "
                          f"bytes of shared memory <= {SMEM_LIMIT})")
     if not 0 < n_valid <= n:
         raise ValueError(f"n_valid {n_valid} outside (0, {n}]")
@@ -260,19 +307,21 @@ def _launch_megablock(zq, x, pairs: List[Tuple[Dict, Dict]], *, num_heads, head_
         raise ValueError(f"{name}: x must be bf16 or f32, not {x.dtype}")
     require(zq, "zq", torch.int8, dev, (b, n, d), align=16)
     require(x, "x", x.dtype, dev, (b, n, d))
-    table = b"".join(_block_table(blk, nxt, d, mlp, dev) for blk, nxt in pairs)
-    table = torch.frombuffer(bytearray(table), dtype=torch.uint8).pin_memory()
-    table = table.to(dev, non_blocking=True)
+    lib = _build.load()
+    table = b"".join(_block_table(blk, nxt, d, mlp, dev, lib) for blk, nxt in pairs)
+    table = torch.frombuffer(bytearray(table), dtype=torch.uint8)
+    if dev.type == "cuda":
+        table = table.pin_memory().to(dev, non_blocking=True)
     x_out, zq_out = torch.empty_like(x), torch.empty_like(zq)
     m = b * n
     sizes = (m * 3 * d * 2, m * d, m * d * 4, m * d, m * mlp)  # qkv, o_q, x_mid, zq2, g_q
     offsets = np.cumsum((0,) + tuple(-(-s // 256) * 256 for s in sizes))
     ws = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=dev)
     if b:
-        _build.load().call(
+        lib.call(
             "qvt_megablock", ptr(table), len(pairs), ptr(zq), ptr(x), ptr(zq_out), ptr(x_out),
             *[ws.data_ptr() + int(o) for o in offsets[:5]], b, n, num_heads, head_dim, mlp,
-            n_valid, int(x.dtype == torch.bfloat16), int(hint),
+            n_valid, int(x.dtype == torch.bfloat16),
             float(_q_scale(head_dim, torch.bfloat16)), f32(quant_max), float(eps), stream_of(dev),
         )
     return x_out, zq_out
@@ -305,7 +354,7 @@ def megablock_forward(
               quant_max=quant_max)
     if use_plain(zq):
         return megablock_forward_plain(zq, x, blk, next_ln, **kw)
-    out = _launch_megablock(zq, x, [(blk, next_ln)], hint=False, name="megablock", **kw)
+    out = _launch_megablock(zq, x, [(blk, next_ln)], name="megablock", **kw)
     megablock_forward.launches += int(zq.shape[0] > 0)
     return out
 
@@ -332,7 +381,8 @@ def megamodel_res_forward(
     quant_max: float = 255.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All ``depth`` blocks (tanh-GELU) in ONE cooperative launch (K9b),
-    weights loaded with an L2 evict_last policy → (x_final, zq_final).
+    the stacked int8 weights re-read from L2 by every block → (x_final,
+    zq_final).
     Raises, naming ``megamodel``, when the stacked int8 weights exceed
     :data:`MEGAMODEL_RES_MAX_WEIGHT_BYTES`."""
     kw = dict(num_heads=num_heads, head_dim=head_dim, eps=eps, n_valid=n_valid,
@@ -347,7 +397,7 @@ def megamodel_res_forward(
             "fused='megamodel'")
     pairs = [(blocks[str(i)], blocks[str(i + 1)]["norm1"] if i + 1 < depth else final_ln)
              for i in range(depth)]
-    out = _launch_megablock(zq, x, pairs, hint=True, name="megamodel_res", **kw)
+    out = _launch_megablock(zq, x, pairs, name="megamodel_res", **kw)
     megamodel_res_forward.launches += int(zq.shape[0] > 0)
     return out
 

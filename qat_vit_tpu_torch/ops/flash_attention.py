@@ -62,20 +62,9 @@ from qat_vit_tpu_torch.ops.fused_serve import inv_scale, quantize_mul
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
 from qat_vit_tpu_torch.quant.fake_quant import fake_quantize_values
 
-_WARPS = 8  # WARPS in csrc/attention_tile.cuh
 _F32_KT = 64  # KT in csrc/attention_f32.cu: keys per G1 tile
 # the qkv dtypes of the training attentions' kernels (K1, K5a/K5b)
 TRAIN_DTYPES = (torch.bfloat16, torch.float32)
-
-
-def attention_smem_bytes(n: int, head_dim: int) -> int:
-    """Shared memory the CUDA-core attention tile asks for
-    (``csrc/attention_tile.cuh``, K9's attention stage): K (rows padded by
-    one word) and V of one head in bf16, one f32 score row and one q row per
-    warp. It sets K9's gate (:func:`attention_shapes_ok`); K3, kernel A and
-    K8 take any N past it (:func:`attention_fwd_shapes_ok`)."""
-    words = head_dim // 2
-    return 4 * (n * (words + 1) + n * words + _WARPS * n + _WARPS * head_dim)
 
 
 def _f32_strip_words(n: int) -> int:
@@ -104,13 +93,6 @@ def attention_f32_rows(n: int, head_dim: int, backward: bool = False) -> int:
         if attention_f32_smem_bytes(n, head_dim, rows, backward) <= SMEM_LIMIT:
             return rows
     return 0
-
-
-def attention_shapes_ok(n: int, head_dim: int) -> bool:
-    """The gate of K9's attention stage: hd a multiple of 8 and <= 128, n
-    within the CUDA-core tile's shared-memory budget (n <= 789 at hd 64)."""
-    return (head_dim % 8 == 0 and 0 < head_dim <= 128
-            and attention_smem_bytes(n, head_dim) <= SMEM_LIMIT)
 
 
 def attention_fwd_shapes_ok(n: int, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> bool:

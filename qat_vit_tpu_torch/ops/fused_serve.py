@@ -17,8 +17,8 @@ counts its kernel launches in ``<wrapper>.launches``.
 Activations are shifted int8; ``in_q``/``out_q`` are ``{"scale",
 "zero_point"}`` dicts of the export. Quantizing multiplies by ``1/scale``
 (f32), as the TPU kernels do. ``W`` stays ``[K, N]`` as exported, for the
-plain versions, K7, K9 and the file format; the kernels read a k-contiguous
-``[N, K]`` copy, ``layer["w_int8_t"]`` (:func:`with_packed_weight`), which
+plain versions and the file format; the kernels (K7 and K9 too) read a
+k-contiguous ``[N, K]`` copy, ``layer["w_int8_t"]`` (:func:`with_packed_weight`), which
 ``serve/int8_vit.export_to_device`` adds to every GEMM layer of an export
 placed on a CUDA device; on CUDA a wrapper raises for a layer without one.
 """
@@ -39,19 +39,15 @@ _ACTS = {"gelu": 0, "quick_gelu": 1}
 # the int8_gemm kernels read A [M, K] and the packed W [N, K] in 16-byte
 # chunks (TMA's and cp.async's row stride), zero-filled past K
 GEMM_K_MULTIPLE = 16
-# the CUDA-core tile (csrc/gemm_tile.cuh: K7, and K9's megablock.cu) stages K
-# in 64-byte tiles: shared-memory rows of 64 + 16 bytes, output tiles of 64
-# x 64 (32 rows x N for K9's RESID_LN_Q body)
-GEMM_ROW_BYTES = 80
-GEMM_TILE_M, GEMM_TILE_N, RESID_LN_ROWS = 64, 64, 32
-# K9's RESID_LN_Q keeps 32 rows x N f32 in shared memory beside 96 x 80 B of
-# tiles: the N every RESID_LN_Q kernel must take
-RESID_LN_MAX_N = ((SMEM_LIMIT - (RESID_LN_ROWS + GEMM_TILE_N) * GEMM_ROW_BYTES)
-                  // (RESID_LN_ROWS * 4))
+# the widest N of RESID_LN_Q (K2c, and K9's proj and fc2 stages): where the
+# port's first RESID_LN_Q tile (32 rows x N f32 beside 96 rows of 80 bytes)
+# set it; the pipelined plan below holds it at 16 rows per block
+RESID_LN_MAX_N = 1756
 # the pipelined RESID_LN_Q (K2c, qvt_int8_gemm_resid_ln): blocks of 64, 32
 # or 16 rows x all N, column passes of 192, a ring of 3 stages of (A [rows
-# x 64], B [192 x 64]) in 80-byte rows, the block's f32 y in rows of N + 4
-# and five f32 per-column constants
+# x 64], B [192 x 64]) in rows of 64 + 16 bytes, the block's f32 y in rows of
+# N + 4 and five f32 per-column constants
+GEMM_ROW_BYTES = 80
 RESID_LN_BLOCK_ROWS = (64, 32, 16)
 RESID_LN_PASS_N, RESID_LN_STAGES = 192, 3
 # H100: shared memory of an SM, and what the runtime reserves per block

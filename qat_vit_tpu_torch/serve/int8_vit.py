@@ -158,8 +158,8 @@ def pack_gemm_weights(qp: Any) -> Any:
     (each dict holding ``w_int8``: the blocks' qkv, proj, fc1 and fc2, the
     patch embedding and the head) given ``w_int8_t``, its weight packed
     k-contiguous (``fused_serve.with_packed_weight``), which the int8_gemm
-    kernels and K7 read; the JAX-layout ``w_int8`` stays for every other
-    reader (K9, the plain versions, the file format)."""
+    kernels, K7 and K9 read; the JAX-layout ``w_int8`` stays for every
+    other reader (the plain versions, the file format)."""
     if not isinstance(qp, dict):
         return qp
     out = {k: pack_gemm_weights(v) for k, v in qp.items()}

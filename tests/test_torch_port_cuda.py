@@ -24,8 +24,8 @@ use the card's ``ex2``; each gives identical bits over two launches:
   (at most one grid step off, >= 99.9% identical), and a chain through the
   kernels is held to its plain twin with the kernel as its attention stage
   (:func:`_plain_ops_with_kernel_attention`, :func:`_plain_ops_with_k3`):
-  identical. K9a / K9b keep the CUDA-core attention tile, K3's plain version
-  bit for bit: identical to the plain chain.
+  identical. K9a / K9b run the chain kernels' stage code, K3's tensor-core
+  tile included: identical to the kernel chain and to that twin.
 """
 
 from types import SimpleNamespace
@@ -850,10 +850,10 @@ def serve_export(dev, request):
 
 def test_megablock_modes_match_the_chain(dev, serve_export, monkeypatch):
     """K9a (one cooperative launch per block) and K9b (one per forward):
-    logits identical to the plain chain's (K9 keeps the CUDA-core attention
-    tile, K3's plain version bit for bit); the K4 chain identical to the
-    plain chain with K3's attention; 1 launch per block and 1 per forward,
-    none of the chain's kernels."""
+    logits identical to the megamodel kernel chain's (K9 runs its stage
+    code, K3's tensor-core attention tile included), which is identical to
+    the plain chain with K3's attention; 1 launch per block and 1 per
+    forward, none of the chain's kernels; two launches identical."""
     from qat_vit_tpu_torch.ops import block_kernel as bk
     from qat_vit_tpu_torch.serve import int8_vit
     from qat_vit_tpu_torch.serve.int8_vit import int8_apply
@@ -861,7 +861,6 @@ def test_megablock_modes_match_the_chain(dev, serve_export, monkeypatch):
     cfg, qp, x = serve_export
     bf = torch.bfloat16
     chain = int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel")
-    plain = int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel_plain")
     with monkeypatch.context() as mp:
         mp.setattr(int8_vit, "PLAIN_OPS", _plain_ops_with_k3())
         _same(chain, int8_apply(qp, x, cfg, compute_dtype=bf, fused="megamodel_plain"))
@@ -872,13 +871,14 @@ def test_megablock_modes_match_the_chain(dev, serve_export, monkeypatch):
         torch.cuda.synchronize()
         assert wrapper.launches == before + want
         assert fa.fused_attention_qkv.launches == attn
-        _same(got, plain)
+        _same(got, chain)
+        _same(got, int8_apply(qp, x, cfg, compute_dtype=bf, fused=mode))
 
 
 def test_megablock_blocks_match_the_chain(dev, serve_export):
-    """At block level, f32 and bf16 streams: K9a's and K9b's x and zq are the
-    chain's through the plain ops (K3's plain version is K9's attention
-    tile), bit for bit."""
+    """At block level, f32 and bf16 streams, all keys and masked ones: K9a's
+    and K9b's x and zq are the kernel chain's bit for bit, and the plain
+    chain's with K3 as its attention stage."""
     from qat_vit_tpu_torch.ops import block_kernel as bk
     from qat_vit_tpu_torch.serve.int8_vit import _embed
 
@@ -890,15 +890,17 @@ def test_megablock_blocks_match_the_chain(dev, serve_export):
         zq = fs.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps)
         n = x.shape[1]
         nxt = qp["blocks"]["1"]["norm1"]
-        plain = bk.PLAIN_OPS
-        _same(bk.megablock_forward(zq, x, blk0, nxt, n_valid=n, **kw),
-              bk.block_forward(zq, x, blk0, nxt, n_valid=n, ops=plain, **kw))
-        _same(bk.megamodel_res_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=n, **kw),
-              bk.model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=n, ops=plain,
-                               **kw))
-        # masked keys (n_valid < N) through the same stages
-        _same(bk.megablock_forward(zq, x, blk0, nxt, n_valid=n - 3, **kw),
-              bk.block_forward(zq, x, blk0, nxt, n_valid=n - 3, ops=plain, **kw))
+        twin = _plain_ops_with_k3()
+        for nv in (n, n - 3):  # masked keys (n_valid < N) through the same stages
+            one = bk.megablock_forward(zq, x, blk0, nxt, n_valid=nv, **kw)
+            _same(one, bk.block_forward(zq, x, blk0, nxt, n_valid=nv, **kw))
+            _same(one, bk.block_forward(zq, x, blk0, nxt, n_valid=nv, ops=twin, **kw))
+            whole = bk.megamodel_res_forward(zq, x, qp["blocks"], qp["norm"], depth=2,
+                                             n_valid=nv, **kw)
+            _same(whole, bk.model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=nv,
+                                          **kw))
+            _same(whole, bk.model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=nv,
+                                          ops=twin, **kw))
 
 
 def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypatch):
@@ -920,8 +922,9 @@ def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypat
     assert bk.megamodel_res_forward.launches == before
     null = ctypes.c_void_p(0)
     with pytest.raises(RuntimeError, match="qvt_megablock failed to launch"):
-        _build.load().call("qvt_megablock", null, 1, *([null] * 9), 1, 20000, 6, 64, 1536,
-                           20000, 1, 0, 0.125, 255.0, 1e-6, null)
+        # D 2,560: K2c's 16-row tile alone asks past the limit
+        _build.load().call("qvt_megablock", null, 1, *([null] * 9), 1, 197, 40, 64, 1536,
+                           197, 0, 0.125, 255.0, 1e-6, null)
     # the error was cleared: the next launch reports its own status (success)
     fs.ln_quantize(torch.zeros(1, 4, 384, device=dev), _ln(np.random.default_rng(0), 384, dev),
                    OUT_Q)

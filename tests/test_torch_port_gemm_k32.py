@@ -164,19 +164,20 @@ def test_every_gemm_layer_packed():
 def test_gemm_gates():
     """int8_gemm (K2a, K2b, K2c) takes K a multiple of 16 (so every K % 32
     that JAX's gates take), any N (RESID_LN_Q up to its shared-memory plan);
-    K9 keeps its K % 64 and the CUDA-core attention plan."""
+    K9 takes what the chain's kernels take."""
     assert fs.GEMM_K_MULTIPLE == 16
     for k in (16, 32, 96, 480, 576, 588, 100, 8, 24):
         assert fs.gemm_shapes_ok(k, 384) == (k % 16 == 0), k
         assert fs.gemm_shapes_ok(k, 384, resid_ln=True) == (k % 16 == 0), k
     assert fs.gemm_shapes_ok(96, 10) and not fs.gemm_shapes_ok(0, 10)
     assert not fs.gemm_shapes_ok(96, fs.RESID_LN_MAX_N + 1, resid_ln=True)
-    # K9: widths 480 (K % 64 = 32) and 96 stay off it, 384 and 768 on it
+    # K9: the chain kernels' gates, so widths 480 and 96 (K % 64 = 32) too
     assert bk.megablock_shapes_ok(197, 6, 64, 1536) and bk.megablock_shapes_ok(197, 12, 64, 3072)
-    assert not bk.megablock_shapes_ok(197, 5, 96, 1920)
-    assert not bk.megablock_shapes_ok(197, 3, 32, 384)
-    assert not bk.megablock_shapes_ok(197, 6, 64, 1568)  # fc2's K % 64 = 32
-    assert not bk.megablock_shapes_ok(2305, 6, 64, 1536)  # past the attention tile's plan
+    assert bk.megablock_shapes_ok(197, 5, 96, 1920)
+    assert bk.megablock_shapes_ok(197, 3, 32, 384)
+    assert bk.megablock_shapes_ok(197, 6, 64, 1568)  # fc2's K % 64 = 32
+    assert bk.megablock_shapes_ok(2305, 6, 64, 1536)  # K3 takes any N
+    assert not bk.megablock_shapes_ok(197, 6, 64, 1544)  # fc2's K % 16 = 8
 
 
 class _Recorder:

@@ -27,7 +27,7 @@ from qat_vit_tpu.ops.flash_attention import xla_attention_qkv as jax_xla_attenti
 from qat_vit_tpu.ops.quantized_matmul import int8_matmul_xla, quantize_act_shifted as jqa
 from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops.flash_attention import (
-    attention_shapes_ok,
+    attention_fwd_shapes_ok,
     fused_attention_qkv,
     xla_attention_qkv,
 )
@@ -169,9 +169,9 @@ def test_xla_attention_matches_jax():
 
 
 def test_kernel_gates():
-    assert attention_shapes_ok(197, 64) and attention_shapes_ok(17, 64)
-    assert not attention_shapes_ok(2305, 64)  # OWLv2-length sequences: K6
-    assert not attention_shapes_ok(197, 60) and not attention_shapes_ok(197, 256)
+    assert attention_fwd_shapes_ok(197, 64) and attention_fwd_shapes_ok(17, 64)
+    assert attention_fwd_shapes_ok(2305, 64)  # any N (OWLv2's serving takes K6 by length)
+    assert not attention_fwd_shapes_ok(197, 60) and not attention_fwd_shapes_ok(197, 256)
     assert fs.gemm_shapes_ok(384, 1152) and fs.gemm_shapes_ok(1536, 384, resid_ln=True)
     assert fs.gemm_shapes_ok(384, 10)  # the head's ragged N
     assert not fs.gemm_shapes_ok(100, 384)

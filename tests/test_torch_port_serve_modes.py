@@ -38,7 +38,6 @@ from qat_vit_tpu_torch.models.jax_params import export_from_numpy
 from qat_vit_tpu_torch.models.registry import create_model
 from qat_vit_tpu_torch.ops import block_kernel as bk
 from qat_vit_tpu_torch.ops.flash_attention import (
-    attention_shapes_ok,
     flash_attention_shapes_ok,
     flash_attention_qkv,
     flash_attention_qkv_plain,
@@ -177,7 +176,7 @@ def test_flash_attention_gate():
     """K8's own gate runs kernel A's plans: past the CUDA-core tile's 789
     (bf16) and 420 (f32) tokens at hd 64 of the earlier kernel, bf16 at
     any N and f32 to the end of its plan; hd a multiple of 8 up to 128.
-    K9's gate (``attention_shapes_ok``) keeps the tile's 789."""
+    K9's gate (``megablock_shapes_ok``) takes K3's, past the tile's 789 too."""
     for dt in (torch.bfloat16, torch.float32):
         assert flash_attention_shapes_ok(789, 64, dt) and flash_attention_shapes_ok(790, 64, dt)
         assert flash_attention_shapes_ok(421, 64, dt) and flash_attention_shapes_ok(577, 64, dt)
@@ -186,7 +185,7 @@ def test_flash_attention_gate():
     assert flash_attention_shapes_ok(100_000, 128, torch.bfloat16)
     assert flash_attention_shapes_ok(39_080, 128, torch.float32)
     assert not flash_attention_shapes_ok(39_081, 128, torch.float32)
-    assert attention_shapes_ok(789, 64) and not attention_shapes_ok(790, 64)
+    assert bk.megablock_shapes_ok(789, 6, 64, 1536) and bk.megablock_shapes_ok(790, 6, 64, 1536)
 
 
 # ---------------------------------------------------------------------------
@@ -195,9 +194,10 @@ def test_flash_attention_gate():
 
 @pytest.mark.parametrize("mode", ["megablock:2:tight", "megamodel_res:2:tight"])
 def test_k9_modes_match_jax(export, mode):
-    """K9a / K9b: logits identical to the port's megamodel chain (they run
-    its tile bodies), and within the megamodel test's tolerance of JAX's
-    whole-block kernels run as one jitted interpret call."""
+    """K9a / K9b: logits identical to the port's megamodel chain (on the
+    CPU both are the chain through the plain ops), and within the megamodel
+    test's tolerance of JAX's whole-block kernels run as one jitted
+    interpret call."""
     jcfg, tcfg, qp_np, qp_t, x = export
     want = np.asarray(_jax_interpret(
         partial(jax_int8_apply, cfg=jcfg, compute_dtype=jnp.bfloat16, fused=mode),
@@ -312,7 +312,7 @@ def test_k9_plain_versions_are_the_chain(export):
     vit_b = 12 * (768 * 2304 + 768 * 768 + 2 * 768 * 3072)
     assert vit_b > bk.MEGAMODEL_RES_MAX_WEIGHT_BYTES
     assert bk.megablock_shapes_ok(197, 6, 64, 1536) and bk.megablock_shapes_ok(197, 12, 64, 3072)
-    assert not bk.megablock_shapes_ok(901, 6, 64, 1536)  # over attention_q's gate
+    assert bk.megablock_shapes_ok(901, 6, 64, 1536)  # ViT-S/16 at 480 px: K3 takes any N
 
 
 # ---------------------------------------------------------------------------

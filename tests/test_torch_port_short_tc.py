@@ -234,16 +234,14 @@ def test_launch_arguments(recorder):
 
 
 def test_gate_unchanged():
-    """The gate (``attention_shapes_ok``, K9's attention stage) is the
-    CUDA-core tile's shared-memory plan, as before the tensor-core kernels:
-    hd a multiple of 8 up to 128 and N within 232,448 bytes of K, V (bf16,
-    rows padded by one word), a score row and a q row per warp; N <= 789 at
-    hd 64, 416 at hd 128, 1,411 at hd 32, 710 at hd 72, 3,414 at hd 8."""
+    """The gate of K3 (``attention_fwd_shapes_ok`` in bf16), which K9's
+    attention stage now shares with it: hd a multiple of 8 up to 128 and
+    any N >= 1, past the edges of the CUDA-core tile that K9 ran before
+    (N 789 at hd 64, 416 at hd 128, 1,411 at hd 32, 710 at hd 72, 3,414 at
+    hd 8)."""
     for hd in (0, 4, 8, 16, 32, 60, 64, 72, 96, 120, 128, 136):
-        for n in (1, 5, 17, 197, 416, 417, 710, 711, 789, 790, 1411, 1412, 3414, 3415):
-            words = hd // 2
-            fits = 4 * (n * (words + 1) + n * words + 8 * n + 8 * hd) <= 232_448
-            want = hd % 8 == 0 and 0 < hd <= 128 and fits
-            assert fa.attention_shapes_ok(n, hd) == want, (n, hd)
+        for n in (0, 1, 5, 17, 197, 416, 417, 710, 711, 789, 790, 1411, 1412, 3414, 3415):
+            want = hd % 8 == 0 and 0 < hd <= 128 and n >= 1
+            assert fa.attention_fwd_shapes_ok(n, hd) == want, (n, hd)
     for hd, n in ((64, 789), (128, 416), (32, 1411), (72, 710), (8, 3414)):
-        assert fa.attention_shapes_ok(n, hd) and not fa.attention_shapes_ok(n + 1, hd)
+        assert fa.attention_fwd_shapes_ok(n, hd) and fa.attention_fwd_shapes_ok(n + 1, hd)
