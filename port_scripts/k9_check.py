@@ -12,18 +12,20 @@ commit in turns.
   stream and with n_valid = N - 3, and at 901 tokens (ViT-S/16 at 480 px,
   batch 8; random zq and x); two launches identical;
 - then (unless --quick) each checkout in turns (parent, change, change,
-  parent), each in a fresh process that imports the package from its
-  checkout and builds its kernels there, on the same export: K9a per block
-  and K9b per forward at batch 32 and 256, device ms under torch.profiler
-  (20 calls, first in the process), ms per call by CUDA events around one
-  call and around 10 back to back (medians of 30); block 0 through the
-  chain's four kernels standalone at batch 256 (K2a qkv, K3, K2c proj,
-  K2b fc1, K2c fc2), each output compared bit for bit with the parent's,
-  each kernel timed by CUDA events around 10 back-to-back calls of its
-  entry point with the arguments its wrapper passed (captured once; no
-  wrapper host time; the profiler late in a process drops events); the
-  wrappers' host us per call at batch 32 (perf_counter around each of 300
-  calls with no synchronisation, the median).
+  parent), each turn two fresh processes that import the package from its
+  checkout and build its kernels there, on the same export:
+  - K9a per block and K9b per forward at batch 32 and 256, device ms
+    under torch.profiler (20 calls, first in the process), ms per call by
+    CUDA events around one call and around 10 back to back (medians of
+    30); the wrappers' host us per call at batch 32 (perf_counter around
+    each of 300 calls with no synchronisation, the median);
+  - block 0 through the chain's four kernels standalone at batch 256 (K2a
+    qkv, K3, K2c proj, K2b fc1, K2c fc2), each output compared bit for bit
+    with the parent's; each kernel's entry point called with the
+    arguments its wrapper passed (captured once; no wrapper host time),
+    timed first under torch.profiler (one session, 20 calls of each in
+    turn: device ms, no launch gaps) and then by CUDA events around 10
+    back-to-back calls (medians of 30).
 
 Run it from the root of a checkout:
 
@@ -76,9 +78,33 @@ def stream_in(qp, cfg, images, dt):
     return fs.ln_quantize(x, blk0["norm1"], blk0["norm1"]["out_q"], eps=cfg.layer_norm_eps), x
 
 
-def child(root, inputs, out_file):
-    """One checkout's timings and block 0's stage outputs through the chain's
-    kernels, written to out_file."""
+def profiled_ms(fns, runs=20):
+    """Device ms of one call of each of ``fns`` (each launches one kernel),
+    from one torch.profiler session that runs each ``runs`` times in turn;
+    None where the session holds another number of kernels than it ran."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in fns:
+            for _ in range(runs):
+                fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset")))
+    if len(kernels) != runs * len(fns):
+        print(f"profiler: {len(kernels)} kernels for {runs * len(fns)} calls", flush=True)
+        return [None] * len(fns)
+    return [sum(us for _, us in kernels[i * runs:(i + 1) * runs]) / 1e3 / runs
+            for i in range(len(fns))]
+
+
+def child(root, inputs, out_file, what):
+    """One checkout's K9 timings (``what`` "k9"), or block 0's stage outputs
+    through the chain's kernels and their times ("stages"), written to
+    out_file."""
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke as cs
@@ -94,8 +120,8 @@ def child(root, inputs, out_file):
     qp = export_to_device(saved["export"], dev)
     kw = dict(num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=cfg.layer_norm_eps)
     blk0, nxt = qp["blocks"]["0"], qp["blocks"]["1"]["norm1"]
-    res = {"k9": {}, "stages": {}, "host_us": {}}
-    for b in BATCHES:
+    res = {"k9": {}, "host_us": {}, "stages": {}, "stages_device": {}}
+    for b in BATCHES if what == "k9" else ():
         zq, x = stream_in(qp, cfg, images[:b], torch.bfloat16)
         n = zq.shape[1]
         fns = {"K9a": lambda: bk.megablock_forward(zq, x, blk0, nxt, n_valid=n, **kw),
@@ -116,6 +142,10 @@ def child(root, inputs, out_file):
                     times.append(time.perf_counter() - t0)
                 torch.cuda.synchronize()
                 res["host_us"][f"{name} batch {b}"] = 1e6 * statistics.median(times)
+    if what == "k9":
+        with open(out_file, "w") as f:
+            json.dump(res, f)
+        return
     # block 0 through the chain's kernels, stage by stage, at batch 256
     zq, x = stream_in(qp, cfg, images[:256], torch.bfloat16)
     n = zq.shape[1]
@@ -136,6 +166,7 @@ def child(root, inputs, out_file):
             nxt, nxt["out_q"], eps=cfg.layer_norm_eps, out_dtype=torch.bfloat16)),
     ]
     lib = _build.load()
+    entries = {}
     for name, fn in stages:
         calls = []
 
@@ -150,7 +181,10 @@ def child(root, inputs, out_file):
         finally:
             _build.load = lambda: lib
         (entry, args), = calls
-        res["stages"][name] = cs.median_ms(lambda: lib.call(entry, *args), runs=30, reps=10)
+        entries[name] = lambda entry=entry, args=args: lib.call(entry, *args)
+    res["stages_device"] = dict(zip(entries, profiled_ms(list(entries.values()))))
+    for name, fn in entries.items():
+        res["stages"][name] = cs.median_ms(fn, runs=30, reps=10)
     torch.save({k: (v if isinstance(v, tuple) else (v,)) for k, v in outs.items()},
                out_file + ".pt")
     with open(out_file, "w") as f:
@@ -236,7 +270,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="build, report and check; no timing")
     ap.add_argument("--parent", help="a checkout of the parent commit to time against")
-    ap.add_argument("--child", nargs=3, metavar=("ROOT", "INPUTS", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--child", nargs=4, metavar=("ROOT", "INPUTS", "OUT", "WHAT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         child(*args.child)
@@ -271,12 +306,15 @@ def main():
     order = ["parent", "change", "change", "parent"] if args.parent else ["change"]
     runs, outputs = {}, {}
     for i, who in enumerate(order):
-        out = os.path.join(tmp, f"{i}_{who}.json")
         t0 = time.perf_counter()
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--child", roots[who], inputs,
-                        out], check=True)
-        with open(out) as f:
-            runs.setdefault(who, []).append(json.load(f))
+        turn = {}
+        for what in ("k9", "stages"):
+            out = os.path.join(tmp, f"{i}_{who}_{what}.json")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--child", roots[who],
+                            inputs, out, what], check=True)
+            with open(out) as f:
+                turn.update({k: v for k, v in json.load(f).items() if v})
+        runs.setdefault(who, []).append(turn)
         outputs.setdefault(who, out + ".pt")
         print(f"turn {i + 1} ({who}) done in {time.perf_counter() - t0:.0f} s", flush=True)
     if args.parent:
@@ -291,9 +329,15 @@ def main():
             f"one call {' / '.join(f'{r['k9'][key]['ms']:.4f}' for r in rs)}, "
             f"10 back to back {' / '.join(f'{r['k9'][key]['ms10']:.4f}' for r in rs)}"
             for who, rs in runs.items()), flush=True)
+    def ms(v):
+        return "dropped" if v is None else f"{v:.4f}"
+
     for key in runs["change"][0]["stages"]:
-        print(f"{key} batch 256, ms per call over 10 back to back: " + "; ".join(
-            f"{who} {' / '.join(f'{r['stages'][key]:.4f}' for r in rs)}"
+        print(f"{key} batch 256, device ms (torch.profiler): " + "; ".join(
+            f"{who} {' / '.join(ms(r['stages_device'][key]) for r in rs)}"
+            for who, rs in runs.items())
+            + "; ms per call over 10 back to back: " + "; ".join(
+            f"{who} {' / '.join(ms(r['stages'][key]) for r in rs)}"
             for who, rs in runs.items()), flush=True)
     for key in runs["change"][0]["host_us"]:
         print(f"{key} wrapper host us per call: " + "; ".join(

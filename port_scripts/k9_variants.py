@@ -9,12 +9,14 @@ other sources' objects (built once) into a library of its own; the wrappers
   one block per SM, a 4-stage ring, K2c's tiles up to 64 rows);
 - "32-row K2c tiles": QVT_K9_RL_ROWS_MAX=32;
 - "2 blocks/SM, 2 stages": QVT_K9_MINB=2 (two blocks' register cap, 128)
-  with a 2-stage ring (two blocks' shared memory);
-- "producer warp, ...": QVT_K9_PRODUCER_WARP=1, a producer warp beside the
-  two consumer warpgroups (288 threads), at one block per SM or two (the
-  launch bounds' register cap, or QVT_K9_MAXNREG=112 in their place);
-- "stamps": QVT_K9_STAMPS, %globaltimer after each grid barrier (block 0):
-  the mean ms of each stage over the 12 blocks of K9b;
+  with a 2-stage ring (two blocks' shared memory; K2c's tiles and K3's
+  form fit the smaller GEMM region);
+- "stamps": QVT_K9_STAMPS, %globaltimer after each grid barrier (block 0)
+  and at each block's arrival there: per stage, the mean ms over the 12
+  blocks of K9b and the mean ms a block waits at the stage's barrier (its
+  share of the stage is SM time idle in the last wave and the barrier,
+  the most that per-image readiness counters in place of the barriers
+  could win back);
 
 On a ViT-S/16 export (random init, as port_scripts/k9_check.py makes it):
 each variant's K9a (block 0) and K9b (12 blocks) x and zq are compared
@@ -45,15 +47,10 @@ import k9_check  # noqa: E402
 from qat_vit_tpu_torch import _build  # noqa: E402
 from qat_vit_tpu_torch.ops import block_kernel as bk  # noqa: E402
 
-PW = "-DQVT_K9_PRODUCER_WARP=1"
-TWO = ["-DQVT_K9_MINB=2", "-DQVT_K9_STAGES=2"]
 BUILDS = {
     "shipped": [],
     "32-row K2c tiles": ["-DQVT_K9_RL_ROWS_MAX=32"],
-    "2 blocks/SM, 2 stages": TWO,
-    "producer warp, 1 block/SM": [PW],
-    "producer warp, 2 blocks/SM, 2 stages": [PW, *TWO],
-    "producer warp, 2 blocks/SM, 2 stages, 112 registers": [PW, *TWO, "-DQVT_K9_MAXNREG=112"],
+    "2 blocks/SM, 2 stages": ["-DQVT_K9_MINB=2", "-DQVT_K9_STAGES=2"],
     "stamps": ["-DQVT_K9_STAMPS"],
 }
 STAGE_NAMES = ("qkv", "attention", "proj", "fc1", "fc2")
@@ -153,23 +150,37 @@ def main():
         for stamped in [name for name in libs if name.startswith("stamps")]:
             lib = libs[stamped]
             _build.load = lambda lib=lib: lib
-            slots = torch.zeros(5 * cfg.depth + 1, dtype=torch.int64, device=dev)
-            err = lib._lib.qvt_megablock_stamps(ctypes.c_void_p(slots.data_ptr()))
+            lib.call("qvt_megablock_residency", 197, cfg.num_heads, cfg.head_dim, 1,
+                     ctypes.addressof(res))
+            grid, bars = res[0] * res[1], 5 * cfg.depth
+            releases = torch.zeros(bars + 1, dtype=torch.int64, device=dev)
+            arrivals = torch.zeros(bars, grid, dtype=torch.int64, device=dev)
+            err = lib._lib.qvt_megablock_stamps(ctypes.c_void_p(releases.data_ptr()),
+                                                ctypes.c_void_p(arrivals.data_ptr()))
             if err:
                 sys.exit(f"qvt_megablock_stamps: cudaError {err}")
             for b in (32, 256):
                 fn = forms(b)["K9b"]
-                per = np.zeros(5)
+                per, wait, least = np.zeros(5), np.zeros(5), np.zeros(5)
                 for _ in range(10):
                     fn()
                     torch.cuda.synchronize()
-                    d = np.diff(slots.cpu().numpy()) / 1e6
-                    per += d.reshape(cfg.depth, 5).sum(0) / cfg.depth / 10
-                readings[f"{stamped} K9b batch {b}"] = dict(zip(STAGE_NAMES, per.tolist()))
-                print(f"{stamped} K9b batch {b}: mean ms per block by stage "
-                      + ", ".join(f"{s} {t:.4f}" for s, t in zip(STAGE_NAMES, per))
-                      + f" (sum {per.sum():.4f} per block, {per.sum() * cfg.depth:.3f} per "
-                      "forward)", flush=True)
+                    rel = releases.cpu().numpy().astype(np.float64)
+                    waits = (rel[1:, None] - arrivals.cpu().numpy()) / 1e6  # [bars, grid]
+                    for acc, v in ((per, np.diff(rel) / 1e6), (wait, waits.mean(1)),
+                                   (least, waits.min(1))):
+                        acc += v.reshape(cfg.depth, 5).sum(0) / cfg.depth / 10
+                readings[f"{stamped} K9b batch {b}"] = {
+                    s: {"ms": t, "wait_ms": w, "last_wait_ms": lw}
+                    for s, t, w, lw in zip(STAGE_NAMES, per.tolist(), wait.tolist(),
+                                           least.tolist())}
+                print(f"{stamped} K9b batch {b}: mean ms per block by stage (a block's mean "
+                      "wait at its barrier, the last arriver's) "
+                      + ", ".join(f"{s} {t:.4f} ({w:.4f}, {lw:.4f})"
+                                  for s, t, w, lw in zip(STAGE_NAMES, per, wait, least))
+                      + f"; sum {per.sum():.4f} per block, {per.sum() * cfg.depth:.3f} per "
+                      f"forward; waiting {wait.sum() / per.sum():.1%} of the SMs' time "
+                      f"({grid} blocks)", flush=True)
     finally:
         _build.load = load
     print(json.dumps({"card": card, "readings": readings}), flush=True)

@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(THREADS, (MIN_BLOCKS<HDP, RESIDENT>))
   extern __shared__ __align__(16) uint8_t smem_raw[];
   attention_q_mma_tile<HDP, QOUT, IN_FQ, RESIDENT, SCALE_AFTER>(
       qkv, qs, out, N, H, hd, n_valid, scale, inv_s, zp, qmax, fq_min, fq_max, smem_raw,
-      blockIdx.x, blockIdx.y, blockIdx.z, [] { __syncthreads(); });
+      blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT, bool SCALE_AFTER>

@@ -50,15 +50,14 @@ constexpr size_t stream_smem() {  // q; K and V per stage
 }
 
 // One tile of attention_q_mma.cu's kernels: query rows [BM qt, BM qt + BM) of head h of
-// image b, on THREADS threads (threadIdx.x 0 .. THREADS - 1) that meet at
-// sync() (the kernels: __syncthreads; K9's megablock.cu: a named barrier of
-// its 8 consumer warps). SCALE_AFTER (K8): q enters the dot unscaled and the
-// f32 score is scaled after it.
-template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT, bool SCALE_AFTER, typename Sync>
+// image b, on the block's THREADS threads (threadIdx.x 0 .. THREADS - 1).
+// SCALE_AFTER (K8): q enters the dot unscaled and the f32 score is scaled
+// after it.
+template <int HDP, bool QOUT, bool IN_FQ, bool RESIDENT, bool SCALE_AFTER>
 __device__ __forceinline__ void attention_q_mma_tile(
     const bf16* __restrict__ qkv, const float* __restrict__ qs, void* __restrict__ out, int N,
     int H, int hd, int n_valid, float scale, float inv_s, float zp, float qmax, float fq_min,
-    float fq_max, uint8_t* smem_raw, int qt, int h, int b, Sync sync) {
+    float fq_max, uint8_t* smem_raw, int qt, int h, int b) {
   constexpr int S = SROW<HDP>;
   constexpr int KS = HDP / 16;  // k-steps of the score dot; 16-column pairs of o
   constexpr int NS = STAGES<HDP>;
@@ -115,7 +114,7 @@ __device__ __forceinline__ void attention_q_mma_tile(
     cp_async_wait<0>();
   }
   if constexpr (IN_FQ || !SCALE_AFTER) map_rows<HDP, THREADS>(Qs, q0, BM, N, hd, q_map);
-  sync();
+  __syncthreads();
 
   // the warp's 16 q rows as A fragments
   uint32_t qf[KS][4];
@@ -124,7 +123,7 @@ __device__ __forceinline__ void attention_q_mma_tile(
     if (16 * ks < hdp) frag_a<HDP>(Qs + warp * 16 * S, ks, qf[ks]);
 
   if constexpr (RESIDENT) {
-    sync();  // every warp has its q fragments: V may land over them
+    __syncthreads();  // every warp has its q fragments: V may land over them
     stage_rows<HDP, THREADS>(Vs, img + 2 * D, ld, 0, R, N, hd);
     cp_async_commit();
   } else {
@@ -154,7 +153,7 @@ __device__ __forceinline__ void attention_q_mma_tile(
       if (t == nt) {  // V has landed (and is fake-quantized) before pass 2
         cp_async_wait<0>();
         if constexpr (IN_FQ) map_rows<HDP, THREADS>(Vs, 0, R, N, hd, fq);
-        sync();
+        __syncthreads();
       }
       Kt = Ks + k0 * S;
       Vt = Vs + k0 * S;
@@ -162,7 +161,7 @@ __device__ __forceinline__ void attention_q_mma_tile(
       const int stage = t % NS, next = t + NS - 1;
       cp_async_wait<NS - 2>();
       if constexpr (IN_FQ) map_tile(t, stage);
-      sync();  // tile t visible to every warp, and every warp done with tile t - 1
+      __syncthreads();  // tile t visible to every warp, and every warp done with tile t - 1
       if (next < total)  // into tile t - 1's stage
         load(next, next % NS);
       else

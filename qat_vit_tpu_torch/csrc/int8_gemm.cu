@@ -48,7 +48,7 @@ using namespace qvt_resid_ln;
 template <int BM, int WM, typename OutT, typename ResT>
 __global__ void __launch_bounds__(RL_THREADS) gemm_resid_ln_kernel(GemmParams p) {
   extern __shared__ __align__(16) uint8_t smem[];
-  resid_ln_tile<BM, WM, OutT, ResT>(p, smem, blockIdx.x * BM, [] { __syncthreads(); });
+  resid_ln_tile<BM, WM, OutT, ResT>(p, smem, blockIdx.x * BM);
 }
 
 template <typename Kernel>

@@ -36,14 +36,12 @@ __device__ __forceinline__ const qvt_mma::bf16* rl_pairs(const uint8_t* p) {
   return reinterpret_cast<const qvt_mma::bf16*>(p);
 }
 
-// One block's tile: rows [m0, m0 + BM) x all N, on RL_THREADS threads
-// (threadIdx.x 0 .. 255) that meet at sync() (the kernel: __syncthreads;
-// K9: a named barrier of its 8 consumer warps); shared memory from smem on,
+// One block's tile: rows [m0, m0 + BM) x all N, on the block's RL_THREADS
+// threads (threadIdx.x 0 .. 255); shared memory from smem on,
 // rl_smem_bytes(BM, N). 8 warps as WM (rows) x 8 / WM (columns); a warp owns
 // MI 16-row tiles x NI 8-column tiles of a pass.
-template <int BM, int WM, typename OutT, typename ResT, typename Sync>
-__device__ __forceinline__ void resid_ln_tile(const GemmParams& p, uint8_t* smem, int m0,
-                                              Sync sync) {
+template <int BM, int WM, typename OutT, typename ResT>
+__device__ __forceinline__ void resid_ln_tile(const GemmParams& p, uint8_t* smem, int m0) {
   constexpr int WN = 8 / WM, MI = BM / (16 * WM), NI = RL_NC / (8 * WN);
   constexpr int STAGE = (BM + RL_NC) * RL_ROW;
   static_assert(MI >= 1 && NI >= 2 && BM == 16 * WM * MI && RL_NC == 8 * WN * NI, "layout");
@@ -110,7 +108,7 @@ __device__ __forceinline__ void resid_ln_tile(const GemmParams& p, uint8_t* smem
     }
     for (int kt = 0; kt < nk; ++kt) {
       qvt_mma::cp_async_wait<RL_STAGES - 2>();
-      sync();  // k-step kt visible, and every warp done with kt - 1's stage
+      __syncthreads();  // k-step kt visible, and every warp done with kt - 1's stage
       const int nxt = kt + RL_STAGES - 1;
       if (nxt < nk)
         load(nxt, nxt % RL_STAGES, n0);
@@ -149,7 +147,7 @@ __device__ __forceinline__ void resid_ln_tile(const GemmParams& p, uint8_t* smem
       }
     }
     qvt_mma::cp_async_wait<0>();
-    sync();  // every warp done with the ring before the next pass refills it
+    __syncthreads();  // every warp done with the ring before the next pass refills it
 
     // the pass's y = dequant + residual (gemm_tile.cuh's dequant_value),
     // every load first, then to Ys and the output
@@ -182,7 +180,7 @@ __device__ __forceinline__ void resid_ln_tile(const GemmParams& p, uint8_t* smem
           static_cast<OutT*>(p.y)[(size_t)row * p.N + col] = from_f32<OutT>(yv[mi][ni][r]);
         }
   }
-  sync();
+  __syncthreads();
 
   for (int lr = warp; lr < BM; lr += RL_THREADS / 32) {
     const int row = m0 + lr;

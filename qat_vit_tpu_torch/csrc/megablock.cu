@@ -34,10 +34,10 @@
 //
 // One block shape serves all stages: 256 threads, the wgmma GEMM's two
 // consumer warpgroups (128-row tiles), on which K3's and K2c's tiles run as
-// they do in their own kernels (8 warps; a named barrier of 256 threads in
-// place of __syncthreads). There is no producer warp: thread 0 starts the
-// GEMM stages' TMA copies K9_STAGES - 1 k-steps ahead of the k-step it
-// consumes (int8_gemm_wgmma.cuh's SELF form). One kernel holds every stage's
+// they do in their own kernels (8 warps). There is no producer warp, since
+// every thread must reach every grid barrier: thread 0 starts the GEMM
+// stages' TMA copies K9_STAGES - 1 k-steps ahead of the k-step it consumes
+// (int8_gemm_wgmma.cuh's SELF form). One kernel holds every stage's
 // code, and its registers are the most any stage needs: at two blocks per SM
 // (128 registers) it spilled and ran 1.7x slower than at one block per SM
 // (255), and a producer warp (288 threads) capped two blocks at 96
@@ -78,7 +78,7 @@
 #include "int8_gemm_wgmma.cuh"
 
 // the block shape (port_scripts/k9_variants.py builds the others): blocks
-// per SM, ring stages, and a producer warp beside the consumer warpgroups
+// per SM, ring stages and K2c's most rows per tile
 #ifndef QVT_K9_MINB
 #define QVT_K9_MINB 1
 #endif
@@ -88,14 +88,13 @@
 #ifndef QVT_K9_RL_ROWS_MAX
 #define QVT_K9_RL_ROWS_MAX 64
 #endif
-#ifndef QVT_K9_PRODUCER_WARP
-#define QVT_K9_PRODUCER_WARP 0
-#endif
 
 #ifdef QVT_K9_STAMPS
 // port_scripts/k9_variants.py: %globaltimer at the start and after each grid
-// barrier (block 0), 5 depth + 1 slots
+// barrier (block 0; 5 depth + 1 slots), and each block's arrival at each
+// grid barrier ([5 depth][grid])
 __device__ unsigned long long* k9_stamps;
+__device__ unsigned long long* k9_arrivals;
 #endif
 
 namespace {
@@ -109,16 +108,13 @@ typedef __nv_bfloat16 bf16;
 constexpr int K9_CONS = 2;  // consumer warpgroups: the wgmma GEMM's narrow form
 constexpr int K9_STAGES = QVT_K9_STAGES;
 constexpr int K9_MINB = QVT_K9_MINB;
-constexpr bool K9_PRODUCER_WARP = QVT_K9_PRODUCER_WARP != 0;
 using Cfg9 = qvt_wgmma::Cfg<K9_CONS, K9_STAGES>;
-constexpr int WORKERS = 128 * K9_CONS;  // the consumer warpgroups: every stage's threads
-constexpr int K9_THREADS = WORKERS + (K9_PRODUCER_WARP ? 32 : 0);
-static_assert(WORKERS == qvt_attn_q::THREADS && WORKERS == qvt_resid_ln::RL_THREADS,
+constexpr int K9_THREADS = 128 * K9_CONS;  // the consumer warpgroups run every stage
+static_assert(K9_THREADS == qvt_attn_q::THREADS && K9_THREADS == qvt_resid_ln::RL_THREADS,
               "the 8 consumer warps run K3's and K2c's tiles");
-constexpr int BAR_WORKERS = 3;  // named barrier ids 1, 2: the consumer warpgroups'
-// H100: shared memory of an SM, the runtime's reserve per block, the limit
-// one block may opt into, and the slack that aligns the ring to 1024 bytes
-constexpr size_t SM_SMEM = 233472, BLOCK_RESERVE = 1024, SMEM_LIMIT = 232448, ALIGN = 1024;
+// H100: the shared memory one block may opt into, and the slack that aligns
+// the ring to 1024 bytes
+constexpr size_t SMEM_LIMIT = 232448, ALIGN = 1024;
 constexpr size_t BAR_BYTES = 2 * 8 * K9_STAGES;
 
 struct GemmW {
@@ -182,10 +178,9 @@ static_assert(qvt_wgmma::staging_bytes<EPI_PLAIN, bf16>() >=
                   qvt_wgmma::staging_bytes<EPI_GELU_Q, int8_t>(),
               "the qkv stage's staging is the larger");
 
+// K2c's tile and K3's form fit the GEMM stages' region where they can
 Plan plan(int N, int H, int hd) {
-  const size_t gemm = gemm_region();
-  const size_t two = SM_SMEM / 2 - BLOCK_RESERVE - ALIGN - BAR_BYTES;  // two blocks per SM
-  const size_t cap = std::max(gemm, two);
+  const size_t cap = gemm_region();
   Plan p{};
   const int D = H * hd;
   p.rl_rows = 16;
@@ -197,7 +192,7 @@ Plan plan(int N, int H, int hd) {
       hd <= 64 ? qvt_attn_q::stream_smem<64>() : qvt_attn_q::stream_smem<128>();
   p.attn_resident = resident <= cap;
   const size_t attn = p.attn_resident ? resident : streamed;
-  p.region = (std::max({gemm, qvt_resid_ln::rl_smem_bytes(p.rl_rows, D), attn}) + 15) / 16 * 16;
+  p.region = (std::max({cap, qvt_resid_ln::rl_smem_bytes(p.rl_rows, D), attn}) + 15) / 16 * 16;
   p.smem = ALIGN + p.region + BAR_BYTES;
   return p;
 }
@@ -220,37 +215,38 @@ __device__ __forceinline__ GemmParams gemm_params(const BlockTable& t, int i, co
   return p;
 }
 
-// the 256 consumer threads' barrier
-struct WorkersSync {
-  __device__ __forceinline__ void operator()() const {
-    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR_WORKERS), "n"(WORKERS) : "memory");
-  }
-};
+#ifdef QVT_K9_STAMPS
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+#endif
 
-// every thread's generic writes (global and shared) ordered before the async
-// proxy's accesses after the barrier (TMA reads of stage outputs, TMA writes
-// into shared memory that other stages wrote), then the grid barrier
 __device__ __forceinline__ void stamp(int& slot) {
 #ifdef QVT_K9_STAMPS
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long ns;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    k9_stamps[slot] = ns;
-  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) k9_stamps[slot] = globaltimer();
   ++slot;
 #else
   (void)slot;
 #endif
 }
 
+// every thread's generic writes (global and shared) ordered before the async
+// proxy's accesses after the barrier (TMA reads of stage outputs, TMA writes
+// into shared memory that other stages wrote), then the grid barrier
 __device__ __forceinline__ void stage_barrier(cg::grid_group& grid, int& slot) {
   asm volatile("fence.proxy.async;\n" ::: "memory");
+#ifdef QVT_K9_STAMPS
+  __syncthreads();  // the block's arrival: its last thread is done with the stage
+  if (threadIdx.x == 0) k9_arrivals[(slot - 1) * gridDim.x + blockIdx.x] = globaltimer();
+#endif
   grid.sync();
   stamp(slot);
 }
 
 // stages 1 and 4: the consumer warpgroups run the tiles; thread 0 fills the
-// ring ahead of them (QVT_K9_PRODUCER_WARP: the producer warp's lane 0 does)
+// ring ahead of them
 template <int EPI, typename OutT>
 __device__ __forceinline__ void gemm_stage(const GemmParams& p, const CUtensorMap* map_a,
                                            const CUtensorMap* map_w, uint8_t* smem,
@@ -258,23 +254,11 @@ __device__ __forceinline__ void gemm_stage(const GemmParams& p, const CUtensorMa
                                            Ring& fill) {
   uint8_t* const staging = smem + K9_STAGES * Cfg9::STAGE_BYTES;
   uint8_t* const consts = staging + K9_CONS * qvt_wgmma::staging_bytes<EPI, OutT>();
-  if constexpr (K9_PRODUCER_WARP) {
-    if ((threadIdx.x >> 5) == 4 * K9_CONS) {
-      if ((threadIdx.x & 31) == 0)
-        qvt_wgmma::wgmma_produce<K9_CONS, K9_STAGES>(map_a, map_w, smem, full, empty, p.M, p.N,
-                                                     p.K, blockIdx.x, gridDim.x, fill);
-      __syncwarp();
-      return;
-    }
-    qvt_wgmma::wgmma_consume<EPI, OutT, K9_CONS, K9_STAGES, 0>(
-        p, smem, staging, consts, full, empty, blockIdx.x, gridDim.x, ring);
-  } else {
-    qvt_wgmma::wgmma_consume<EPI, OutT, K9_CONS, K9_STAGES, 0, true>(
-        p, smem, staging, consts, full, empty, blockIdx.x, gridDim.x, ring, map_a, map_w, &fill);
-  }
+  qvt_wgmma::wgmma_consume<EPI, OutT, K9_CONS, K9_STAGES, 0, true>(
+      p, smem, staging, consts, full, empty, blockIdx.x, gridDim.x, ring, map_a, map_w, &fill);
 }
 
-// stage 2 on the consumer warps: K3's tiles (128 query rows, head, image)
+// stage 2: K3's tiles (128 query rows, head, image)
 template <int HDP, bool RESIDENT>
 __device__ __forceinline__ void attention_stage(const MegaParams& mp, const BlockTable& t,
                                                 uint8_t* smem) {
@@ -282,18 +266,17 @@ __device__ __forceinline__ void attention_stage(const MegaParams& mp, const Bloc
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     qvt_attn_q::attention_q_mma_tile<HDP, true, false, RESIDENT, false>(
         mp.qkv, nullptr, mp.o_q, mp.N, mp.H, mp.hd, mp.n_valid, mp.attn_scale, t.inv_so, t.zp_o,
-        mp.qmax, 0.0f, 0.0f, smem, tile % nq, (tile / nq) % mp.H, tile / (nq * mp.H),
-        WorkersSync{});
-    WorkersSync{}();  // K and V of the next tile overwrite this one's
+        mp.qmax, 0.0f, 0.0f, smem, tile % nq, (tile / nq) % mp.H, tile / (nq * mp.H));
+    __syncthreads();  // K and V of the next tile overwrite this one's
   }
 }
 
-// stages 3 and 5 on the consumer warps: K2c's row tiles
+// stages 3 and 5: K2c's row tiles
 template <int ROWS, int WM, typename OutT, typename ResT>
 __device__ __forceinline__ void resid_ln_rows(const GemmParams& p, uint8_t* smem) {
   for (int tile = blockIdx.x; tile * ROWS < p.M; tile += gridDim.x) {
-    qvt_resid_ln::resid_ln_tile<ROWS, WM, OutT, ResT>(p, smem, tile * ROWS, WorkersSync{});
-    WorkersSync{}();  // the next tile's constants and ring overwrite this one's
+    qvt_resid_ln::resid_ln_tile<ROWS, WM, OutT, ResT>(p, smem, tile * ROWS);
+    __syncthreads();  // the next tile's constants and ring overwrite this one's
   }
 }
 
@@ -307,17 +290,10 @@ __device__ __forceinline__ void resid_ln_stage(const GemmParams& p, uint8_t* sme
     resid_ln_rows<16, 1, OutT, ResT>(p, smem);
 }
 
-// the register cap: what K9_MINB blocks of K9_THREADS leave, or QVT_K9_MAXNREG
-#ifdef QVT_K9_MAXNREG
-#define K9_BOUNDS __maxnreg__(QVT_K9_MAXNREG)
-#else
-#define K9_BOUNDS __launch_bounds__(K9_THREADS, K9_MINB)
-#endif
-
 // HDP: the head dim K3's tile is built for (64: hd <= 64, else 128), a
 // template argument so that each kernel holds one form's registers
 template <typename XT, int HDP>
-__global__ void K9_BOUNDS
+__global__ void __launch_bounds__(K9_THREADS, K9_MINB)
     megablock_kernel(const __grid_constant__ CUtensorMap map_zq_in,
                      const __grid_constant__ CUtensorMap map_zq_out,
                      const __grid_constant__ CUtensorMap map_zq2, const MegaParams mp) {
@@ -327,7 +303,6 @@ __global__ void K9_BOUNDS
   uint64_t* const full = reinterpret_cast<uint64_t*>(smem + mp.region);
   uint64_t* const empty = full + K9_STAGES;
   cg::grid_group grid = cg::this_grid();
-  const bool producer = K9_PRODUCER_WARP && (threadIdx.x >> 5) == 4 * K9_CONS;
   const int D = mp.H * mp.hd, M = mp.B * mp.N;
 
   if (threadIdx.x == 0) {
@@ -358,16 +333,14 @@ __global__ void K9_BOUNDS
     stage_barrier(grid, slot);
 
     // 2. attention, int8 out on the qkv out_q grid
-    if (!producer) {
-      if (mp.attn_resident)
-        attention_stage<HDP, true>(mp, t, smem);
-      else
-        attention_stage<HDP, false>(mp, t, smem);
-    }
+    if (mp.attn_resident)
+      attention_stage<HDP, true>(mp, t, smem);
+    else
+      attention_stage<HDP, false>(mp, t, smem);
     stage_barrier(grid, slot);
 
     // 3. proj + residual x -> x_mid (f32); LN2 -> zq2
-    if (!producer) {
+    {
       GemmParams p = gemm_params(t, 1, mp.o_q, M, D, D);
       p.residual = x;
       p.gamma = t.ln2_g;
@@ -394,7 +367,7 @@ __global__ void K9_BOUNDS
     stage_barrier(grid, slot);
 
     // 5. fc2 + residual x_mid -> x' (the stream type); next LN -> zq'
-    if (!producer) {
+    {
       GemmParams p = gemm_params(t, 3, mp.g_q, M, D, mp.MLP);
       p.residual = mp.x_mid;
       p.gamma = t.lnn_g;
@@ -490,8 +463,10 @@ extern "C" int qvt_megablock_weight_map(const void* w_t, int rows, int K, void* 
 }
 
 #ifdef QVT_K9_STAMPS
-extern "C" int qvt_megablock_stamps(void* buf) {
-  return static_cast<int>(cudaMemcpyToSymbol(k9_stamps, &buf, sizeof(buf)));
+extern "C" int qvt_megablock_stamps(void* releases, void* arrivals) {
+  cudaError_t e = cudaMemcpyToSymbol(k9_stamps, &releases, sizeof(releases));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k9_arrivals, &arrivals, sizeof(arrivals));
+  return static_cast<int>(e);
 }
 #endif
 

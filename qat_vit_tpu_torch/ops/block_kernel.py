@@ -211,18 +211,16 @@ def _attention_bytes(n: int, head_dim: int, resident: bool) -> int:
 
 def megablock_plan(n: int, d: int, head_dim: int) -> Tuple[int, bool, int, int]:
     """``csrc/megablock.cu``'s ``plan``: (K2c's rows per tile, K3 resident,
-    the stages' common region, the block's dynamic shared memory). Under the
-    cap (the GEMM stages' region, or what two blocks per SM leave) K2c takes
-    the most rows of 64, 32 and 16 that fit (16 where none does) and K3
-    keeps K and V resident, else streams them."""
+    the stages' common region, the block's dynamic shared memory). Within
+    the GEMM stages' region K2c takes the most rows of 64, 32 and 16 that
+    fit (16 where none does) and K3 keeps K and V resident, else streams
+    them."""
     gemm = _gemm_region()
-    bars = 2 * 8 * K9_STAGES
-    cap = max(gemm, fs.SM_SMEM_BYTES // 2 - fs.BLOCK_SMEM_RESERVE - _ALIGN - bars)
-    rows = max([r for r in (32, 64) if fs.resid_ln_smem_bytes(r, d) <= cap], default=16)
-    resident = _attention_bytes(n, head_dim, True) <= cap
+    rows = max([r for r in (32, 64) if fs.resid_ln_smem_bytes(r, d) <= gemm], default=16)
+    resident = _attention_bytes(n, head_dim, True) <= gemm
     region = max(gemm, fs.resid_ln_smem_bytes(rows, d), _attention_bytes(n, head_dim, resident))
     region = -(-region // 16) * 16
-    return rows, resident, region, _ALIGN + region + bars
+    return rows, resident, region, _ALIGN + region + 2 * 8 * K9_STAGES
 
 
 def megablock_shapes_ok(n: int, num_heads: int, head_dim: int, mlp_dim: int) -> bool:
@@ -288,6 +286,12 @@ def _block_table(blk: Dict[str, Any], next_ln: Dict[str, Any], d: int, mlp: int,
         *[g[4] for g in gemms], *grids)
 
 
+def _upload(data: bytes, dev) -> torch.Tensor:
+    """``data`` on ``dev``, through pinned memory."""
+    host = torch.frombuffer(bytearray(data), dtype=torch.uint8).pin_memory()
+    return host.to(dev, non_blocking=True)
+
+
 def _launch_megablock(zq, x, pairs: List[Tuple[Dict, Dict]], *, num_heads, head_dim, eps,
                       n_valid, quant_max, name: str):
     """One cooperative launch over ``pairs`` = [(block, next LN), ...] →
@@ -308,10 +312,8 @@ def _launch_megablock(zq, x, pairs: List[Tuple[Dict, Dict]], *, num_heads, head_
     require(zq, "zq", torch.int8, dev, (b, n, d), align=16)
     require(x, "x", x.dtype, dev, (b, n, d))
     lib = _build.load()
-    table = b"".join(_block_table(blk, nxt, d, mlp, dev, lib) for blk, nxt in pairs)
-    table = torch.frombuffer(bytearray(table), dtype=torch.uint8)
-    if dev.type == "cuda":
-        table = table.pin_memory().to(dev, non_blocking=True)
+    table = _upload(b"".join(_block_table(blk, nxt, d, mlp, dev, lib) for blk, nxt in pairs),
+                    dev)
     x_out, zq_out = torch.empty_like(x), torch.empty_like(zq)
     m = b * n
     sizes = (m * 3 * d * 2, m * d, m * d * 4, m * d, m * mlp)  # qkv, o_q, x_mid, zq2, g_q

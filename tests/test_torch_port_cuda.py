@@ -831,21 +831,27 @@ def test_flash_attention_gate_raises(dev):
     assert fa.flash_attention_qkv.launches == before + 2
 
 
-@pytest.fixture(scope="module", params=["micro", "vit_s_depth2"])
-def serve_export(dev, request):
-    """A PTQ export on the card: the micro ViT, or ViT-S/16 at full width
-    with depth cut to 2 (random init from seed 0, one batch of 8 images)."""
+def _ptq_export(dev, name, px, **kw):
+    """(cfg, PTQ export on the card, 8 images): model ``name`` with ``kw``
+    in its config, random init from seed 0, calibrated on the images."""
     from qat_vit_tpu_torch.models.registry import create_model
     from qat_vit_tpu_torch.serve.calibrate import ptq_convert
     from qat_vit_tpu_torch.serve.int8_vit import export_to_device
 
-    name, kw, px = (("vit_micro_test", {}, 32) if request.param == "micro"
-                    else ("vit_small_patch16_224_student", {"depth": 2}, 224))
     m = create_model(name, qat_wrapper=True, generator=torch.Generator().manual_seed(0),
                      device=dev, **kw)
     x = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (8, px, px, 3))
                          .astype(np.float32)).to(dev)
     return m.cfg, export_to_device(ptq_convert(m.module.state_dict(), [x], m.cfg), dev), x
+
+
+@pytest.fixture(scope="module", params=["micro", "vit_s_depth2"])
+def serve_export(dev, request):
+    """A PTQ export on the card: the micro ViT, or ViT-S/16 at full width
+    with depth cut to 2 (random init from seed 0, one batch of 8 images)."""
+    if request.param == "micro":
+        return _ptq_export(dev, "vit_micro_test", 32)
+    return _ptq_export(dev, "vit_small_patch16_224_student", 224, depth=2)
 
 
 def test_megablock_modes_match_the_chain(dev, serve_export, monkeypatch):
@@ -875,14 +881,13 @@ def test_megablock_modes_match_the_chain(dev, serve_export, monkeypatch):
         _same(got, int8_apply(qp, x, cfg, compute_dtype=bf, fused=mode))
 
 
-def test_megablock_blocks_match_the_chain(dev, serve_export):
+def _check_k9_blocks(cfg, qp, x_img):
     """At block level, f32 and bf16 streams, all keys and masked ones: K9a's
-    and K9b's x and zq are the kernel chain's bit for bit, and the plain
-    chain's with K3 as its attention stage."""
+    (block 0) and K9b's (both blocks) x and zq are the kernel chain's bit
+    for bit, and the plain chain's with K3 as its attention stage."""
     from qat_vit_tpu_torch.ops import block_kernel as bk
     from qat_vit_tpu_torch.serve.int8_vit import _embed
 
-    cfg, qp, x_img = serve_export
     kw = dict(num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=cfg.layer_norm_eps)
     for dt in (torch.bfloat16, torch.float32):
         x = _embed(qp, x_img, cfg, dt, fs.int8_dense)
@@ -901,6 +906,58 @@ def test_megablock_blocks_match_the_chain(dev, serve_export):
                                           **kw))
             _same(whole, bk.model_forward(zq, x, qp["blocks"], qp["norm"], depth=2, n_valid=nv,
                                           ops=twin, **kw))
+
+
+def test_megablock_blocks_match_the_chain(dev, serve_export):
+    """At block level (:func:`_check_k9_blocks`) on the micro ViT and ViT-S."""
+    _check_k9_blocks(*serve_export)
+
+
+# (D, heads, MLP): hd 96 (K3's 128-wide tile) with K % 64 = 32 in every
+# GEMM (D 480; MLP 1,568 in fc2) and K2c's 32-row tiles; ViT-B's width
+# (32-row tiles); ViT-L's (16-row tiles); D 1,536, whose K2c tile takes more
+# shared memory than the GEMM stages (MLP 3,072: K9b's weight gate at depth 2)
+K9_WIDER = [(480, 5, 1568), (768, 12, 3072), (1024, 16, 4096), (1536, 24, 3072)]
+
+
+@pytest.mark.parametrize("d,heads,mlp", K9_WIDER)
+def test_megablock_wider_forms_match_the_chain(dev, d, heads, mlp):
+    """K9's forms past ViT-S's (each a depth-2 export at 224 px, 197
+    tokens, random init from seed 0): as :func:`_check_k9_blocks` holds
+    them, and the launcher's block shape is ``megablock_plan``'s."""
+    from qat_vit_tpu_torch.ops import block_kernel as bk
+
+    cfg, qp, x_img = _ptq_export(dev, "vit_small_patch16_224_student", 224, depth=2,
+                                 embed_dim=d, num_heads=heads, mlp_ratio=mlp / d)
+    assert (cfg.embed_dim, cfg.head_dim, cfg.mlp_dim) == (d, d // heads, mlp)
+    assert bk.megablock_shapes_ok(cfg.seq_len, heads, cfg.head_dim, mlp)
+    rows, resident, _, smem = bk.megablock_plan(cfg.seq_len, d, cfg.head_dim)
+    assert (rows, smem > bk.megablock_plan(197, 384, 64)[3]) == {
+        480: (32, False), 768: (32, False), 1024: (16, False), 1536: (16, True)}[d]
+    _check_k9_blocks(cfg, qp, x_img)
+
+
+def test_megablock_residency_is_the_plan(dev):
+    """``qvt_megablock_residency`` (the C plan and the occupancy API) equals
+    ``megablock_plan`` (its Python mirror, which the gate reads): threads,
+    shared memory, K2c's rows and K3's form, over widths, head dims and
+    token counts, both x dtypes; one block per SM on every SM."""
+    import ctypes
+    from itertools import product
+
+    from qat_vit_tpu_torch import _build
+    from qat_vit_tpu_torch.ops import block_kernel as bk
+
+    out = (ctypes.c_int * 6)()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, (h, hd), x_bf16 in product((1, 197, 577, 901, 2305),
+                                      ((6, 64), (5, 96), (12, 64), (16, 64), (24, 64), (3, 128),
+                                       (16, 80), (4, 8)), (0, 1)):
+        _build.load().call("qvt_megablock_residency", n, h, hd, x_bf16, ctypes.addressof(out))
+        rows, resident, _, smem = bk.megablock_plan(n, h * hd, hd)
+        assert list(out) == [bk.K9_MIN_BLOCKS, sms, bk.K9_THREADS, smem, rows, int(resident)], (
+            n, h, hd, x_bf16)
+
 
 
 def test_megamodel_res_gate_and_launch_errors_raise(dev, serve_export, monkeypatch):

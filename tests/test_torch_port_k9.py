@@ -201,6 +201,9 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda: rec)
     monkeypatch.setattr(bk, "use_plain", lambda t: False)
     monkeypatch.setattr(bk, "stream_of", lambda dev: 0)
+    # the table stays on the CPU (no pinned memory without a card)
+    monkeypatch.setattr(bk, "_upload",
+                        lambda data, dev: torch.frombuffer(bytearray(data), dtype=torch.uint8))
     return rec
 
 
