@@ -190,6 +190,8 @@ MIXED_CHAIN_REL_L2 = 3e-2
 # f32 path (erf-GELU, divide-quantize): ~2.5e-2 on the micro model
 EXACT_REL_L2 = 0.2
 N_TRAIN, N_TEST = 1024, 512
+# phase 9: the images the teacher read back from its .pth is held on
+CKPT_TEACHER_IMAGES = 64
 TRAIN_B, REPLAY_B, TRAIN_STEPS = 256, 32, 3
 # a train step through the attention kernels vs through their plain
 # versions, from the same state: the loss (float steps) and the parameters
@@ -373,6 +375,22 @@ def device_ms(torch, fn, runs=20):
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / runs
+
+
+def host_us(torch, fn, calls=300):
+    """A wrapper's host time per call: ``time.perf_counter`` around each of
+    ``calls`` calls with no synchronisation (the card keeps up with a small
+    kernel, so each reading is the host's work), the median."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
 
 
 def compare_int8(name, got, want):
@@ -736,9 +754,7 @@ def phase_kernels(torch, np, fs, fa, fat, la):
          fs.int8_dense_plain, (act_int8(b, d), layer(d, 10, per_channel=True), in_q),
          {"out_dtype": torch.float32}, "qat_vit_tpu/ops/fused_serve.py:57",
          gemm_work(b, d, 10, 4), None, {"exact": True}),
-        ("ln_quantize [6304x384] bf16", fs.ln_quantize, fs.ln_quantize_plain,
-         (x_bf16, ln(d), out_q), {}, "qat_vit_tpu/ops/fused_serve.py:105", ln_work(m, d, 2),
-         None),
+        *ln_quantize_cases(torch, np, fs, dev, out_q, (x_bf16, ln(d))),
         *short_attention_cases(torch, fa, la, qkv, heads, hd, out_q, fq),
         *kernel_b_cases(torch, fat, la, qkv, do, heads, hd, fq),
     ]
@@ -780,6 +796,39 @@ def phase_kernels(torch, np, fs, fa, fat, la):
         cases += short_attention_cases(torch, fa, la, k_qkv, heads, k_hd, out_q, fq)[1:]
         cases += kernel_b_cases(torch, fat, la, k_qkv, k_do, heads, k_hd, fq)
     return check_kernels(torch, cases, "phase 2", slow_plain=(fat.attention_bwd_plain,))
+
+
+# K2d's phase-2 shapes (rows, width): ViT-S at batch 32 and 256, the OWLv2-pruned
+# detection forward's entry LN (batch 8 x 2,305 tokens x 576), ViT-B's and ViT-L's
+# widths, one past the register form's plan and an odd width (the strided form)
+LN_SHAPES = [(B_KERNEL * 197, 384), (SERVE_B * 197, 384), (8 * 2305, 576),
+             (B_KERNEL * 197, 768), (B_KERNEL * 197, 1024), (B_KERNEL * 197, 1280),
+             (B_KERNEL * 197, 385)]
+
+
+def ln_quantize_cases(torch, np, fs, dev, out_q, first):
+    """``check_kernels``' cases of K2d at ``LN_SHAPES`` in bf16 and f32: each
+    identical to ``ln_quantize_plain``, two launches identical, the form the
+    plan picks, device ms and the wrapper's host us per call. ``first``: the
+    bf16 input and LN of the first shape (phase 2's ViT-S activations); the
+    others come from their own seeded generator."""
+    rng = np.random.default_rng(SEED + 16)
+    cases = []
+    for i, (m, n) in enumerate(LN_SHAPES):
+        x32 = torch.from_numpy(rng.normal(0.3, 1.5, (m, n)).astype(np.float32)).to(dev)
+        ln = rand_ln(torch, np, rng, dev, n)
+        inputs = [(x32.to(torch.bfloat16), ln, "bf16"), (x32, ln, "f32")]
+        if i == 0:
+            inputs[0] = (first[0], first[1], "bf16")
+        for x, ln, tag in inputs:
+            vec, nv = fs.ln_quantize_plan(n, x.element_size(), fs.pointer_align(x))
+            form = f"registers, {nv} x {vec} bytes a lane" if vec else "strided"
+            cases.append((f"ln_quantize [{m}x{n}] {tag}", fs.ln_quantize, fs.ln_quantize_plain,
+                          (x, ln, out_q), {}, "qat_vit_tpu/ops/fused_serve.py:105",
+                          ln_work(m, n, x.element_size()), None,
+                          {"exact": True, "repeat": True, "device": True, "host": True,
+                           "note": f"form: {form};"}))
+    return cases
 
 
 def gemm_cases(torch, fs, act_int8, layer, ln, res_bf16, res_f32, b, n_tok, d, mlp, in_q, out_q,
@@ -886,9 +935,10 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
     in their own order and must give identical bits over two launches) and
     ``ste`` (kernel B's qkv and fake-quant: its STE zero set must be the
     plain version's, :func:`ste_zeros`), ``exact`` (this case bit for bit),
-    ``repeat`` (two launches must give identical bits, as with ``tc``) and
+    ``repeat`` (two launches must give identical bits, as with ``tc``),
     ``device`` (also the kernel's and the library call's device time under
-    torch.profiler, :func:`device_ms`)."""
+    torch.profiler, :func:`device_ms`), ``host`` (also the wrapper's host us
+    per call, :func:`host_us`) and ``note`` (printed as it is)."""
     bf16 = torch.bfloat16
     results = []
     for name, kernel, plain, args, kwargs, replaces, work, library, *extra in cases:
@@ -948,6 +998,10 @@ def check_kernels(torch, cases, label, slow_plain=(), exact=False):
             dev_lib = f"{device_ms(torch, library):.4f}" if library is not None else "none"
             notes.append(f"device ms: kernel {device_ms(torch, lambda: kernel(*args, **kwargs)):.4f}"
                          f" library {dev_lib};")
+        if extra.get("host"):
+            notes.append(f"host {host_us(torch, lambda: kernel(*args, **kwargs)):.1f} us per call;")
+        if "note" in extra:
+            notes.append(extra["note"])
         print(f"{label} {name}: max|diff| {max(errs):.3e} {' '.join(notes)}  "
               f"kernel {ms:.4f} ms ({ms_b2b:.4f} ms each of {KERNEL_REPS} back to back)  "
               f"plain {plain_ms:.4f} ms  library {lib}  "
@@ -1076,7 +1130,7 @@ def phase_serving(torch, np, fs, fa):
         print("phase 3 one profiled forward: torch.profiler saw no device activity (breakdown "
               "not measured)", flush=True)
     return launches, {"qp": pred.qparams, "cfg": cfg, "images": images, "prep": prep,
-                      "logits": logits}
+                      "logits": logits, "export": export}
 
 
 def vit_models(torch, seed=SEED):
@@ -1219,7 +1273,17 @@ def phase_training(torch, np, fs, fa, fat):
         fail(f"int8 logits after training: {logits.shape}, finite {np.isfinite(logits).all()}")
     print(f"phase 4 QAT eval top-1 {acc:.4f}, int8 eval top-1 {acc8:.4f} (random-init "
           f"teacher: a record, not a gate); int8 logits finite", flush=True)
-    return {fa.attention_fwd: sum(c[0] for c in counts), fat.attention_bwd: sum(c[1] for c in counts)}
+    # what phase 9 writes to files and reads back: the float student's
+    # parameters after its steps, the teacher's, and the teacher's logits
+    images = data["test_images"][:CKPT_TEACHER_IMAGES]
+    def host_copy(module):
+        return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+    ckpt = {"data": data, "images": images, "teacher_logits": t._teacher_forward(images),
+            "student": host_copy(t.student_float), "teacher": host_copy(t.teacher.module),
+            "teacher_cfg": t.teacher.cfg}
+    return {fa.attention_fwd: sum(c[0] for c in counts),
+            fat.attention_bwd: sum(c[1] for c in counts)}, ckpt
 
 
 def det_inputs(torch, np, seed, b, dev):
@@ -2090,6 +2154,74 @@ def phase_kernel_forms(torch, np, fs, fa, fat, la, det):
         k["launches"] = launches[w] if w in launches else replays[w]
     return kernels
 
+def phase_checkpoints(torch, np, fs, serve_ctx, ckpt):
+    """Checkpoints on the card, at full width: phase 3's ViT-S/16 export
+    written by ``save_checkpoint`` and served back through
+    ``Int8Predictor.from_checkpoint`` at batch 256 (logits identical to phase
+    3's in-memory predictor, K2d launched); phase 4's float student written
+    as a msgpack of its params and its teacher as a timm-layout ``.pth``
+    (``params_to_timm_vit``), both read by a new ``KDQATTrainer``
+    (``student_ckpt``, ``teacher_ckpt``): identical parameters, identical
+    teacher logits."""
+    import tempfile
+
+    from qat_vit_tpu_torch.models.jax_params import state_dict_to_params
+    from qat_vit_tpu_torch.models.torch_convert import params_to_timm_vit
+    from qat_vit_tpu_torch.serve.predictor import Int8Predictor
+    from qat_vit_tpu_torch.train.config import load_hparams
+    from qat_vit_tpu_torch.train.trainer import KDQATTrainer
+    from qat_vit_tpu_torch.utils.checkpoint import save_checkpoint
+
+    dev = torch.device("cuda")
+    cfg, images = serve_ctx["cfg"], serve_ctx["images"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "best_converted.msgpack")
+        t0 = time.perf_counter()
+        save_checkpoint(path, serve_ctx["export"], {"format": "int8-weights+qparams"})
+        t_save = time.perf_counter() - t0
+        fs.ln_quantize.launches = 0
+        t0 = time.perf_counter()
+        pred = Int8Predictor.from_checkpoint(path, cfg, device=dev, batch_size=SERVE_B)
+        t_load = time.perf_counter() - t0
+        logits = pred.logits(images)
+        torch.cuda.synchronize()
+        n_k2d = fs.ln_quantize.launches
+        same = np.array_equal(logits, serve_ctx["logits"])
+        print(f"phase 9 the ViT-S/16 int8 export: written in {t_save:.2f} s "
+              f"({os.path.getsize(path) / 2 ** 20:.1f} MiB), read into Int8Predictor."
+              f"from_checkpoint on the card in {t_load:.2f} s; logits of {len(images)} images at "
+              f"batch {SERVE_B} identical to phase 3's in-memory predictor {same}; ln_quantize "
+              f"launches {n_k2d} (preset {pred.options.get('fused')})", flush=True)
+        if not same or n_k2d == 0:
+            fail(f"from_checkpoint: logits identical {same}, ln_quantize launches {n_k2d}")
+
+        spath = os.path.join(tmp, "student.msgpack")
+        save_checkpoint(spath, {"params": state_dict_to_params(ckpt["student"])})
+        tpath = os.path.join(tmp, "teacher.pth")
+        timm = params_to_timm_vit(state_dict_to_params(ckpt["teacher"]), ckpt["teacher_cfg"])
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+                    for k, v in timm.items()}, tpath)
+        hp = load_hparams(None)
+        hp.update(batch_size=TRAIN_B, eval_batch_size=256, epochs=2, seed=SEED,
+                  student_ckpt=spath, teacher_ckpt=tpath)
+        t0 = time.perf_counter()
+        t = KDQATTrainer(hp, device=dev, data=ckpt["data"])
+        t_build = time.perf_counter() - t0
+        got = t.student_float.state_dict()
+        same_s = sorted(got) == sorted(ckpt["student"]) and all(
+            torch.equal(got[k].cpu(), v) for k, v in ckpt["student"].items())
+        same_t = np.array_equal(t._teacher_forward(ckpt["images"]), ckpt["teacher_logits"])
+        mib = {p: os.path.getsize(p) / 2 ** 20 for p in (spath, tpath)}
+        print(f"phase 9 KDQATTrainer(student_ckpt=msgpack of {mib[spath]:.1f} MiB, "
+              f"teacher_ckpt=timm .pth of {mib[tpath]:.1f} MiB) built "
+              f"in {t_build:.2f} s: the student's parameters identical to phase 4's {same_s}; the "
+              f"teacher's logits on {len(ckpt['images'])} images identical to phase 4's "
+              f"teacher's {same_t}", flush=True)
+        if not (same_s and same_t):
+            fail(f"weights from files: student identical {same_s}, teacher logits {same_t}")
+        del t, pred
+
+
 # the f32 kernels A and B in phase 8: ViT-S at batch 8 and 256, N 512 at 6
 # heads of 64 and of 128 (JAX's K1 gate admits 6 heads up to N 512), N 1,248
 # at one head of 128 (the most it admits); (batch, tokens, heads, hd)
@@ -2285,7 +2417,8 @@ def main() -> None:
 
     kernels = phase_kernels(torch, np, fs, fa, fat, la)
     launches, serve_ctx = phase_serving(torch, np, fs, fa)
-    launches.update(phase_training(torch, np, fs, fa, fat))
+    train_launches, ckpt_ctx = phase_training(torch, np, fs, fa, fat)
+    launches.update(train_launches)
     for k in kernels:
         k["launches"] = launches[k["wrapper"]]
     det_kernels, det_ctx = phase_detection(torch, np, fs, la)
@@ -2293,6 +2426,7 @@ def main() -> None:
     kernels += phase_detect_training(torch, np, fs, la)
     kernels += phase_serve_modes(torch, np, fs, fa, serve_ctx)
     kernels += phase_kernel_forms(torch, np, fs, fa, fat, la, det_ctx)
+    phase_checkpoints(torch, np, fs, serve_ctx, ckpt_ctx)
 
     sources = {fs.int8_dense: WGMMA_GEMM,
                fs.int8_dense_q8: WGMMA_GEMM,

@@ -8,7 +8,8 @@ export), and never imports JAX:
   ``VisionTransformer`` or ``Owlv2Detector`` parameters (dense kernels
   ``[K, N]`` become ``nn.Linear``-style ``weight [N, K]``; LayerNorm
   ``scale`` → ``weight``; a detector's tower sits under ``vision``, its
-  ``norm_pre`` like any LayerNorm);
+  ``norm_pre`` like any LayerNorm); :func:`state_dict_to_params`, the
+  inverse (the tree the JAX package's checkpoints and converters hold);
 - :func:`quant_stats_to_buffers` / :func:`buffers_to_quant_stats`: the
   ``quant_stats`` tree ↔ the observer buffers (``...min_val``/``...max_val``);
 - :func:`export_from_numpy`: a ``convert_vit`` tree → the same tree of torch
@@ -29,23 +30,31 @@ import numpy as np
 import torch
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
     for k, v in tree.items():
         key = k.replace("blocks_", "blocks.") if k.startswith("blocks_") else k
         name = f"{prefix}.{key}" if prefix else key
         if hasattr(v, "items"):
             out.update(_flatten(dict(v), name))
         else:
-            out[name] = np.asarray(v)
+            out[name] = v
     return out
+
+
+def _f32(v) -> torch.Tensor:
+    """A leaf as an f32 CPU tensor (a bf16 leaf, which the msgpack reader
+    gives as a torch tensor, included)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().to(torch.float32)
+    return torch.from_numpy(np.array(v, dtype=np.float32))
 
 
 def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``params`` tree → parameter entries of the port's ``state_dict``."""
     sd: Dict[str, torch.Tensor] = {}
     for name, v in _flatten(params).items():
-        t = torch.from_numpy(np.array(v, dtype=np.float32))
+        t = _f32(v)
         if name.endswith(".kernel"):
             sd[name[: -len("kernel")] + "weight"] = t.T.contiguous()
         elif name.endswith(".scale"):  # LayerNorm (the tower's .ln, merged_ln)
@@ -55,12 +64,29 @@ def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def state_dict_to_params(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The parameters of a port ``state_dict`` (observer buffers skipped) →
+    the JAX ``params`` tree of numpy f32 arrays: ``weight [N, K]`` of a
+    linear layer → ``kernel [K, N]``, a LayerNorm's 1-d ``weight`` →
+    ``scale``, ``blocks.{i}`` → ``blocks_{i}``."""
+    tree: Dict[str, Any] = {}
+    for name, v in sd.items():
+        if name.endswith((".min_val", ".max_val")):
+            continue
+        a = v.detach().cpu().to(torch.float32).numpy()
+        path = re.sub(r"\bblocks\.(\d+)", r"blocks_\1", name).split(".")
+        if path[-1] == "weight":
+            path[-1], a = ("kernel", np.ascontiguousarray(a.T)) if a.ndim == 2 else ("scale", a)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = a
+    return tree
+
+
 def quant_stats_to_buffers(quant_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``quant_stats`` tree → observer buffer entries of the ``state_dict``."""
-    return {
-        name: torch.from_numpy(np.array(v, dtype=np.float32)).reshape(())
-        for name, v in _flatten(quant_stats).items()
-    }
+    return {name: _f32(v).reshape(()) for name, v in _flatten(quant_stats).items()}
 
 
 def buffers_to_quant_stats(buffers: Dict[str, torch.Tensor]) -> Dict[str, Any]:

@@ -5,7 +5,7 @@ The published ``google/owlv2-base-patch16-ensemble`` geometry and the
 reference's surgery rule (depth/width/head ratios, default 0.75, with
 floors 6/384/6; student image size 768) are plain functions, copied as
 they are. The HuggingFace construction (``build_owlv2_student_torch``)
-needs ``transformers`` and is not part of the port (ROADMAP.md Queue 2).
+needs ``transformers`` and waits (ROADMAP.md Queue 1, item 11).
 """
 
 from __future__ import annotations

@@ -19,20 +19,26 @@ The tower is the port's ``VisionTransformer`` in feature mode
 ``logit_scale``), so ``models/jax_params.py`` carries weights across.
 :func:`detection_heads` is the heads' forward as a function of their
 parameters, shared by :class:`Owlv2Detector` and the int8 serving path.
-The HF checkpoint converter (``owlv2_detection_to_params``) waits for the
-checkpoint converter of the port (ROADMAP.md Queue 1).
+:func:`owlv2_detection_to_params` converts an HF ``Owlv2ForObjectDetection``
+state dict into the JAX package's detector tree.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from qat_vit_tpu_torch.models.owlv2 import owlv2_vision_vit_kwargs
+from qat_vit_tpu_torch.models.torch_convert import (
+    as_numpy,
+    normalize_state_dict_keys,
+    owlv2_vision_to_params,
+)
 from qat_vit_tpu_torch.models.vit import (
     VisionTransformer,
     ViTConfig,
@@ -165,6 +171,52 @@ def detector_config(pruned: bool = False, **overrides) -> ViTConfig:
     kw = owlv2_vision_vit_kwargs(pruned=pruned)
     kw.update(overrides)
     return ViTConfig(num_classes=0, **kw)
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint conversion: Owlv2ForObjectDetection state dict -> the JAX
+# package's detector tree (vision tower via torch_convert.owlv2_vision_to_params)
+# ---------------------------------------------------------------------------
+
+
+def owlv2_detection_to_params(
+    state: Mapping[str, Any], cfg: ViTConfig, text_dim: int = 512
+) -> Dict[str, Any]:
+    """Map a full HF ``Owlv2ForObjectDetection`` state dict onto the
+    :class:`Owlv2Detector` tree of the JAX package (ref
+    model_registry.py:269-327 constructs exactly this torch model); text-tower
+    keys are dropped (queries enter as precomputed embeddings).
+    ``models/jax_params.py`` loads the tree into the port's module."""
+    vision = owlv2_vision_to_params(state, cfg, strict=False)
+    norm = {
+        (k[len("owlv2."):] if k.startswith("owlv2.") else k): as_numpy(v)
+        for k, v in normalize_state_dict_keys(state).items()
+    }
+
+    def dense(prefix: str) -> Dict[str, np.ndarray]:
+        return {
+            "kernel": norm[f"{prefix}.weight"].T.astype(np.float32),
+            "bias": norm[f"{prefix}.bias"].astype(np.float32),
+        }
+
+    def mlp(prefix: str) -> Dict[str, Any]:
+        return {name: dense(f"{prefix}.{name}") for name in ("dense0", "dense1", "dense2")}
+
+    params: Dict[str, Any] = {
+        "vision": vision,
+        "merged_ln": {
+            "scale": norm["layer_norm.weight"].astype(np.float32),
+            "bias": norm["layer_norm.bias"].astype(np.float32),
+        },
+        "box_head": mlp("box_head"),
+        "class_proj": dense("class_head.dense0"),
+        "logit_shift": dense("class_head.logit_shift"),
+        "logit_scale": dense("class_head.logit_scale"),
+    }
+    if "objectness_head.dense0.weight" in norm:
+        params["objectness_head"] = mlp("objectness_head")
+    assert params["class_proj"]["kernel"].shape == (cfg.embed_dim, text_dim)
+    return params
 
 
 def create_detector(

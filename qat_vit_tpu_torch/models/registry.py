@@ -5,7 +5,7 @@ and initialized (PyTorch modules own their parameters), from a
 ``torch.Generator`` when one is given. The OWLv2 entries are the vision
 tower as a classifier (teacher and pruned student) and the detectors
 (``task="detection"``: tower + float heads). The two HuggingFace entries
-(``*_torch``) need ``transformers`` and wait (ROADMAP.md Queue 2).
+(``*_torch``) need ``transformers`` and wait (ROADMAP.md Queue 1, item 11).
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@
 On CUDA the first four launch the ``int8_gemm`` kernels (PLAIN,
 PLAIN_Q8 and GELU_Q: ``qvt_int8_gemm``, ``csrc/int8_gemm_wgmma.cu``, TMA
 and wgmma; RESID_LN_Q: ``qvt_int8_gemm_resid_ln``, ``csrc/int8_gemm.cu``)
-and the last the ``ln_quantize`` kernel (``csrc/ln_quantize.cu``); on the
-CPU each runs its plain version (``*_plain``, same signature), which
+and the last the ``ln_quantize`` kernels (``csrc/ln_quantize.cu``: the
+register form, or the strided form where :func:`ln_quantize_plan` says
+so); on the CPU each runs its plain version (``*_plain``, same signature), which
 ``chip_smoke.py`` also runs on the card to check the kernels. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 
@@ -25,6 +26,7 @@ placed on a CUDA device; on CUDA a wrapper raises for a layer without one.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,6 +54,12 @@ RESID_LN_BLOCK_ROWS = (64, 32, 16)
 RESID_LN_PASS_N, RESID_LN_STAGES = 192, 3
 # H100: shared memory of an SM, and what the runtime reserves per block
 SM_SMEM_BYTES, BLOCK_SMEM_RESERVE = 233472, 1024
+# K2d's register form (csrc/ln_quantize.cu): the most row elements a lane
+# holds (a warp holds its row: N up to 32 x 32 = 1,024), and the vector
+# widths in bytes it loads, by element bytes (f32 rows take 16-byte vectors
+# only, so that a lane stores at least 4 int8 bytes)
+LN_REG_SLOTS = 32
+LN_REG_VECS = {2: (16, 8), 4: (16,)}
 
 
 def gemm_shapes_ok(k: int, n: int, resid_ln: bool = False) -> bool:
@@ -87,6 +95,35 @@ def resid_ln_rows(m: int, n: int) -> int:
     if best_rows is None:
         raise ValueError(f"RESID_LN_Q: N={n} past the shared-memory plan")
     return best_rows
+
+
+@functools.lru_cache(maxsize=None)
+def ln_quantize_plan(n: int, elem_bytes: int, align: int = 16) -> Tuple[int, int]:
+    """K2d's form for a row of ``n`` elements of ``elem_bytes`` at a data
+    pointer aligned to ``align`` bytes (at most 16): ``(vector bytes,
+    vectors per lane)`` of the register form, a warp holding its row in
+    registers, or ``(0, 0)`` for the strided form (N not a multiple of 4,
+    N past ``LN_REG_SLOTS`` x 32, a row the vectors cannot take). Of the
+    vector widths the row takes, the one whose lanes hold the fewest element
+    slots, the wider on a tie. The mirror of ``ln_plan`` in
+    ``csrc/ln_quantize.cu``, which refuses a launch whose plan differs."""
+    best, best_slots = (0, 0), LN_REG_SLOTS + 1
+    if n <= 0 or n % 4:
+        return best
+    for vec in LN_REG_VECS[elem_bytes]:
+        e = vec // elem_bytes
+        if n % e or align % vec:
+            continue
+        nv = -(-(n // e) // 32)
+        if nv * e < best_slots:
+            best, best_slots = (vec, nv), nv * e
+    return best if best_slots <= LN_REG_SLOTS else (0, 0)
+
+
+def pointer_align(t: torch.Tensor) -> int:
+    """The alignment of ``t``'s data pointer in bytes, at most 16."""
+    p = t.data_ptr()
+    return min(p & -p, 16) if p else 16
 
 
 def pack_k_major(w_int8: torch.Tensor) -> torch.Tensor:
@@ -331,9 +368,10 @@ def ln_quantize(x: torch.Tensor, ln: dict, out_q: dict, *, eps: float = 1e-6,
     m = x.numel() // n
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
     if m:
+        vec, nv = ln_quantize_plan(n, x.element_size(), pointer_align(x))
         _build.load().call(
             "qvt_ln_quantize", ptr(x), ptr(ln["scale"]), ptr(ln["bias"]), ptr(q), m, n,
-            int(x.dtype == torch.bfloat16), inv_scale(out_q["scale"]),
+            int(x.dtype == torch.bfloat16), vec, nv, inv_scale(out_q["scale"]),
             f32(out_q["zero_point"]), f32(quant_max), float(eps), stream_of(dev),
         )
         ln_quantize.launches += 1

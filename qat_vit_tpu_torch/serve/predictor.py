@@ -3,7 +3,8 @@ out (port of ``qat_vit_tpu/serve/predictor.py``).
 
 Preprocessing (bicubic resize + normalize) runs on the device, so the host
 → device copy carries uint8 pixels only. Batches are padded to
-``batch_size`` so every call sees one shape.
+``batch_size`` so every call sees one shape. :meth:`Int8Predictor.from_checkpoint`
+serves an int8 export from its msgpack file (either package's).
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import numpy as np
 import torch
 
 from qat_vit_tpu_torch.data.pipeline import preprocess_fn
+from qat_vit_tpu_torch.models.jax_params import export_from_numpy
 from qat_vit_tpu_torch.models.vit import ViTConfig
 from qat_vit_tpu_torch.serve.int8_vit import export_to_device, make_int8_forward, serving_preset
+from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint
 
 
 @dataclasses.dataclass
@@ -24,6 +27,7 @@ class Int8Predictor:
     """Predictor over an int8 export on one device.
 
     >>> pred = Int8Predictor(export, cfg, device="cuda")
+    >>> pred = Int8Predictor.from_checkpoint("best_converted.msgpack", cfg)
     >>> labels = pred.predict(images_u8)          # any N, auto-batched
     """
 
@@ -67,6 +71,15 @@ class Int8Predictor:
         self._fwd = make_int8_forward(self.cfg, **opts)
         self.qparams = export_to_device(self.qparams, self.device)
         self._prep = preprocess_fn(self.cfg.image_size, device=self.device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: ViTConfig, device: Any = "cuda",
+                        **kw) -> "Int8Predictor":
+        """The predictor over the int8 export saved at ``path``: integer
+        leaves keep their dtype (``w_int8`` int8, ``w_colsum`` int32), floats
+        become f32, and the 0-d qparams stay on the host (``export_to_device``)."""
+        return cls(qparams=export_from_numpy(load_checkpoint(path)), cfg=cfg, device=device,
+                   **kw)
 
     def _forward(self, images_u8: np.ndarray) -> torch.Tensor:
         batch = torch.from_numpy(np.ascontiguousarray(images_u8))

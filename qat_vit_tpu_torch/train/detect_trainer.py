@@ -19,10 +19,14 @@ outputs are cached per image in host RAM (P·(Q+5) f32 per image, ~83 KB at
 768 px with 4 queries), filled in eval-batch chunks, eagerly or, for a
 limited-batch run, as batches are visited.
 
-Not ported, as for classification (``train/trainer.py``): weights from
-files, resume, ``observer_interval`` > 1, ``observer_stride`` > 1 and model
-parallelism raise; ``detect_train_main``, checkpoints and tracking are
-absent (ROADMAP.md Queue 1, items 6 and 10).
+The teacher's weights come from a file with ``teacher_ckpt`` (a msgpack of
+the JAX package's detector tree, its ``"params"`` when it holds one, as
+``models/owlv2_detect.owlv2_detection_to_params`` converts an HF
+checkpoint); ``student=`` / ``teacher=`` take built models in place of the
+registry's. Not ported, as for classification (``train/trainer.py``):
+resume, ``observer_interval`` > 1, ``observer_stride`` > 1 and model
+parallelism raise; ``detect_train_main``, checkpoints of the run and
+tracking are absent (ROADMAP.md Queue 1, items 6 and 10).
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ import torch
 
 from qat_vit_tpu_torch.data.cifar10 import load_cifar10
 from qat_vit_tpu_torch.data.pipeline import ArrayLoader, preprocess_fn
+from qat_vit_tpu_torch.models.jax_params import load_jax_variables
 from qat_vit_tpu_torch.models.owlv2_detect import Owlv2Detector
-from qat_vit_tpu_torch.models.registry import create_model
+from qat_vit_tpu_torch.models.registry import ModelBundle, create_model
 from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
 from qat_vit_tpu_torch.serve.int8_detect import convert_detector, make_int8_detect_forward
 from qat_vit_tpu_torch.serve.int8_vit import export_to_device
@@ -50,6 +55,7 @@ from qat_vit_tpu_torch.train.detect_steps import (
 )
 from qat_vit_tpu_torch.train.steps import TrainState, init_quant_stats
 from qat_vit_tpu_torch.train.trainer import KDQATTrainer, refuse_unported
+from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -82,6 +88,8 @@ class DetectKDTrainer:
         *,
         device,
         data: Optional[Dict[str, np.ndarray]] = None,
+        student: Optional[ModelBundle] = None,
+        teacher: Optional[ModelBundle] = None,
     ):
         self.hp = dict(hparams)
         refuse_unported(self.hp)
@@ -95,12 +103,21 @@ class DetectKDTrainer:
         # ---- models: a frozen bf16 teacher detector, two student configs ----
         gen = torch.Generator().manual_seed(seed)
         geo = {k: self.hp[k] for k in _GEOMETRY if k in self.hp}
-        self.teacher = create_model("owlv2_base_detector", image_size=image_size,
-                                    text_dim=self.text_dim, dtype=torch.bfloat16, generator=gen,
-                                    **geo)
+        self.teacher = teacher if teacher is not None else create_model(
+            "owlv2_base_detector", image_size=image_size, text_dim=self.text_dim,
+            dtype=torch.bfloat16, generator=gen, **geo)
+        if self.hp.get("teacher_ckpt"):
+            params = load_checkpoint(self.hp["teacher_ckpt"])
+            load_jax_variables(self.teacher.module, params.get("params", params))
+            logger.info("loaded teacher detector from %s", self.hp["teacher_ckpt"])
+        elif teacher is None:
+            logger.warning("teacher detector is randomly initialized (no teacher_ckpt; real "
+                           "deployments convert an HF Owlv2ForObjectDetection checkpoint via "
+                           "models.owlv2_detect.owlv2_detection_to_params)")
         _freeze_teacher(self.teacher.module, self.device)
-        base = create_model("owlv2_pruned_detector", image_size=image_size,
-                            text_dim=self.text_dim, generator=gen, **geo)
+        base = student if student is not None else create_model(
+            "owlv2_pruned_detector", image_size=image_size, text_dim=self.text_dim,
+            generator=gen, **geo)
         dtype = torch.bfloat16 if self.hp.get("amp", True) else torch.float32
         qat_dtype = torch.bfloat16 if self.hp.get("qat_amp", False) else torch.float32
         fast = bool(self.hp.get("amp_fast_math", True))

@@ -19,11 +19,13 @@ through the hand-written kernels (``ops/flash_attention_train.py``). The two
 students are two modules; the QAT one takes the float one's parameters at
 the switch.
 
-Not ported yet: teacher and student weights from files, resume,
-``observer_interval`` > 1, ``observer_stride`` > 1 and tensor parallelism
-raise when the hyperparameters ask for them; tracking, checkpoints,
-multi-device data parallelism, ``train_main`` and the CLI are absent
-(ROADMAP.md Queue 1, items 5 and 6).
+Teacher and student weights come from files (``teacher_ckpt``,
+``student_ckpt``: a timm-layout ``.pth`` / ``.bin`` / ``.pt`` through
+``models/torch_convert.py``, or the JAX package's msgpack, see
+:func:`load_model_params`). Not ported yet: resume, ``observer_interval`` >
+1, ``observer_stride`` > 1 and tensor parallelism raise when the
+hyperparameters ask for them; tracking, multi-device data parallelism,
+``train_main`` and the CLI are absent (ROADMAP.md Queue 1, items 5 and 6).
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ import torch
 
 from qat_vit_tpu_torch.data.cifar10 import load_cifar10
 from qat_vit_tpu_torch.data.pipeline import ArrayLoader, preprocess_fn
+from qat_vit_tpu_torch.models.jax_params import load_jax_variables, state_dict_to_params
 from qat_vit_tpu_torch.models.registry import ModelBundle, create_student, create_teacher
+from qat_vit_tpu_torch.models.torch_convert import load_torch_state_dict, timm_vit_to_params
 from qat_vit_tpu_torch.models.vit import VisionTransformer
 from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
 from qat_vit_tpu_torch.serve.int8_vit import convert_vit
@@ -52,6 +56,7 @@ from qat_vit_tpu_torch.train.steps import (
     make_train_step,
     set_optimizer_hyperparams,
 )
+from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint, tolerant_merge
 
 logger = logging.getLogger(__name__)
 
@@ -64,13 +69,29 @@ def refuse_unported(hp: Dict[str, Any]) -> None:
         (int(hp.get("model_parallel", 1)) != 1, "model_parallel > 1 (tensor parallelism)", 11),
         (int(hp.get("observer_interval", 1)) != 1, "observer_interval > 1", 6),
         (int(hp.get("observer_stride", 1)) != 1, "observer_stride > 1", 2),
-        (bool(hp.get("teacher_ckpt")), "teacher_ckpt (weights from a file)", 6),
-        (bool(hp.get("student_ckpt")), "student_ckpt (weights from a file)", 6),
         (bool(hp.get("resume")), "resume", 6),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} {_NOT_PORTED.format(item)}")
+
+
+def load_model_params(path: str, cfg, template=None) -> Dict[str, Any]:
+    """Model weights in the JAX package's layout (numpy), from a torch
+    ``.pth`` / ``.bin`` / ``.pt`` in timm layout (converted on the fly) or from
+    a msgpack checkpoint (its ``"params"`` when it holds one). Tolerant
+    restore against ``template`` when given (the reference's ``strict=False``
+    loaders); without one a ``.pth`` must convert with no key left over."""
+    if path.endswith((".pth", ".bin", ".pt")):
+        state = load_torch_state_dict(path)
+        return timm_vit_to_params(state, cfg, strict=template is None)
+    restored = load_checkpoint(path)
+    if "params" in restored:
+        restored = restored["params"]
+    if template is not None:
+        merged, _, _ = tolerant_merge(dict(template), restored)
+        return merged
+    return restored
 
 
 class KDQATTrainer:
@@ -100,6 +121,13 @@ class KDQATTrainer:
         self.teacher = teacher if teacher is not None else create_teacher(
             family, num_classes=num_classes, dtype=torch.bfloat16, image_size=image_size,
             generator=gen)
+        if self.hp.get("teacher_ckpt"):
+            load_jax_variables(self.teacher.module,
+                               load_model_params(self.hp["teacher_ckpt"], self.teacher.cfg))
+            logger.info("loaded teacher weights from %s", self.hp["teacher_ckpt"])
+        elif teacher is None:
+            logger.warning("teacher is randomly initialized (no teacher_ckpt given; the "
+                           "reference downloads pretrained weights, which needs network)")
         self.teacher.module.to(device=self.device, dtype=torch.bfloat16).requires_grad_(False)
         base = student if student is not None else create_student(
             family, num_classes=num_classes, image_size=image_size, generator=gen)
@@ -115,6 +143,11 @@ class KDQATTrainer:
             qat_wrapper=True, dtype=qat_dtype, fast_math=fast and qat_dtype == torch.bfloat16,
             attn_kernel=True, remat=remat, fq_in_kernel=bool(self.hp.get("fq_in_kernel", False)))
         self.student_float = self._load(VisionTransformer(self.student_float_cfg), base.module)
+        if self.hp.get("student_ckpt"):
+            template = state_dict_to_params(self.student_float.state_dict())
+            load_jax_variables(self.student_float, load_model_params(
+                self.hp["student_ckpt"], self.student_float_cfg, template=template))
+            logger.info("loaded student weights from %s", self.hp["student_ckpt"])
         self.student_qat = VisionTransformer(self.student_qat_cfg).to(self.device)
 
         # ---- optimizer + state ----

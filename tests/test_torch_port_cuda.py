@@ -227,6 +227,47 @@ def test_ln_quantize(dev, dtype):
     _same(fs.ln_quantize(x, ln, OUT_Q), fs.ln_quantize_plain(x, ln, OUT_Q))
 
 
+# K2d at chip_smoke.py's phase-2 shapes: ViT-S at batch 32 and 256, the
+# OWLv2-pruned detection forward, ViT-B's and ViT-L's widths (the register
+# form), one width past its plan and an odd width (the strided form)
+LN_SHAPES = [(6304, 384), (50432, 384), (18440, 576), (6304, 768), (6304, 1024), (6304, 1280),
+             (6304, 385)]
+
+
+@pytest.mark.parametrize("m,n", LN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_quantize_forms(dev, m, n, dtype):
+    """Each form identical to the plain version, two launches identical, one
+    count per launch; the plan's form: registers to 1,024 wide, strided past
+    it and at odd widths."""
+    rng = np.random.default_rng(m + n)
+    x = torch.from_numpy(rng.normal(0.3, 1.5, (m, n)).astype(np.float32)).to(dev).to(dtype)
+    ln = _ln(rng, n, dev)
+    vec, nv = fs.ln_quantize_plan(n, x.element_size(), fs.pointer_align(x))
+    assert (vec > 0) == (n <= 1024 and n % 4 == 0)
+    before = fs.ln_quantize.launches
+    got, again = fs.ln_quantize(x, ln, OUT_Q), fs.ln_quantize(x, ln, OUT_Q)
+    assert fs.ln_quantize.launches == before + 2
+    _same(got, fs.ln_quantize_plain(x, ln, OUT_Q))
+    _same(got, again)
+
+
+def test_ln_quantize_off_alignment_and_eps(dev):
+    """A row view 8 bytes off a 16-byte boundary: bf16 takes 8-byte vectors,
+    f32 the strided form; both identical to the plain version at eps 1e-5,
+    qmax 127 and a batch of one row."""
+    rng = np.random.default_rng(5)
+    ln = _ln(rng, 384, dev)
+    for dtype, form in ((torch.bfloat16, (8, 3)), (torch.float32, (0, 0))):
+        pad = 8 // torch.tensor([], dtype=dtype).element_size()
+        base = torch.from_numpy(rng.normal(0, 2, 37 * 384 + pad).astype(np.float32)).to(dev)
+        x = base.to(dtype)[pad:].view(37, 384)
+        assert fs.ln_quantize_plan(384, x.element_size(), fs.pointer_align(x)) == form
+        for rows in (x, x[:1]):
+            _same(fs.ln_quantize(rows, ln, OUT_Q, eps=1e-5, quant_max=127.0),
+                  fs.ln_quantize_plain(rows, ln, OUT_Q, eps=1e-5, quant_max=127.0))
+
+
 # ViT-S and ViT-B heads, masked keys, odd N, hd 8 to 128 and the gate's edges:
 # K and V resident (N 789 at hd 64, 416 at hd 128) or streamed (N 1,411 at hd
 # 32, 710 at hd 72)
@@ -852,6 +893,32 @@ def serve_export(dev, request):
     if request.param == "micro":
         return _ptq_export(dev, "vit_micro_test", 32)
     return _ptq_export(dev, "vit_small_patch16_224_student", 224, depth=2)
+
+
+def test_from_checkpoint_round_trip(dev, serve_export, tmp_path):
+    """The export written by ``save_checkpoint`` and served back by
+    ``Int8Predictor.from_checkpoint`` on the card: the same logits as the
+    in-memory export through the same predictor, K2d launched."""
+    from qat_vit_tpu_torch.serve.predictor import Int8Predictor
+    from qat_vit_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg, qp, _ = serve_export
+
+    def unpacked(tree):  # the export as convert_vit gives it: no packed weights
+        if not isinstance(tree, dict):
+            return tree
+        return {k: unpacked(v) for k, v in tree.items() if k != "w_int8_t"}
+
+    export = unpacked(qp)
+    path = str(tmp_path / "export.msgpack")
+    save_checkpoint(path, export)
+    images = np.random.default_rng(7).integers(0, 256, (10, 32, 32, 3), dtype=np.uint8)
+    want = Int8Predictor(export, cfg, batch_size=8, device=dev).logits(images)
+    fs.ln_quantize.launches = 0
+    pred = Int8Predictor.from_checkpoint(path, cfg, device=dev, batch_size=8)
+    np.testing.assert_array_equal(pred.logits(images), want)
+    assert fs.ln_quantize.launches > 0
+    assert pred.qparams["blocks"]["0"]["qkv"]["w_colsum"].dtype == torch.int32
 
 
 def test_megablock_modes_match_the_chain(dev, serve_export, monkeypatch):

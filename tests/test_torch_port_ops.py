@@ -124,9 +124,21 @@ def test_int8_dense_resid_ln_q_matches_pallas(case, qmax):
     assert q_t.numpy().max() <= qmax - 128
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ln_quantize_matches_pallas(case, dtype):
+# K2d's widths: the case's N 256, then ViT-S/B/L's and OWLv2's widths, an odd
+# width and one past the register form's plan (tests/test_torch_port_k2d.py)
+LN_CASES = [pytest.param(dt, None, id=dt) for dt in ("float32", "bfloat16")] + [
+    pytest.param(dt, n, id=f"{dt}-{n}") for n in (384, 576, 768, 1024, 385, 1280)
+    for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("dtype,n", LN_CASES)
+def test_ln_quantize_matches_pallas(case, dtype, n):
     _, _, q, ln, res = case
+    if n is not None:
+        r = np.random.default_rng(n)
+        res = r.normal(0.3, 1.5, (M, n)).astype(np.float32)
+        ln = {"scale": r.normal(1, 0.2, n).astype(np.float32),
+              "bias": r.normal(0, 0.2, n).astype(np.float32)}
     x_j = jnp.asarray(res).astype(dtype)
     x_t = torch.from_numpy(res).to(getattr(torch, dtype))
     want = jfs.ln_quantize(x_j, ln, q["out"], tile_m=256, interpret=True)

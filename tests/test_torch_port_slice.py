@@ -208,23 +208,31 @@ def test_serving_preset_gates():
 
 
 def test_port_imports_without_jax():
-    """The port never imports jax, flax or qat_vit_tpu (nor pyyaml, which
-    the card's machine may lack), and importing it builds nothing and does
-    not initialize CUDA."""
+    """The port never imports jax, flax or qat_vit_tpu (nor pyyaml, msgpack
+    or ml_dtypes, which the card's machine may lack: the port's checkpoints
+    go through its own msgpack codec), and importing it builds nothing and
+    does not initialize CUDA."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["flax"] = None
         sys.modules["yaml"] = None
+        sys.modules["msgpack"] = None
+        sys.modules["ml_dtypes"] = None
         import importlib, pkgutil
         import qat_vit_tpu_torch
         for m in pkgutil.walk_packages(qat_vit_tpu_torch.__path__, "qat_vit_tpu_torch."):
             importlib.import_module(m.name)
         import torch
         from qat_vit_tpu_torch import _build
+        from qat_vit_tpu_torch.utils.msgpack_codec import packb, unpackb
+        tree = {"w": torch.ones(2, 3, dtype=torch.bfloat16), "b": [1.5, None]}
+        back = unpackb(packb(tree))
+        assert torch.equal(back["w"], tree["w"]) and packb(back) == packb(tree)
         assert _build._library is None
         assert not torch.cuda.is_initialized()
-        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "qat_vit_tpu")
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "qat_vit_tpu",
+                                                              "msgpack", "ml_dtypes")
                and sys.modules[m] is not None]
         assert not bad, bad
         print("ok")
