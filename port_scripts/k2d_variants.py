@@ -1,17 +1,17 @@
-"""Builds of K2d (``csrc/ln_quantize.cu``) with other build options, timed in one process.
+"""Builds of K2d (``csrc/ln_quantize.cu``) with parts of the design changed, timed in one process.
 
     python3 port_scripts/k2d_variants.py [--parent DIR] [variant ...]
 
-Each variant is the source built by its own nvcc with ``-D`` options into its own
-library (``VARIANTS``: how many element slots keep f64 copies, the rows a warp keeps in
-flight, warps per block); with ``--parent DIR`` also the parent's ``ln_quantize.cu``
-(its three-pass kernel, the entry point without the plan arguments). Each is called through ctypes at ``SHAPES`` (bf16 and f32 where listed),
-held bit-identical to ``ops.fused_serve.ln_quantize_plain``, and timed by device time
-under torch.profiler (20 launches per shape, variants in turns: the list, then again
-in reverse). ``ABLATIONS`` are text-patched builds that drop a piece of the work
-(f64 sums, the per-row f64 arithmetic, the stores): timed, not checked. Prints the
-card's name and power limit, the ptxas registers of each build, a line per variant and
-a JSON line of all.
+Each variant is the source text-patched (``VARIANTS``: no f64 copies of a row's values,
+f64 copies for f32 rows too, 8 or 2 warps per block, the per-row statistics by f64
+divisions and square root, or as ``* (1 / N)`` and ``rsqrt``) and built by its own nvcc into its own library; with
+``--parent DIR`` also the parent's ``ln_quantize.cu`` (its three-pass kernel). Each is
+called through ctypes at ``SHAPES`` (bf16 and f32 where listed), held bit-identical to
+``ops.fused_serve.ln_quantize_plain``, and timed by device time under torch.profiler (20
+launches per shape, variants in turns: the list, then again in reverse). ``ABLATIONS``
+are patches that drop a piece of the work (f64 sums, the per-row f64 arithmetic, the
+stores): timed, not checked. Prints the card's name and power limit, the ptxas
+registers of each build, a line per variant and a JSON line of all.
 """
 import ctypes
 import json
@@ -24,28 +24,60 @@ import tempfile
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
 
+STATS_CALL = "const float2 st = qvt::row_stats_f64(s, n, inv_n, eps, [&](double mean) {"
+ROW_HEAD = "// one row of the register form"
+
+
+def _row_stats(name, body):
+    """A patch that puts a statistics helper ``name`` (``body``: its statements,
+    from the lane sum ``s``, ``n``, ``inv_n``, ``eps`` and ``var_part``) before
+    ``ln_row``."""
+    return (ROW_HEAD, "template <typename S, typename VarPart>\n"
+            f"__device__ __forceinline__ float2 {name}(S s, int n, double inv_n, float eps, "
+            "VarPart var_part) {\n" + body + "}\n\n" + ROW_HEAD)
+
+
+# variants: (old, new) text patches of the source, each found exactly once
 VARIANTS = {
     "design": [],
-    "no_f64_cache": ["-DLNQ_CACHE_SLOTS=0"],
-    "f64_cache_f32": ["-DLNQ_CACHE_F32=1"],
-    "ring_96": ["-DLNQ_RING_BYTES=96"],
-    "warps8": ["-DLNQ_REG_WARPS=8"],
-    "warps2": ["-DLNQ_REG_WARPS=2"],
+    "no_f64_cache": [("constexpr int CACHE_SLOTS = 24;", "constexpr int CACHE_SLOTS = 0;")],
+    "f64_cache_f32": [("constexpr bool CACHE = sizeof(T) == 2 && NV * E <= CACHE_SLOTS;",
+                       "constexpr bool CACHE = NV * E <= CACHE_SLOTS;")],
+    "warps8": [("constexpr int REG_WARPS = 4;", "constexpr int REG_WARPS = 8;")],
+    "warps2": [("constexpr int REG_WARPS = 4;", "constexpr int REG_WARPS = 2;")],
+    "div_sqrt": [_row_stats("stats_div_sqrt",
+                            "  const double mean = qvt::warp_sum(s) / n;\n"
+                            "  const double var = qvt::warp_sum(var_part(mean)) / n;\n"
+                            "  return make_float2(static_cast<float>(mean), static_cast<float>("
+                            "1.0 / sqrt(var + static_cast<double>(eps))));\n"),
+                 (STATS_CALL, STATS_CALL.replace("qvt::row_stats_f64", "stats_div_sqrt"))],
+    "mul_rsqrt": [_row_stats("stats_mul_rsqrt",
+                             "  const double mean = qvt::warp_sum(s) * (1.0 / n);\n"
+                             "  const double var = qvt::warp_sum(var_part(mean)) * (1.0 / n);\n"
+                             "  return make_float2(static_cast<float>(mean), static_cast<float>("
+                             "rsqrt(var + static_cast<double>(eps))));\n"),
+                  (STATS_CALL, STATS_CALL.replace("qvt::row_stats_f64", "stats_mul_rsqrt"))],
 }
-# ablations: text patches of the source that drop a piece of the work (results not
-# checked: they are not K2d), to see what bounds the kernel
+# ablations: patches that drop a piece of the work (results not checked: they are
+# not K2d), to see what bounds the kernel
 ABLATIONS = {
-    "abl_f32_sums": [("double s = 0.0;", "float s = 0.0f;"),
+    "abl_f32_sums": [_row_stats("stats_f32",
+                                "  const float mean = qvt::warp_sum(s) / n;\n"
+                                "  const float var = qvt::warp_sum(var_part(mean)) / n;\n"
+                                "  return make_float2(mean, rsqrtf(var + eps));\n"),
+                     ("double s = 0.0;", "float s = 0.0f;"),
+                     ("double xd[CACHE", "float xd[CACHE"),
                      ("const double d = static_cast<double>(f[v][e]);", "const float d = f[v][e];"),
-                     ("const double mean = qvt::warp_sum(s) * inv_n;",
-                      "const float mean = qvt::warp_sum(s) * static_cast<float>(inv_n);"),
+                     (STATS_CALL, "const float2 st = stats_f32(s, n, inv_n, eps, [&](float mean) {"),
                      ("double var = 0.0;", "float var = 0.0f;"),
-                     ("        double d;\n", "        float d;\n"),
-                     ("d = static_cast<double>(f[v][e]) - mean;", "d = f[v][e] - mean;"),
-                     ("const double rstd = rsqrt(var + static_cast<double>(eps));",
-                      "const float rstd = rsqrtf(var + eps);")],
-    "abl_f32_row": [("const double rstd = rsqrt(var + static_cast<double>(eps));",
-                     "const double rstd = rsqrtf(static_cast<float>(var) + eps);")],
+                     ("          double d;\n", "          float d;\n"),
+                     ("d = static_cast<double>(f[v][e]) - mean;", "d = f[v][e] - mean;")],
+    "abl_f32_row": [_row_stats("stats_f32_row",
+                               "  const float mean = static_cast<float>(qvt::warp_sum(s)) / n;\n"
+                               "  const float var = static_cast<float>(qvt::warp_sum(var_part(mean)))"
+                               " / n;\n"
+                               "  return make_float2(mean, rsqrtf(var + eps));\n"),
+                    (STATS_CALL, STATS_CALL.replace("qvt::row_stats_f64", "stats_f32_row"))],
     "abl_no_store": [("      if constexpr (E == 8)\n        *reinterpret_cast<uint2*>(dst)",
                       "      if (packed[0] == 0x12345678u) {}\n      else if constexpr (E == 8)"
                       "\n        *reinterpret_cast<uint2*>(dst)")],
@@ -56,7 +88,7 @@ SHAPES = [(50432, 384, ("bf16", "f32")), (6304, 384, ("bf16",)), (18440, 576, ("
 CALLS = 20
 
 
-def build(src_dir, flags, out, patches=()):
+def build(src_dir, out, patches=()):
     """Start nvcc on ``src_dir``'s ln_quantize.cu (text-patched by ``patches``, each
     (old, new) pair found exactly once); :func:`registers` waits for it."""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
@@ -71,7 +103,7 @@ def build(src_dir, flags, out, patches=()):
         with open(src, "w") as f:
             f.write(text)
     return subprocess.Popen([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                             "-O3", "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", *flags,
+                             "-O3", "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v",
                              "-I", src_dir, src, "-o", out],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -104,21 +136,19 @@ def main():
     print(card, flush=True)
     tmp = tempfile.mkdtemp()
     src = os.path.join(ROOT, "qat_vit_tpu_torch", "csrc")
-    builds = {name: build(src, VARIANTS[name], os.path.join(tmp, f"{name}.so")) for name in names}
-    builds.update({name: build(src, [], os.path.join(tmp, f"{name}.so"), ABLATIONS[name])
-                   for name in ablations})
+    builds = {name: build(src, os.path.join(tmp, f"{name}.so"), {**VARIANTS, **ABLATIONS}[name])
+              for name in names + ablations}
     if parent:
-        builds["parent"] = build(os.path.join(parent, "qat_vit_tpu_torch", "csrc"), [],
+        builds["parent"] = build(os.path.join(parent, "qat_vit_tpu_torch", "csrc"),
                                  os.path.join(tmp, "parent.so"))
     libs = {}
     for name, proc in builds.items():
         regs = registers(proc)
-        print(f"{name} {VARIANTS.get(name, [])}: registers {' '.join(regs)}", flush=True)
+        print(f"{name}: registers {' '.join(regs)}", flush=True)
         libs[name] = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, lib in libs.items():
-        lib.qvt_ln_quantize.argtypes = ([P] * 4 + [I] * (3 if name == "parent" else 5) + [F] * 4
-                                        + [P])
+        lib.qvt_ln_quantize.argtypes = [P] * 4 + [I] * 3 + [F] * 4 + [P]
         lib.qvt_ln_quantize.restype = I
 
     dev = torch.device("cuda")
@@ -139,10 +169,9 @@ def main():
     def launch(name, x, ln, q):
         m, n = x.shape
         bf = int(x.dtype == torch.bfloat16)
-        head = (x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), q.data_ptr(), m, n, bf)
-        plan = () if name == "parent" else fs.ln_quantize_plan(n, x.element_size(),
-                                                               fs.pointer_align(x))
-        err = libs[name].qvt_ln_quantize(*head, *plan, inv_s, zp, 255.0, 1e-6, stream)
+        err = libs[name].qvt_ln_quantize(x.data_ptr(), ln["scale"].data_ptr(),
+                                         ln["bias"].data_ptr(), q.data_ptr(), m, n, bf, inv_s,
+                                         zp, 255.0, 1e-6, stream)
         if err:
             sys.exit(f"{name}: launch error {err}")
 
@@ -167,15 +196,22 @@ def main():
             for (label, x, ln, _), q in zip(cases, qs):
                 launch(name, x, ln, q)
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                for (label, x, ln, _), q in zip(cases, qs):
-                    for _ in range(CALLS):
-                        launch(name, x, ln, q)
-                torch.cuda.synchronize()
-            evs = sorted((e for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA),
-                         key=lambda e: e.time_range.start)
-            if len(evs) != CALLS * len(cases):
+            # the profiler now and then drops a device event: such a session is
+            # taken again, at most three times
+            for _ in range(3):
+                with torch.profiler.profile(activities=acts) as prof:
+                    for (label, x, ln, _), q in zip(cases, qs):
+                        for _ in range(CALLS):
+                            launch(name, x, ln, q)
+                    torch.cuda.synchronize()
+                evs = sorted((e for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA),
+                             key=lambda e: e.time_range.start)
+                if len(evs) == CALLS * len(cases):
+                    break
+                print(f"{name}: {len(evs)} device events, expected {CALLS * len(cases)}; "
+                      "again", flush=True)
+            else:
                 sys.exit(f"{name}: {len(evs)} device events, expected {CALLS * len(cases)}")
             for i, (label, *_) in enumerate(cases):
                 us = [e.time_range.elapsed_us() for e in evs[i * CALLS:(i + 1) * CALLS]]

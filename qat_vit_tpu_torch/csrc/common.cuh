@@ -150,25 +150,62 @@ __device__ __forceinline__ void unpack_chunk(const uint4& w, float (&f)[16 / siz
   }
 }
 
-// (mean, rsqrt(var + eps)) of one row held by a warp, as f32. The sums run
-// in f64 and the two results are rounded to f32 once, so they do not depend
-// on the summation order: the plain version (ops/fused_serve.layernorm_f32)
-// gets the same f32 values, and the JAX kernels' f32 `_ln` stays within
-// f32 rounding of them. mean first, then mean((x - mean)^2).
+// RN(a / n) for n >= 1 from inv_n = RN(1 / n), with no division: q =
+// RN(a inv_n) is within an ulp of a / n, so r = a - q n is exact (one fma)
+// and RN(q + r inv_n) = RN(a / n) (Markstein's theorem, binary64; the row
+// sums here stay far from underflow). An infinite or NaN a gives q, as
+// a / n does.
+__device__ __forceinline__ double div_n(double a, double n, double inv_n) {
+  const double q = a * inv_n;
+  return isfinite(q) ? fma(fma(-q, n, a), inv_n, q) : q;
+}
+
+// The f32 rounding of RN(1 / RN(sqrt(v))), mostly with no division or square
+// root: rsqrt(v) (within 1 ulp, CUDA's bound) lies within 3 ulps of that
+// value. Where the f32 roundings of rsqrt(v) (1 -+ 2^-49), 7.5 ulps or more
+// below and above it, agree, the value's f32 rounding is theirs (rounding is
+// monotone); else, about one row in 2^25, the square root and division run.
+__device__ __forceinline__ float rstd_f32(double v) {
+  const double y = rsqrt(v);
+  if (static_cast<float>(y * (1.0 - 0x1p-49)) == static_cast<float>(y * (1.0 + 0x1p-49)))
+    return static_cast<float>(y);
+  return static_cast<float>(1.0 / sqrt(v));
+}
+
+// (mean, 1 / sqrt(var + eps)) of one row held by a warp, as f32: mean
+// first, then mean((x - mean)^2). The sums run in f64; mean and var are
+// RN(sum / n) in f64, and the results are those of / n and 1 / sqrt in f64
+// rounded to f32 once (div_n, rstd_f32: the same values by construction),
+// as the plain version (ops/fused_serve.layernorm_f32) computes them. The
+// summation order differs from the plain version's (and the squares may be
+// fused into the adds), which moves the f64 sums in their last bits only:
+// the f32 values agree unless an f64 result lies that close to an f32
+// rounding boundary (held identical on every input tested, not by
+// construction). The JAX kernels' f32 `_ln` stays within f32 rounding.
+// row_stats_f64 finishes them from a lane's f64 sum of its values, s, and
+// var_part(mean), the lane's f64 sum of (x - mean)^2; inv_n = RN(1 / n).
+template <typename VarPart>
+__device__ __forceinline__ float2 row_stats_f64(double s, int n, double inv_n, float eps,
+                                                VarPart var_part) {
+  const double dn = n;
+  const double mean = div_n(warp_sum(s), dn, inv_n);
+  const double var = div_n(warp_sum(var_part(mean)), dn, inv_n);
+  return make_float2(static_cast<float>(mean), rstd_f32(var + static_cast<double>(eps)));
+}
+
 template <typename Load>
 __device__ __forceinline__ float2 warp_row_stats(Load load, int n, float eps) {
   const int lane = threadIdx.x & 31;
   double s = 0.0;
   for (int c = lane; c < n; c += 32) s += static_cast<double>(load(c));
-  const double mean = warp_sum(s) / n;
-  double v = 0.0;
-  for (int c = lane; c < n; c += 32) {
-    const double d = static_cast<double>(load(c)) - mean;
-    v += d * d;
-  }
-  const double var = warp_sum(v) / n;
-  const double rstd = 1.0 / sqrt(var + static_cast<double>(eps));
-  return make_float2(static_cast<float>(mean), static_cast<float>(rstd));
+  return row_stats_f64(s, n, 1.0 / n, eps, [&](double mean) {
+    double v = 0.0;
+    for (int c = lane; c < n; c += 32) {
+      const double d = static_cast<double>(load(c)) - mean;
+      v += d * d;
+    }
+    return v;
+  });
 }
 
 // (x - mean) * rstd * gamma + beta, in the JAX order, no contraction

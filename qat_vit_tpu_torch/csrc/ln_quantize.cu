@@ -6,47 +6,48 @@
 // before it.
 //
 // q = clamp(rint(LN(x) * inv_s + zp), 0, qmax) - 128, LN with f32
-// statistics: mean, then mean((x - mean)^2), rsqrt(var + eps), gamma, beta.
-// The statistics are summed in f64 and rounded to f32 once, so the result
-// does not depend on the summation order and is bit-identical to the plain
-// version (ops/fused_serve.ln_quantize_plain).
+// statistics: mean, then mean((x - mean)^2), 1 / sqrt(var + eps), gamma,
+// beta. Both forms (and K2c) take the statistics from qvt::row_stats_f64:
+// f64 sums, then the values of / N and 1 / sqrt in f64 rounded to f32 once,
+// as the plain version (ops/fused_serve.ln_quantize_plain) computes them, in
+// another summation order; common.cuh says what that order can move.
+// Bit-identical to the plain version on every input tested.
 //
 // What bounds it on an H100: device memory first. It reads 2 (bf16) or 4
 // (f32) bytes and writes 1 byte per element, with ~10 f32 operations per
 // element, far below the card's ~300 operations/byte; at ViT-S batch 256
 // ([50432, 384] bf16) the least time is ~58 MB / 3.35 TB/s = ~17 us. Second,
-// the f64 statistics the bit-identical result needs: a conversion and one or
-// two f64 operations per element on the SM's 64-lane f64 pipe and conversion
-// rate, and per row two f64 warp sums and an f64 reciprocal square root,
-// which every lane runs. The first design (one warp per row, three passes)
-// read each row three times, the second and third from L1/L2, converted each
-// element to f64 twice, rounded with rint and converted to int: 0.040 ms at
-// [50432, 384] bf16, where the bytes alone would take 0.017.
+// the f64 statistics: a conversion and one or two f64 operations per element
+// on the SM's 64-lane f64 pipe and conversion rate, and per row two f64 warp
+// sums, two divisions, a square root and a reciprocal, which every lane
+// runs; row_stats_f64 gets their values without the divisions and, but for
+// about one row in 2^25, the square root (measured: 8% of the time at
+// [50432, 384] bf16 with them, port_scripts/k2d_variants.py). The first
+// design (one warp per row, three passes) read each row three times, the
+// second and third from L1/L2, converted each element to f64 twice, rounded
+// with rint and converted to int: 0.040 ms at [50432, 384] bf16, where the
+// bytes alone would take 0.017.
 //
 // The register form (rows of 4-byte multiples up to REG_SLOTS x 32 = 1,024
 // elements), what it does about each:
 // - Each element is read from device memory once: one warp holds its row in
 //   registers, lane l loads vectors l, l + 32, ... of 8 or 16 bytes (NV of
 //   them, a template argument), so each of a warp's loads is 256 or 512
-//   contiguous bytes. The plan (vector bytes, NV) comes from ln_plan below;
-//   ops/fused_serve.ln_quantize_plan mirrors it, and the launcher refuses a
-//   call whose plan differs from its own.
-// - The f64 work: each element is unpacked once; for bf16 rows of up to 24
-//   slots a lane its f64 value is kept from the first sum for the second (one
-//   conversion, not two; f32 rows measured faster without); per row
-//   * (1 / N) and rsqrt take the place of two f64 divisions, a square root and
-//   a third division. Each stays within an f64 ulp of the plain version's
-//   f64 mean and 1 / sqrt(var + eps), whose f32 roundings are the result.
+//   contiguous bytes. qvt_ln_quantize picks the form and NV by ln_plan below
+//   (ops/fused_serve.ln_quantize_plan is its mirror).
+// - The f64 work: each element is unpacked once; for bf16 rows of up to
+//   CACHE_SLOTS slots a lane its f64 value is kept from the first sum for
+//   the second (one conversion, not two; f32 rows measured faster without).
 // - The quantize has no conversion instruction: the grid value is the low
 //   byte of clamp(t) + 1.5 * 2^23, four of them packed with byte_perm and
 //   written as 4 or 8 bytes a lane.
 // - Latency: the grid holds as many blocks as are resident on the card at
 //   once and each warp walks rows w, w + W, ...; the loads of its next row
 //   are issued before it reduces the current one. gamma and beta are loaded
-//   once per warp and kept in registers. A deeper ring of rows in flight
-//   (LNQ_RING_BYTES) measured slower: its registers cost more warps.
-// port_scripts/k2d_variants.py times these choices against each other and
-// against ablations (f32 sums, f32 per-row statistics, no stores).
+//   once per warp and kept in registers. More rows in flight measured
+//   slower: their registers cost warps.
+// port_scripts/k2d_variants.py times text-patched builds of this file
+// against it (other constants, more rows in flight, ablations).
 // The strided form (any other row: N not a multiple of 4, a row the vectors
 // cannot take at its alignment, or N past the register plan): the first
 // design, one warp per row and three passes.
@@ -57,47 +58,32 @@
 
 namespace {
 
-// build options (port_scripts/k2d_variants.py builds the others): the most
-// element slots a lane keeps f64 copies of (bf16 rows; f32 rows too with
-// LNQ_CACHE_F32), the bytes of a lane's ring of rows in flight (0: the next
-// row only), warps per block of the register form
-#ifndef LNQ_CACHE_SLOTS
-#define LNQ_CACHE_SLOTS 24
-#endif
-#ifndef LNQ_CACHE_F32
-#define LNQ_CACHE_F32 0
-#endif
-#ifndef LNQ_RING_BYTES
-#define LNQ_RING_BYTES 0
-#endif
-#ifndef LNQ_REG_WARPS
-#define LNQ_REG_WARPS 4
-#endif
-
 constexpr int MAX_DEVICES = 64;
-// the register form: warps per block, and the most row elements a lane holds
-constexpr int REG_WARPS = LNQ_REG_WARPS;
+// the register form: warps per block, the most row elements a lane holds,
+// and the most slots of a bf16 row a lane keeps f64 copies of
+constexpr int REG_WARPS = 4;
 constexpr int REG_SLOTS = 32;
+constexpr int CACHE_SLOTS = 24;
 // the strided form: rows (one warp each) per block
 constexpr int ROWS_PER_BLOCK = 8;
 
 // (vector bytes, vectors per lane) of the register form for a row of n
-// elements of elem bytes at a data pointer of alignment align (bytes); vec 0:
-// the strided form. Of the vector widths a row takes (16 bytes, and for bf16
-// also 8), the one whose lanes hold the fewest element slots, the wider on a
-// tie; int8 stores of at least 4 bytes a lane need n % 4 == 0.
+// elements of elem bytes at data address addr; vec 0: the strided form. Of
+// the vector widths a row takes (16 bytes, and for bf16 also 8), the one
+// whose lanes hold the fewest element slots, the wider on a tie; int8 stores
+// of at least 4 bytes a lane need n % 4 == 0.
 struct Plan {
   int vec, nv;
 };
 
-Plan ln_plan(int n, int elem, int align) {
+Plan ln_plan(int n, int elem, uintptr_t addr) {
   Plan best{0, 0};
   if (n <= 0 || n % 4) return best;
   int best_slots = REG_SLOTS + 1;
   for (int vec : {16, 8}) {
     if (vec == 8 && elem != 2) continue;
     const int e = vec / elem;
-    if (n % e || align % vec) continue;
+    if (n % e || addr % vec) continue;
     const int nv = (n / e + 31) / 32;
     if (nv * e < best_slots) {
       best = {vec, nv};
@@ -147,17 +133,17 @@ __device__ __forceinline__ uint32_t quantize_bits(float v, float inv_s, float zp
 }
 
 // one row of the register form: the row's vectors in raw (this lane's NV),
-// gamma and beta of this lane's columns in g and b, inv_n = 1 / N in f64
+// gamma and beta of this lane's columns in g and b, inv_n = RN(1 / n)
 template <typename T, int VEC, int NV>
 __device__ __forceinline__ void ln_row(const uint32_t (&raw)[NV][VEC / 4],
                                        const float (&g)[NV][VEC / sizeof(T)],
                                        const float (&b)[NV][VEC / sizeof(T)], int8_t* qr,
-                                       int lane, int nvec, double inv_n, float inv_s, float zp,
-                                       float qmax, float eps) {
+                                       int lane, int n, double inv_n, int nvec, float inv_s,
+                                       float zp, float qmax, float eps) {
   constexpr int E = VEC / sizeof(T);
   // the row's f64 values kept from the first sum for the second, where the
   // registers allow: one conversion per element instead of two
-  constexpr bool CACHE = (sizeof(T) == 2 || LNQ_CACHE_F32) && NV * E <= LNQ_CACHE_SLOTS;
+  constexpr bool CACHE = sizeof(T) == 2 && NV * E <= CACHE_SLOTS;
   float f[NV][E];
 #pragma unroll
   for (int v = 0; v < NV; ++v) unpack_vec<T, VEC>(raw[v], f[v]);
@@ -174,27 +160,24 @@ __device__ __forceinline__ void ln_row(const uint32_t (&raw)[NV][VEC / 4],
       }
     }
   }
-  // the statistics as the plain version's f64 mean and 1 / sqrt(var + eps),
-  // each within an f64 ulp of it: * (1 / N) for / N, rsqrt for 1 / sqrt
-  const double mean = qvt::warp_sum(s) * inv_n;
-  double var = 0.0;
+  const float2 st = qvt::row_stats_f64(s, n, inv_n, eps, [&](double mean) {
+    double var = 0.0;
 #pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    if (v * 32 + lane < nvec) {
+    for (int v = 0; v < NV; ++v) {
+      if (v * 32 + lane < nvec) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        double d;
-        if constexpr (CACHE)
-          d = xd[v][e] - mean;
-        else
-          d = static_cast<double>(f[v][e]) - mean;
-        var += d * d;
+        for (int e = 0; e < E; ++e) {
+          double d;
+          if constexpr (CACHE)
+            d = xd[v][e] - mean;
+          else
+            d = static_cast<double>(f[v][e]) - mean;
+          var += d * d;
+        }
       }
     }
-  }
-  var = qvt::warp_sum(var) * inv_n;
-  const double rstd = rsqrt(var + static_cast<double>(eps));
-  const float2 st = make_float2(static_cast<float>(mean), static_cast<float>(rstd));
+    return var;
+  });
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     if (v * 32 + lane < nvec) {
@@ -218,15 +201,6 @@ __device__ __forceinline__ void ln_row(const uint32_t (&raw)[NV][VEC / 4],
   }
 }
 
-// rows a warp of the register form keeps in flight: enough that a lane's
-// ring holds about LNQ_RING_BYTES (a bf16 row of 384 takes 24 bytes a lane:
-// 4 rows), 1 to 4
-template <int VEC, int NV>
-__host__ __device__ constexpr int ring_depth() {
-  const int d = (LNQ_RING_BYTES + NV * VEC - 1) / (NV * VEC);
-  return d < 1 ? 1 : d > 4 ? 4 : d;
-}
-
 template <typename T, int VEC, int NV>
 __global__ void __launch_bounds__(REG_WARPS * 32)
     ln_quantize_regs(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -234,7 +208,6 @@ __global__ void __launch_bounds__(REG_WARPS * 32)
                      float inv_s, float zp, float qmax, float eps) {
   constexpr int E = VEC / sizeof(T);  // elements of a vector
   constexpr int W = VEC / 4;          // its 32-bit words
-  constexpr int D = ring_depth<VEC, NV>();
   const int lane = threadIdx.x & 31;
   const int nvec = N / E;
   const double inv_n = 1.0 / N;
@@ -261,28 +234,19 @@ __global__ void __launch_bounds__(REG_WARPS * 32)
       if (v * 32 + lane < nvec) load_vec<VEC>(base + static_cast<size_t>(v * 32 + lane) * VEC,
                                               dst[v]);
   };
-  // the warp's rows row, row + stride, ...: D of them in flight, row k in
-  // ring[k % D]; a row's slot takes the load of the row D ahead as soon as
-  // the row is copied out, before it is reduced
-  uint32_t ring[D][NV][W];
+  // the warp's rows row, row + stride, ...: the next row's loads go out as
+  // soon as the current row is copied out, before it is reduced
+  uint32_t next[NV][W];
+  load_row(row, next);
+  for (int r = row; r < M; r += stride) {
+    uint32_t cur[NV][W];
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (row + d * stride < M) load_row(row + d * stride, ring[d]);
-  for (int base = row; base < M; base += D * stride) {
+    for (int v = 0; v < NV; ++v)
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const int r = base + d * stride;
-      if (r < M) {
-        uint32_t cur[NV][W];
-#pragma unroll
-        for (int v = 0; v < NV; ++v)
-#pragma unroll
-          for (int i = 0; i < W; ++i) cur[v][i] = ring[d][v][i];
-        if (r + D * stride < M) load_row(r + D * stride, ring[d]);
-        ln_row<T, VEC, NV>(cur, g, b, q + static_cast<size_t>(r) * N, lane, nvec, inv_n,
-                           inv_s, zp, qmax, eps);
-      }
-    }
+      for (int i = 0; i < W; ++i) cur[v][i] = next[v][i];
+    if (r + stride < M) load_row(r + stride, next);
+    ln_row<T, VEC, NV>(cur, g, b, q + static_cast<size_t>(r) * N, lane, N, inv_n, nvec, inv_s,
+                       zp, qmax, eps);
   }
 }
 
@@ -346,33 +310,30 @@ int launch_regs(int nv, const Args& a, cudaStream_t s) {
 }
 
 template <typename T>
-int launch(int vec, int nv, const Args& a, cudaStream_t s) {
-  if (vec == 0) {
+int launch(const Args& a, cudaStream_t s) {
+  const Plan plan = ln_plan(a.N, sizeof(T), reinterpret_cast<uintptr_t>(a.x));
+  if (plan.vec == 0) {
     ln_quantize_strided<T><<<(a.M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, ROWS_PER_BLOCK * 32,
                              0, s>>>(static_cast<const T*>(a.x), a.gamma, a.beta, a.q, a.M,
                                      a.N, a.inv_s, a.zp, a.qmax, a.eps);
     return static_cast<int>(cudaGetLastError());
   }
-  if (vec == 16) return launch_regs<T, 16>(nv, a, s);
-  if constexpr (sizeof(T) == 2) return launch_regs<T, 8>(nv, a, s);
+  if (plan.vec == 16) return launch_regs<T, 16>(plan.nv, a, s);
+  if constexpr (sizeof(T) == 2) return launch_regs<T, 8>(plan.nv, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// vec, nv: the wrapper's plan (ops/fused_serve.ln_quantize_plan); a plan
-// other than ln_plan's for these arguments is refused
+// the form (register or strided) and its vectors come from ln_plan
 extern "C" int qvt_ln_quantize(const void* x, const void* gamma, const void* beta, void* q,
-                               int M, int N, int x_bf16, int vec, int nv, float inv_s,
-                               float zp, float qmax, float eps, void* stream) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
-  const int align = static_cast<int>(std::min<uintptr_t>(addr & (~addr + 1), 16));
-  const Plan plan = ln_plan(N, x_bf16 ? 2 : 4, addr ? align : 16);
-  if (plan.vec != vec || plan.nv != nv || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                               int M, int N, int x_bf16, float inv_s, float zp, float qmax,
+                               float eps, void* stream) {
+  if (M <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, static_cast<const float*>(gamma), static_cast<const float*>(beta),
                static_cast<int8_t*>(q), M, N, inv_s, zp, qmax, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch<__nv_bfloat16>(vec, nv, a, s) : launch<float>(vec, nv, a, s);
+  return x_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
 }
 
 extern "C" const char* qvt_error_string(int err) {

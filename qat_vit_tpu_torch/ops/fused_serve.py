@@ -10,8 +10,8 @@ On CUDA the first four launch the ``int8_gemm`` kernels (PLAIN,
 PLAIN_Q8 and GELU_Q: ``qvt_int8_gemm``, ``csrc/int8_gemm_wgmma.cu``, TMA
 and wgmma; RESID_LN_Q: ``qvt_int8_gemm_resid_ln``, ``csrc/int8_gemm.cu``)
 and the last the ``ln_quantize`` kernels (``csrc/ln_quantize.cu``: the
-register form, or the strided form where :func:`ln_quantize_plan` says
-so); on the CPU each runs its plain version (``*_plain``, same signature), which
+register form, or the strided form where the kernel's plan, mirrored by
+:func:`ln_quantize_plan`, says so); on the CPU each runs its plain version (``*_plain``, same signature), which
 ``chip_smoke.py`` also runs on the card to check the kernels. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 
@@ -106,7 +106,8 @@ def ln_quantize_plan(n: int, elem_bytes: int, align: int = 16) -> Tuple[int, int
     N past ``LN_REG_SLOTS`` x 32, a row the vectors cannot take). Of the
     vector widths the row takes, the one whose lanes hold the fewest element
     slots, the wider on a tie. The mirror of ``ln_plan`` in
-    ``csrc/ln_quantize.cu``, which refuses a launch whose plan differs."""
+    ``csrc/ln_quantize.cu``, which picks the form on the card; the tests and
+    ``chip_smoke.py`` read the form from here."""
     best, best_slots = (0, 0), LN_REG_SLOTS + 1
     if n <= 0 or n % 4:
         return best
@@ -368,10 +369,9 @@ def ln_quantize(x: torch.Tensor, ln: dict, out_q: dict, *, eps: float = 1e-6,
     m = x.numel() // n
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
     if m:
-        vec, nv = ln_quantize_plan(n, x.element_size(), pointer_align(x))
         _build.load().call(
             "qvt_ln_quantize", ptr(x), ptr(ln["scale"]), ptr(ln["bias"]), ptr(q), m, n,
-            int(x.dtype == torch.bfloat16), vec, nv, inv_scale(out_q["scale"]),
+            int(x.dtype == torch.bfloat16), inv_scale(out_q["scale"]),
             f32(out_q["zero_point"]), f32(quant_max), float(eps), stream_of(dev),
         )
         ln_quantize.launches += 1
