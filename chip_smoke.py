@@ -108,7 +108,27 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    attention stage; within the detection bounds of the exact path, ms per forward beside
    ``megamodel_long`` in turns); one float and one QAT step
    of ViT-S and of OWLv2-pruned in f32 with fast_math, depth 2, batch 2,
-   through the kernels and through ``reference_impl()``: identical.
+   through the kernels and through ``reference_impl()``: identical;
+9. checkpoints: phase 3's export through ``save_checkpoint`` and
+   ``Int8Predictor.from_checkpoint`` (logits identical, K2d launched),
+   phase 4's student and teacher written to files and read back by a new
+   trainer (identical);
+10. entry points, on synthetic CIFAR-10 (50,000 / 10,000 images): the
+   training CLI (``python -m qat_vit_tpu_torch.train.trainer``, a child
+   process) with a ViT-S/16 student and a random-init ViT-B/16 teacher for
+   2 epochs of 4 steps at batch 256 (QAT from epoch 1, one profiled QAT
+   epoch): exit 0, the artifact set, a finished tracker run with the
+   reference's metric names, the int8 export served by
+   ``Int8Predictor.from_checkpoint`` at batch 256, kernels A and B by name
+   in the trace; the CLI again with ``--resume`` (epoch 2 only); a trainer
+   at batch 32 that loads another's resume file after a QAT step
+   (parameters, observers and AdamW state identical, and one more step of
+   each identical); ``observer_interval`` 4 over 8 QAT steps at batch 256
+   (observers move at steps 1 and 5 only, 12 fused kernel-A calls then, 12
+   unfused ones in the frozen steps; ms per observing and frozen step) and
+   ``observer_stride`` 4; the detection CLI (``--task detection``,
+   OWLv2-pruned at 768 px, batch 4, eval batch 8) in this process, K5a and
+   K5b launched, its int8 export read back; the native data loader used.
 
 The bf16 long attention pair (K5a ``attention_long_mma``, K5b
 ``attention_long_bwd_mma``, phases 5 and 6), the bf16 kernels A
@@ -1147,14 +1167,14 @@ def vit_models(torch, seed=SEED):
     return student, teacher
 
 
-def vit_trainer(torch, data, student, teacher, batch, seed=SEED):
+def vit_trainer(torch, data, student, teacher, batch, seed=SEED, **hparams):
     """``KDQATTrainer`` on the card at its defaults (bf16, fast_math,
-    fq_in_kernel, teacher logits cached)."""
+    fq_in_kernel, teacher logits cached), ``hparams`` over them."""
     from qat_vit_tpu_torch.train.config import load_hparams
     from qat_vit_tpu_torch.train.trainer import KDQATTrainer
 
     hp = load_hparams(None)
-    hp.update(batch_size=batch, eval_batch_size=256, epochs=2, seed=seed)
+    hp.update(batch_size=batch, eval_batch_size=256, epochs=2, seed=seed, **hparams)
     t = KDQATTrainer(hp, device=torch.device("cuda"), data=data, student=student,
                      teacher=teacher)
     qc = t.student_qat_cfg
@@ -2380,6 +2400,303 @@ def replay_f32_steps(torch, np, fa, fat, la, dev):
     return replays
 
 
+# phase 10: the CLI's arguments (ViT-S/16 from a random-init ViT-B/16 teacher,
+# two epochs of 4 steps at batch 256, QAT from epoch 1, 2 eval batches of
+# 512); the in-process trainers' batch for resume and the observer checks
+ENTRY_ARGS = ["--epochs", "2", "--qat-start-epoch", "1", "--batch-size", "256",
+              "--limit-train-batches", "4", "--limit-eval-batches", "2"]
+ENTRY_RESUME_B, ENTRY_INTERVAL, ENTRY_QAT_STEPS, ENTRY_STRIDE = 32, 4, 8, 4
+ENTRY_METRICS = {"train_loss", "train_loss_ce", "train_loss_kd", "qat_acc", "quant_acc",
+                 "imgs_per_sec", "qat_enabled", "final_quant_acc"}
+ENTRY_FILES = ["effective_hparams.yaml", "best_qat.msgpack", "best_converted.msgpack",
+               "resume_state.msgpack"]
+
+
+def run_cli(root, args, log, timeout=600):
+    """``python -m qat_vit_tpu_torch.train.trainer ARGS`` in a child process
+    from the checkout, its output into ``log``; fails unless it exits 0."""
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", "qat_vit_tpu_torch.train.trainer", *args],
+                            cwd=root, stdout=f, stderr=subprocess.STDOUT, timeout=timeout).returncode
+    if rc != 0:
+        with open(log) as f:
+            print("".join(f.readlines()[-40:]), file=sys.stderr, flush=True)
+        fail(f"the training CLI exited {rc}: {args}")
+    return time.perf_counter() - t0
+
+
+def trace_kernels(prof_dir):
+    """Device kernels by group (``kernel_group``) in the Chrome traces that
+    ``utils.profiling.trace`` wrote into ``prof_dir``."""
+    import collections
+
+    counts = collections.Counter()
+    for name in os.listdir(prof_dir):
+        if name.endswith(".pt.trace.json"):
+            with open(os.path.join(prof_dir, name)) as f:
+                for e in json.load(f).get("traceEvents", []):
+                    if e.get("cat") == "kernel":
+                        counts[kernel_group(e.get("name", ""))] += 1
+    return counts
+
+
+def observer_stats(module):
+    return {k: v.clone() for k, v in module.state_dict().items() if k.endswith("_val")}
+
+
+def train_batches(torch, np, data, b, n, dev, seed):
+    """``n`` device batches of ``b`` images with random cached-teacher logits."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        sel = np.arange(i * b, (i + 1) * b) % len(data["train_images"])
+        out.append({"image": torch.from_numpy(data["train_images"][sel]).to(dev),
+                    "label": torch.from_numpy(data["train_labels"][sel].astype(np.int64)).to(dev),
+                    "teacher_logits": torch.from_numpy(
+                        rng.normal(0, 2, (b, 10)).astype(np.float32)).to(dev)})
+    return out
+
+
+def phase_entry_points(torch, np, fs, fa, fat, la):
+    """The port's two training entry points at full width: the CLI as a user
+    runs it (classification in a child process, detection in this one),
+    resume, ``observer_interval`` and ``observer_stride``, the native loader."""
+    import shutil
+    import tempfile
+
+    from qat_vit_tpu_torch.data import native_loader
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+    from qat_vit_tpu_torch.models import vit as vit_module
+    from qat_vit_tpu_torch.serve.predictor import Int8Predictor
+    from qat_vit_tpu_torch.tracking import SqliteTracker
+    from qat_vit_tpu_torch.train import trainer as tr
+    from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint, load_metadata
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()  # the child process needs the memory the earlier phases cached
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    try:
+        out, db = os.path.join(tmp, "out"), os.path.join(tmp, "mlflow.db")
+        common = ["--output-dir", out, "--mlflow-uri", f"sqlite:///{db}",
+                  "--data-dir", os.path.join(tmp, "no_cifar")]
+        # (a) the classification CLI
+        secs = run_cli(root, ENTRY_ARGS + common + ["--profile-dir", os.path.join(tmp, "prof")],
+                       os.path.join(tmp, "cli.log"))
+        missing = [f for name in ENTRY_FILES for f in (name, name + ".json")
+                   if not os.path.isfile(os.path.join(out, f))
+                   and not f.startswith("effective_hparams.yaml.")]
+        store = SqliteTracker(f"sqlite:///{db}", tr.DEFAULT_HPARAMS["experiment"], create=False)
+        runs = store.runs()
+        keys = {m["key"] for m in store.metrics(runs[0]["run_id"])} if runs else set()
+        if missing or len(runs) != 1 or runs[0]["status"] != "FINISHED" or not ENTRY_METRICS <= keys:
+            fail(f"the CLI's artifacts: missing {missing}, runs {runs}, metrics {sorted(keys)}")
+        run_id = runs[0]["run_id"]
+        ips = sorted((m["step"], m["value"]) for m in store.metrics(run_id, "imgs_per_sec"))
+        mem = [m["value"] for m in store.metrics(run_id, "system/device_memory_usage_megabytes")]
+        groups = trace_kernels(os.path.join(tmp, "prof"))
+        want = {"K3 / kernel A": 48, "kernel B rows": 48, "kernel B keys": 48}
+        print(f"phase 10 the training CLI (ViT-S/16 from a random-init ViT-B/16, 2 epochs of 4 "
+              f"steps at batch 256, QAT from epoch 1) in a child process: exit 0 in {secs:.1f} s; "
+              f"the artifact set written; one FINISHED run with the reference's metric names; "
+              f"img/s by epoch {[(e, round(v, 1)) for e, v in ips]} (host clock over the epoch, "
+              f"first steps included) on {card}; device memory sampled "
+              + (f"{min(mem):.0f}-{max(mem):.0f} MB" if mem else "never (runs under 10 s)")
+              + "; the profiled QAT epoch's trace: "
+              + ", ".join(f"{g} {groups[g]}" for g in want) + " kernels", flush=True)
+        if any(groups[g] != n for g, n in want.items()):
+            fail(f"the profiled QAT epoch ran {dict(groups)}, expected {want}")
+        meta = load_metadata(os.path.join(out, "best_converted.msgpack"))
+        if meta.get("format") != "int8-weights+qparams" or meta.get("epoch") != 1:
+            fail(f"best_converted.msgpack's metadata: {meta}")
+
+        # (b) the CLI again, resumed from epoch 1's file with one more epoch
+        secs = run_cli(root, ENTRY_ARGS[2:] + ["--epochs", "3", "--resume",
+                                               os.path.join(out, "resume_state.msgpack")]
+                       + common, os.path.join(tmp, "resume.log"))
+        new = [r for r in store.runs() if r["run_id"] != run_id]
+        steps = sorted({m["step"] for m in store.metrics(new[0]["run_id"])
+                        if m["key"] in ENTRY_METRICS - {"final_quant_acc"}}) if len(new) == 1 else None
+        resumed = load_checkpoint(os.path.join(out, "resume_state.msgpack"))
+        print(f"phase 10 the CLI with --resume (from epoch 1's resume_state.msgpack, --epochs 3) "
+              f"in {secs:.1f} s: its run's epoch metrics at steps {steps}, resume file now epoch "
+              f"{int(resumed['epoch'])}, step {int(resumed['step'])}", flush=True)
+        if steps != [2] or new[0]["status"] != "FINISHED" or int(resumed["epoch"]) != 2:
+            fail(f"the resumed CLI run: steps {steps}, runs {new}")
+
+        # (b') resume in this process at batch 32: the loading trainer has the
+        # saving one's state, and one more step of each is identical
+        student, teacher = vit_models(torch)
+        data = synthetic_cifar10(n_train=ENTRY_QAT_STEPS * TRAIN_B, n_test=64, seed=SEED)
+        t1 = vit_trainer(torch, data, student, teacher, ENTRY_RESUME_B)
+        t1.enable_qat()
+        b32 = train_batches(torch, np, data, ENTRY_RESUME_B, 2, dev, SEED + 20)
+        t1.next_step_fn()(t1.state, b32[0], t1.loss_hp)
+        path = t1.save_resume_state(os.path.join(tmp, "resume32.msgpack"), epoch=0)
+        t2 = vit_trainer(torch, data, student, teacher, ENTRY_RESUME_B)
+        t2.load_resume_state(path)
+        sd1, sd2 = t1.state.module.state_dict(), t2.state.module.state_dict()
+        same_state = sd1.keys() == sd2.keys() and all(torch.equal(sd1[k], sd2[k]) for k in sd1)
+        same_adam = all(
+            all(torch.equal(t1.state.optimizer.adamw.state[p][k],
+                            t2.state.optimizer.adamw.state[q][k]) for k in ("step", "exp_avg",
+                                                                             "exp_avg_sq"))
+            for p, q in zip(t1.state.module.parameters(), t2.state.module.parameters()))
+        m1 = t1.next_step_fn()(t1.state, b32[1], t1.loss_hp)
+        m2 = t2.next_step_fn()(t2.state, b32[1], t2.loss_hp)
+        sd1, sd2 = t1.state.module.state_dict(), t2.state.module.state_dict()
+        same_step = all(torch.equal(m1[k], m2[k]) for k in m1) and all(
+            torch.equal(sd1[k], sd2[k]) for k in sd1)
+        qcfg = t1.student_qat_cfg  # the CLI's student config: the same defaults
+        print(f"phase 10 resume in this process at batch {ENTRY_RESUME_B}: after 1 QAT step "
+              f"saved and loaded, parameters and observers identical {same_state}, AdamW state "
+              f"identical {same_adam}; one more step of each: losses "
+              f"{float(m1['train_loss'])!r} / {float(m2['train_loss'])!r}, losses and "
+              f"parameters identical {same_step}", flush=True)
+        if not (same_state and same_adam and same_step):
+            fail("in-process resume: the trainers differ")
+        del t1, t2
+
+        # (a') the CLI's int8 export served on the card, through the chain
+        serve = (fs.int8_dense, fs.int8_dense_gelu_q, fs.int8_dense_resid_ln_q, fs.ln_quantize,
+                 fa.fused_attention_qkv)
+        pred = Int8Predictor.from_checkpoint(os.path.join(out, "best_converted.msgpack"), qcfg,
+                                             device=dev, batch_size=SERVE_B)
+        for w in serve:
+            w.launches = 0
+        logits = pred.logits(data["train_images"][:SERVE_B])
+        torch.cuda.synchronize()
+        launched = {w.__name__: w.launches for w in serve}
+        print(f"phase 10 the CLI's best_converted.msgpack through Int8Predictor.from_checkpoint "
+              f"at batch {SERVE_B}: logits {logits.shape}, finite {np.isfinite(logits).all()}, "
+              f"launches {launched}", flush=True)
+        if (logits.shape != (SERVE_B, 10) or not np.isfinite(logits).all()
+                or not all(launched.values())):
+            fail("the CLI's int8 export did not serve finite logits through the serving kernels")
+
+        # (c) observer_interval at batch 256: observe at QAT steps 1 and 5 only
+        calls = {"fused": 0, "unfused": 0}
+        fused_fn, unfused_fn = vit_module.attention_train_fq, vit_module.attention_train
+
+        def counted(fn, key):
+            def wrapper(*a, **k):
+                calls[key] += 1
+                return fn(*a, **k)
+            return wrapper
+
+        t = vit_trainer(torch, data, student, teacher, TRAIN_B, observer_interval=ENTRY_INTERVAL)
+        t.enable_qat()
+        batches = train_batches(torch, np, data, TRAIN_B, ENTRY_QAT_STEPS, dev, SEED + 21)
+        depth = t.student_qat_cfg.depth
+        rows, bad = [], []
+        vit_module.attention_train_fq = counted(fused_fn, "fused")
+        vit_module.attention_train = counted(unfused_fn, "unfused")
+        try:
+            for i, b in enumerate(batches):
+                before = observer_stats(t.state.module)
+                calls.update(fused=0, unfused=0)
+                fa.attention_fwd.launches = fat.attention_bwd.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.next_step_fn()(t.state, b, t.loss_hp)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = observer_stats(t.state.module)
+                moved = sum(not torch.equal(before[k], after[k]) for k in before)
+                observing = i % ENTRY_INTERVAL == 0
+                rows.append((i + 1, observing, moved, dict(calls), fa.attention_fwd.launches,
+                             fat.attention_bwd.launches, ms))
+                want_calls = ({"fused": depth, "unfused": 0} if observing
+                              else {"fused": 0, "unfused": depth})
+                if ((moved > 0) != observing or calls != want_calls
+                        or fa.attention_fwd.launches != depth
+                        or fat.attention_bwd.launches != depth):
+                    bad.append(rows[-1])
+        finally:
+            vit_module.attention_train_fq, vit_module.attention_train = fused_fn, unfused_fn
+        obs_ms = [r[-1] for r in rows if r[1]]
+        frozen_ms = [r[-1] for r in rows if not r[1]]
+        print(f"phase 10 observer_interval {ENTRY_INTERVAL}, {ENTRY_QAT_STEPS} QAT steps at batch "
+              f"{TRAIN_B} (step, observes, observer buffers moved, attention calls, kernel A / "
+              f"kernel B launches, ms): {rows}; ms per step (host clock between two "
+              f"synchronizes): observing {obs_ms} (the first after the switch), frozen mean "
+              f"{statistics.mean(frozen_ms):.2f} (median {statistics.median(frozen_ms):.2f}) "
+              f"on {card}", flush=True)
+        if bad:
+            fail(f"observer_interval: steps {bad}")
+
+        # observer_stride 4 beside 1: one QAT step from the same state and batch
+        stats = []
+        for stride in (1, ENTRY_STRIDE):
+            ts = vit_trainer(torch, data, student, teacher, TRAIN_B, observer_stride=stride)
+            if ts.student_qat_cfg.quant.activation.observe_stride != stride:
+                fail(f"observer_stride {stride}: {ts.student_qat_cfg.quant}")
+            ts.enable_qat()
+            ts.next_step_fn()(ts.state, batches[0], ts.loss_hp)
+            stats.append(observer_stats(ts.state.module))
+            del ts
+        s1, s4 = stats
+        act = [k for k in s1 if "weight_fq" not in k]
+        finite = all(bool(torch.isfinite(v)) for v in s4.values())
+        rel = max(float((s4[k] - s1[k]).abs() / s1[k].abs().clamp_min(1e-6)) for k in act)
+        diff = sum(not torch.equal(s4[k], s1[k]) for k in act)
+        same_w = all(torch.equal(s4[k], s1[k]) for k in s1 if "weight_fq" in k)
+        site = "blocks.0.attn.qkv.act_fq"
+        print(f"phase 10 observer_stride {ENTRY_STRIDE} vs 1, one QAT step at batch {TRAIN_B}: "
+              f"statistics finite {finite}; {diff} of {len(act)} activation statistics differ "
+              f"(largest relative difference {rel:.3e}; {site} min / max "
+              f"{float(s4[site + '.min_val']):.6f} / {float(s4[site + '.max_val']):.6f} against "
+              f"{float(s1[site + '.min_val']):.6f} / {float(s1[site + '.max_val']):.6f}); weight "
+              f"statistics identical {same_w}", flush=True)
+        if not finite or diff == 0 or not same_w:
+            fail("observer_stride: the statistics are not finite, or stride 4 changed nothing, "
+                 "or a weight observer moved")
+        del t, batches, b32, data
+
+        # (d) the detection CLI, in this process (its launches are counted)
+        dout = os.path.join(tmp, "det")
+        loads = native_loader.gather_batch.native_calls
+        la.long_attention_qkv.launches = la.long_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        tr.main(["--task", "detection", "--image-size", "768", "--batch-size", "4",
+                 "--eval-batch-size", "8", "--epochs", "2", "--qat-start-epoch", "1",
+                 "--limit-train-batches", "2", "--limit-eval-batches", "1",
+                 "--output-dir", dout, "--mlflow-uri", f"sqlite:///{tmp}/det.db",
+                 "--data-dir", os.path.join(tmp, "no_cifar")], device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k5a, k5b = la.long_attention_qkv.launches, la.long_attention_bwd.launches
+        export = load_checkpoint(os.path.join(dout, "best_converted_detector.msgpack"))
+        dmeta = load_metadata(os.path.join(dout, "best_converted_detector.msgpack"))
+        druns = SqliteTracker(f"sqlite:///{tmp}/det.db", tr.DEFAULT_HPARAMS["experiment"],
+                              create=False).runs()
+        print(f"phase 10 the detection CLI (--task detection, OWLv2-pruned at 768 px from a "
+              f"random-init OWLv2-base, 2 epochs of 2 steps at batch 4, eval batch 8) in {secs:.1f} "
+              f"s: launches K5a {k5a} (train steps and eval), K5b {k5b} (rows and keys passes of "
+              f"4 steps); best_converted_detector.msgpack read back (tower blocks "
+              f"{len(export.get('tower', {}).get('blocks', {}))}, metadata {dmeta}); runs "
+              f"{[r['status'] for r in druns]}", flush=True)
+        n_blocks = len(export.get("tower", {}).get("blocks", {}))
+        if (k5b != 2 * 4 * n_blocks or k5a < 4 * n_blocks or n_blocks == 0
+                or dmeta.get("format") != "int8-tower+float-heads"
+                or [r["status"] for r in druns] != ["FINISHED"]):
+            fail(f"the detection CLI: K5a {k5a}, K5b {k5b}, blocks {n_blocks}, {dmeta}, {druns}")
+
+        # (e) the native data plane
+        native = native_loader.native_available()
+        used = native_loader.gather_batch.native_calls - loads
+        print(f"phase 10 native data loader: available {native}, ArrayLoader gathered {used} "
+              f"batches through it in the detection run", flush=True)
+        if not native or used == 0:
+            fail(f"the native data loader: available {native}, batches {used}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2427,6 +2744,7 @@ def main() -> None:
     kernels += phase_serve_modes(torch, np, fs, fa, serve_ctx)
     kernels += phase_kernel_forms(torch, np, fs, fa, fat, la, det_ctx)
     phase_checkpoints(torch, np, fs, serve_ctx, ckpt_ctx)
+    phase_entry_points(torch, np, fs, fa, fat, la)
 
     sources = {fs.int8_dense: WGMMA_GEMM,
                fs.int8_dense_q8: WGMMA_GEMM,

@@ -1,5 +1,6 @@
-"""CIFAR-10 dataset sources (a copy of ``qat_vit_tpu/data/cifar10.py``:
-numpy only; the ``.bin`` records are decoded with numpy).
+"""CIFAR-10 dataset sources (a copy of ``qat_vit_tpu/data/cifar10.py``: the
+``.bin`` records are decoded by ``native_loader.decode_cifar_bin``, the C++
+decoder where it compiled, else numpy).
 
 The reference uses ``torchvision.datasets.CIFAR10(download=True)`` (reference
 src/training/qat_trainer.py:218-219). This environment has no network, so the
@@ -17,6 +18,8 @@ import tarfile
 from typing import Dict, Tuple
 
 import numpy as np
+
+from qat_vit_tpu_torch.data.native_loader import decode_cifar_bin
 
 CIFAR10_MEAN = (0.485, 0.456, 0.406)  # ImageNet norm, as the reference uses
 CIFAR10_STD = (0.229, 0.224, 0.225)  # (qat_trainer.py:210-216)
@@ -49,18 +52,9 @@ def _from_pickle_dir(d: str) -> Dict[str, np.ndarray]:
     }
 
 
-def decode_cifar_bin(raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """CIFAR ``.bin`` records (label byte + 3x32x32 CHW pixels) → (NHWC uint8
-    images, int32 labels)."""
-    rec = np.ascontiguousarray(raw, dtype=np.uint8).reshape(-1, 3073)
-    labels = rec[:, 0].astype(np.int32)
-    images = rec[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).copy()
-    return images, labels
-
-
 def _from_bin_dir(d: str) -> Dict[str, np.ndarray]:
     def load_bin(path):
-        return decode_cifar_bin(np.fromfile(path, np.uint8))
+        return decode_cifar_bin(np.fromfile(path, np.uint8))  # C++ decoder when available
 
     train_x, train_y = [], []
     for i in range(1, 6):

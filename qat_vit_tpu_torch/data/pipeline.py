@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from qat_vit_tpu_torch.data.cifar10 import CIFAR10_MEAN, CIFAR10_STD
+from qat_vit_tpu_torch.data.native_loader import gather_batch
 
 
 def epoch_indices(
@@ -53,9 +54,10 @@ def epoch_indices(
 @dataclasses.dataclass
 class ArrayLoader:
     """Batches over in-memory arrays, in this process and on one rank: each
-    batch is one numpy fancy-index (microseconds), so no worker processes or
-    prefetch thread are needed. Yields ``{"image", "label", "index"}`` numpy
-    arrays."""
+    batch is one gather (``native_loader.gather_batch``: the native memcpy
+    loop where it compiled, else a numpy fancy-index; microseconds), so no
+    worker processes or prefetch thread are needed. Yields ``{"image",
+    "label", "index"}`` numpy arrays."""
 
     images: np.ndarray  # [N, 32, 32, 3] uint8
     labels: np.ndarray  # [N] int32
@@ -85,9 +87,8 @@ class ArrayLoader:
         idx = self._indices(self._epoch, self.shuffle)
         for b in range(len(self)):
             sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
-            yield {"image": self.images[sel],
-                   "label": np.asarray(self.labels[sel], np.int32),
-                   "index": np.asarray(sel, np.int64)}
+            image, label = gather_batch(self.images, self.labels, sel)
+            yield {"image": image, "label": label, "index": np.asarray(sel, np.int64)}
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:

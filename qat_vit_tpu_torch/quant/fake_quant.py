@@ -77,6 +77,7 @@ def fused_moving_avg_obs_fake_quant(
     quant_max: int,
     observe: bool,
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT,
+    stride: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One ``FusedMovingAvgObsFakeQuantize`` step: observe (when
     ``observe``), derive train-time qparams from the updated state, then
@@ -86,7 +87,7 @@ def fused_moving_avg_obs_fake_quant(
     still infinite passes ``x`` through unchanged."""
     new_min, new_max, scale, zero_point = observe_and_qparams(
         x, min_val, max_val, symmetric=symmetric, quant_min=quant_min, quant_max=quant_max,
-        observe=observe, averaging_constant=averaging_constant)
+        observe=observe, averaging_constant=averaging_constant, stride=stride)
     y = fake_quantize(x, scale, zero_point, quant_min, quant_max)
     if not observe:
         y = torch.where(torch.isinf(new_min), x, y)
@@ -103,6 +104,7 @@ def observe_and_qparams(
     quant_max: int,
     observe: bool,
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT,
+    stride: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Observer update + qparams WITHOUT applying the fake-quant: exactly the
     ``(scale, zero_point)`` :func:`fused_moving_avg_obs_fake_quant` would
@@ -111,7 +113,8 @@ def observe_and_qparams(
     ``(new_min, new_max, scale, zero_point)``, all device tensors."""
     with torch.no_grad():
         if observe:
-            new_min, new_max = update_moving_avg_minmax(min_val, max_val, x, averaging_constant)
+            new_min, new_max = update_moving_avg_minmax(min_val, max_val, x, averaging_constant,
+                                                        stride)
         else:
             new_min, new_max = min_val, max_val
         qparams = qparams_fused_symmetric if symmetric else qparams_fused_affine

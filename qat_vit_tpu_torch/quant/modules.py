@@ -33,6 +33,7 @@ class FakeQuantizer(nn.Module):
                 quant_max=self.cfg.quant_max,
                 observe=observe,
                 averaging_constant=self.cfg.averaging_constant,
+                stride=self.cfg.observe_stride,
             )
             self._store(observe, new_min, new_max)
             return x, scale, zero_point
@@ -45,6 +46,7 @@ class FakeQuantizer(nn.Module):
             quant_max=self.cfg.quant_max,
             observe=observe,
             averaging_constant=self.cfg.averaging_constant,
+            stride=self.cfg.observe_stride,
         )
         self._store(observe, new_min, new_max)
         return y

@@ -37,9 +37,16 @@ def update_moving_avg_minmax(
     state_max: torch.Tensor,
     x: torch.Tensor,
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT,
+    stride: int = 1,
 ) -> Pair:
     """One observer step: EMA of the batch min/max, direct init on the first
-    call (``state_min`` infinite). Returns the new ``(min, max)``."""
+    call (``state_min`` infinite). Returns the new ``(min, max)``.
+
+    ``stride`` > 1 (an opt-in approximation, ``observer_stride``): observe
+    only the contiguous prefix ``x[: max(1, len // stride)]`` of the leading
+    axis, the batch axis at every site of the models."""
+    if stride > 1 and x.shape[0] > 1:
+        x = x[: max(1, x.shape[0] // stride)]
     # min/max are order statistics: reducing in the input dtype is exact
     batch_min, batch_max = torch.aminmax(x.detach())
     batch_min = batch_min.to(torch.float32)

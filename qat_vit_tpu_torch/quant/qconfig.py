@@ -19,6 +19,10 @@ class FakeQuantConfig:
     quant_max: int
     symmetric: bool
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT
+    # observe only the first 1/observe_stride of the leading (batch) axis, a
+    # contiguous prefix (:func:`observers.update_moving_avg_minmax`); the
+    # trainer sets it on activation observers from ``observer_stride``
+    observe_stride: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

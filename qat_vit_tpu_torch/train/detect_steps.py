@@ -75,12 +75,9 @@ def make_detect_train_step(teacher: Optional[nn.Module], *, qat: bool, image_siz
     ``query_embeds`` ``[B, Q, text_dim]`` and, for the cached-teacher
     variant (``teacher=None``), the frozen teacher's ``t_logits [B, P, Q]``,
     ``t_boxes [B, P, 4]`` and ``t_obj [B, P]``; otherwise the ``teacher``
-    detector runs on every step under ``no_grad``."""
-    if qat and not observe:
-        raise NotImplementedError(
-            "the observer-frozen QAT step (observer_interval > 1) is not ported: "
-            "ROADMAP.md Queue 1, item 6"
-        )
+    detector runs on every step under ``no_grad``. ``observe=False`` with
+    ``qat`` is the observer-frozen step: fake-quant from the current
+    statistics, no observer write."""
     prep = preprocess_fn(image_size)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -93,7 +90,7 @@ def make_detect_train_step(teacher: Optional[nn.Module], *, qat: bool, image_siz
         else:
             with torch.no_grad():
                 t_out = teacher(x, q, observe=False)
-        s_out = state.module(x, q, observe=qat)
+        s_out = state.module(x, q, observe=qat and observe)
         loss, metrics = detection_kd_loss(s_out, t_out, temperature=loss_hp["temperature"],
                                           box_weight=loss_hp["box_weight"],
                                           obj_weight=loss_hp["obj_weight"])

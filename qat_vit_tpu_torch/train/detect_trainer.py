@@ -23,16 +23,19 @@ The teacher's weights come from a file with ``teacher_ckpt`` (a msgpack of
 the JAX package's detector tree, its ``"params"`` when it holds one, as
 ``models/owlv2_detect.owlv2_detection_to_params`` converts an HF
 checkpoint); ``student=`` / ``teacher=`` take built models in place of the
-registry's. Not ported, as for classification (``train/trainer.py``):
-resume, ``observer_interval`` > 1, ``observer_stride`` > 1 and model
-parallelism raise; ``detect_train_main``, checkpoints of the run and
-tracking are absent (ROADMAP.md Queue 1, items 6 and 10).
+registry's. ``observer_interval``, ``observer_stride`` and resume work as in
+classification (``train/trainer.py``, whose resume code this trainer
+shares); :func:`detect_train_main` is the whole run behind the CLI's
+``--task detection``. Not ported, as for classification: model
+parallelism (ROADMAP.md Queue 1, item 11) and a world of more than one
+process (item 5) raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -41,12 +44,18 @@ import torch
 
 from qat_vit_tpu_torch.data.cifar10 import load_cifar10
 from qat_vit_tpu_torch.data.pipeline import ArrayLoader, preprocess_fn
-from qat_vit_tpu_torch.models.jax_params import load_jax_variables
+from qat_vit_tpu_torch.models.jax_params import (
+    buffers_to_quant_stats,
+    load_jax_variables,
+    state_dict_to_params,
+)
 from qat_vit_tpu_torch.models.owlv2_detect import Owlv2Detector
 from qat_vit_tpu_torch.models.registry import ModelBundle, create_model
-from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
+from qat_vit_tpu_torch.parallel import barrier, get_dist_info
 from qat_vit_tpu_torch.serve.int8_detect import convert_detector, make_int8_detect_forward
 from qat_vit_tpu_torch.serve.int8_vit import export_to_device
+from qat_vit_tpu_torch.tracking import NullRun, make_tracker
+from qat_vit_tpu_torch.train.config import DEFAULT_HPARAMS, save_effective_hparams
 from qat_vit_tpu_torch.train.detect_steps import (
     detect_loss_hparams,
     detection_agreement,
@@ -54,8 +63,14 @@ from qat_vit_tpu_torch.train.detect_steps import (
     make_detect_train_step,
 )
 from qat_vit_tpu_torch.train.steps import TrainState, init_quant_stats
-from qat_vit_tpu_torch.train.trainer import KDQATTrainer, refuse_unported
-from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint
+from qat_vit_tpu_torch.train.trainer import (
+    KDQATTrainer,
+    entry_device,
+    progress,
+    refuse_unported,
+    student_qconfig,
+)
+from qat_vit_tpu_torch.utils.checkpoint import BestCheckpointer, load_checkpoint, save_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -77,10 +92,14 @@ def _freeze_teacher(module: Owlv2Detector, device) -> Owlv2Detector:
 class DetectKDTrainer:
     """The detection KD + QAT engine on one device (``device`` is required)."""
 
-    # the classification trainer's parameter hand-over, optimizer and host copy
+    # the classification trainer's parameter hand-over, optimizer, host copy,
+    # step choice and resume files (the two states have one structure)
     _load = KDQATTrainer._load
     _optimizer = KDQATTrainer._optimizer
     _to_device = KDQATTrainer._to_device
+    next_step_fn = KDQATTrainer.next_step_fn
+    save_resume_state = KDQATTrainer.save_resume_state
+    load_resume_state = KDQATTrainer.load_resume_state
 
     def __init__(
         self,
@@ -88,11 +107,14 @@ class DetectKDTrainer:
         *,
         device,
         data: Optional[Dict[str, np.ndarray]] = None,
+        run=None,
         student: Optional[ModelBundle] = None,
         teacher: Optional[ModelBundle] = None,
     ):
         self.hp = dict(hparams)
         refuse_unported(self.hp)
+        self.dist = get_dist_info()
+        self.run = run if run is not None else NullRun()
         self.device = torch.device(device)
         seed = int(self.hp["seed"])
         image_size = int(self.hp["image_size"])
@@ -125,9 +147,8 @@ class DetectKDTrainer:
             base.cfg, quant=None, qat_wrapper=False, dtype=dtype,
             fast_math=fast and dtype == torch.bfloat16, attn_kernel=True)
         self.student_qat_cfg = dataclasses.replace(
-            base.cfg, quant=default_qat_qconfig(self.hp.get("qat_backend", "qnnpack")),
-            qat_wrapper=True, dtype=qat_dtype, fast_math=fast and qat_dtype == torch.bfloat16,
-            attn_kernel=True)
+            base.cfg, quant=student_qconfig(self.hp), qat_wrapper=True, dtype=qat_dtype,
+            fast_math=fast and qat_dtype == torch.bfloat16, attn_kernel=True)
         self.student_float = self._load(Owlv2Detector(self.student_float_cfg, self.text_dim),
                                         base.module)
         self.student_qat = Owlv2Detector(self.student_qat_cfg, self.text_dim).to(self.device)
@@ -152,6 +173,11 @@ class DetectKDTrainer:
                                                        image_size=image_size)
         self.train_step_qat = make_detect_train_step(step_teacher, qat=True,
                                                      image_size=image_size)
+        self.observer_interval = max(1, int(self.hp.get("observer_interval", 1)))
+        self.train_step_qat_frozen = make_detect_train_step(
+            step_teacher, qat=True, image_size=image_size, observe=False,
+        ) if self.observer_interval > 1 else None
+        self._qat_py_step = 0
         self.eval_step = make_detect_eval_step(self.teacher.module, image_size=image_size)
         self._prep = preprocess_fn(image_size)
         # the teacher-output cache (host RAM): logits, boxes, objectness, filled rows
@@ -164,6 +190,8 @@ class DetectKDTrainer:
         if data is None:
             data, source = load_cifar10(self.hp.get("data_dir", "./data"))
             logger.info("detection image source: %s", source)
+            if source == "synthetic":
+                self.run.set_tag("data_source", "synthetic")
         self.data = data
         self.eval_batch_size = int(self.hp.get("eval_batch_size", 64))
         self.train_loader = ArrayLoader(data["train_images"], data["train_labels"],
@@ -186,6 +214,7 @@ class DetectKDTrainer:
         self.state = TrainState(self.student_qat, self._optimizer(self.student_qat, lr),
                                 self.state.step)
         self.qat_enabled = True
+        self._qat_py_step = 0  # the first QAT step observes (the ±inf markers)
         logger.info("detection QAT enabled (lr -> %.3g)", lr)
 
     # ------------------------------------------------------------------
@@ -244,11 +273,11 @@ class DetectKDTrainer:
                        * max(1, int(self.hp.get("epochs", 1))))
             lazy = planned < len(self.data["train_images"]) // 2
         self._ensure_teacher_outputs(lazy=lazy)
-        step_fn = self.train_step_qat if self.qat_enabled else self.train_step_float
         device_metrics = []  # 0-d device tensors: no host sync until the epoch ends
         n_images = 0
         t0 = time.perf_counter()
-        for i, batch in enumerate(self.train_loader):
+        loader = progress(self.train_loader, self.hp, self.dist, epoch, limit_batches)
+        for i, batch in enumerate(loader):
             if limit_batches and i >= limit_batches:
                 break
             n = len(batch["image"])
@@ -257,7 +286,7 @@ class DetectKDTrainer:
             if self.cache_teacher:
                 for k, v in self._teacher_outputs_for(batch).items():
                     dev_batch[k] = torch.from_numpy(v).to(self.device)
-            device_metrics.append(step_fn(self.state, dev_batch, self.loss_hp))
+            device_metrics.append(self.next_step_fn()(self.state, dev_batch, self.loss_hp))
             n_images += n
         if not device_metrics:
             return {"imgs_per_sec": 0.0, "epoch_seconds": time.perf_counter() - t0,
@@ -331,3 +360,79 @@ class DetectKDTrainer:
                                             self.student_qat(x, q, observe=False), b["valid"]))
         box, agree = self._means(sums)
         return {"int8_box_err": box, "int8_top_box_agreement": agree}
+
+
+def detect_train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The whole detection run behind ``--task detection`` (the JAX
+    package's ``detect_train_main``): ``effective_hparams.yaml``, a tracker
+    run, the best-model rule on teacher agreement (``best_qat_detector``),
+    the int8 export of the last epoch (``best_converted_detector.msgpack``)
+    with its metrics logged at the end, ``resume_state.msgpack`` every
+    epoch. A CUDA ``device`` must be present (pass ``device="cpu"`` for the
+    CPU)."""
+    device = entry_device(device)
+    dist = get_dist_info()
+    output_dir = hp["output_dir"]
+    if dist.is_main_process:
+        os.makedirs(output_dir, exist_ok=True)
+        save_effective_hparams(hp, output_dir)
+        tracker = make_tracker(hp["mlflow_uri"], hp["experiment"])
+        run = tracker.start_run("final_train_detection")
+        run.log_params({k: hp[k] for k in DEFAULT_HPARAMS if not isinstance(hp[k], dict)})
+    else:
+        run = NullRun()
+    barrier("dataset")
+
+    trainer = DetectKDTrainer(hp, device=device, run=run)
+    best = BestCheckpointer(output_dir, "best_qat_detector")
+    epochs = int(hp["epochs"])
+    qat_start = int(hp["qat_start_epoch"])
+    limit_train = int(hp.get("limit_train_batches", 0))
+    limit_eval = int(hp.get("limit_eval_batches", 0))
+    results = []
+    int8_metrics: Dict[str, float] = {}
+    start_epoch = 0
+    if hp.get("resume"):
+        start_epoch = trainer.load_resume_state(hp["resume"])
+        logger.info("resumed from %s at epoch %d", hp["resume"], start_epoch)
+    for epoch in range(start_epoch, epochs):
+        if epoch >= qat_start:
+            trainer.enable_qat()
+        tm = trainer.train_epoch(epoch, limit_batches=limit_train)
+        barrier("epoch")
+        ev = trainer.evaluate(limit_batches=limit_eval)
+        if epoch == epochs - 1 and trainer.qat_enabled:
+            export = trainer.convert_int8()
+            int8_metrics = trainer.evaluate_int8(export, limit_batches=limit_eval)
+            if dist.is_main_process:
+                save_checkpoint(os.path.join(output_dir, "best_converted_detector.msgpack"),
+                                export, {"epoch": epoch, "format": "int8-tower+float-heads",
+                                         **int8_metrics})
+        if dist.is_main_process:
+            run.log_metrics({**{k: tm.get(k, 0.0) for k in ("train_loss", "train_loss_kd",
+                                                              "train_loss_box", "train_loss_obj")},
+                             **ev, "imgs_per_sec": tm["imgs_per_sec"],
+                             "qat_enabled": float(trainer.qat_enabled)}, step=epoch)
+            logger.info("epoch %d/%d loss %.4f box_err %.4f agree %.3f (%.0f img/s)%s",
+                        epoch + 1, epochs, tm.get("train_loss", 0.0), ev["box_err"],
+                        ev["teacher_agreement"], tm["imgs_per_sec"],
+                        " [QAT]" if trainer.qat_enabled else "")
+            # the classification rule on teacher agreement: a float epoch may
+            # win it, and then the file holds float params and empty stats
+            # (its metadata's qat_enabled says so)
+            sd = trainer.state.module.state_dict()
+            best.maybe_save(
+                ev["teacher_agreement"],
+                {"params": state_dict_to_params(sd),
+                 "quant_stats": buffers_to_quant_stats(sd) if trainer.qat_enabled else {}},
+                {"epoch": epoch, **ev, "qat_enabled": trainer.qat_enabled})
+        if dist.is_main_process and hp.get("save_resume_state", True):
+            trainer.save_resume_state(os.path.join(output_dir, "resume_state.msgpack"), epoch)
+        results.append({"epoch": epoch, **tm, **ev, "qat_enabled": trainer.qat_enabled})
+        barrier("epoch_end")
+
+    if dist.is_main_process:
+        for k, v in int8_metrics.items():
+            run.log_metric(k, v)
+        run.end("FINISHED")
+    return {"results": results, "int8": int8_metrics, "output_dir": output_dir}

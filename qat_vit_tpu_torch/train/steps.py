@@ -5,7 +5,12 @@ The reference's hot loop (teacher no-grad forward, student forward,
 α·KL·T² + (1−α)·CE, clip 1.0, AdamW) as one closure per phase:
 
 - ``qat=False``: the float student (bf16 under the trainer's defaults);
-- ``qat=True``: the fake-quant student, observers updated every step.
+- ``qat=True``: the fake-quant student, observers updated in the step;
+- ``qat=True, observe=False``: the observer-frozen QAT step (the trainer's
+  ``observer_interval``): fake-quant from the current statistics, no
+  observer write, the optimizer steps all the same. The attention takes
+  kernel A without the in-kernel fake-quant, as the JAX module does when it
+  does not observe.
 
 PyTorch runs eagerly, so there is nothing to compile or donate: where the
 JAX step returns a new donated state, this one updates in place: the
@@ -112,12 +117,8 @@ def make_train_step(teacher: Optional[nn.Module], *, qat: bool, image_size: int,
     ``label`` int64 and, for the cached-teacher variant (``teacher=None``),
     ``teacher_logits``; otherwise the frozen ``teacher`` runs on every step
     under ``no_grad``. Preprocessing runs inside the step, on the device.
+    ``observe=False`` with ``qat`` fake-quantizes from the frozen statistics.
     """
-    if qat and not observe:
-        raise NotImplementedError(
-            "the observer-frozen QAT step (observer_interval > 1) is not ported: "
-            "ROADMAP.md Queue 1, item 6"
-        )
     prep = preprocess_fn(image_size)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -129,7 +130,7 @@ def make_train_step(teacher: Optional[nn.Module], *, qat: bool, image_size: int,
         else:
             with torch.no_grad():
                 t_logits = teacher(x, observe=False).to(torch.float32)
-        s_logits = state.module(x, observe=qat)
+        s_logits = state.module(x, observe=qat and observe)
         loss, metrics = kd_loss(s_logits, t_logits, labels, alpha=loss_hp["alpha"],
                                 temperature=loss_hp["temperature"],
                                 label_smoothing=loss_hp["label_smoothing"])

@@ -1,4 +1,5 @@
-"""KD + QAT trainer on one device (port of ``qat_vit_tpu/train/trainer.py``).
+"""KD + QAT trainer on one device, and the final-training entry point
+(port of ``qat_vit_tpu/train/trainer.py``).
 
 A frozen ViT-B teacher distils into a ViT-S student on CIFAR-10 with
 α·KL·T² + (1−α)·CE(label smoothing), AdamW + clip(1.0); at
@@ -17,21 +18,31 @@ student in bf16 with fast_math, the QAT student in bf16 (``qat_amp``) with
 fast_math and ``fq_in_kernel``, so every training step's attention runs
 through the hand-written kernels (``ops/flash_attention_train.py``). The two
 students are two modules; the QAT one takes the float one's parameters at
-the switch.
+the switch. ``observer_interval`` k > 1 observes on the first QAT step and
+every k-th after it, and fake-quantizes from the frozen statistics in
+between (a second step function, picked on the host); ``observer_stride``
+s > 1 has the activation observers see the first 1/s of each batch.
 
 Teacher and student weights come from files (``teacher_ckpt``,
 ``student_ckpt``: a timm-layout ``.pth`` / ``.bin`` / ``.pt`` through
 ``models/torch_convert.py``, or the JAX package's msgpack, see
-:func:`load_model_params`). Not ported yet: resume, ``observer_interval`` >
-1, ``observer_stride`` > 1 and tensor parallelism raise when the
-hyperparameters ask for them; tracking, multi-device data parallelism,
-``train_main`` and the CLI are absent (ROADMAP.md Queue 1, items 5 and 6).
+:func:`load_model_params`). :meth:`KDQATTrainer.save_resume_state` writes
+the JAX package's resume tree, so a run resumes in either package.
+
+:func:`train_main` is the whole run (tracking, the best-model rule, the
+int8 export, resume files, an optional profiled epoch); :func:`main` is the
+CLI, ``python -m qat_vit_tpu_torch.train.trainer`` with the JAX package's
+flags. Not ported: tensor parallelism (``model_parallel`` > 1, ROADMAP.md
+Queue 1, item 11) and a world of more than one process (item 5) raise.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -40,13 +51,27 @@ import torch
 
 from qat_vit_tpu_torch.data.cifar10 import load_cifar10
 from qat_vit_tpu_torch.data.pipeline import ArrayLoader, preprocess_fn
-from qat_vit_tpu_torch.models.jax_params import load_jax_variables, state_dict_to_params
+from qat_vit_tpu_torch.models.jax_params import (
+    buffers_to_quant_stats,
+    load_jax_variables,
+    params_to_state_dict,
+    quant_stats_to_buffers,
+    state_dict_to_params,
+)
 from qat_vit_tpu_torch.models.registry import ModelBundle, create_student, create_teacher
 from qat_vit_tpu_torch.models.torch_convert import load_torch_state_dict, timm_vit_to_params
 from qat_vit_tpu_torch.models.vit import VisionTransformer
-from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
+from qat_vit_tpu_torch.parallel import barrier, get_dist_info
+from qat_vit_tpu_torch.quant.qconfig import QConfig, default_qat_qconfig
 from qat_vit_tpu_torch.serve.int8_vit import convert_vit
 from qat_vit_tpu_torch.serve.predictor import Int8Predictor
+from qat_vit_tpu_torch.tracking import NullRun, enable_system_metrics_logging, make_tracker
+from qat_vit_tpu_torch.train.config import (
+    DEFAULT_HPARAMS,
+    add_hparam_flags,
+    resolve_hparams,
+    save_effective_hparams,
+)
 from qat_vit_tpu_torch.train.steps import (
     TrainState,
     init_quant_stats,
@@ -56,24 +81,43 @@ from qat_vit_tpu_torch.train.steps import (
     make_train_step,
     set_optimizer_hyperparams,
 )
-from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint, tolerant_merge
+from qat_vit_tpu_torch.utils.checkpoint import (
+    BestCheckpointer,
+    load_checkpoint,
+    load_metadata,
+    save_checkpoint,
+    tolerant_merge,
+)
+from qat_vit_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
-
-_NOT_PORTED = "is not ported yet: ROADMAP.md Queue 1, item {}"
 
 
 def refuse_unported(hp: Dict[str, Any]) -> None:
     """Raise on options the port does not run yet, rather than ignore them."""
-    checks = [
-        (int(hp.get("model_parallel", 1)) != 1, "model_parallel > 1 (tensor parallelism)", 11),
-        (int(hp.get("observer_interval", 1)) != 1, "observer_interval > 1", 6),
-        (int(hp.get("observer_stride", 1)) != 1, "observer_stride > 1", 2),
-        (bool(hp.get("resume")), "resume", 6),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(f"{what} {_NOT_PORTED.format(item)}")
+    if int(hp.get("model_parallel", 1)) != 1:
+        raise NotImplementedError("model_parallel > 1 (tensor parallelism) is not ported yet: "
+                                  "ROADMAP.md Queue 1, item 11")
+
+
+def student_qconfig(hp: Dict[str, Any]) -> QConfig:
+    """The QAT student's qconfig: ``qat_backend``'s, with ``observer_stride``
+    on the activation observers (weight observers stay exact)."""
+    qconfig = default_qat_qconfig(hp.get("qat_backend", "qnnpack"))
+    stride = max(1, int(hp.get("observer_stride", 1)))
+    if stride > 1:
+        qconfig = dataclasses.replace(
+            qconfig, activation=dataclasses.replace(qconfig.activation, observe_stride=stride))
+    return qconfig
+
+
+def entry_device(device) -> torch.device:
+    """The device of an entry point: a CUDA device must be present (no
+    falling back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to train on the CPU")
+    return device
 
 
 def load_model_params(path: str, cfg, template=None) -> Dict[str, Any]:
@@ -94,6 +138,108 @@ def load_model_params(path: str, cfg, template=None) -> Dict[str, Any]:
     return restored
 
 
+# AdamW's constants in the JAX package's optimizer state (f32, as optax
+# injects them); eps_root is optax's and 0
+_ADAM_CONSTANTS = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
+
+
+def _f32(v) -> np.ndarray:
+    return np.asarray(v, np.float32)
+
+
+def resume_tree(state: TrainState, qat_enabled: bool, epoch: int) -> Dict[str, Any]:
+    """The JAX package's resume tree of a trainer's state: ``params``,
+    ``quant_stats`` (``{}`` before QAT), ``opt_state`` as optax's
+    clip → inject_hyperparams(adamw) state (torch's ``exp_avg`` /
+    ``exp_avg_sq`` / ``step`` as ``mu`` / ``nu`` / ``count``; a state with no
+    step yet as count 0 and zero moments), ``step``, ``epoch`` and
+    ``qat_enabled``."""
+    sd = state.module.state_dict()
+    named = list(state.module.named_parameters())
+    adam = state.optimizer.adamw
+    slots = [adam.state.get(p) for _, p in named]
+    if any(slots):
+        if not all(slots):
+            raise ValueError("AdamW holds moments for some parameters only")
+        counts = {int(s["step"]) for s in slots}
+        if len(counts) != 1:
+            raise ValueError(f"AdamW's parameters took different step counts: {sorted(counts)}")
+        count = counts.pop()
+        mu = {n: s["exp_avg"] for (n, _), s in zip(named, slots)}
+        nu = {n: s["exp_avg_sq"] for (n, _), s in zip(named, slots)}
+    else:
+        count = 0
+        mu = {n: torch.zeros_like(p) for n, p in named}
+        nu = dict(mu)
+    hyper = state.optimizer.hyperparams
+    hyperparams = {k: _f32(v) for k, v in _ADAM_CONSTANTS.items()}
+    hyperparams.update(learning_rate=_f32(hyper["learning_rate"]),
+                       weight_decay=_f32(hyper["weight_decay"]))
+    count32 = np.asarray(count, np.int32)
+    return {
+        "params": state_dict_to_params(sd),
+        "opt_state": {"0": {}, "1": {
+            "count": count32, "hyperparams": hyperparams, "hyperparams_states": {},
+            "inner_state": {"0": {"count": count32, "mu": state_dict_to_params(mu),
+                                  "nu": state_dict_to_params(nu)},
+                            "1": {}, "2": {}}}},
+        "quant_stats": buffers_to_quant_stats(sd) if qat_enabled else {},
+        "step": int(state.step),
+        # epoch / qat_enabled ride inside the msgpack, atomic with the
+        # params; the JSON sidecar repeats them for people
+        "epoch": int(epoch),
+        "qat_enabled": int(qat_enabled),
+    }
+
+
+def restore_resume_tree(state: TrainState, tree: Dict[str, Any], qat_enabled: bool) -> None:
+    """Load a resume tree into ``state`` in place: parameters and (under QAT)
+    every observer, strictly; AdamW's moments, step count, learning rate and
+    weight decay. A count of 0 leaves AdamW without state, as a fresh
+    optimizer. (The file's b1, b2 and eps are AdamW's constants.)"""
+    sd = params_to_state_dict(tree["params"])
+    if qat_enabled:
+        sd.update(quant_stats_to_buffers(tree["quant_stats"]))
+    state.module.load_state_dict(sd, strict=True)
+    inject = tree["opt_state"]["1"]
+    adam_state = inject["inner_state"]["0"]
+    set_optimizer_hyperparams(
+        state.optimizer,
+        learning_rate=float(np.asarray(inject["hyperparams"]["learning_rate"])),
+        weight_decay=float(np.asarray(inject["hyperparams"]["weight_decay"])))
+    count = int(np.asarray(adam_state["count"]))
+    adam = state.optimizer.adamw
+    adam.state.clear()
+    if count:
+        mu = params_to_state_dict(adam_state["mu"])
+        nu = params_to_state_dict(adam_state["nu"])
+        for name, p in state.module.named_parameters():
+            adam.state[p] = {"step": torch.tensor(float(count)),
+                             "exp_avg": mu[name].to(p.device, p.dtype),
+                             "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    state.step = int(np.asarray(tree["step"]))
+
+
+def progress(loader, hp: Dict[str, Any], dist, epoch: int, limit_batches: int):
+    """``loader``, wrapped in a tqdm bar when ``progress_bar`` is on (rank 0)."""
+    if not (hp.get("progress_bar", False) and dist.is_main_process):
+        return loader
+    from tqdm import tqdm
+
+    return tqdm(loader, total=limit_batches or len(loader), desc=f"epoch {epoch}", leave=False)
+
+
+@dataclasses.dataclass
+class EpochResult:
+    epoch: int
+    train_loss: float
+    qat_acc: float
+    quant_acc: float
+    qat_enabled: bool
+    imgs_per_sec: float
+    eval_batches: int = 0
+
+
 class KDQATTrainer:
     """The KD + QAT engine on one device (``device`` is required: nothing
     moves to another device on its own)."""
@@ -104,11 +250,14 @@ class KDQATTrainer:
         *,
         device,
         data: Optional[Dict[str, np.ndarray]] = None,
+        run=None,
         student: Optional[ModelBundle] = None,
         teacher: Optional[ModelBundle] = None,
     ):
         self.hp = dict(hparams)
         refuse_unported(self.hp)
+        self.dist = get_dist_info()
+        self.run = run if run is not None else NullRun()
         self.device = torch.device(device)
         seed = int(self.hp["seed"])
         image_size = int(self.hp["image_size"])
@@ -139,9 +288,9 @@ class KDQATTrainer:
             base.cfg, quant=None, qat_wrapper=False, dtype=dtype,
             fast_math=fast and dtype == torch.bfloat16, attn_kernel=True, remat=remat)
         self.student_qat_cfg = dataclasses.replace(
-            base.cfg, quant=default_qat_qconfig(self.hp.get("qat_backend", "qnnpack")),
-            qat_wrapper=True, dtype=qat_dtype, fast_math=fast and qat_dtype == torch.bfloat16,
-            attn_kernel=True, remat=remat, fq_in_kernel=bool(self.hp.get("fq_in_kernel", False)))
+            base.cfg, quant=student_qconfig(self.hp), qat_wrapper=True, dtype=qat_dtype,
+            fast_math=fast and qat_dtype == torch.bfloat16, attn_kernel=True, remat=remat,
+            fq_in_kernel=bool(self.hp.get("fq_in_kernel", False)))
         self.student_float = self._load(VisionTransformer(self.student_float_cfg), base.module)
         if self.hp.get("student_ckpt"):
             template = state_dict_to_params(self.student_float.state_dict())
@@ -155,12 +304,20 @@ class KDQATTrainer:
                                 self._optimizer(self.student_float, float(self.hp["lr"])))
         self.qat_enabled = False
         self.loss_hp = loss_hparams(self.hp, self.device)
+        self.last_eval_batches = 0
 
         # ---- steps ----
         self.cache_teacher = bool(self.hp.get("cache_teacher_logits", True))
         step_teacher = None if self.cache_teacher else self.teacher.module
         self.train_step_float = make_train_step(step_teacher, qat=False, image_size=image_size)
         self.train_step_qat = make_train_step(step_teacher, qat=True, image_size=image_size)
+        # observer_interval k > 1: a second QAT step that fake-quantizes from
+        # the frozen statistics, picked on the host (no branch on the device)
+        self.observer_interval = max(1, int(self.hp.get("observer_interval", 1)))
+        self.train_step_qat_frozen = make_train_step(
+            step_teacher, qat=True, image_size=image_size, observe=False,
+        ) if self.observer_interval > 1 else None
+        self._qat_py_step = 0  # QAT steps taken (host-side, for the interval)
         self.eval_step = make_eval_step(image_size)
         self._prep = preprocess_fn(image_size)
         self._teacher_logits: Optional[np.ndarray] = None
@@ -170,6 +327,8 @@ class KDQATTrainer:
         if data is None:
             data, source = load_cifar10(self.hp.get("data_dir", "./data"))
             logger.info("CIFAR-10 source: %s", source)
+            if source == "synthetic":
+                self.run.set_tag("data_source", "synthetic")
         self.data = data
         self.train_loader = ArrayLoader(data["train_images"], data["train_labels"],
                                         batch_size=int(self.hp["batch_size"]), shuffle=True,
@@ -208,7 +367,21 @@ class KDQATTrainer:
         self.state = TrainState(self.student_qat, self._optimizer(self.student_qat, lr),
                                 self.state.step)
         self.qat_enabled = True
+        self._qat_py_step = 0  # the first QAT step observes (the ±inf markers)
         logger.info("QAT enabled (lr -> %.3g)", lr)
+
+    def next_step_fn(self):
+        """The step function of the next train step: the float step, or under
+        QAT the observing step on the first and every ``observer_interval``-th
+        QAT step and the frozen step in between."""
+        if not self.qat_enabled:
+            return self.train_step_float
+        fn = self.train_step_qat
+        if self.train_step_qat_frozen is not None:
+            if self._qat_py_step % self.observer_interval:
+                fn = self.train_step_qat_frozen
+            self._qat_py_step += 1
+        return fn
 
     # ------------------------------------------------------------------
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
@@ -257,11 +430,11 @@ class KDQATTrainer:
                        * max(1, int(self.hp.get("epochs", 1))))
             lazy = planned < len(self.data["train_images"]) // 2
         self._ensure_teacher_logits(lazy=lazy)
-        step_fn = self.train_step_qat if self.qat_enabled else self.train_step_float
         device_metrics = []  # 0-d device tensors: no host sync until the epoch ends
         n_images = 0
         t0 = time.perf_counter()
-        for i, batch in enumerate(self.train_loader):
+        loader = progress(self.train_loader, self.hp, self.dist, epoch, limit_batches)
+        for i, batch in enumerate(loader):
             if limit_batches and i >= limit_batches:
                 break
             dev_batch = {
@@ -271,7 +444,7 @@ class KDQATTrainer:
             if self.cache_teacher:
                 dev_batch["teacher_logits"] = torch.from_numpy(
                     self._teacher_logits_for(batch)).to(self.device)
-            device_metrics.append(step_fn(self.state, dev_batch, self.loss_hp))
+            device_metrics.append(self.next_step_fn()(self.state, dev_batch, self.loss_hp))
             n_images += len(batch["label"])
         if not device_metrics:
             return {"imgs_per_sec": 0.0, "epoch_seconds": time.perf_counter() - t0,
@@ -302,7 +475,32 @@ class KDQATTrainer:
             correct.append(self.eval_step(module, {"image": self._to_device(batch["image"]),
                                                    "label": label}))
             total += len(batch["label"])
+        self.last_eval_batches = len(correct)
         return float(torch.stack(correct).sum()) / max(total, 1) if correct else 0.0
+
+    # ------------------------------------------------------------------
+    def save_resume_state(self, path: str, epoch: int) -> str:
+        """Full-state checkpoint for mid-run resume, in the JAX package's
+        tree (:func:`resume_tree`), so either package resumes it."""
+        return save_checkpoint(path, resume_tree(self.state, self.qat_enabled, epoch),
+                               {"epoch": epoch, "qat_enabled": self.qat_enabled,
+                                "kind": "resume-state"})
+
+    def load_resume_state(self, path: str) -> int:
+        """Restore a resume checkpoint (either package's); returns the epoch
+        to continue from. A checkpoint taken under QAT switches to QAT first.
+        ``epoch`` / ``qat_enabled`` come from the leaves inside the msgpack;
+        the JSON sidecar is a fallback for files without them."""
+        raw = load_checkpoint(path)
+        meta = load_metadata(path)
+        embedded = "epoch" in raw
+        qat_enabled = bool(int(np.asarray(raw["qat_enabled"])) if embedded
+                           else meta.get("qat_enabled", False))
+        epoch = int(np.asarray(raw["epoch"])) if embedded else int(meta.get("epoch", -1))
+        if qat_enabled:
+            self.enable_qat()
+        restore_resume_tree(self.state, raw, self.qat_enabled)
+        return epoch + 1
 
     def convert_int8(self) -> Dict[str, Any]:
         """Observer folding → the int8 export (CPU tensors)."""
@@ -323,3 +521,129 @@ class KDQATTrainer:
             correct += int((pred.predict(batch["image"]) == batch["label"]).sum())
             total += len(batch["label"])
         return correct / max(total, 1)
+
+
+# ---------------------------------------------------------------------------
+# the final-training entry point and the CLI
+# ---------------------------------------------------------------------------
+
+def train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The whole final-training run (the JAX package's ``train_main``):
+    ``effective_hparams.yaml``, a tracker run with every hyperparameter as a
+    param and the reference's metric names per epoch, the best-model rule
+    (``best_qat.msgpack``), the int8 export of the last epoch
+    (``best_converted.msgpack``), ``resume_state.msgpack`` every epoch, one
+    profiled QAT epoch with ``profile_dir``. Runs on ``device``; a CUDA
+    device must be present (pass ``device="cpu"`` for the CPU)."""
+    device = entry_device(device)
+    dist = get_dist_info()
+    output_dir = hp["output_dir"]
+    sysmetrics = None
+    if dist.is_main_process:
+        os.makedirs(output_dir, exist_ok=True)
+        save_effective_hparams(hp, output_dir)
+        tracker = make_tracker(hp["mlflow_uri"], hp["experiment"])
+        run = tracker.start_run("final_train")
+        run.log_params({k: hp[k] for k in DEFAULT_HPARAMS})
+        sysmetrics = enable_system_metrics_logging(run, device=device)
+    else:
+        run = NullRun()
+    barrier("dataset")
+
+    trainer = KDQATTrainer(hp, device=device, run=run)
+    best = BestCheckpointer(output_dir, "best_qat")
+    epochs = int(hp["epochs"])
+    qat_start = int(hp["qat_start_epoch"])
+    limit_train = int(hp.get("limit_train_batches", 0))
+    limit_eval = int(hp.get("limit_eval_batches", 0))
+    results = []
+    final_quant_acc = 0.0
+    start_epoch = 0
+    if hp.get("resume"):
+        start_epoch = trainer.load_resume_state(hp["resume"])
+        logger.info("resumed from %s at epoch %d", hp["resume"], start_epoch)
+
+    profiled = False
+    for epoch in range(start_epoch, epochs):
+        if epoch >= qat_start:
+            trainer.enable_qat()
+        if hp.get("profile_dir") and trainer.qat_enabled and not profiled:
+            # one QAT epoch under the profiler, cut to bound the trace
+            profiled = True
+            limit = limit_train or 20
+            if not limit_train:
+                logger.warning("profile_dir set: the profiled epoch is cut to %d batches", limit)
+            profiler = (trace(hp["profile_dir"], device=device) if dist.is_main_process
+                        else contextlib.nullcontext())
+            with profiler:
+                tm = trainer.train_epoch(epoch, limit_batches=limit)
+        else:
+            tm = trainer.train_epoch(epoch, limit_batches=limit_train)
+        barrier("epoch")
+        qat_acc = trainer.evaluate(limit_batches=limit_eval)
+        quant_acc = qat_acc  # the reference's alias until the last epoch
+        if epoch == epochs - 1 and trainer.qat_enabled:
+            qparams = trainer.convert_int8()
+            quant_acc = trainer.evaluate_int8(qparams, limit_batches=limit_eval)
+            final_quant_acc = quant_acc
+            if dist.is_main_process:
+                save_checkpoint(os.path.join(output_dir, "best_converted.msgpack"), qparams,
+                                {"epoch": epoch, "quant_acc": quant_acc,
+                                 "format": "int8-weights+qparams"})
+        if dist.is_main_process:
+            sd = trainer.state.module.state_dict()
+            best.maybe_save(
+                quant_acc,
+                {"params": state_dict_to_params(sd),
+                 "quant_stats": buffers_to_quant_stats(sd) if trainer.qat_enabled else {}},
+                {"epoch": epoch, "qat_acc": qat_acc, "qat_enabled": trainer.qat_enabled})
+            run.log_metrics({
+                "train_loss": tm.get("train_loss", 0.0),
+                "train_loss_ce": tm.get("train_loss_ce", 0.0),
+                "train_loss_kd": tm.get("train_loss_kd", 0.0),
+                "qat_acc": qat_acc,
+                "quant_acc": quant_acc,
+                "imgs_per_sec": tm["imgs_per_sec"],
+                "qat_enabled": float(trainer.qat_enabled),
+            }, step=epoch)
+            logger.info("epoch %d/%d loss %.4f qat_acc %.4f quant_acc %.4f (%.0f img/s)%s",
+                        epoch + 1, epochs, tm.get("train_loss", 0.0), qat_acc, quant_acc,
+                        tm["imgs_per_sec"], " [QAT]" if trainer.qat_enabled else "")
+        if dist.is_main_process and hp.get("save_resume_state", True):
+            trainer.save_resume_state(os.path.join(output_dir, "resume_state.msgpack"), epoch)
+        results.append(EpochResult(epoch, tm.get("train_loss", 0.0), qat_acc, quant_acc,
+                                   trainer.qat_enabled, tm["imgs_per_sec"],
+                                   eval_batches=trainer.last_eval_batches))
+        barrier("epoch_end")
+
+    if dist.is_main_process:
+        if sysmetrics is not None:
+            sysmetrics.stop()
+        run.log_metric("final_quant_acc", final_quant_acc)
+        for fname in ("effective_hparams.yaml", "best_qat.msgpack", "best_converted.msgpack"):
+            path = os.path.join(output_dir, fname)
+            if os.path.isfile(path):
+                run.log_artifact(path)
+        run.end("FINISHED")
+    return {"results": results, "best_acc": best.best_metric,
+            "final_quant_acc": final_quant_acc, "output_dir": output_dir}
+
+
+def main(argv=None, device="cuda") -> None:
+    """The training CLI: the JAX package's flags; ``--task detection`` runs
+    :func:`train.detect_trainer.detect_train_main`."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    parser = argparse.ArgumentParser(description="KD + QAT final training (PyTorch + CUDA)")
+    add_hparam_flags(parser)
+    hp = resolve_hparams(parser.parse_args(argv))
+    if hp.get("task") == "detection":
+        from qat_vit_tpu_torch.train.detect_trainer import detect_train_main
+
+        detect_train_main(hp, device=device)
+        return
+    train_main(hp, device=device)
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()

@@ -324,7 +324,9 @@ def _hp(**over):
 def test_trainer_weights_from_files(tmp_path, monkeypatch):
     """``teacher_ckpt`` (a timm ``.pth``) and ``student_ckpt`` (a msgpack
     holding ``params``, with a key missing and one extra) load what JAX's
-    ``load_model_params`` loads (the teacher cast to bf16); ``resume`` raises."""
+    ``load_model_params`` loads (the teacher cast to bf16); the trainer's
+    resume file reads back into a trainer built with ``resume``;
+    ``model_parallel`` > 1 raises."""
     from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
     from qat_vit_tpu_torch.train import trainer as tr
 
@@ -358,8 +360,14 @@ def test_trainer_weights_from_files(tmp_path, monkeypatch):
     want_s = jax_load_model_params(spath, jcfg, template=template)
     _same_tree(state_dict_to_params(t.student_float.state_dict()), want_s)
     np.testing.assert_array_equal(want_s["cls_token"], template["cls_token"])  # kept
-    with pytest.raises(NotImplementedError, match="resume"):
-        tr.KDQATTrainer(_hp(resume=spath), device="cpu", data=data)
+    # resume runs: the trainer's resume file read back by one built with it
+    rpath = t.save_resume_state(str(tmp_path / "resume_state.msgpack"), epoch=0)
+    t2 = tr.KDQATTrainer(_hp(resume=rpath), device="cpu", data=data)
+    assert t2.load_resume_state(t2.hp["resume"]) == 1 and not t2.qat_enabled
+    _same_tree(state_dict_to_params(t2.student_float.state_dict()),
+               state_dict_to_params(t.student_float.state_dict()))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tr.KDQATTrainer(_hp(model_parallel=2), device="cpu", data=data)
 
 
 def test_detect_trainer_overrides_and_teacher_ckpt(hf_micro, tmp_path):

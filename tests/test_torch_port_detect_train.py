@@ -13,6 +13,8 @@ Inputs are numpy, seeded, and go to both packages. The JAX attention kernels
 run in interpret mode (``QVT_ATTN_INTERPRET=1``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -180,7 +182,7 @@ def _det_batches(n=3, b=4):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("qat", [False, True])
+@pytest.mark.parametrize("qat", [False, True, "frozen", "stride2"])
 def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
     """3 steps of both packages' detection train steps (cached teacher, f32,
     fast_math on so that both take their long-sequence attention branch by
@@ -189,7 +191,16 @@ def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
     the port takes the JAX state (params, AdamW moments, observers), the
     chaos rule of ``test_train_step_f32_matches_jax``. Bounds as there: loss
     rtol 1e-5, clipped grads rtol 1e-4, params atol 1e-5, observers rtol
-    1e-4 (f32 summation order, f64 vs f32 softmax sums)."""
+    1e-4 (f32 summation order, f64 vs f32 softmax sums). ``"frozen"`` and
+    ``"stride2"`` as in ``test_train_step_f32_matches_jax``: the steps after
+    the first leave every observer buffer as it was in both packages (from
+    power-of-two scales, ``_pow2_scales``); the activation observers see
+    the first half of each batch, within rtol 1e-4 of JAX's and at some site
+    unlike the whole batch's."""
+    from tests.test_torch_port_train import _pow2_scales, _qconfigs
+
+    mode, qat = qat, qat is not False
+    jquant, tquant = _qconfigs(2 if mode == "stride2" else 1) if qat else (None, None)
     calls = []
 
     def spy(qkv, h, hd):
@@ -198,7 +209,7 @@ def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
 
     monkeypatch.setattr(port_vit, "long_attention_train", spy)
     kw = dict(pruned=True, qat_wrapper=qat, text_dim=TEXT_DIM, fast_math=True, **GEO)
-    jdet, jcfg = jax_create_detector(**kw)
+    jdet, jcfg = jax_create_detector(quant=jquant, **kw)
     x0 = jnp.zeros((1, 32, 32, 3), jnp.float32)
     q0 = jnp.zeros((1, QUERIES, TEXT_DIM), jnp.float32)
     params = nn.meta.unbox(jdet.init(jax.random.key(0), x0, q0, observe=False))["params"]
@@ -209,20 +220,24 @@ def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
                                  step=jnp.zeros((), jnp.int32))
     hp = {"kd_temperature": 4.0, "det_box_weight": 1.0, "det_obj_weight": 0.25}
     jhp = jax_detect_steps.detect_loss_hparams(hp)
-    jstep = jax_detect_steps.make_detect_train_step(None, jdet.apply, tx, qat=qat, image_size=32,
-                                                    donate=False)
+    jsteps = {obs: jax_detect_steps.make_detect_train_step(
+        None, jdet.apply, tx, qat=qat, image_size=32, donate=False, observe=obs)
+        for obs in (True, False)}
     from qat_vit_tpu.data.pipeline import preprocess_fn as jprep
 
-    @jax.jit
-    def jax_grads(st, batch):
+    @functools.partial(jax.jit, static_argnums=2)
+    def jax_grads(st, batch, observe):
         x = jprep(32)(batch["image"])
         t_out = {"logits": batch["t_logits"], "pred_boxes": batch["t_boxes"],
                  "objectness_logits": batch["t_obj"]}
 
         def loss_fn(p):
-            if qat:
+            if observe:
                 out, _ = jdet.apply({"params": p, "quant_stats": st.quant_stats}, x,
                                     batch["query_embeds"], observe=True, mutable=["quant_stats"])
+            elif qat:
+                out = jdet.apply({"params": p, "quant_stats": st.quant_stats}, x,
+                                 batch["query_embeds"], observe=False)
             else:
                 out = jdet.apply({"params": p}, x, batch["query_embeds"], observe=False)
             return jax_detect_steps.detection_kd_loss(out, t_out, temperature=4.0, box_weight=1.0,
@@ -230,24 +245,36 @@ def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
 
         return jax.grad(loss_fn)(st.params)
 
-    tdet, tcfg = create_detector(**kw)
+    tdet, tcfg = create_detector(quant=tquant, **kw)
     assert tcfg.fast_math and tcfg.attn_kernel and tcfg.dtype == torch.float32
     jax_params.load_jax_variables(tdet, jax.device_get(params))
     tstate = steps.TrainState(tdet, steps.make_optimizer(tdet.parameters(), LR, WD, CLIP))
-    tstep = detect_steps.make_detect_train_step(None, qat=qat, image_size=32)
+    tsteps = {obs: detect_steps.make_detect_train_step(None, qat=qat, image_size=32, observe=obs)
+              for obs in (True, False)}
     thp = detect_steps.detect_loss_hparams(hp)
 
-    for batch in _det_batches():
+    for i, batch in enumerate(_det_batches()):
+        observe = qat and not (mode == "frozen" and i > 0)
+        if qat and not observe:
+            state = _pow2_scales(state)
         _sync_to_jax(tdet, tstate.optimizer, state, qat)
+        stats_before = {k: v.clone() for k, v in tdet.state_dict().items() if k.endswith("_val")}
+        jstats_before = _leaves(jax.device_get(state.quant_stats)) if qat else {}
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        g = jax_grads(state, jb)
+        g = jax_grads(state, jb, observe)
         norm = float(jnp.sqrt(sum(jnp.sum(v * v) for v in jax.tree.leaves(g))))
         assert norm > CLIP  # clipping triggers
         want_g = jax_params.params_to_state_dict(jax.device_get(
             jax.tree.map(lambda v: v / norm * CLIP, g)))
-        state, jmetrics = jstep(state, None, jb, jhp)
+        if mode == "stride2" and i == 0:
+            whole_det, _ = jax_create_detector(**kw)
+            _, whole = whole_det.apply({"params": state.params, "quant_stats": state.quant_stats},
+                                       jprep(32)(jb["image"]), jb["query_embeds"], observe=True,
+                                       mutable=["quant_stats"])
+            whole = _leaves(jax.device_get(whole["quant_stats"]))
+        state, jmetrics = jsteps[observe](state, None, jb, jhp)
         n_calls = len(calls)
-        tmetrics = tstep(tstate, {k: torch.from_numpy(v) for k, v in batch.items()}, thp)
+        tmetrics = tsteps[observe](tstate, {k: torch.from_numpy(v) for k, v in batch.items()}, thp)
         assert len(calls) == n_calls + GEO["depth"]  # every block took the long branch
         for k in ("train_loss", "train_loss_kd", "train_loss_box", "train_loss_obj"):
             np.testing.assert_allclose(float(tmetrics[k]), float(jmetrics[k]), rtol=1e-5,
@@ -266,6 +293,13 @@ def test_detect_train_step_f32_matches_jax(interpret, monkeypatch, qat):
             assert j.keys() == t.keys() and len(j) == 2 * 25
             for k in j:
                 np.testing.assert_allclose(t[k], j[k], rtol=1e-4, atol=1e-6, err_msg=k)
+            if not observe:
+                for k, v in tdet.state_dict().items():
+                    if k.endswith("_val"):
+                        assert torch.equal(v, stats_before[k]), k
+                assert all(np.array_equal(j[k], jstats_before[k]) for k in j)
+            if mode == "stride2" and i == 0:
+                assert any(not np.allclose(j[k], whole[k], rtol=1e-4) for k in j)
     assert tstate.step == 3 and int(state.step) == 3
     assert calls[0] == (4, 17, 3 * GEO["embed_dim"])
 
@@ -321,8 +355,12 @@ def test_detect_trainer_phases(long_branch):
     ev = t.evaluate(limit_batches=1)
     assert np.isfinite(ev["box_err"]) and 0.0 <= ev["teacher_agreement"] <= 1.0
     assert la.long_attention_bwd.launches == launches  # the CPU never launches a kernel
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetectKDTrainer(_hp(observer_interval=4), device="cpu")
+    small = synthetic_cifar10(n_train=8, n_test=4)
+    t4 = DetectKDTrainer(_hp(observer_interval=4, observer_stride=2), device="cpu", data=small)
+    assert t4.train_step_qat_frozen is not None  # observer_interval runs
+    assert t4.student_qat_cfg.quant.activation.observe_stride == 2
+    with pytest.raises(NotImplementedError, match="item 11"):
+        DetectKDTrainer(_hp(model_parallel=2), device="cpu", data=small)
 
 
 def test_detect_trainer_teacher_cache(long_branch):

@@ -208,10 +208,11 @@ def test_serving_preset_gates():
 
 
 def test_port_imports_without_jax():
-    """The port never imports jax, flax or qat_vit_tpu (nor pyyaml, msgpack
-    or ml_dtypes, which the card's machine may lack: the port's checkpoints
-    go through its own msgpack codec), and importing it builds nothing and
-    does not initialize CUDA."""
+    """The port never imports jax, flax or qat_vit_tpu (nor pyyaml, msgpack,
+    ml_dtypes, tqdm or mlflow, which the card's machine lacks: the port's
+    checkpoints go through its own msgpack codec, its hyperparameter files
+    through its own flat-YAML reader and writer), and importing it builds
+    nothing and does not initialize CUDA."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -219,7 +220,9 @@ def test_port_imports_without_jax():
         sys.modules["yaml"] = None
         sys.modules["msgpack"] = None
         sys.modules["ml_dtypes"] = None
-        import importlib, pkgutil
+        sys.modules["tqdm"] = None
+        sys.modules["mlflow"] = None
+        import importlib, pkgutil, tempfile
         import qat_vit_tpu_torch
         for m in pkgutil.walk_packages(qat_vit_tpu_torch.__path__, "qat_vit_tpu_torch."):
             importlib.import_module(m.name)
@@ -229,10 +232,18 @@ def test_port_imports_without_jax():
         tree = {"w": torch.ones(2, 3, dtype=torch.bfloat16), "b": [1.5, None]}
         back = unpackb(packb(tree))
         assert torch.equal(back["w"], tree["w"]) and packb(back) == packb(tree)
+        from qat_vit_tpu_torch.train.config import (DEFAULT_HPARAMS, load_hparams,
+                                                    save_effective_hparams)
+        from qat_vit_tpu_torch.tracking import make_tracker, SqliteTracker
+        with tempfile.TemporaryDirectory() as d:
+            hp = {**DEFAULT_HPARAMS, "lr": 3.3e-4, "resume": ""}
+            assert load_hparams(save_effective_hparams(hp, d)) == hp
+            assert isinstance(make_tracker(f"sqlite:///{d}/m.db", "e"), SqliteTracker)
         assert _build._library is None
         assert not torch.cuda.is_initialized()
-        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "qat_vit_tpu",
-                                                              "msgpack", "ml_dtypes")
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "qat_vit_tpu", "yaml",
+                                                              "msgpack", "ml_dtypes", "tqdm",
+                                                              "mlflow")
                and sys.modules[m] is not None]
         assert not bad, bad
         print("ok")
