@@ -1,6 +1,6 @@
 """Input pipeline (port of ``qat_vit_tpu/data/pipeline.py``): the
-DistributedSampler-parity index shards (:func:`epoch_indices`), a
-single-process loader over in-memory arrays (:class:`ArrayLoader`), and
+DistributedSampler-parity index shards (:func:`epoch_indices`), a loader
+over in-memory arrays for one rank (:class:`ArrayLoader`), and
 on-device preprocessing (:func:`preprocess_fn`).
 
 Preprocessing:
@@ -53,17 +53,20 @@ def epoch_indices(
 
 @dataclasses.dataclass
 class ArrayLoader:
-    """Batches over in-memory arrays, in this process and on one rank: each
-    batch is one gather (``native_loader.gather_batch``: the native memcpy
-    loop where it compiled, else a numpy fancy-index; microseconds), so no
-    worker processes or prefetch thread are needed. Yields ``{"image",
-    "label", "index"}`` numpy arrays."""
+    """Batches over in-memory arrays for this process, of this rank's shard
+    (:func:`epoch_indices`): each batch is one gather
+    (``native_loader.gather_batch``: the native memcpy loop where it
+    compiled, else a numpy fancy-index; microseconds), so no worker
+    processes or prefetch thread are needed. Yields ``{"image", "label",
+    "index"}`` numpy arrays."""
 
     images: np.ndarray  # [N, 32, 32, 3] uint8
     labels: np.ndarray  # [N] int32
     batch_size: int
     shuffle: bool = True
     seed: int = 0
+    rank: int = 0
+    world_size: int = 1
     drop_last: bool = True
 
     def __post_init__(self):
@@ -75,6 +78,7 @@ class ArrayLoader:
 
     def _indices(self, epoch: int, shuffle: bool) -> np.ndarray:
         return epoch_indices(len(self.images), epoch=epoch, seed=self.seed, shuffle=shuffle,
+                             rank=self.rank, world_size=self.world_size,
                              drop_last=self.drop_last)
 
     def __len__(self) -> int:

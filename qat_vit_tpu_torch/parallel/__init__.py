@@ -1,6 +1,34 @@
-"""Parallelism: the distributed-runtime info of one process (data
-parallelism is ROADMAP.md Queue 1, item 5)."""
+"""Parallelism: data parallelism over ``torch.distributed`` ranks, the rank
+helpers, and the devices of a data-parallel predictor (``parallel/mesh.py``)."""
 
-from qat_vit_tpu_torch.parallel.mesh import DistInfo, barrier, get_dist_info, is_main_process
+from qat_vit_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    DistInfo,
+    Mesh,
+    all_reduce_minmax,
+    barrier,
+    cleanup_distributed,
+    get_dist_info,
+    is_distributed,
+    is_main_process,
+    make_mesh,
+    pick_free_port,
+    setup_distributed,
+)
 
-__all__ = ["DistInfo", "barrier", "get_dist_info", "is_main_process"]
+__all__ = [
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "DistInfo",
+    "Mesh",
+    "all_reduce_minmax",
+    "barrier",
+    "cleanup_distributed",
+    "get_dist_info",
+    "is_distributed",
+    "is_main_process",
+    "make_mesh",
+    "pick_free_port",
+    "setup_distributed",
+]

@@ -78,6 +78,7 @@ def fused_moving_avg_obs_fake_quant(
     observe: bool,
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT,
     stride: int = 1,
+    axis_name=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One ``FusedMovingAvgObsFakeQuantize`` step: observe (when
     ``observe``), derive train-time qparams from the updated state, then
@@ -87,7 +88,8 @@ def fused_moving_avg_obs_fake_quant(
     still infinite passes ``x`` through unchanged."""
     new_min, new_max, scale, zero_point = observe_and_qparams(
         x, min_val, max_val, symmetric=symmetric, quant_min=quant_min, quant_max=quant_max,
-        observe=observe, averaging_constant=averaging_constant, stride=stride)
+        observe=observe, averaging_constant=averaging_constant, stride=stride,
+        axis_name=axis_name)
     y = fake_quantize(x, scale, zero_point, quant_min, quant_max)
     if not observe:
         y = torch.where(torch.isinf(new_min), x, y)
@@ -105,6 +107,7 @@ def observe_and_qparams(
     observe: bool,
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT,
     stride: int = 1,
+    axis_name=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Observer update + qparams WITHOUT applying the fake-quant: exactly the
     ``(scale, zero_point)`` :func:`fused_moving_avg_obs_fake_quant` would
@@ -114,7 +117,7 @@ def observe_and_qparams(
     with torch.no_grad():
         if observe:
             new_min, new_max = update_moving_avg_minmax(min_val, max_val, x, averaging_constant,
-                                                        stride)
+                                                        stride, axis_name)
         else:
             new_min, new_max = min_val, max_val
         qparams = qparams_fused_symmetric if symmetric else qparams_fused_affine

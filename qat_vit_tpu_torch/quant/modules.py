@@ -34,6 +34,7 @@ class FakeQuantizer(nn.Module):
                 observe=observe,
                 averaging_constant=self.cfg.averaging_constant,
                 stride=self.cfg.observe_stride,
+                axis_name=self.cfg.axis_name,
             )
             self._store(observe, new_min, new_max)
             return x, scale, zero_point
@@ -47,6 +48,7 @@ class FakeQuantizer(nn.Module):
             observe=observe,
             averaging_constant=self.cfg.averaging_constant,
             stride=self.cfg.observe_stride,
+            axis_name=self.cfg.axis_name,
         )
         self._store(observe, new_min, new_max)
         return y

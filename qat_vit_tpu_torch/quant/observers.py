@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from qat_vit_tpu_torch.parallel.mesh import all_reduce_minmax
+
 FLOAT32_EPS = 1.1920928955078125e-07
 SMALL_SCALE_THRESHOLD = 6.0999998822808266e-05
 DEFAULT_AVERAGING_CONSTANT = 0.01
@@ -38,19 +40,27 @@ def update_moving_avg_minmax(
     x: torch.Tensor,
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT,
     stride: int = 1,
+    axis_name=None,
 ) -> Pair:
     """One observer step: EMA of the batch min/max, direct init on the first
     call (``state_min`` infinite). Returns the new ``(min, max)``.
 
     ``stride`` > 1 (an opt-in approximation, ``observer_stride``): observe
     only the contiguous prefix ``x[: max(1, len // stride)]`` of the leading
-    axis, the batch axis at every site of the models."""
+    axis, the batch axis at every site of the models (of this rank's shard,
+    under data parallelism).
+
+    ``axis_name`` (data parallelism): the shard's min/max are reduced to the
+    global batch's over every rank before the EMA, exactly
+    (``parallel.mesh.all_reduce_minmax``)."""
     if stride > 1 and x.shape[0] > 1:
         x = x[: max(1, x.shape[0] // stride)]
     # min/max are order statistics: reducing in the input dtype is exact
     batch_min, batch_max = torch.aminmax(x.detach())
     batch_min = batch_min.to(torch.float32)
     batch_max = batch_max.to(torch.float32)
+    if axis_name is not None:
+        batch_min, batch_max = all_reduce_minmax(batch_min, batch_max)
     c = _f32(averaging_constant, batch_min)
     uninit = torch.isinf(state_min)
     new_min = torch.where(uninit, batch_min, state_min + c * (batch_min - state_min))

@@ -8,6 +8,8 @@ observers differ (no identity-until-observed, scale 1 before calibration).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 from qat_vit_tpu_torch.quant.observers import DEFAULT_AVERAGING_CONSTANT
 
 
@@ -19,6 +21,12 @@ class FakeQuantConfig:
     quant_max: int
     symmetric: bool
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT
+    # reduce the batch min/max over the data-parallel process group before
+    # the EMA (``parallel.mesh.all_reduce_minmax``, JAX's pmin/pmax over
+    # this axis): the trainer sets DATA_AXIS on activation observers when it
+    # runs in a process group; None for one process and for weight
+    # observers (every rank holds the same weights)
+    axis_name: Optional[str] = None
     # observe only the first 1/observe_stride of the leading (batch) axis, a
     # contiguous prefix (:func:`observers.update_moving_avg_minmax`); the
     # trainer sets it on activation observers from ``observer_stride``

@@ -1,14 +1,20 @@
-"""Batched int8 serving on one device: raw uint8 images in, logits/labels
-out (port of ``qat_vit_tpu/serve/predictor.py``).
+"""Batched int8 serving on one device, or data-parallel over several in
+one process: raw uint8 images in, logits/labels out (port of
+``qat_vit_tpu/serve/predictor.py``).
 
 Preprocessing (bicubic resize + normalize) runs on the device, so the host
 → device copy carries uint8 pixels only. Batches are padded to
-``batch_size`` so every call sees one shape. :meth:`Int8Predictor.from_checkpoint`
-serves an int8 export from its msgpack file (either package's).
+``batch_size`` so every call sees one shape. With ``mesh=`` (``parallel.
+make_mesh``) each device holds a replica of the export; a batch is split
+into equal contiguous shards, one per device, with no collective in the
+forward, and the logits are concatenated in order (JAX's ``shard_map``
+over the mesh). :meth:`Int8Predictor.from_checkpoint` serves an int8 export
+from its msgpack file (either package's).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Iterator, Optional, Union
 
@@ -24,7 +30,7 @@ from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint
 
 @dataclasses.dataclass
 class Int8Predictor:
-    """Predictor over an int8 export on one device.
+    """Predictor over an int8 export on one device (or a mesh of them).
 
     >>> pred = Int8Predictor(export, cfg, device="cuda")
     >>> pred = Int8Predictor.from_checkpoint("best_converted.msgpack", cfg)
@@ -43,18 +49,20 @@ class Int8Predictor:
     use_pallas: Optional[bool] = None
     fused: Optional[Union[str, bool]] = None
     attn_impl: Optional[str] = None
-    # data-parallel serving over several devices comes with the DDP slice
+    # data-parallel serving (``parallel.make_mesh``): a replica of the export
+    # on each of the mesh's devices, which then replace ``device``;
+    # ``batch_size`` must divide by their count
     mesh: Optional[Any] = None
     # the card unless the caller asks for the CPU; no fallback
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving (mesh) is not ported yet: ROADMAP.md Queue 1, item 5"
-            )
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        devices = list(self.mesh.devices) if self.mesh is not None else [self.device]
+        if self.batch_size % len(devices):
+            raise ValueError(f"batch_size {self.batch_size} not divisible by the "
+                             f"{len(devices)}-device serving mesh")
+        self.device = torch.device(devices[0])
+        if any(torch.device(d).type == "cuda" for d in devices) and not torch.cuda.is_available():
             raise RuntimeError("Int8Predictor: no CUDA device; pass device='cpu' to serve on "
                                "the CPU")
         opts: Dict[str, Any] = {"attn_dtype": torch.bfloat16, "compute_dtype": torch.bfloat16}
@@ -69,8 +77,9 @@ class Int8Predictor:
                 opts[key] = getattr(self, key)
         self.options = opts
         self._fwd = make_int8_forward(self.cfg, **opts)
-        self.qparams = export_to_device(self.qparams, self.device)
-        self._prep = preprocess_fn(self.cfg.image_size, device=self.device)
+        self._replicas = [(torch.device(d), export_to_device(self.qparams, d),
+                           preprocess_fn(self.cfg.image_size, device=d)) for d in devices]
+        self.qparams = self._replicas[0][1]
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: ViTConfig, device: Any = "cuda",
@@ -82,10 +91,20 @@ class Int8Predictor:
                    **kw)
 
     def _forward(self, images_u8: np.ndarray) -> torch.Tensor:
+        """Logits of one padded batch on ``device``: each replica takes its
+        contiguous shard (every launch queued before any result is read)."""
         batch = torch.from_numpy(np.ascontiguousarray(images_u8))
         if self.device.type == "cuda":
             batch = batch.pin_memory()
-        return self._fwd(self.qparams, self._prep(batch))
+        if len(self._replicas) == 1:
+            _, qparams, prep = self._replicas[0]
+            return self._fwd(qparams, prep(batch))
+        outs = []
+        for (dev, qparams, prep), shard in zip(self._replicas, batch.chunk(len(self._replicas))):
+            on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with on_card:
+                outs.append(self._fwd(qparams, prep(shard)))
+        return torch.cat([o.to(self.device) for o in outs])
 
     def _padded(self, chunk: np.ndarray):
         pad = self.batch_size - len(chunk)

@@ -399,4 +399,5 @@ def save_effective_hparams(hp: Dict[str, Any], output_dir: str) -> str:
     path = os.path.join(output_dir, "effective_hparams.yaml")
     with open(path, "w") as f:
         f.write(dump_flat_yaml(hp))
+    logger.info("wrote %s", path)
     return path

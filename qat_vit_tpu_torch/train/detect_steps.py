@@ -14,8 +14,10 @@ The tower trains under the classification fake-quant machinery (observers
 updated in the step, the phase switch, convert through
 ``serve/int8_detect.py``); the heads stay float. As in ``train/steps.py``
 the step updates the module, the optimizer and the observers in place and
-returns its metrics as 0-d device tensors. One device: the JAX step's
-``shard_map`` data parallelism waits (ROADMAP.md Queue 1, item 5).
+returns its metrics as 0-d device tensors. Data parallelism as there: in a
+process group the state's ``replica`` (DDP) averages the gradients over the
+ranks, the activation observers reduce over them, and a QAT step without
+the observers' axis raises in a world > 1.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from qat_vit_tpu_torch.data.pipeline import preprocess_fn
-from qat_vit_tpu_torch.train.steps import TrainState
+from qat_vit_tpu_torch.train.steps import TrainState, check_observer_axis
 
 
 def detection_kd_loss(
@@ -82,6 +84,8 @@ def make_detect_train_step(teacher: Optional[nn.Module], *, qat: bool, image_siz
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              loss_hp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if qat:
+            check_observer_axis(state.module)
         x = prep(batch["image"])
         q = batch["query_embeds"]
         if teacher is None:
@@ -90,7 +94,7 @@ def make_detect_train_step(teacher: Optional[nn.Module], *, qat: bool, image_siz
         else:
             with torch.no_grad():
                 t_out = teacher(x, q, observe=False)
-        s_out = state.module(x, q, observe=qat and observe)
+        s_out = state.net(x, q, observe=qat and observe)
         loss, metrics = detection_kd_loss(s_out, t_out, temperature=loss_hp["temperature"],
                                           box_weight=loss_hp["box_weight"],
                                           obj_weight=loss_hp["obj_weight"])

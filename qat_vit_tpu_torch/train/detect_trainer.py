@@ -1,5 +1,5 @@
-"""Detection KD + QAT trainer on one device: distil a teacher OWLv2 detector
-into a pruned, QAT-armed student detector (port of
+"""Detection KD + QAT trainer, one device per process: distil a teacher
+OWLv2 detector into a pruned, QAT-armed student detector (port of
 ``qat_vit_tpu/train/detect_trainer.py``).
 
 The classification trainer's phase machine (float phase → QAT switch with
@@ -26,9 +26,13 @@ checkpoint); ``student=`` / ``teacher=`` take built models in place of the
 registry's. ``observer_interval``, ``observer_stride`` and resume work as in
 classification (``train/trainer.py``, whose resume code this trainer
 shares); :func:`detect_train_main` is the whole run behind the CLI's
-``--task detection``. Not ported, as for classification: model
-parallelism (ROADMAP.md Queue 1, item 11) and a world of more than one
-process (item 5) raise.
+``--task detection``. Data parallelism as in classification: under
+``torchrun`` each rank trains its shard ``rank::world`` at ``batch_size``
+per process through a DDP replica, the activation observers reduce over
+the ranks and the epoch's metrics are averaged; the teacher-relative eval
+runs over the whole set on every rank, as the JAX trainer's
+``_padded_eval_batches`` (which has no rank shard). Not ported, as for
+classification: model parallelism (ROADMAP.md Queue 1, item 11) raises.
 """
 
 from __future__ import annotations
@@ -62,10 +66,12 @@ from qat_vit_tpu_torch.train.detect_steps import (
     make_detect_eval_step,
     make_detect_train_step,
 )
-from qat_vit_tpu_torch.train.steps import TrainState, init_quant_stats
+from qat_vit_tpu_torch.train.steps import TrainState, data_parallel, init_quant_stats
 from qat_vit_tpu_torch.train.trainer import (
     KDQATTrainer,
     entry_device,
+    epoch_metrics,
+    log_epoch,
     progress,
     refuse_unported,
     student_qconfig,
@@ -90,7 +96,8 @@ def _freeze_teacher(module: Owlv2Detector, device) -> Owlv2Detector:
 
 
 class DetectKDTrainer:
-    """The detection KD + QAT engine on one device (``device`` is required)."""
+    """The detection KD + QAT engine on this process's device (``device``
+    is required); in a process group every rank builds one."""
 
     # the classification trainer's parameter hand-over, optimizer, host copy,
     # step choice and resume files (the two states have one structure)
@@ -162,7 +169,8 @@ class DetectKDTrainer:
 
         # ---- optimizer + state ----
         self.state = TrainState(self.student_float,
-                                self._optimizer(self.student_float, float(self.hp["lr"])))
+                                self._optimizer(self.student_float, float(self.hp["lr"])),
+                                replica=data_parallel(self.student_float))
         self.qat_enabled = False
         self.loss_hp = detect_loss_hparams(self.hp, self.device)
 
@@ -196,7 +204,8 @@ class DetectKDTrainer:
         self.eval_batch_size = int(self.hp.get("eval_batch_size", 64))
         self.train_loader = ArrayLoader(data["train_images"], data["train_labels"],
                                         batch_size=int(self.hp["batch_size"]), shuffle=True,
-                                        seed=seed, drop_last=True)
+                                        seed=seed, rank=self.dist.rank,
+                                        world_size=self.dist.world_size, drop_last=True)
         self.eval_loader = ArrayLoader(data["test_images"], data["test_labels"],
                                        batch_size=self.eval_batch_size, shuffle=False,
                                        drop_last=False)
@@ -212,7 +221,7 @@ class DetectKDTrainer:
         init_quant_stats(self.student_qat)
         lr = float(self.hp["lr"]) * float(self.hp.get("qat_lr_scale", 0.5))
         self.state = TrainState(self.student_qat, self._optimizer(self.student_qat, lr),
-                                self.state.step)
+                                self.state.step, replica=data_parallel(self.student_qat))
         self.qat_enabled = True
         self._qat_py_step = 0  # the first QAT step observes (the ±inf markers)
         logger.info("detection QAT enabled (lr -> %.3g)", lr)
@@ -269,7 +278,7 @@ class DetectKDTrainer:
         self.train_loader.set_epoch(epoch)
         lazy = False
         if limit_batches:
-            planned = (limit_batches * int(self.hp["batch_size"])
+            planned = (limit_batches * int(self.hp["batch_size"]) * self.dist.world_size
                        * max(1, int(self.hp.get("epochs", 1))))
             lazy = planned < len(self.data["train_images"]) // 2
         self._ensure_teacher_outputs(lazy=lazy)
@@ -287,18 +296,8 @@ class DetectKDTrainer:
                 for k, v in self._teacher_outputs_for(batch).items():
                     dev_batch[k] = torch.from_numpy(v).to(self.device)
             device_metrics.append(self.next_step_fn()(self.state, dev_batch, self.loss_hp))
-            n_images += n
-        if not device_metrics:
-            return {"imgs_per_sec": 0.0, "epoch_seconds": time.perf_counter() - t0,
-                    "n_batches": 0}
-        stacked = {k: torch.stack([m[k] for m in device_metrics]).cpu()  # waits for the device
-                   for k in device_metrics[0]}
-        dt = time.perf_counter() - t0
-        out = {k: float(v.to(torch.float64).mean()) for k, v in stacked.items()}
-        out["imgs_per_sec"] = n_images / max(dt, 1e-9)
-        out["epoch_seconds"] = dt
-        out["n_batches"] = len(device_metrics)
-        return out
+            n_images += n * self.dist.world_size
+        return epoch_metrics(device_metrics, n_images, t0)
 
     # ------------------------------------------------------------------
     def _padded_eval_batches(self, limit_batches: int = 0):
@@ -362,14 +361,15 @@ class DetectKDTrainer:
         return {"int8_box_err": box, "int8_top_box_agreement": agree}
 
 
-def detect_train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+def detect_train_main(hp: Dict[str, Any], device="cuda", **trainer_kw) -> Dict[str, Any]:
     """The whole detection run behind ``--task detection`` (the JAX
     package's ``detect_train_main``): ``effective_hparams.yaml``, a tracker
     run, the best-model rule on teacher agreement (``best_qat_detector``),
     the int8 export of the last epoch (``best_converted_detector.msgpack``)
     with its metrics logged at the end, ``resume_state.msgpack`` every
     epoch. A CUDA ``device`` must be present (pass ``device="cpu"`` for the
-    CPU)."""
+    CPU); ``trainer_kw`` (``data``, ``student``, ``teacher``) go to the
+    trainer. In a process group every rank calls it, as ``train_main``."""
     device = entry_device(device)
     dist = get_dist_info()
     output_dir = hp["output_dir"]
@@ -383,7 +383,7 @@ def detect_train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         run = NullRun()
     barrier("dataset")
 
-    trainer = DetectKDTrainer(hp, device=device, run=run)
+    trainer = DetectKDTrainer(hp, device=device, run=run, **trainer_kw)
     best = BestCheckpointer(output_dir, "best_qat_detector")
     epochs = int(hp["epochs"])
     qat_start = int(hp["qat_start_epoch"])
@@ -426,6 +426,7 @@ def detect_train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
                 {"params": state_dict_to_params(sd),
                  "quant_stats": buffers_to_quant_stats(sd) if trainer.qat_enabled else {}},
                 {"epoch": epoch, **ev, "qat_enabled": trainer.qat_enabled})
+        log_epoch(dist, epoch, tm, ev)
         if dist.is_main_process and hp.get("save_resume_state", True):
             trainer.save_resume_state(os.path.join(output_dir, "resume_state.msgpack"), epoch)
         results.append({"epoch": epoch, **tm, **ev, "qat_enabled": trainer.qat_enabled})

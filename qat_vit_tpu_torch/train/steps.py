@@ -12,6 +12,16 @@ The reference's hot loop (teacher no-grad forward, student forward,
   kernel A without the in-kernel fake-quant, as the JAX module does when it
   does not observe.
 
+Data parallelism (the JAX step's ``shard_map`` over the data axis): in a
+process group each rank runs the step on its own batch shard through a
+``DistributedDataParallel`` wrapper of the student (:func:`data_parallel`,
+``TrainState.replica``), so the gradients are averaged over the ranks during
+the backward, before clip → AdamW; the activation observers reduce their
+min/max over the ranks themselves (``FakeQuantConfig.axis_name``), which is
+why DDP broadcasts no buffers. A QAT step whose activation observers lack
+the axis raises in a world > 1 (:func:`check_observer_axis`), as JAX's
+does: it would train on per-rank statistics.
+
 PyTorch runs eagerly, so there is nothing to compile or donate: where the
 JAX step returns a new donated state, this one updates in place: the
 backward writes ``.grad``, the optimizer rewrites parameters and moments,
@@ -28,6 +38,7 @@ import torch
 from torch import nn
 
 from qat_vit_tpu_torch.data.pipeline import preprocess_fn
+from qat_vit_tpu_torch.parallel.mesh import DATA_AXIS, is_distributed, world_size
 from qat_vit_tpu_torch.quant.modules import FakeQuantizer
 from qat_vit_tpu_torch.train.losses import kd_loss, top1_correct
 
@@ -53,6 +64,9 @@ class ClipAdamW:
                  grad_clip_norm: float = 1.0):
         self.params = [p for p in params if p.requires_grad]
         self.max_norm = float(grad_clip_norm)
+        # the global gradient norm before the last step's clip (a 0-d device
+        # tensor; the gradients averaged over the ranks in a process group)
+        self.last_grad_norm: Optional[torch.Tensor] = None
         self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
 
@@ -67,7 +81,7 @@ class ClipAdamW:
     def step(self) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
         if grads:
-            clip_by_global_norm_(grads, self.max_norm)
+            self.last_grad_norm = clip_by_global_norm_(grads, self.max_norm)
         self.adamw.step()
 
 
@@ -93,11 +107,51 @@ def set_optimizer_hyperparams(optimizer: ClipAdamW, **values) -> ClipAdamW:
 @dataclasses.dataclass
 class TrainState:
     """The student module (parameters and observer buffers), its optimizer
-    and the step counter; all three change in place."""
+    and the step counter; all three change in place. ``replica`` is the
+    module's ``DistributedDataParallel`` wrapper in a process group, the
+    module the step calls; ``module`` stays the bare one (its state dict,
+    the optimizer's parameters and every file carry no ``module.`` prefix)."""
 
     module: nn.Module
     optimizer: ClipAdamW
     step: int = 0
+    replica: Optional[nn.Module] = None
+
+    @property
+    def net(self) -> nn.Module:
+        """The module a train step calls."""
+        return self.replica if self.replica is not None else self.module
+
+
+def data_parallel(module: nn.Module) -> Optional[nn.Module]:
+    """``module`` wrapped in ``DistributedDataParallel`` when this process
+    is in a process group (None otherwise): gradients averaged over the
+    ranks in the backward; no buffer broadcast (the observers reduce their
+    own statistics, and rank 0's must not overwrite them). The wrapper
+    syncs the parameters from rank 0 once, here; every rank must call it."""
+    if not is_distributed():
+        return None
+    from torch.nn.parallel import DistributedDataParallel
+
+    device = next(module.parameters()).device
+    return DistributedDataParallel(
+        module, device_ids=[device] if device.type == "cuda" else None,
+        broadcast_buffers=False)
+
+
+def check_observer_axis(module: nn.Module) -> None:
+    """Raise when a QAT step in a world > 1 would observe per-rank
+    statistics: every activation observer must reduce over ``DATA_AXIS``
+    (JAX's guard in ``make_train_step(mesh=...)``)."""
+    if world_size() == 1:
+        return
+    quant = getattr(getattr(module, "cfg", None), "quant", None)
+    axis = quant.activation.axis_name if quant is not None else None
+    if axis != DATA_AXIS:
+        raise ValueError(
+            f"QAT train step in a world of {world_size()} ranks, but the activation observers "
+            f"have axis_name={axis!r}; set FakeQuantConfig.axis_name={DATA_AXIS!r} or the "
+            "observer statistics lose their global-batch semantics")
 
 
 def loss_hparams(hparams: Dict, device=None) -> Dict[str, torch.Tensor]:
@@ -118,11 +172,16 @@ def make_train_step(teacher: Optional[nn.Module], *, qat: bool, image_size: int,
     ``teacher_logits``; otherwise the frozen ``teacher`` runs on every step
     under ``no_grad``. Preprocessing runs inside the step, on the device.
     ``observe=False`` with ``qat`` fake-quantizes from the frozen statistics.
+    In a process group the batch is this rank's shard and the state's
+    ``replica`` averages the gradients; the metrics stay this rank's (the
+    trainer averages them once an epoch).
     """
     prep = preprocess_fn(image_size)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              loss_hp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if qat:
+            check_observer_axis(state.module)
         x = prep(batch["image"])
         labels = batch["label"]
         if teacher is None:
@@ -130,7 +189,7 @@ def make_train_step(teacher: Optional[nn.Module], *, qat: bool, image_size: int,
         else:
             with torch.no_grad():
                 t_logits = teacher(x, observe=False).to(torch.float32)
-        s_logits = state.module(x, observe=qat and observe)
+        s_logits = state.net(x, observe=qat and observe)
         loss, metrics = kd_loss(s_logits, t_logits, labels, alpha=loss_hp["alpha"],
                                 temperature=loss_hp["temperature"],
                                 label_smoothing=loss_hp["label_smoothing"])

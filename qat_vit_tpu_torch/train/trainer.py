@@ -1,5 +1,5 @@
-"""KD + QAT trainer on one device, and the final-training entry point
-(port of ``qat_vit_tpu/train/trainer.py``).
+"""KD + QAT trainer, one device per process, and the final-training entry
+point (port of ``qat_vit_tpu/train/trainer.py``).
 
 A frozen ViT-B teacher distils into a ViT-S student on CIFAR-10 with
 α·KL·T² + (1−α)·CE(label smoothing), AdamW + clip(1.0); at
@@ -32,8 +32,18 @@ the JAX package's resume tree, so a run resumes in either package.
 :func:`train_main` is the whole run (tracking, the best-model rule, the
 int8 export, resume files, an optional profiled epoch); :func:`main` is the
 CLI, ``python -m qat_vit_tpu_torch.train.trainer`` with the JAX package's
-flags. Not ported: tensor parallelism (``model_parallel`` > 1, ROADMAP.md
-Queue 1, item 11) and a world of more than one process (item 5) raise.
+flags.
+
+Data parallelism, as the JAX trainer's ``shard_map`` step: under
+``torchrun`` each rank runs one process on one device
+(``parallel.setup_distributed``), takes its own shard ``rank::world`` of
+the same seeded shuffle at ``batch_size`` per process, and steps through a
+DDP replica (gradients averaged before clip → AdamW); the activation
+observers reduce their min/max over the ranks; the epoch's metrics are
+averaged over the ranks with one all-reduce; eval takes the strided shard
+``rank::world`` and sums the correct counts. Every rank trains, evaluates
+and converts; rank 0 alone writes files and tracks. Not ported: tensor
+parallelism (``model_parallel`` > 1, ROADMAP.md Queue 1, item 11) raises.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -61,7 +72,16 @@ from qat_vit_tpu_torch.models.jax_params import (
 from qat_vit_tpu_torch.models.registry import ModelBundle, create_student, create_teacher
 from qat_vit_tpu_torch.models.torch_convert import load_torch_state_dict, timm_vit_to_params
 from qat_vit_tpu_torch.models.vit import VisionTransformer
-from qat_vit_tpu_torch.parallel import barrier, get_dist_info
+from qat_vit_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_reduce_mean,
+    all_reduce_sum,
+    barrier,
+    cleanup_distributed,
+    get_dist_info,
+    is_distributed,
+    setup_distributed,
+)
 from qat_vit_tpu_torch.quant.qconfig import QConfig, default_qat_qconfig
 from qat_vit_tpu_torch.serve.int8_vit import convert_vit
 from qat_vit_tpu_torch.serve.predictor import Int8Predictor
@@ -74,6 +94,7 @@ from qat_vit_tpu_torch.train.config import (
 )
 from qat_vit_tpu_torch.train.steps import (
     TrainState,
+    data_parallel,
     init_quant_stats,
     loss_hparams,
     make_eval_step,
@@ -102,12 +123,19 @@ def refuse_unported(hp: Dict[str, Any]) -> None:
 
 def student_qconfig(hp: Dict[str, Any]) -> QConfig:
     """The QAT student's qconfig: ``qat_backend``'s, with ``observer_stride``
-    on the activation observers (weight observers stay exact)."""
+    on the activation observers (weight observers stay exact) and, in a
+    process group, the data axis on them: their min/max reduce over the
+    ranks (weights are the same on every rank and take no collective)."""
     qconfig = default_qat_qconfig(hp.get("qat_backend", "qnnpack"))
+    act = {}
     stride = max(1, int(hp.get("observer_stride", 1)))
     if stride > 1:
+        act["observe_stride"] = stride
+    if is_distributed():
+        act["axis_name"] = DATA_AXIS
+    if act:
         qconfig = dataclasses.replace(
-            qconfig, activation=dataclasses.replace(qconfig.activation, observe_stride=stride))
+            qconfig, activation=dataclasses.replace(qconfig.activation, **act))
     return qconfig
 
 
@@ -241,8 +269,10 @@ class EpochResult:
 
 
 class KDQATTrainer:
-    """The KD + QAT engine on one device (``device`` is required: nothing
-    moves to another device on its own)."""
+    """The KD + QAT engine on this process's device (``device`` is
+    required: nothing moves to another device on its own). In a process
+    group every rank builds one and enters each of its collectives (DDP's
+    wrap and backward, the observers, the epoch's metrics, eval)."""
 
     def __init__(
         self,
@@ -301,7 +331,8 @@ class KDQATTrainer:
 
         # ---- optimizer + state ----
         self.state = TrainState(self.student_float,
-                                self._optimizer(self.student_float, float(self.hp["lr"])))
+                                self._optimizer(self.student_float, float(self.hp["lr"])),
+                                replica=data_parallel(self.student_float))
         self.qat_enabled = False
         self.loss_hp = loss_hparams(self.hp, self.device)
         self.last_eval_batches = 0
@@ -330,9 +361,11 @@ class KDQATTrainer:
             if source == "synthetic":
                 self.run.set_tag("data_source", "synthetic")
         self.data = data
+        # batch_size is per process: each rank its shard of the same shuffle
         self.train_loader = ArrayLoader(data["train_images"], data["train_labels"],
                                         batch_size=int(self.hp["batch_size"]), shuffle=True,
-                                        seed=seed, drop_last=True)
+                                        seed=seed, rank=self.dist.rank,
+                                        world_size=self.dist.world_size, drop_last=True)
         self.eval_loader = ArrayLoader(data["test_images"], data["test_labels"],
                                        batch_size=int(self.hp.get("eval_batch_size", 512)),
                                        shuffle=False, drop_last=False)
@@ -365,7 +398,7 @@ class KDQATTrainer:
         init_quant_stats(self.student_qat)
         lr = float(self.hp["lr"]) * float(self.hp.get("qat_lr_scale", 0.5))
         self.state = TrainState(self.student_qat, self._optimizer(self.student_qat, lr),
-                                self.state.step)
+                                self.state.step, replica=data_parallel(self.student_qat))
         self.qat_enabled = True
         self._qat_py_step = 0  # the first QAT step observes (the ±inf markers)
         logger.info("QAT enabled (lr -> %.3g)", lr)
@@ -426,7 +459,7 @@ class KDQATTrainer:
         self.train_loader.set_epoch(epoch)
         lazy = False
         if limit_batches:
-            planned = (limit_batches * int(self.hp["batch_size"])
+            planned = (limit_batches * int(self.hp["batch_size"]) * self.dist.world_size
                        * max(1, int(self.hp.get("epochs", 1))))
             lazy = planned < len(self.data["train_images"]) // 2
         self._ensure_teacher_logits(lazy=lazy)
@@ -445,38 +478,56 @@ class KDQATTrainer:
                 dev_batch["teacher_logits"] = torch.from_numpy(
                     self._teacher_logits_for(batch)).to(self.device)
             device_metrics.append(self.next_step_fn()(self.state, dev_batch, self.loss_hp))
-            n_images += len(batch["label"])
-        if not device_metrics:
-            return {"imgs_per_sec": 0.0, "epoch_seconds": time.perf_counter() - t0,
-                    "n_batches": 0}
-        stacked = {k: torch.stack([m[k] for m in device_metrics]).cpu()  # waits for the device
-                   for k in device_metrics[0]}
-        dt = time.perf_counter() - t0
-        out = {k: float(v.to(torch.float64).mean()) for k, v in stacked.items()}
-        out["imgs_per_sec"] = n_images / max(dt, 1e-9)
-        out["epoch_seconds"] = dt
-        out["n_batches"] = len(device_metrics)
-        return out
+            n_images += len(batch["label"]) * self.dist.world_size
+        return epoch_metrics(device_metrics, n_images, t0)
 
     # ------------------------------------------------------------------
     def _eval_batches(self, limit_batches: int):
-        for i, batch in enumerate(self.eval_loader):
+        """``(batch, n_real)`` over the test set: in one process the loader
+        over the whole set, and ``n_real`` its rows; in a world > 1 this
+        rank's strided shard ``rank::world`` (the JAX trainer's
+        ``_eval_shard_batches``), every rank padded to the same batch count
+        and batch size (label -1: never an argmax), and ``n_real`` the real
+        rows of the *global* batch, from the shard arithmetic."""
+        world = self.dist.world_size
+        if world == 1:
+            for i, batch in enumerate(self.eval_loader):
+                if limit_batches and i >= limit_batches:
+                    break
+                yield batch, len(batch["label"])
+            return
+        images, labels = self.data["test_images"], self.data["test_labels"]
+        n, bs = len(labels), int(self.hp.get("eval_batch_size", 512))
+        shard = np.arange(n)[self.dist.rank::world]
+        longest = -(-n // world)
+        for i in range(-(-longest // bs)):
             if limit_batches and i >= limit_batches:
                 break
-            yield batch
+            sel = shard[i * bs:(i + 1) * bs]
+            pad = bs - len(sel)
+            batch = {"image": np.concatenate([images[sel], np.zeros((pad,) + images.shape[1:],
+                                                                    images.dtype)]),
+                     "label": np.concatenate([labels[sel].astype(np.int64),
+                                              np.full(pad, -1, np.int64)])}
+            real = sum(max(0, min(len_r, (i + 1) * bs) - min(len_r, i * bs))
+                       for len_r in ((n - r + world - 1) // world for r in range(world)))
+            yield batch, real
 
     def evaluate(self, limit_batches: int = 0) -> float:
         """Top-1 on the test set with the current (float or fake-quant)
-        student, observers frozen."""
+        student, observers frozen; in a world > 1 every rank must call it
+        (the counts are summed over the ranks)."""
         module = self.student_qat if self.qat_enabled else self.student_float
         correct, total = [], 0
-        for batch in self._eval_batches(limit_batches):
+        for batch, real in self._eval_batches(limit_batches):
             label = torch.from_numpy(batch["label"].astype(np.int64)).to(self.device)
             correct.append(self.eval_step(module, {"image": self._to_device(batch["image"]),
                                                    "label": label}))
-            total += len(batch["label"])
-        self.last_eval_batches = len(correct)
-        return float(torch.stack(correct).sum()) / max(total, 1) if correct else 0.0
+            total += real
+        self.last_eval_batches = len(correct)  # this rank's batches
+        if not correct:
+            return 0.0
+        return float(all_reduce_sum(torch.stack(correct).sum())) / max(total, 1)
 
     # ------------------------------------------------------------------
     def save_resume_state(self, path: str, epoch: int) -> str:
@@ -511,30 +562,66 @@ class KDQATTrainer:
                            per_channel_weights=bool(self.hp.get("per_channel_weights", False)))
 
     def evaluate_int8(self, qparams=None, limit_batches: int = 0) -> float:
-        """True-int8 top-1 through the serving preset on this device."""
+        """True-int8 top-1 through the serving preset on this device; in a
+        world > 1 each rank serves its shard and the counts are summed."""
         qparams = qparams if qparams is not None else self.convert_int8()
         pred = Int8Predictor(qparams, self.student_qat_cfg,
                              batch_size=int(self.hp.get("eval_batch_size", 512)),
                              device=self.device)
         correct, total = 0, 0
-        for batch in self._eval_batches(limit_batches):
+        for batch, real in self._eval_batches(limit_batches):
             correct += int((pred.predict(batch["image"]) == batch["label"]).sum())
-            total += len(batch["label"])
-        return correct / max(total, 1)
+            total += real
+        count = all_reduce_sum(torch.tensor(correct, dtype=torch.int64, device=self.device))
+        return int(count) / max(total, 1)
+
+
+def epoch_metrics(device_metrics, n_images: int, t0: float) -> Dict[str, float]:
+    """An epoch's metrics from its steps' 0-d device tensors: each the mean
+    over the steps of its mean over the ranks (one all-reduce of the stacked
+    steps, then one wait for the device), ``imgs_per_sec`` from the images of
+    every rank (``n_images``) over this rank's host clock since ``t0``."""
+    if not device_metrics:
+        return {"imgs_per_sec": 0.0, "epoch_seconds": time.perf_counter() - t0, "n_batches": 0}
+    keys = list(device_metrics[0])
+    stacked = all_reduce_mean(torch.stack([torch.stack([m[k] for m in device_metrics])
+                                           for k in keys])).cpu()  # waits for the device
+    dt = time.perf_counter() - t0
+    out = {k: float(v.to(torch.float64).mean()) for k, v in zip(keys, stacked)}
+    out["imgs_per_sec"] = n_images / max(dt, 1e-9)
+    out["epoch_seconds"] = dt
+    out["n_batches"] = len(device_metrics)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # the final-training entry point and the CLI
 # ---------------------------------------------------------------------------
 
-def train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+def log_epoch(dist, epoch: int, tm: Dict[str, float], evals: Dict[str, float]) -> None:
+    """Every rank logs its epoch's metrics in full (they are the same on
+    every rank: averaged or summed over the ranks) and its own img/s."""
+    metrics = {k: tm[k] for k in sorted(tm) if k.startswith("train_")}
+    metrics.update(evals)
+    logger.info("rank %d/%d epoch %d metrics %s img/s %.1f", dist.rank, dist.world_size, epoch,
+                json.dumps(metrics, sort_keys=True), tm["imgs_per_sec"])
+
+
+def train_main(hp: Dict[str, Any], device="cuda", **trainer_kw) -> Dict[str, Any]:
     """The whole final-training run (the JAX package's ``train_main``):
     ``effective_hparams.yaml``, a tracker run with every hyperparameter as a
     param and the reference's metric names per epoch, the best-model rule
     (``best_qat.msgpack``), the int8 export of the last epoch
     (``best_converted.msgpack``), ``resume_state.msgpack`` every epoch, one
     profiled QAT epoch with ``profile_dir``. Runs on ``device``; a CUDA
-    device must be present (pass ``device="cpu"`` for the CPU)."""
+    device must be present (pass ``device="cpu"`` for the CPU).
+    ``trainer_kw`` (``data``, ``student``, ``teacher``) go to the trainer in
+    place of the dataset and the registry's models.
+
+    In a process group every rank calls it (on its own device): every rank
+    trains, evaluates and converts; rank 0 alone writes the files, tracks
+    and profiles; the ranks meet at ``dataset``, ``epoch`` and
+    ``epoch_end``."""
     device = entry_device(device)
     dist = get_dist_info()
     output_dir = hp["output_dir"]
@@ -550,7 +637,7 @@ def train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         run = NullRun()
     barrier("dataset")
 
-    trainer = KDQATTrainer(hp, device=device, run=run)
+    trainer = KDQATTrainer(hp, device=device, run=run, **trainer_kw)
     best = BestCheckpointer(output_dir, "best_qat")
     epochs = int(hp["epochs"])
     qat_start = int(hp["qat_start_epoch"])
@@ -609,6 +696,7 @@ def train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
             logger.info("epoch %d/%d loss %.4f qat_acc %.4f quant_acc %.4f (%.0f img/s)%s",
                         epoch + 1, epochs, tm.get("train_loss", 0.0), qat_acc, quant_acc,
                         tm["imgs_per_sec"], " [QAT]" if trainer.qat_enabled else "")
+        log_epoch(dist, epoch, tm, {"qat_acc": qat_acc, "quant_acc": quant_acc})
         if dist.is_main_process and hp.get("save_resume_state", True):
             trainer.save_resume_state(os.path.join(output_dir, "resume_state.msgpack"), epoch)
         results.append(EpochResult(epoch, tm.get("train_loss", 0.0), qat_acc, quant_acc,
@@ -631,18 +719,31 @@ def train_main(hp: Dict[str, Any], device="cuda") -> Dict[str, Any]:
 
 def main(argv=None, device="cuda") -> None:
     """The training CLI: the JAX package's flags; ``--task detection`` runs
-    :func:`train.detect_trainer.detect_train_main`."""
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    :func:`train.detect_trainer.detect_train_main`. Under ``torchrun``
+    (``python -m torch.distributed.run --nproc_per_node N -m
+    qat_vit_tpu_torch.train.trainer ...``) each rank joins the process group
+    on its own device (:func:`parallel.setup_distributed`) and leaves it at
+    the end."""
     parser = argparse.ArgumentParser(description="KD + QAT final training (PyTorch + CUDA)")
     add_hparam_flags(parser)
     hp = resolve_hparams(parser.parse_args(argv))
-    if hp.get("task") == "detection":
-        from qat_vit_tpu_torch.train.detect_trainer import detect_train_main
+    joined = not is_distributed()
+    if joined:
+        info, device = setup_distributed(device)
+    else:
+        info = get_dist_info()
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank {info.rank} %(levelname)s %(name)s: %(message)s")
+    try:
+        if hp.get("task") == "detection":
+            from qat_vit_tpu_torch.train.detect_trainer import detect_train_main
 
-        detect_train_main(hp, device=device)
-        return
-    train_main(hp, device=device)
+            detect_train_main(hp, device=device)
+        else:
+            train_main(hp, device=device)
+    finally:
+        if joined:
+            cleanup_distributed()
 
 
 if __name__ == "__main__":  # pragma: no cover

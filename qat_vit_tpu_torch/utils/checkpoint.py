@@ -64,6 +64,7 @@ def save_checkpoint(path: str, tree: Dict[str, Any], metadata: Optional[dict] = 
         with open(meta_tmp, "w") as f:
             json.dump(metadata, f, indent=2, default=str)
         os.replace(meta_tmp, path + ".json")
+    logger.info("wrote %s (%d bytes)", path, len(data))
     return path
 
 

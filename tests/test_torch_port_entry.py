@@ -407,9 +407,11 @@ def test_observer_interval_freezes_stats_between_updates(monkeypatch, tmp_path):
 
 
 def test_rank_helpers_and_progress_bar(monkeypatch):
-    """One process: rank 0 of 1, ``barrier`` free; an initialized world of
-    2 raises naming ROADMAP item 5 (data parallelism). ``progress_bar``
-    wraps the loader in tqdm (imported only then) with the epoch's total."""
+    """One process: rank 0 of 1, ``barrier`` free; in an initialized world
+    of 2 (the process group stood in for) this is rank 1 of 2, not the main
+    process, and ``barrier`` waits in ``dist.barrier`` (gloo: no device
+    ids). ``progress_bar`` wraps the loader in tqdm (imported only then)
+    with the epoch's total."""
     import sys
     import types
 
@@ -430,11 +432,16 @@ def test_rank_helpers_and_progress_bar(monkeypatch):
     assert tr.progress(loader, {"progress_bar": True}, info, 4, 0) is loader
     assert bars == [{"total": 2, "desc": "epoch 3", "leave": False},
                     {"total": 3, "desc": "epoch 4", "leave": False}]
+    waited = []
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    for fn in (get_dist_info, barrier):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn()
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(dist, "barrier", lambda **kw: waited.append(kw))
+    info = get_dist_info()
+    assert (info.rank, info.world_size, info.is_main_process) == (1, 2, False)
+    assert info.global_device_count == 2 and not is_main_process()
+    assert barrier("epoch") is None and waited == [{}]
 
 
 def _spec(tree, prefix=""):

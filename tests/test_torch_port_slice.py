@@ -34,6 +34,7 @@ from qat_vit_tpu_torch.models.jax_params import export_from_numpy
 from qat_vit_tpu_torch.models.registry import create_model
 from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops.block_kernel import PLAIN_OPS, model_forward
+from qat_vit_tpu_torch.parallel import make_mesh
 from qat_vit_tpu_torch.serve.int8_vit import (
     _embed,
     _preset_kernel_opts,
@@ -142,9 +143,10 @@ def test_preprocess_matches_jax():
 
 
 def test_predictor_cpu(export):
-    """Padding to the static batch, chunking, streaming: the same logits as
-    one int8_apply call over the preprocessed images (the exact path on
-    CPU), up to f32 BLAS blocking that may change with the batch size."""
+    """Padding to the static batch, chunking, streaming, a mesh of devices:
+    the same logits as one int8_apply call over the preprocessed images (the
+    exact path on CPU), up to f32 BLAS blocking that may change with the
+    batch size."""
     _, tcfg, _, qp_t, _ = export
     imgs = np.random.default_rng(2).integers(0, 256, (7, 32, 32, 3), dtype=np.uint8)
     pred = Int8Predictor(qp_t, tcfg, batch_size=3, device="cpu")
@@ -158,8 +160,12 @@ def test_predictor_cpu(export):
     streamed = list(pred.serve_stream([imgs[:2], imgs[2:7], imgs[6:]]))
     assert [len(s) for s in streamed] == [2, 5, 1]
     np.testing.assert_array_equal(np.concatenate(streamed[:2]), logits)
-    with pytest.raises(NotImplementedError):
-        Int8Predictor(qp_t, tcfg, mesh=object())
+    # a mesh: a replica per device, the padded batch in equal contiguous shards
+    mesh = make_mesh(devices=["cpu"] * 3)
+    np.testing.assert_allclose(Int8Predictor(qp_t, tcfg, batch_size=3, mesh=mesh).logits(imgs),
+                               logits, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="not divisible"):
+        Int8Predictor(qp_t, tcfg, batch_size=4, mesh=mesh)
     if not torch.cuda.is_available():  # the card is the default: no fallback to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Int8Predictor(qp_t, tcfg)
