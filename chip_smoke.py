@@ -144,7 +144,31 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    without it; the training CLI under ``torchrun`` on two ranks (exit 0,
    rank 0 alone writes the files, the same epoch metrics on both ranks)
    and its export through ``Int8Predictor`` with a replica per device,
-   identical to one device.
+   identical to one device;
+12. the TPE search, evaluation and the model tail: ``run_optuna_search``
+   (ViT-S/16 at 224 px from a random-init ViT-B/16, 3 trials of 3 epochs of
+   2 steps at batch 64, the in-repo TPE): every trial COMPLETE and FINISHED,
+   trial k's student from seed k, the teacher built once and shared, kernel
+   A and B launches in every float and QAT epoch, no teacher row filled
+   twice, the memory allocated after the last trial within 5% of after the
+   first, ``best_params.yaml`` read back, the summary run; the search CLI in
+   a child process; the ``--task detection`` search (OWLv2-pruned at 768
+   px, 2 trials, K5a and K5b launched, its metrics tracked); ``remat``
+   none / dots / full at batch 256 (a float and then a QAT step on a fresh
+   trainer: every loss, gradient, parameter and observer identical to
+   none's, and to a second none trainer's; 12 / 12 / 24 kernel A and 12 +
+   12 kernel B kernels in a profiled QAT step; peak memory and ms per
+   step); the evaluator CLI on none's QAT student (every observer finite)
+   and phase 10's ``best_converted`` (fake-quant, int8 exact, int8 preset;
+   img/s), the preset's count identical to
+   ``Int8Predictor.from_checkpoint``'s, one profiled preset batch naming
+   K2a-d and K3, the evaluator as a child process, the comparator with a
+   teacher row and no error row; ``get_model_complexity`` and the HF
+   entries.
+   Phase 12 runs in a child process of the script (``--phase-12-child``),
+   where torch.profiler has profiled nothing before. ``python3
+   chip_smoke.py --phase-12`` runs the build, phase 10's training CLI (for
+   its artifacts) and phase 12 alone.
 
 The bf16 long attention pair (K5a ``attention_long_mma``, K5b
 ``attention_long_bwd_mma``, phases 5 and 6), the bf16 kernels A
@@ -178,9 +202,11 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -2474,10 +2500,12 @@ def train_batches(torch, np, data, b, n, dev, seed):
     return out
 
 
-def phase_entry_points(torch, np, fs, fa, fat, la):
+def phase_entry_points(torch, np, fs, fa, fat, la, keep_dir=None):
     """The port's two training entry points at full width: the CLI as a user
     runs it (classification in a child process, detection in this one),
-    resume, ``observer_interval`` and ``observer_stride``, the native loader."""
+    resume, ``observer_interval`` and ``observer_stride``, the native loader.
+    The CLI's ``best_converted.msgpack`` (with its sidecar) is copied into
+    ``keep_dir`` for phase 12."""
     import shutil
     import tempfile
 
@@ -2528,6 +2556,9 @@ def phase_entry_points(torch, np, fs, fa, fat, la):
         meta = load_metadata(os.path.join(out, "best_converted.msgpack"))
         if meta.get("format") != "int8-weights+qparams" or meta.get("epoch") != 1:
             fail(f"best_converted.msgpack's metadata: {meta}")
+        if keep_dir is not None:
+            for f in ("best_converted.msgpack", "best_converted.msgpack.json"):
+                shutil.copy(os.path.join(out, f), keep_dir)
 
         # (b) the CLI again, resumed from epoch 1's file with one more epoch
         secs = run_cli(root, ENTRY_ARGS[2:] + ["--epochs", "3", "--resume",
@@ -3141,6 +3172,586 @@ def phase_data_parallel(torch, np, fs, fa):
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# phase 12: the TPE search, evaluation and the model tail. The search at full
+# width (ViT-S/16 at 224 px from a random-init ViT-B/16): trials, epochs,
+# batch, eval batch, train and eval batches per epoch; 3 epochs, so that the
+# search space's qat_start_epoch in [0, 1] gives float and QAT epochs
+SEARCH_TRIALS, SEARCH_EPOCHS, SEARCH_B, SEARCH_LIMIT = 3, 3, 64, 2
+# memory allocated after the last trial against after the first (a freed trial)
+SEARCH_MEM_REL = 0.05
+# the detection search: OWLv2-pruned at 768 px, trials, epochs, batch, eval batch
+DET_SEARCH_TRIALS, DET_SEARCH_EPOCHS, DET_SEARCH_B, DET_SEARCH_EVAL_B = 2, 2, 4, 8
+# the evaluator on phase 10's artifacts (the CLI's student): batches of
+# EVAL_B test images
+EVAL_MODEL, EVAL_BATCHES, EVAL_B = "vit_small_patch16_224_student", 4, 512
+# the remat steps' batch, and the steady steps timed after the compared one
+REMAT_B, REMAT_TIMED = 256, 3
+# get_model_complexity of the entries phase 12 prints: the JAX package's
+# values, which tests/test_torch_port_tail.py holds the port to on the CPU
+COMPLEXITY = {
+    "vit_small_patch16_224_student": {"params": 21669514, "gflops": 4.7},
+    "vit_base_patch16_224_teacher": {"params": 85806346, "gflops": 17.6},
+    "vit_tiny_patch16_224": {"params": 5526346, "gflops": 1.2},
+    "owlv2_base_teacher": {"params": 88421386, "gflops": 1093.97},
+    "owlv2_student_pruned": {"params": 45647434, "gflops": 314.1},
+}
+P12_ONLY = "--phase-12"  # the build, phase 10's CLI run and phase 12 alone, printing no result
+P12_CHILD = "--phase-12-child"  # phase 12 on given artifacts, in a child process
+
+
+def run_module(root, module, args, log, timeout=600):
+    """``python -m MODULE ARGS`` in a child process from the checkout, its
+    output into ``log``; fails unless it exits 0. Returns (seconds, output)."""
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", module, *args], cwd=root, stdout=f,
+                            stderr=subprocess.STDOUT, timeout=timeout).returncode
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        print(text[-6000:], file=sys.stderr, flush=True)
+        fail(f"python -m {module} exited {rc}: {args}")
+    return time.perf_counter() - t0, text
+
+
+def search_counters(torch, driver, fa, fat, la, trainer_cls):
+    """A subclass of ``trainer_cls`` that records per trial: the kernels'
+    launches per epoch, img/s, the teacher's forwards and the rows they
+    filled; and a ``create_study`` whose trials record the memory allocated
+    once each trial's trainer is gone. Returns (class, create_study, log)."""
+    import gc
+
+    log = {"trials": [], "mem": []}
+
+    class Recorded(trainer_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            log["trials"].append({"seed": kw.get("seed"), "epochs": [], "filled": [],
+                                  "teacher_calls": 0, "t0": time.perf_counter(),
+                                  "shared_teacher": kw.get("teacher_params") is not None})
+
+        def _teacher_forward(self, *a, **kw):
+            log["trials"][-1]["teacher_calls"] += 1
+            return super()._teacher_forward(*a, **kw)
+
+        def _teacher_logits_for(self, batch):
+            idx = batch["index"]
+            log["trials"][-1]["filled"] += idx[~self._teacher_mask[idx]].tolist()
+            return super()._teacher_logits_for(batch)
+
+        def train_epoch(self, epoch, limit_batches=0):
+            before = (fa.attention_fwd.launches, fat.attention_bwd.launches,
+                      la.long_attention_qkv.launches, la.long_attention_bwd.launches)
+            tm = super().train_epoch(epoch, limit_batches)
+            torch.cuda.synchronize()
+            after = (fa.attention_fwd.launches, fat.attention_bwd.launches,
+                     la.long_attention_qkv.launches, la.long_attention_bwd.launches)
+            log["trials"][-1]["epochs"].append(
+                (epoch, self.qat_enabled, *(a - b for a, b in zip(after, before)),
+                 round(tm["imgs_per_sec"], 1)))
+            return tm
+
+    plain_create = driver._tpe.create_study
+
+    def create_study(*a, **kw):
+        study = plain_create(*a, **kw)
+        plain_optimize = study.optimize
+
+        def optimize(objective, n_trials, catch=()):
+            def measured(trial):
+                try:
+                    return objective(trial)
+                finally:
+                    gc.collect()
+                    torch.cuda.synchronize()
+                    log["mem"].append(torch.cuda.memory_allocated())
+                    log["trials"][-1]["seconds"] = time.perf_counter() - log["trials"][-1]["t0"]
+            return plain_optimize(measured, n_trials, catch)
+
+        study.optimize = optimize
+        return study
+
+    return Recorded, create_study, log
+
+
+def run_search(torch, driver, cfg, data, fa, fat, la, detection=False):
+    """``run_optuna_search`` on the card with the recording trainer; the
+    study, the tracked runs and the log."""
+    from qat_vit_tpu_torch.tracking import SqliteTracker
+    from qat_vit_tpu_torch.train import detect_trainer as dt
+
+    owner, name = (dt, "DetectKDTrainer") if detection else (driver, "KDQATTrainer")
+    plain_cls, plain_create = getattr(owner, name), driver._tpe.create_study
+    cls, create_study, log = search_counters(torch, driver, fa, fat, la, plain_cls)
+    setattr(owner, name, cls)
+    driver._tpe.create_study = create_study
+    try:
+        t0 = time.perf_counter()
+        res = driver.run_optuna_search(cfg, data=data, device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        setattr(owner, name, plain_cls)
+        driver._tpe.create_study = plain_create
+    store = SqliteTracker(cfg.mlflow_uri, cfg.experiment, create=False)
+    runs = {r["name"]: r for r in store.runs()}
+    return res, runs, store, log, secs
+
+
+def phase_search(torch, fa, fat, la, tmp, data, card):
+    """(a) the classification search at full width, (b) its CLI in a child
+    process, (c) the detection search."""
+    import dataclasses
+
+    from qat_vit_tpu_torch.search import driver
+    from qat_vit_tpu_torch.train.config import load_hparams
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = driver.SearchConfig(
+        trials=SEARCH_TRIALS, epochs=SEARCH_EPOCHS, batch_size=SEARCH_B, eval_batch_size=SEARCH_B,
+        limit_train_batches=SEARCH_LIMIT, limit_eval_batches=SEARCH_LIMIT, seed=SEED,
+        output_dir=os.path.join(tmp, "search"), mlflow_uri=f"sqlite:///{tmp}/search.db")
+    if driver.HAS_OPTUNA:
+        fail("optuna is installed on this machine: the phase runs the in-repo TPE")
+    res, runs, store, log, secs = run_search(torch, driver, cfg, data, fa, fat, la)
+    study, trials, mem = res["study"], log["trials"], log["mem"]
+    depth = 12
+    print(f"phase 12 search: {SEARCH_TRIALS} trials x {SEARCH_EPOCHS} epochs of {SEARCH_LIMIT} "
+          f"steps at batch {SEARCH_B} (ViT-S/16 from a random-init ViT-B/16, in-repo TPE) in "
+          f"{secs:.1f} s on {card}", flush=True)
+    bad = []
+    for k, (t, rec) in enumerate(zip(study.trials, trials)):
+        run = runs.get(f"trial_{k:04d}", {})
+        tags = dict(sqlite_tags(store, run.get("run_id")))
+        print(f"phase 12 trial {k}: seed {rec['seed']}, params {t.params}, state {t.state}, "
+              f"run {run.get('status')} / {tags.get('optuna_state')}, value {t.value}; "
+              f"{rec['seconds']:.2f} s; epochs (epoch, QAT, kernel A, kernel B, K5a, K5b "
+              f"launches, img/s) {rec['epochs']}; teacher forwards {rec['teacher_calls']} "
+              f"filling {len(rec['filled'])} rows; memory allocated after the trial "
+              f"{mem[k] / 2 ** 20:.1f} MiB", flush=True)
+        want = SEARCH_LIMIT * depth
+        if (t.state != "COMPLETE" or run.get("status") != "FINISHED"
+                or tags.get("optuna_state") != "COMPLETE" or rec["seed"] != SEED + k
+                or any(e[2] != want or e[3] != want for e in rec["epochs"])
+                or len(rec["epochs"]) != SEARCH_EPOCHS or rec["shared_teacher"] != (k > 0)):
+            bad.append(k)
+    filled0 = set(trials[0]["filled"])
+    refilled = [sorted(filled0 & set(t["filled"]))[:5] for t in trials[1:]]
+    kinds = {e[1] for t in trials for e in t["epochs"]}
+    summary = runs.get("optuna_best_summary", {})
+    back = load_hparams(res["best_params_path"])
+    read_ok = all(back[driver_key(k)] == v for k, v in res["best_params"].items())
+    growth = (mem[-1] - mem[0]) / mem[0]
+    print(f"phase 12 search: rows trial 0 filled that later trials filled again {refilled}; "
+          f"float and QAT epochs both ran {kinds == {False, True}}; summary run "
+          f"{summary.get('status')}; best_params.yaml read back by load_hparams "
+          f"{read_ok}; memory allocated after trial 0 / {SEARCH_TRIALS - 1}: "
+          f"{mem[0] / 2 ** 20:.1f} / {mem[-1] / 2 ** 20:.1f} MiB ({100 * growth:+.2f}%)",
+          flush=True)
+    if (bad or any(refilled) or not filled0 or kinds != {False, True}
+            or summary.get("status") != "FINISHED" or not read_ok
+            or abs(growth) > SEARCH_MEM_REL):
+        fail(f"the search: trials {bad}, refilled {refilled}, epochs {kinds}, summary "
+             f"{summary}, read back {read_ok}, memory {mem}")
+
+    # (b) the CLI in a child process: 1 trial of 2 epochs
+    cli_secs, text = run_module(root, "qat_vit_tpu_torch.search.driver", [
+        "--trials", "1", "--epochs", "2", "--batch-size", str(SEARCH_B), "--eval-batch-size",
+        str(SEARCH_B), "--limit-train-batches", str(SEARCH_LIMIT), "--limit-eval-batches",
+        str(SEARCH_LIMIT), "--output-dir", os.path.join(tmp, "search_cli"), "--mlflow-uri",
+        f"sqlite:///{tmp}/search_cli.db", "--data-dir", os.path.join(tmp, "data")],
+        os.path.join(tmp, "search_cli.log"))
+    cli_best = os.path.join(tmp, "search_cli", "best_params.yaml")
+    print(f"phase 12 the search CLI (python -m qat_vit_tpu_torch.search.driver, 1 trial of 2 "
+          f"epochs) in a child process: exit 0 in {cli_secs:.1f} s; best_params.yaml "
+          f"{load_hparams(cli_best)['kd_temperature']!r} kd_temperature", flush=True)
+
+    # (c) the detection search: OWLv2-pruned at 768 px from a bf16 OWLv2-base
+    dcfg = dataclasses.replace(
+        cfg, task="detection", image_size=768, trials=DET_SEARCH_TRIALS, epochs=DET_SEARCH_EPOCHS,
+        batch_size=DET_SEARCH_B, eval_batch_size=DET_SEARCH_EVAL_B, limit_train_batches=1,
+        limit_eval_batches=1, output_dir=os.path.join(tmp, "det_search"),
+        mlflow_uri=f"sqlite:///{tmp}/det_search.db")
+    dres, druns, dstore, dlog, dsecs = run_search(torch, driver, dcfg, data, fa, fat, la,
+                                                  detection=True)
+    keys = set()
+    for k in range(DET_SEARCH_TRIALS):
+        run = druns.get(f"trial_{k:04d}", {})
+        keys |= {m["key"] for m in dstore.metrics(run["run_id"])} if run else set()
+    det_states = [t.state for t in dres["study"].trials]
+    det_epochs = [t["epochs"] for t in dlog["trials"]]
+    print(f"phase 12 detection search: {DET_SEARCH_TRIALS} trials x {DET_SEARCH_EPOCHS} epochs "
+          f"of 1 step at batch {DET_SEARCH_B} (OWLv2-pruned at 768 px, 2,305 tokens) in "
+          f"{dsecs:.1f} s: states {det_states}, epochs (epoch, QAT, kernel A, kernel B, K5a, "
+          f"K5b launches, img/s) {det_epochs}, seconds per trial "
+          f"{[round(t['seconds'], 2) for t in dlog['trials']]}, metrics {sorted(keys)}",
+          flush=True)
+    if (det_states != ["COMPLETE"] * DET_SEARCH_TRIALS
+            or not {"val_agreement_limited", "train_loss_box"} <= keys
+            or any(e[4] == 0 or e[5] == 0 for t in det_epochs for e in t)):
+        fail(f"the detection search: {det_states}, {det_epochs}, {sorted(keys)}")
+
+
+def driver_key(key):
+    """The trainer's name of a ``best_params.yaml`` key (``kd_temp``)."""
+    return {"kd_temp": "kd_temperature"}.get(key, key)
+
+
+def sqlite_tags(store, run_id):
+    import sqlite3
+
+    if run_id is None:
+        return []
+    with sqlite3.connect(store.path) as c:
+        return c.execute("SELECT key, value FROM tags WHERE run_uuid=?", (run_id,)).fetchall()
+
+
+def phase_evaluation(torch, np, fs, fa, tmp, artifacts, qat_ckpt, teacher_ckpt, card):
+    """The evaluator on the fake-quant student ``qat_ckpt`` (phase 12's
+    remat QAT steps: every observer finite) and phase 10's int8 export:
+    three CLI runs in this process (their loops timed), one in a child
+    process, the preset against ``Int8Predictor.from_checkpoint``, one
+    profiled preset batch, the comparator."""
+    import contextlib
+    import io
+
+    from qat_vit_tpu_torch.data.cifar10 import load_cifar10
+    from qat_vit_tpu_torch.data.pipeline import preprocess_fn
+    from qat_vit_tpu_torch.evaluation import comparator, evaluator
+    from qat_vit_tpu_torch.models.jax_params import export_from_numpy
+    from qat_vit_tpu_torch.models.registry import create_architecture
+    from qat_vit_tpu_torch.models.vit import count_fake_quant_sites
+    from qat_vit_tpu_torch.serve.int8_vit import export_to_device, make_int8_forward
+    from qat_vit_tpu_torch.serve.int8_vit import serving_preset
+    from qat_vit_tpu_torch.serve.predictor import Int8Predictor
+    from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint, load_metadata
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    data_dir = os.path.join(tmp, "data")
+    conv_ckpt = os.path.join(artifacts, "best_converted.msgpack")
+    common = ["--data-dir", data_dir, "--batch-size", str(EVAL_B), "--limit-batches",
+              str(EVAL_BATCHES)]
+    n_images = EVAL_BATCHES * EVAL_B
+    loops = []
+    plain_eval = evaluator.evaluate_model
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_eval(*a, **kw)
+        loops.append(time.perf_counter() - t0)
+        return out
+
+    # every fake-quant site of the evaluated student holds finite statistics,
+    # so every site fake-quantizes (an unobserved one passes values through)
+    def leaves(tree):
+        return [x for v in tree.values() for x in leaves(v)] if isinstance(tree, dict) else [tree]
+
+    stats = [np.asarray(v) for v in leaves(load_checkpoint(qat_ckpt)["quant_stats"])]
+    sites = count_fake_quant_sites(create_architecture(EVAL_MODEL, qat_wrapper=True).cfg)
+    finite = all(np.isfinite(v).all() for v in stats)
+    print(f"phase 12 the fake-quant student {os.path.basename(qat_ckpt)} "
+          f"({load_metadata(qat_ckpt)}): {len(stats)} observer statistics for "
+          f"{sum(sites.values())} fake-quant sites {sites}, all finite {finite}", flush=True)
+    if not finite or len(stats) != 2 * sum(sites.values()):
+        fail("the fake-quant student's observers are not all set")
+
+    rows = []
+    evaluator.evaluate_model = timed
+    try:
+        for label, extra in (("--qat-wrapper", ["--ckpt", qat_ckpt, "--qat-wrapper"]),
+                             ("--int8 --serving exact", ["--ckpt", conv_ckpt, "--int8"]),
+                             ("--int8 --serving preset", ["--ckpt", conv_ckpt, "--int8",
+                                                          "--serving", "preset"])):
+            for w in (fs.int8_dense, fs.int8_dense_gelu_q, fs.int8_dense_resid_ln_q,
+                      fs.ln_quantize, fa.fused_attention_qkv):
+                w.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                evaluator.main(extra + common, device=dev)
+            wall = time.perf_counter() - t0
+            line = buf.getvalue().strip().splitlines()[-1]
+            k_launches = fs.int8_dense.launches + fa.fused_attention_qkv.launches
+            rows.append((label, line, wall, loops[-1], k_launches))
+    finally:
+        evaluator.evaluate_model = plain_eval
+    for label, line, wall, loop, k in rows:
+        print(f"phase 12 evaluator {label} ({'phase 12' if 'qat' in label else 'phase 10'}'s "
+              f"file), {EVAL_BATCHES} batches of "
+              f"{EVAL_B}: {line}; {wall:.2f} s in all, the loop {loop:.3f} s = "
+              f"{n_images / loop:.1f} img/s (host clock, the first batch's warm-up included) on "
+              f"{card}; int8 kernel launches {k}", flush=True)
+    if not all(r[1].startswith("top1_acc=") for r in rows) or rows[1][4] or not rows[2][4]:
+        fail(f"the evaluator's runs: {rows}")
+
+    # the preset against Int8Predictor.from_checkpoint over the same images
+    data, _ = load_cifar10(data_dir)
+    images, labels = data["test_images"][:n_images], data["test_labels"][:n_images]
+    cfg = cli_student_cfg(torch)
+    pred = Int8Predictor.from_checkpoint(conv_ckpt, cfg, device=dev, batch_size=EVAL_B)
+    pred_correct = int((pred.predict(images) == labels).sum())
+    got_correct = evaluator.evaluate_checkpoint(
+        EVAL_MODEL, conv_ckpt, int8=True, serving="preset", data_dir=data_dir,
+        batch_size=EVAL_B, limit_batches=EVAL_BATCHES, device=dev) * n_images
+    print(f"phase 12 the preset's correct count {round(got_correct)}, "
+          f"Int8Predictor.from_checkpoint's argmax over the same {n_images} images "
+          f"{pred_correct} (preset {pred.options.get('fused')})", flush=True)
+    if round(got_correct) != pred_correct:
+        fail(f"the preset evaluation {got_correct} vs Int8Predictor {pred_correct}")
+
+    # one profiled preset batch: the serving kernels by name
+    ecfg = create_architecture(EVAL_MODEL, qat_wrapper=True).cfg
+    qp = export_to_device(export_from_numpy(load_checkpoint(conv_ckpt)), dev)
+    fwd = make_int8_forward(ecfg, **serving_preset(ecfg, dev))
+    x = preprocess_fn(ecfg.image_size)(torch.from_numpy(images[:EVAL_B]).to(dev))
+    fwd(qp, x)
+    groups, busy, wall, n_k, counts = device_breakdown(torch, lambda: fwd(qp, x))
+    need = ("K2a PLAIN", "K2b GELU_Q", "K2c RESID_LN_Q", "K2d LN", "K3 / kernel A")
+    print(f"phase 12 one profiled preset batch of {EVAL_B}: kernels by group "
+          f"{dict(counts)}; device ms {({g: round(v, 3) for g, v in groups.items()})}, busy "
+          f"{busy:.3f} of {wall:.3f} ms", flush=True)
+    if any(counts[g] == 0 for g in need) or counts[K7_GROUP]:
+        fail(f"the profiled preset batch lacks {[g for g in need if counts[g] == 0]}")
+
+    # (child) the evaluator as a module
+    secs, text = run_module(root, "qat_vit_tpu_torch.evaluation.evaluator",
+                            ["--ckpt", conv_ckpt, "--int8", "--serving", "preset"] + common,
+                            os.path.join(tmp, "eval_cli.log"))
+    child_line = [ln for ln in text.splitlines() if ln.startswith("top1_acc=")]
+    print(f"phase 12 python -m qat_vit_tpu_torch.evaluation.evaluator --int8 --serving preset "
+          f"in a child process: exit 0 in {secs:.1f} s, {child_line}", flush=True)
+    if child_line != [rows[2][1]]:
+        fail(f"the evaluator CLI printed {child_line}, in this process {rows[2][1]}")
+
+    # the comparator, with a teacher row
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        comparator.main(["--teacher-ckpt", teacher_ckpt, "--qat-ckpt", qat_ckpt, "--quant-ckpt",
+                         conv_ckpt] + common, device=dev)
+    table = buf.getvalue().strip()
+    print(f"phase 12 comparator (teacher: the search's random-init ViT-B/16 as a msgpack) in "
+          f"{time.perf_counter() - t0:.1f} s:\n{table}", flush=True)
+    if "ERROR" in table or len(table.splitlines()) != 5:
+        fail("the comparator reported an error row")
+
+
+def phase_remat(torch, np, fa, fat, data, card, qat_ckpt):
+    """One float and then one QAT step of ViT-S/16 at batch 256 on a fresh
+    trainer under remat none, none again (a second trainer right after the
+    first: no leak between trainers, no run-to-run difference), dots and
+    full: every leaf (loss, each gradient, parameter and observer) identical
+    to none's. After the compared steps, on the same trainer: steady QAT
+    steps timed and one profiled QAT step; steady float steps timed on a
+    fresh trainer of the mode. Writes none's QAT student (params and the
+    observers of its steps) to ``qat_ckpt`` for the evaluator."""
+    from qat_vit_tpu_torch.models.jax_params import buffers_to_quant_stats, state_dict_to_params
+    from qat_vit_tpu_torch.utils.checkpoint import save_checkpoint
+
+    student, teacher = vit_models(torch)
+    dev = torch.device("cuda")
+    b_float, b_qat = train_batches(torch, np, data, REMAT_B, 2, dev, SEED + 31)
+
+    def timed_steps(t, batch):
+        times = []
+        for _ in range(REMAT_TIMED):
+            t0 = time.perf_counter()
+            t.next_step_fn()(t.state, batch, t.loss_hp)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    results = {}
+    for label in ("none", "none again", "dots", "full"):
+        mode = label.split()[0]
+        t = vit_trainer(torch, data, student, teacher, REMAT_B, remat=mode)
+        rec = {}
+        for phase, batch in (("float", b_float), ("qat", b_qat)):  # the compared steps
+            if phase == "qat":
+                t.enable_qat()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fa.attention_fwd.launches = fat.attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            m = t.next_step_fn()(t.state, batch, t.loss_hp)
+            torch.cuda.synchronize()
+            rec[phase] = {
+                "loss": m["train_loss"].clone(), "first_ms": (time.perf_counter() - t0) * 1e3,
+                "peak": torch.cuda.max_memory_allocated() - base,
+                "launches": (fa.attention_fwd.launches, fat.attention_bwd.launches),
+                "grads": {k: p.grad.clone() for k, p in t.state.module.named_parameters()},
+                "state": {k: v.clone() for k, v in t.state.module.state_dict().items()}}
+        if label != "none again":
+            # the state moves on from here; nothing is compared after it
+            rec["qat"]["ms"] = timed_steps(t, b_qat)
+            _, _, _, _, counts = device_breakdown(
+                torch, lambda: t.next_step_fn()(t.state, b_qat, t.loss_hp))
+            rec["profile"] = {g: counts[g] for g in ("K3 / kernel A", "kernel B rows",
+                                                     "kernel B keys")}
+            if label == "none":
+                sd = t.state.module.state_dict()
+                save_checkpoint(qat_ckpt, {"params": state_dict_to_params(sd),
+                                           "quant_stats": buffers_to_quant_stats(sd)},
+                                {"epoch": 0, "qat_enabled": True,
+                                 "steps": f"1 float + {REMAT_TIMED + 2} QAT at batch {REMAT_B}"})
+            del t
+            t = vit_trainer(torch, data, student, teacher, REMAT_B, remat=mode)
+            t.next_step_fn()(t.state, b_float, t.loss_hp)
+            rec["float"]["ms"] = timed_steps(t, b_float)
+        results[label] = rec
+        del t
+        torch.cuda.empty_cache()
+
+    def differing(a, b):
+        """Per phase, the leaves of ``a`` not identical to ``b``'s, each with
+        its largest absolute difference."""
+        out = {}
+        for phase in ("float", "qat"):
+            ra, rb = a[phase], b[phase]
+            if ra["grads"].keys() != rb["grads"].keys() or ra["state"].keys() != rb["state"].keys():
+                out[phase] = [("the leaves' names", float("nan"))]
+                continue
+            pairs = [("loss", ra["loss"], rb["loss"])]
+            pairs += [(k + ".grad", ra["grads"][k], rb["grads"][k]) for k in rb["grads"]]
+            pairs += [(k, ra["state"][k], rb["state"][k]) for k in rb["state"]]
+            out[phase] = [(k, float((x.float() - y.float()).abs().max()))
+                          for k, x, y in pairs if not torch.equal(x, y)]
+        return out
+
+    bad = []
+    none = results["none"]
+    n_leaves = {ph: 1 + len(none[ph]["grads"]) + len(none[ph]["state"]) for ph in ("float", "qat")}
+    for label in ("none again", "dots", "full"):
+        d = differing(results[label], none)
+        print(f"phase 12 remat {label} at batch {REMAT_B} against none, leaf by leaf (loss, each "
+              f"gradient, parameter and observer; {n_leaves['float']} float / {n_leaves['qat']} "
+              f"QAT leaves): not identical float {d['float'][:5]} ({len(d['float'])}) / QAT "
+              f"{d['qat'][:5]} ({len(d['qat'])}) (limit: identical)", flush=True)
+        if d["float"] or d["qat"]:
+            bad.append(f"{label} differs from none")
+    want = {"none": 12, "dots": 12, "full": 24}
+    for label in ("none", "dots", "full"):
+        rec = results[label]
+        print(f"phase 12 remat {label}: float step {rec['float']['ms']:.1f} ms (median of "
+              f"{REMAT_TIMED}, a fresh trainer after one step; the compared first "
+              f"{rec['float']['first_ms']:.1f}), peak memory {rec['float']['peak'] / 2 ** 30:.3f} "
+              f"GiB; QAT step {rec['qat']['ms']:.1f} ms (median of {REMAT_TIMED} after the "
+              f"compared first {rec['qat']['first_ms']:.1f}), peak "
+              f"{rec['qat']['peak'] / 2 ** 30:.3f} GiB (the compared first step's, above the "
+              f"memory allocated before it; ms by host clock between synchronizes) on {card}; "
+              f"kernel A / B calls {rec['float']['launches']} / {rec['qat']['launches']}; the "
+              f"profiled QAT step's kernels {rec['profile']}", flush=True)
+        p = rec["profile"]
+        if (p["K3 / kernel A"] != want[label] or p["kernel B rows"] != 12
+                or p["kernel B keys"] != 12):
+            bad.append(f"{label} profile {p}")
+    if bad:
+        fail(f"remat: {bad}")
+
+
+def phase_tail(torch):
+    """get_model_complexity of five entries against the JAX package's values,
+    and the HF entries (random init on the meta device where transformers
+    imports; a RuntimeError naming it where it does not)."""
+    from qat_vit_tpu_torch.models import registry
+
+    got = {n: registry.get_model_complexity(n) for n in COMPLEXITY}
+    same = all({k: v for k, v in got[n].items() if k != "name"} == COMPLEXITY[n]
+               for n in COMPLEXITY)
+    print(f"phase 12 get_model_complexity {got}; equal to the values the CPU test holds {same}",
+          flush=True)
+    if not same:
+        fail("get_model_complexity")
+    try:
+        import transformers  # noqa: F401
+
+        have = True
+    except ImportError:
+        have = False
+    for name, kw in (("owlv2_base_teacher_torch", {"pretrained": False}),
+                     ("owlv2_student_pruned_torch", {})):
+        try:
+            with torch.device("meta"):
+                model = registry.create_model(name, **kw)
+            outcome = (f"built {type(model).__name__} with "
+                       f"{sum(p.numel() for p in model.parameters())} parameters (meta device)")
+            ok = have
+        except RuntimeError as e:
+            outcome = f"RuntimeError: {e}"
+            ok = not have and "transformers" in str(e)
+        print(f"phase 12 {name}: transformers importable {have}; {outcome}", flush=True)
+        if not ok:
+            fail(f"{name}: {outcome}")
+
+
+def phase_search_eval_tail(torch, np, fs, fa, fat, la, artifacts):
+    """Phase 12: the TPE search (classification and detection) with trial
+    reuse, the evaluator and comparator on phase 10's artifacts, remat and
+    the registry's tail."""
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+    from qat_vit_tpu_torch.models.jax_params import state_dict_to_params
+    from qat_vit_tpu_torch.models.registry import create_teacher
+    from qat_vit_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    try:
+        data = synthetic_cifar10(n_train=4096, n_test=EVAL_BATCHES * EVAL_B, seed=SEED)
+        os.makedirs(os.path.join(tmp, "data"))
+        np.savez(os.path.join(tmp, "data", "cifar10.npz"), **data)
+        phase_search(torch, fa, fat, la, tmp, data, card)
+        # the comparator's teacher row: a random-init ViT-B/16 as a msgpack
+        teacher = create_teacher("vit", generator=torch.Generator().manual_seed(SEED + 5))
+        teacher_ckpt = os.path.join(tmp, "teacher.msgpack")
+        save_checkpoint(teacher_ckpt,
+                        {"params": state_dict_to_params(teacher.module.state_dict())})
+        del teacher
+        qat_ckpt = os.path.join(tmp, "qat_student.msgpack")
+        phase_remat(torch, np, fa, fat, data, card, qat_ckpt)
+        phase_evaluation(torch, np, fs, fa, tmp, artifacts, qat_ckpt, teacher_ckpt, card)
+        phase_tail(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_12_in_child(torch, artifacts):
+    """Phase 12 in a fresh process of this script, on phase 10's artifacts.
+    Late in one process torch.profiler drops device events (phase 8's note;
+    a profiled preset batch after phases 1-11 was seen to report 29 of its
+    64 kernels), and phase 12 profiles a preset batch and remat steps."""
+    torch.cuda.empty_cache()  # the child needs the memory the earlier phases cached
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), P12_CHILD, artifacts],
+                        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900).returncode
+    if rc:
+        fail(f"phase 12 (a child process) exited {rc}")
+
+
+def phase_12_alone(torch):
+    """``--phase-12``: phase 10's training CLI (2 epochs of 4 steps at batch
+    256) for its artifacts, then phase 12 in its child process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    artifacts = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    try:
+        out = os.path.join(artifacts, "out")
+        secs = run_cli(root, ENTRY_ARGS + ["--output-dir", out, "--mlflow-uri",
+                                           f"sqlite:///{artifacts}/mlflow.db", "--data-dir",
+                                           os.path.join(artifacts, "no_cifar")],
+                       os.path.join(artifacts, "cli.log"))
+        for f in ("best_converted.msgpack", "best_converted.msgpack.json"):
+            shutil.copy(os.path.join(out, f), artifacts)
+        print(f"phase 12 alone: the training CLI for phase 10's artifacts in {secs:.1f} s",
+              flush=True)
+        phase_12_in_child(torch, artifacts)
+    finally:
+        shutil.rmtree(artifacts, ignore_errors=True)
+
+
 def cli_student_cfg(torch):
     """The CLI's QAT student config (ViT-S/16 at the trainer's defaults),
     which its export is served with."""
@@ -3184,6 +3795,9 @@ def main() -> None:
     if sys.argv[1:2] == [DP_CHILD]:
         dp_rank_main(sys.argv[2])
         return
+    if sys.argv[1:2] == [P12_CHILD]:
+        phase_search_eval_tail(torch, np, fs, fa, fat, la, sys.argv[2])
+        return
 
     # phase 1: environment and build
     card = card_line()
@@ -3195,6 +3809,10 @@ def main() -> None:
     if sys.argv[1:] == [DP_ONLY]:
         phase_data_parallel(torch, np, fs, fa)
         print("chip_smoke: phase 11 alone (no result)", flush=True)
+        return
+    if sys.argv[1:] == [P12_ONLY]:
+        phase_12_alone(torch)
+        print("chip_smoke: phase 12 alone (no result)", flush=True)
         return
 
     kernels = phase_kernels(torch, np, fs, fa, fat, la)
@@ -3209,8 +3827,13 @@ def main() -> None:
     kernels += phase_serve_modes(torch, np, fs, fa, serve_ctx)
     kernels += phase_kernel_forms(torch, np, fs, fa, fat, la, det_ctx)
     phase_checkpoints(torch, np, fs, serve_ctx, ckpt_ctx)
-    phase_entry_points(torch, np, fs, fa, fat, la)
-    phase_data_parallel(torch, np, fs, fa)
+    artifacts = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    try:
+        phase_entry_points(torch, np, fs, fa, fat, la, keep_dir=artifacts)
+        phase_data_parallel(torch, np, fs, fa)
+        phase_12_in_child(torch, artifacts)
+    finally:
+        shutil.rmtree(artifacts, ignore_errors=True)
 
     sources = {fs.int8_dense: WGMMA_GEMM,
                fs.int8_dense_q8: WGMMA_GEMM,

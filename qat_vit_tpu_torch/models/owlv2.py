@@ -4,13 +4,14 @@ student's config surgery (port of ``qat_vit_tpu/models/owlv2.py``).
 The published ``google/owlv2-base-patch16-ensemble`` geometry and the
 reference's surgery rule (depth/width/head ratios, default 0.75, with
 floors 6/384/6; student image size 768) are plain functions, copied as
-they are. The HuggingFace construction (``build_owlv2_student_torch``)
-needs ``transformers`` and waits (ROADMAP.md Queue 1, item 11).
+they are. :func:`build_owlv2_student_torch` builds the pruned student as
+``transformers``' ``Owlv2ForObjectDetection`` from the published config
+(imported when called; a ``RuntimeError`` names it where it is missing).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 # Published geometry of google/owlv2-base-patch16-ensemble (vision tower).
 OWLV2_BASE_VISION = dict(
@@ -73,3 +74,44 @@ def owlv2_vision_vit_kwargs(
         patch_bias=False,
         layer_norm_eps=1e-5,
     )
+
+
+def build_owlv2_student_torch(
+    depth_ratio: float = 0.75,
+    width_ratio: float = 0.75,
+    head_ratio: float = 0.75,
+    checkpoint_path: Optional[str] = None,
+):
+    """The pruned HF OWLv2 student from the published config and the
+    surgery rule (reference :282-327), random init, or the weights of a
+    local checkpoint (``torch.load``, the reference's tolerant unwrapping
+    through :func:`models.torch_convert.normalize_state_dict_keys`,
+    ``strict=False``); a path that is not a file warns and keeps the random
+    init."""
+    try:
+        from transformers import Owlv2Config, Owlv2ForObjectDetection
+    except ImportError as e:
+        raise RuntimeError("owlv2 models require the `transformers` package") from e
+
+    vision = prune_owlv2_geometry(OWLV2_BASE_VISION, depth_ratio, width_ratio, head_ratio)
+    config = Owlv2Config(text_config=dict(OWLV2_BASE_TEXT), vision_config=vision)
+    # the top-level mirrors the reference also sets (:292-295)
+    config.num_hidden_layers = vision["num_hidden_layers"]
+    config.hidden_size = vision["hidden_size"]
+    config.num_attention_heads = vision["num_attention_heads"]
+    model = Owlv2ForObjectDetection(config)
+    if checkpoint_path:
+        import os
+        import warnings
+
+        if not os.path.isfile(checkpoint_path):
+            warnings.warn(f"Checkpoint not found: {checkpoint_path} - using random init",
+                          RuntimeWarning)
+            return model
+        import torch
+
+        from qat_vit_tpu_torch.models.torch_convert import normalize_state_dict_keys
+
+        state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+        model.load_state_dict(normalize_state_dict_keys(state), strict=False)
+    return model

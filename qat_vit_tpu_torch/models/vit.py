@@ -13,7 +13,8 @@ outputs in ``dtype``, logits f32), ``fast_math`` (softmax in the compute
 dtype, tanh-GELU), ``attn_kernel`` and ``fq_in_kernel`` (the attention
 dispatch in :class:`Attention`: the hand-written attention kernels of
 ``ops/flash_attention_train.py`` and, for long sequences,
-``ops/long_attention.py``, or the einsum path). The CLIP-style
+``ops/long_attention.py``, or the einsum path), ``remat`` (per-block
+rematerialization when autograd records, ``ops/remat.py``). The CLIP-style
 options of the OWLv2 vision tower, as the JAX module: ``pre_norm`` (a
 LayerNorm after the position embedding), ``patch_bias=False`` and
 ``num_classes=0`` (feature mode: the f32 final-LN token stream, no head).
@@ -22,6 +23,7 @@ LayerNorm after the position embedding), ``patch_bias=False`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -37,6 +39,7 @@ from qat_vit_tpu_torch.ops.long_attention import (
     long_attention_train,
     long_attention_train_available,
 )
+from qat_vit_tpu_torch.ops.remat import REMAT_MODES, recompute
 from qat_vit_tpu_torch.quant.modules import FakeQuantizer
 from qat_vit_tpu_torch.quant.qconfig import QConfig
 
@@ -65,16 +68,17 @@ class ViTConfig:
     fast_math: bool = False
     # permit the hand-written attention kernels (with fast_math, where they fit)
     attn_kernel: bool = True
-    # per-block rematerialization: only "none" is ported
+    # per-block rematerialization under autograd (ops/remat.py): "none"
+    # keeps every residual; "dots" keeps the GEMM products and the
+    # attention's input and output and recomputes the elementwise chains
+    # (Block.forward_dots); "full" recomputes the block from its input
     remat: str = "none"
     # the qkv activation fake-quant inside the attention kernels (training trace)
     fq_in_kernel: bool = False
 
     def __post_init__(self):
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"remat={self.remat!r} is not ported: ROADMAP.md Queue 1, item 11"
-            )
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {self.remat!r}; expected one of {REMAT_MODES}")
 
     @property
     def num_patches(self) -> int:
@@ -157,10 +161,18 @@ class QuantDense(nn.Module):
 
     def forward(self, x: torch.Tensor, *, observe: bool = False,
                 defer_output_fq: bool = False):
+        return self.post(self.gemm(x, observe=observe), observe=observe,
+                         defer_output_fq=defer_output_fq)
+
+    def gemm(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
+        """The product alone: ``x @ fq(W)ᵀ`` in ``dtype``, no bias."""
         w = self.weight
         if self.quant is not None:
             w = self.weight_fq(w, observe=observe)
-        y = F.linear(x.to(self.dtype), w.to(self.dtype))
+        return F.linear(x.to(self.dtype), w.to(self.dtype))
+
+    def post(self, y: torch.Tensor, *, observe: bool = False, defer_output_fq: bool = False):
+        """The bias add and the output fake-quant of :meth:`gemm`'s product."""
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         if self.quant is not None:
@@ -224,30 +236,54 @@ class Attention(nn.Module):
         self.proj = QuantDense(d, d, cfg.quant, generator, cfg.dtype)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
+        route = self.route(x.shape[1], observe)
+        qkv = self.qkv_out(self.qkv.gemm(x, observe=observe), observe=observe, route=route)
+        return self.proj(self.mix(qkv, route), observe=observe)
+
+    def route(self, n: int, observe) -> str:
+        """The dispatch for ``n`` tokens: ``"fq"`` (kernels A + B with the
+        qkv fake-quant inside), ``"kernel"`` (kernels A + B), ``"long"``
+        (K5a + K5b) or ``"einsum"``."""
         cfg = self.cfg
-        b, n, d = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
         kernel_ok = (cfg.fast_math and cfg.attn_kernel
-                     and attention_train_available(h, hd, n, cfg.dtype))
+                     and attention_train_available(cfg.num_heads, cfg.head_dim, n, cfg.dtype))
         if cfg.quant is not None and cfg.fq_in_kernel and observe and kernel_ok:
-            qkv, scale, zp = self.qkv(x, observe=observe, defer_output_fq=True)
-            qs = torch.stack([scale.to(torch.float32).reshape(()),
-                              zp.to(torch.float32).reshape(())])
+            return "fq"
+        if kernel_ok:
+            return "kernel"
+        if (cfg.fast_math and cfg.attn_kernel
+                and long_attention_train_available(cfg.num_heads, cfg.head_dim, n, cfg.dtype)):
+            return "long"
+        return "einsum"
+
+    def qkv_out(self, y: torch.Tensor, *, observe: bool = False, route: str):
+        """The qkv GEMM's bias add and fake-quant: the activations, or on the
+        ``"fq"`` route the pair (activations before the fake-quant, its
+        ``[scale, zero_point]``) for the kernels to apply it."""
+        if route != "fq":
+            return self.qkv.post(y, observe=observe)
+        qkv, scale, zp = self.qkv.post(y, observe=observe, defer_output_fq=True)
+        return qkv, torch.stack([scale.to(torch.float32).reshape(()),
+                                 zp.to(torch.float32).reshape(())])
+
+    def mix(self, qkv, route: str) -> torch.Tensor:
+        """Attention over :meth:`qkv_out`'s result on ``route``: ``[B, N, D]``."""
+        cfg = self.cfg
+        h, hd = cfg.num_heads, cfg.head_dim
+        if route == "fq":
             act = cfg.quant.activation
-            out = attention_train_fq(qkv, qs, h, hd, act.quant_min, act.quant_max)
-        elif kernel_ok:
-            out = attention_train(self.qkv(x, observe=observe), h, hd)
-        elif (cfg.fast_math and cfg.attn_kernel
-              and long_attention_train_available(h, hd, n, cfg.dtype)):
-            out = long_attention_train(self.qkv(x, observe=observe), h, hd)
-        else:
-            qkv = self.qkv(x, observe=observe).reshape(b, n, 3, h, hd)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            attn = torch.einsum("bqhd,bkhd->bhqk", q * hd**-0.5, k)
-            sm_dtype = q.dtype if cfg.fast_math else torch.float32
-            attn = torch.softmax(attn.to(sm_dtype), dim=-1).to(q.dtype)
-            out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, d)
-        return self.proj(out, observe=observe)
+            return attention_train_fq(qkv[0], qkv[1], h, hd, act.quant_min, act.quant_max)
+        if route == "kernel":
+            return attention_train(qkv, h, hd)
+        if route == "long":
+            return long_attention_train(qkv, h, hd)
+        b, n, d3 = qkv.shape
+        qkv = qkv.reshape(b, n, 3, h, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        attn = torch.einsum("bqhd,bkhd->bhqk", q * hd**-0.5, k)
+        sm_dtype = q.dtype if cfg.fast_math else torch.float32
+        attn = torch.softmax(attn.to(sm_dtype), dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, d3 // 3)
 
 
 class Mlp(nn.Module):
@@ -258,8 +294,13 @@ class Mlp(nn.Module):
         self.fc2 = QuantDense(cfg.mlp_dim, cfg.embed_dim, cfg.quant, generator, cfg.dtype)
 
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
-        y = apply_act(self.fc1(x, observe=observe), self.cfg.act, fast=self.cfg.fast_math)
-        return self.fc2(y, observe=observe)
+        return self.fc2.post(self.fc1_out_fc2_product(self.fc1.gemm(x, observe=observe),
+                                                      observe=observe), observe=observe)
+
+    def fc1_out_fc2_product(self, y: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
+        """fc1's bias add and fake-quant, the activation, fc2's product."""
+        y = apply_act(self.fc1.post(y, observe=observe), self.cfg.act, fast=self.cfg.fast_math)
+        return self.fc2.gemm(y, observe=observe)
 
 
 class Block(nn.Module):
@@ -276,6 +317,32 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
         x = x + self.attn(self.norm1(x, observe=observe), observe=observe)
         return x + self.mlp(self.norm2(x, observe=observe), observe=observe)
+
+    def forward_dots(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
+        """:meth:`forward` under ``remat="dots"``: the same ops in the same
+        order, cut into functions that :func:`ops.remat.recompute` runs and
+        that each end at a GEMM's product, the attention outside them. The
+        backward keeps the block's input, the four products, the
+        attention's input and output and the residual after it, and
+        recomputes the elementwise chains in front of each product."""
+        attn = self.attn
+        route = attn.route(x.shape[1], observe)
+        y = recompute(self._qkv_product, x, observe=observe)
+        qkv = recompute(functools.partial(attn.qkv_out, route=route), y, observe=observe)
+        y = recompute(attn.proj.gemm, attn.mix(qkv, route), observe=observe)
+        x, y = recompute(self._fc1_product, x, y, observe=observe)
+        y = recompute(self.mlp.fc1_out_fc2_product, y, observe=observe)
+        return recompute(self._fc2_out, x, y, observe=observe)
+
+    def _qkv_product(self, x, *, observe):
+        return self.attn.qkv.gemm(self.norm1(x, observe=observe), observe=observe)
+
+    def _fc1_product(self, x, y, *, observe):
+        x = x + self.attn.proj.post(y, observe=observe)
+        return x, self.mlp.fc1.gemm(self.norm2(x, observe=observe), observe=observe)
+
+    def _fc2_out(self, x, y, *, observe):
+        return x + self.mlp.fc2.post(y, observe=observe)
 
 
 class VisionTransformer(nn.Module):
@@ -314,8 +381,14 @@ class VisionTransformer(nn.Module):
         x = (torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)).to(cfg.dtype)
         if self.norm_pre is not None:
             x = self.norm_pre(x, observe=observe)
+        remat = cfg.remat if torch.is_grad_enabled() else "none"
         for blk in self.blocks:
-            x = blk(x, observe=observe)
+            if remat == "dots":
+                x = blk.forward_dots(x, observe=observe)
+            elif remat == "full":
+                x = recompute(blk, x, observe=observe)
+            else:
+                x = blk(x, observe=observe)
         x = self.norm(x, observe=observe)
         if self.head is None:
             return x.to(torch.float32)

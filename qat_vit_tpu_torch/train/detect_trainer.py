@@ -54,7 +54,7 @@ from qat_vit_tpu_torch.models.jax_params import (
     state_dict_to_params,
 )
 from qat_vit_tpu_torch.models.owlv2_detect import Owlv2Detector
-from qat_vit_tpu_torch.models.registry import ModelBundle, create_model
+from qat_vit_tpu_torch.models.registry import ModelBundle, create_model, with_weights
 from qat_vit_tpu_torch.parallel import barrier, get_dist_info
 from qat_vit_tpu_torch.serve.int8_detect import convert_detector, make_int8_detect_forward
 from qat_vit_tpu_torch.serve.int8_vit import export_to_device
@@ -74,6 +74,7 @@ from qat_vit_tpu_torch.train.trainer import (
     log_epoch,
     progress,
     refuse_unported,
+    shared_teacher,
     student_qconfig,
 )
 from qat_vit_tpu_torch.utils.checkpoint import BestCheckpointer, load_checkpoint, save_checkpoint
@@ -97,7 +98,10 @@ def _freeze_teacher(module: Owlv2Detector, device) -> Owlv2Detector:
 
 class DetectKDTrainer:
     """The detection KD + QAT engine on this process's device (``device``
-    is required); in a process group every rank builds one."""
+    is required); in a process group every rank builds one. ``seed``,
+    ``teacher_params``, ``steps`` and a ``meta``-device ``student`` as in
+    ``KDQATTrainer``; ``teacher_cache`` an earlier trainer's
+    :meth:`teacher_cache` arrays, shared by reference."""
 
     # the classification trainer's parameter hand-over, optimizer, host copy,
     # step choice and resume files (the two states have one structure)
@@ -117,13 +121,17 @@ class DetectKDTrainer:
         run=None,
         student: Optional[ModelBundle] = None,
         teacher: Optional[ModelBundle] = None,
+        teacher_params: Optional[Owlv2Detector] = None,
+        seed: Optional[int] = None,
+        steps: Optional[Dict[str, Any]] = None,
+        teacher_cache: Optional[tuple] = None,
     ):
         self.hp = dict(hparams)
         refuse_unported(self.hp)
         self.dist = get_dist_info()
         self.run = run if run is not None else NullRun()
         self.device = torch.device(device)
-        seed = int(self.hp["seed"])
+        seed = int(self.hp["seed"] if seed is None else seed)
         image_size = int(self.hp["image_size"])
         self.image_size = image_size
         self.text_dim = int(self.hp.get("text_dim", 512))
@@ -132,19 +140,26 @@ class DetectKDTrainer:
         # ---- models: a frozen bf16 teacher detector, two student configs ----
         gen = torch.Generator().manual_seed(seed)
         geo = {k: self.hp[k] for k in _GEOMETRY if k in self.hp}
-        self.teacher = teacher if teacher is not None else create_model(
-            "owlv2_base_detector", image_size=image_size, text_dim=self.text_dim,
-            dtype=torch.bfloat16, generator=gen, **geo)
-        if self.hp.get("teacher_ckpt"):
-            params = load_checkpoint(self.hp["teacher_ckpt"])
-            load_jax_variables(self.teacher.module, params.get("params", params))
-            logger.info("loaded teacher detector from %s", self.hp["teacher_ckpt"])
-        elif teacher is None:
-            logger.warning("teacher detector is randomly initialized (no teacher_ckpt; real "
-                           "deployments convert an HF Owlv2ForObjectDetection checkpoint via "
-                           "models.owlv2_detect.owlv2_detection_to_params)")
-        _freeze_teacher(self.teacher.module, self.device)
-        base = student if student is not None else create_model(
+        if teacher_params is not None:
+            # an earlier trainer's frozen teacher (a search trial): nothing
+            # to build, load or cast
+            self.teacher = shared_teacher(teacher, teacher_params)
+        else:
+            self.teacher = teacher if teacher is not None else create_model(
+                "owlv2_base_detector", image_size=image_size, text_dim=self.text_dim,
+                dtype=torch.bfloat16, generator=gen, **geo)
+            if self.hp.get("teacher_ckpt"):
+                params = load_checkpoint(self.hp["teacher_ckpt"])
+                load_jax_variables(self.teacher.module, params.get("params", params))
+                logger.info("loaded teacher detector from %s", self.hp["teacher_ckpt"])
+            elif teacher is None:
+                logger.warning("teacher detector is randomly initialized (no teacher_ckpt; real "
+                               "deployments convert an HF Owlv2ForObjectDetection checkpoint "
+                               "via models.owlv2_detect.owlv2_detection_to_params)")
+            _freeze_teacher(self.teacher.module, self.device)
+        # the frozen teacher on the device, for the next trainer's teacher_params
+        self.teacher_params = self.teacher.module
+        base = with_weights(student, gen) if student is not None else create_model(
             "owlv2_pruned_detector", image_size=image_size, text_dim=self.text_dim,
             generator=gen, **geo)
         dtype = torch.bfloat16 if self.hp.get("amp", True) else torch.float32
@@ -174,25 +189,31 @@ class DetectKDTrainer:
         self.qat_enabled = False
         self.loss_hp = detect_loss_hparams(self.hp, self.device)
 
-        # ---- steps ----
+        # ---- steps (shareable across trainers of one architecture: steps=) ----
         self.cache_teacher = bool(self.hp.get("cache_teacher_logits", True))
         step_teacher = None if self.cache_teacher else self.teacher.module
-        self.train_step_float = make_detect_train_step(step_teacher, qat=False,
-                                                       image_size=image_size)
-        self.train_step_qat = make_detect_train_step(step_teacher, qat=True,
-                                                     image_size=image_size)
+        shared = steps if steps is not None else {}
+        self.train_step_float = shared.get("train_float") or make_detect_train_step(
+            step_teacher, qat=False, image_size=image_size)
+        self.train_step_qat = shared.get("train_qat") or make_detect_train_step(
+            step_teacher, qat=True, image_size=image_size)
         self.observer_interval = max(1, int(self.hp.get("observer_interval", 1)))
-        self.train_step_qat_frozen = make_detect_train_step(
+        self.train_step_qat_frozen = shared.get("train_qat_frozen") or (make_detect_train_step(
             step_teacher, qat=True, image_size=image_size, observe=False,
-        ) if self.observer_interval > 1 else None
+        ) if self.observer_interval > 1 else None)
         self._qat_py_step = 0
-        self.eval_step = make_detect_eval_step(self.teacher.module, image_size=image_size)
+        self.eval_step = shared.get("eval") or make_detect_eval_step(
+            self.teacher.module, image_size=image_size)
         self._prep = preprocess_fn(image_size)
-        # the teacher-output cache (host RAM): logits, boxes, objectness, filled rows
+        # the teacher-output cache (host RAM): logits, boxes, objectness, filled
+        # rows; a search trial takes an earlier trial's arrays by reference
+        # (one query set, query_seed), so rows one trial fills serve the next
         self._t_logits: Optional[np.ndarray] = None
         self._t_boxes: Optional[np.ndarray] = None
         self._t_obj: Optional[np.ndarray] = None
         self._teacher_mask: Optional[np.ndarray] = None
+        if teacher_cache is not None:
+            self._t_logits, self._t_boxes, self._t_obj, self._teacher_mask = teacher_cache
 
         # ---- data: images only (the teacher supplies the targets) ----
         if data is None:
@@ -209,6 +230,24 @@ class DetectKDTrainer:
         self.eval_loader = ArrayLoader(data["test_images"], data["test_labels"],
                                        batch_size=self.eval_batch_size, shuffle=False,
                                        drop_last=False)
+
+    # ------------------------------------------------------------------
+    def shared_steps(self) -> Dict[str, Any]:
+        """The step functions, for the next trainer of the same architecture
+        and teacher (``steps=``)."""
+        return {
+            "train_float": self.train_step_float,
+            "train_qat": self.train_step_qat,
+            "eval": self.eval_step,
+            "train_qat_frozen": self.train_step_qat_frozen,
+        }
+
+    def teacher_cache(self) -> Optional[tuple]:
+        """The shareable ``(logits, boxes, obj, mask)`` cache arrays, or None
+        if the cache was never allocated."""
+        if self._teacher_mask is None:
+            return None
+        return (self._t_logits, self._t_boxes, self._t_obj, self._teacher_mask)
 
     # ------------------------------------------------------------------
     def enable_qat(self) -> None:

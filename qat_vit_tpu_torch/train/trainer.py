@@ -55,7 +55,7 @@ import json
 import logging
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,7 +69,12 @@ from qat_vit_tpu_torch.models.jax_params import (
     quant_stats_to_buffers,
     state_dict_to_params,
 )
-from qat_vit_tpu_torch.models.registry import ModelBundle, create_student, create_teacher
+from qat_vit_tpu_torch.models.registry import (
+    ModelBundle,
+    create_student,
+    create_teacher,
+    with_weights,
+)
 from qat_vit_tpu_torch.models.torch_convert import load_torch_state_dict, timm_vit_to_params
 from qat_vit_tpu_torch.models.vit import VisionTransformer
 from qat_vit_tpu_torch.parallel.mesh import (
@@ -119,6 +124,14 @@ def refuse_unported(hp: Dict[str, Any]) -> None:
     if int(hp.get("model_parallel", 1)) != 1:
         raise NotImplementedError("model_parallel > 1 (tensor parallelism) is not ported yet: "
                                   "ROADMAP.md Queue 1, item 11")
+
+
+def shared_teacher(teacher: Optional[ModelBundle], module: torch.nn.Module) -> ModelBundle:
+    """The bundle of a frozen teacher module handed over by an earlier
+    trainer (``teacher_params``)."""
+    if teacher is not None:
+        return dataclasses.replace(teacher, module=module)
+    return ModelBundle(name="teacher", module=module, cfg=module.cfg)
 
 
 def student_qconfig(hp: Dict[str, Any]) -> QConfig:
@@ -272,7 +285,17 @@ class KDQATTrainer:
     """The KD + QAT engine on this process's device (``device`` is
     required: nothing moves to another device on its own). In a process
     group every rank builds one and enters each of its collectives (DDP's
-    wrap and backward, the observers, the epoch's metrics, eval)."""
+    wrap and backward, the observers, the epoch's metrics, eval).
+
+    Trial reuse (the search driver): ``seed`` overrides ``hp["seed"]`` (the
+    student's init and the loader's shuffle); ``teacher_params`` is an
+    earlier trainer's frozen bf16 teacher on the device
+    (:attr:`teacher_params`), which this one takes as it is; ``steps`` an
+    earlier trainer's :meth:`shared_steps`; ``teacher_logits`` its logit
+    cache, a bare array or the ``(logits, filled-rows mask)`` pair, shared
+    by reference. A ``student`` built on the ``meta`` device
+    (``registry.create_architecture``) is an architecture: its weights are
+    drawn from the seed, as without ``student``."""
 
     def __init__(
         self,
@@ -283,13 +306,17 @@ class KDQATTrainer:
         run=None,
         student: Optional[ModelBundle] = None,
         teacher: Optional[ModelBundle] = None,
+        teacher_params: Optional[torch.nn.Module] = None,
+        seed: Optional[int] = None,
+        steps: Optional[Dict[str, Callable]] = None,
+        teacher_logits=None,
     ):
         self.hp = dict(hparams)
         refuse_unported(self.hp)
         self.dist = get_dist_info()
         self.run = run if run is not None else NullRun()
         self.device = torch.device(device)
-        seed = int(self.hp["seed"])
+        seed = int(self.hp["seed"] if seed is None else seed)
         image_size = int(self.hp["image_size"])
         num_classes = int(self.hp["num_classes"])
         self.image_size = image_size
@@ -297,18 +324,25 @@ class KDQATTrainer:
         # ---- models: a frozen bf16 teacher, two student configs ----
         gen = torch.Generator().manual_seed(seed)
         family = self.hp.get("student_family", "vit")
-        self.teacher = teacher if teacher is not None else create_teacher(
-            family, num_classes=num_classes, dtype=torch.bfloat16, image_size=image_size,
-            generator=gen)
-        if self.hp.get("teacher_ckpt"):
-            load_jax_variables(self.teacher.module,
-                               load_model_params(self.hp["teacher_ckpt"], self.teacher.cfg))
-            logger.info("loaded teacher weights from %s", self.hp["teacher_ckpt"])
-        elif teacher is None:
-            logger.warning("teacher is randomly initialized (no teacher_ckpt given; the "
-                           "reference downloads pretrained weights, which needs network)")
-        self.teacher.module.to(device=self.device, dtype=torch.bfloat16).requires_grad_(False)
-        base = student if student is not None else create_student(
+        if teacher_params is not None:
+            # an earlier trainer's frozen teacher (a search trial): nothing
+            # to build, load or cast
+            self.teacher = shared_teacher(teacher, teacher_params)
+        else:
+            self.teacher = teacher if teacher is not None else create_teacher(
+                family, num_classes=num_classes, dtype=torch.bfloat16, image_size=image_size,
+                generator=gen)
+            if self.hp.get("teacher_ckpt"):
+                load_jax_variables(self.teacher.module,
+                                   load_model_params(self.hp["teacher_ckpt"], self.teacher.cfg))
+                logger.info("loaded teacher weights from %s", self.hp["teacher_ckpt"])
+            elif teacher is None:
+                logger.warning("teacher is randomly initialized (no teacher_ckpt given; the "
+                               "reference downloads pretrained weights, which needs network)")
+            self.teacher.module.to(device=self.device, dtype=torch.bfloat16).requires_grad_(False)
+        # the frozen bf16 teacher on the device, for the next trainer's teacher_params
+        self.teacher_params = self.teacher.module
+        base = with_weights(student, gen) if student is not None else create_student(
             family, num_classes=num_classes, image_size=image_size, generator=gen)
         dtype = torch.bfloat16 if self.hp.get("amp", True) else torch.float32
         qat_dtype = torch.bfloat16 if self.hp.get("qat_amp", False) else torch.float32
@@ -337,22 +371,34 @@ class KDQATTrainer:
         self.loss_hp = loss_hparams(self.hp, self.device)
         self.last_eval_batches = 0
 
-        # ---- steps ----
+        # ---- steps (shareable across trainers of one architecture: steps=) ----
         self.cache_teacher = bool(self.hp.get("cache_teacher_logits", True))
         step_teacher = None if self.cache_teacher else self.teacher.module
-        self.train_step_float = make_train_step(step_teacher, qat=False, image_size=image_size)
-        self.train_step_qat = make_train_step(step_teacher, qat=True, image_size=image_size)
+        shared = steps if steps is not None else {}
+        self.train_step_float = shared.get("train_float") or make_train_step(
+            step_teacher, qat=False, image_size=image_size)
+        self.train_step_qat = shared.get("train_qat") or make_train_step(
+            step_teacher, qat=True, image_size=image_size)
         # observer_interval k > 1: a second QAT step that fake-quantizes from
         # the frozen statistics, picked on the host (no branch on the device)
         self.observer_interval = max(1, int(self.hp.get("observer_interval", 1)))
-        self.train_step_qat_frozen = make_train_step(
+        self.train_step_qat_frozen = shared.get("train_qat_frozen") or (make_train_step(
             step_teacher, qat=True, image_size=image_size, observe=False,
-        ) if self.observer_interval > 1 else None
+        ) if self.observer_interval > 1 else None)
         self._qat_py_step = 0  # QAT steps taken (host-side, for the interval)
-        self.eval_step = make_eval_step(image_size)
+        self.eval_step = shared.get("eval") or make_eval_step(image_size)
         self._prep = preprocess_fn(image_size)
+        # shareable across search trials (one teacher): a bare [N, C] array
+        # (every row filled) or a (logits, filled-rows mask) pair from a lazy
+        # cache, shared by reference, so rows one trial fills serve the next
         self._teacher_logits: Optional[np.ndarray] = None
         self._teacher_mask: Optional[np.ndarray] = None
+        if teacher_logits is not None:
+            if isinstance(teacher_logits, tuple):
+                self._teacher_logits, self._teacher_mask = teacher_logits
+            else:
+                self._teacher_logits = teacher_logits
+                self._teacher_mask = np.ones(len(teacher_logits), bool)
 
         # ---- data ----
         if data is None:
@@ -371,6 +417,16 @@ class KDQATTrainer:
                                        shuffle=False, drop_last=False)
 
     # ------------------------------------------------------------------
+    def shared_steps(self) -> Dict[str, Callable]:
+        """The step functions, for the next trainer of the same architecture
+        and teacher (``steps=``): a search trial builds none of its own."""
+        return {
+            "train_float": self.train_step_float,
+            "train_qat": self.train_step_qat,
+            "eval": self.eval_step,
+            "train_qat_frozen": self.train_step_qat_frozen,
+        }
+
     def _load(self, module: VisionTransformer, src: torch.nn.Module) -> VisionTransformer:
         """``module`` on the device with ``src``'s parameters (observer
         buffers are not copied)."""

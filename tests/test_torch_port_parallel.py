@@ -27,7 +27,6 @@ fixture), its results under ``tmp_path``.
 import dataclasses
 import datetime
 import os
-import threading
 
 import numpy as np
 import pytest
@@ -144,10 +143,12 @@ def _one_process_rows(stride):
 
 @pytest.fixture(scope="module")
 def dp_run(tmp_path_factory):
-    """ONE spawn of two gloo ranks running the cases, the eval, the rank
-    helpers and the guard, started first (each case's step waits for its
-    files); meanwhile the JAX steps of every case, their states and batches
-    written for the ranks."""
+    """The JAX steps of every case, their states and batches written for
+    the ranks; then ONE spawn of two gloo ranks running the cases, the eval,
+    the rank helpers and the guard. The ranks start once every file is
+    written, so their time limit covers their own work only (started
+    first, they waited on this process, whose JAX steps take minutes on a
+    host that runs other test files beside them)."""
     d = str(tmp_path_factory.mktemp("dp"))
     cases = [{"name": name, "detection": det, "qat": qat, "observe": list(observe),
               "stride": stride, "lr": LR, "wd": WD, "clip": CLIP}
@@ -157,16 +158,6 @@ def dp_run(tmp_path_factory):
         {"kind": "steps", "dir": d, "cases": cases, "wait_s": 120},
         {"kind": "eval", "n_test": N_TEST, "state": os.path.join(d, "qat_out1_rank0.pt")},
         {"kind": "dryrun"}]}
-    ranks = {}
-
-    def spawn():
-        try:
-            ranks["out"] = dryrun.run_ranks(job, WORLD, timeout_s=150)
-        except Exception as e:  # raised again below, in the test's thread
-            ranks["error"] = e
-
-    thread = threading.Thread(target=spawn)
-    thread.start()
     mesh = jax_make_mesh(data=WORLD, devices=jax.devices()[:WORLD])
     expected = {}
     for c, (name, (det, qat, observe, stride)) in enumerate(CASES.items()):
@@ -190,11 +181,8 @@ def dp_run(tmp_path_factory):
                 "params": jax_params.params_to_state_dict(jax.device_get(state.params)),
                 "stats": _leaves(jax.device_get(state.quant_stats)) if qat else {},
                 "metrics": {k: float(v) for k, v in jax.device_get(metrics).items()}}
-    thread.join(timeout=200)
-    assert not thread.is_alive(), "the ranks outlived their time limit"
-    if "error" in ranks:
-        raise ranks["error"]
-    return {"dir": d, "ranks": ranks["out"], "expected": expected}
+    ranks = dryrun.run_ranks(job, WORLD, timeout_s=150)
+    return {"dir": d, "ranks": ranks, "expected": expected}
 
 
 def _rank_out(run, name, i, rank):
