@@ -168,7 +168,24 @@ Phases (each prints its own lines; any failure exits non-zero with no result):
    Phase 12 runs in a child process of the script (``--phase-12-child``),
    where torch.profiler has profiled nothing before. ``python3
    chip_smoke.py --phase-12`` runs the build, phase 10's training CLI (for
-   its artifacts) and phase 12 alone.
+   its artifacts) and phase 12 alone;
+13. tensor parallelism (``parallel/tensor.py``): two ranks of this script
+   (``--tp-rank JOB``) sharing the card over gloo as a (data 1, model 2)
+   rank grid, ``KDQATTrainer`` with ``model_parallel`` 2 on ViT-S/16 at full
+   width, depth 12, 224 px, from a bf16 ViT-B/16 (the einsum attention, as
+   under JAX's model axis): one float and one observing QAT step on a
+   global batch of 32, each split over the two ranks against one process's
+   step from the same whole state (loss, gradient norm, gathered parameters,
+   every observer, the first block's qkv weight gradient held to
+   ``TP_LIMITS`` from ``port_scripts/tp_bounds.py``; weight observers and
+   the ranks identical), each rank's shard shapes, the TP and one-process
+   steps' ms; with four cards also a (data 2, model 2) grid on NCCL, else a
+   line saying it was not run; the training CLI under ``torchrun`` with
+   ``--model-parallel 2`` (exit 0, rank 0 alone writes, the same epoch
+   metrics on both ranks), its ``best_qat`` loaded strictly into one
+   process's model, its resume file into a one-process trainer (one more
+   QAT step), its export served by ``Int8Predictor`` (K3 launched).
+   ``python3 chip_smoke.py --phase-13`` runs the build and phase 13 alone.
 
 The bf16 long attention pair (K5a ``attention_long_mma``, K5b
 ``attention_long_bwd_mma``, phases 5 and 6), the bf16 kernels A
@@ -3720,6 +3737,304 @@ def phase_search_eval_tail(torch, np, fs, fa, fat, la, artifacts):
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# phase 13: tensor parallelism. Two ranks share the card over gloo as a
+# (data 1, model 2) rank grid (NCCL refuses two ranks on one GPU); with four
+# cards or more, four ranks also run as (data 2, model 2) on NCCL, one card
+# each. The ranks are this script (TP_CHILD), started as torchrun would.
+TP_CHILD = "--tp-rank"
+TP_ONLY = "--phase-13"  # the build and phase 13 alone, printing no result
+TP_B, TP_TIMED_STEPS, TP_TIMEOUT_S = 32, 3, 600
+# the training CLI under torchrun with --model-parallel 2: its epochs, steps,
+# batch and eval batch (every layer's all-reduce goes through the host on gloo)
+TP_CLI_ARGS = ["--epochs", "2", "--qat-start-epoch", "1", "--batch-size", "32",
+               "--limit-train-batches", "2", "--limit-eval-batches", "1",
+               "--eval-batch-size", "64", "--model-parallel", "2"]
+# a TP step against one process's step from the same state on the global
+# batch (parallel.dryrun.tp_step_against_one_process): the loss, the global
+# gradient norm before the clip, the parameters after the step (gathered),
+# every observer after the QAT step and the first block's qkv weight
+# gradient (gathered, after the clip), held to limits between
+# port_scripts/tp_bounds.py's readings over 4 seeds on the H100 (PERF.md §2;
+# bf16 steps: the TP step rounds each rank's partial product to bf16 before
+# the sum). Sound: the largest over both steps; faults (contiguous qkv split
+# / proj unreduced / replicated gradients counted twice in the clip): the
+# least over seeds of a run's largest:
+# - loss 1.544e-3; 1.073e-2 / 1.181e-2 / 6.854e-4 (the clip moves no loss)
+# - gradient norm 1.957e-3; 9.839e-2 / 1.635e-1 / 1.957e-1
+# - parameters 1.360e-3; 6.807e-3 / 5.512e-3 / 1.099e-3 (AdamW's first
+#   step is blind to the gradient's scale)
+# - observers 3.571e-2; 3.448e-1 / 3.830e-1 / 1.829e-2
+# - qkv gradient 2.206e-2; 1.151 / 6.255e-1 / 2.455e-1
+# and the weight observers identical, the ranks identical after every
+# step but proj unreduced's (apart after all 8). Every fault misses two
+# limits or more.
+TP_LIMITS = {"loss_rel": 5e-3, "grad_norm_rel": 2e-2, "params_rel_l2": 3e-3, "obs_rel": 1e-1,
+             "qkv_grad_rel": 8e-2}
+TP_METRICS = tuple(TP_LIMITS)
+
+
+def tp_plant(fault):
+    """``fault`` planted into this rank's tensor-parallel path (for
+    ``port_scripts/tp_bounds.py``): ``qkv_contiguous`` (each rank takes a
+    contiguous 1/k of qkv's rows), ``proj_unreduced`` (proj's partial
+    product not summed over the model ranks), ``clip_twice`` (the clip's
+    squared norm, replicated gradients included, summed over the model
+    ranks)."""
+    import torch
+
+    from qat_vit_tpu_torch.parallel import dryrun, tensor
+    from qat_vit_tpu_torch.train import steps
+
+    if fault == "qkv_contiguous":
+        def rows(cfg, k, m):
+            lo, hi = tensor.head_bounds(cfg, k, m)
+            n = 3 * (hi - lo) * cfg.head_dim
+            return torch.arange(3 * lo * cfg.head_dim, 3 * lo * cfg.head_dim + n)
+        tensor.qkv_rows = rows
+    elif fault == "proj_unreduced":
+        shard = dryrun.shard_module
+
+        def planted(module, mesh):
+            module = shard(module, mesh)
+            for blk in module.blocks:
+                blk.attn.proj.tp = None
+            return module
+        dryrun.shard_module = planted
+    elif fault == "clip_twice":
+        def clip(grads, max_norm, split=(), group=None):
+            grads = list(grads) + list(split)
+            sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).square()
+            norm = torch.sqrt(steps.all_reduce_sum(sq, group))
+            factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+            torch._foreach_mul_(grads, factor)
+            return norm
+        steps.clip_by_global_norm_ = clip
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def tp_vit(torch, np, info, seed, model, timed=True):
+    """ViT-S/16 at full width, depth 12, 224 px, from a bf16 ViT-B/16, in
+    ``KDQATTrainer`` with ``model_parallel`` ``model``: one float and one
+    observing QAT step of the trainer's steps on a global batch of TP_B, each
+    split over the model axis against one process from the same whole state;
+    returns the readings and the limits each missed."""
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+    from qat_vit_tpu_torch.models.vit import VisionTransformer
+    from qat_vit_tpu_torch.parallel.dryrun import tp_step_against_one_process
+
+    data = synthetic_cifar10(n_train=4 * TP_B, n_test=16, seed=seed)
+    student, teacher = vit_models(torch, seed)
+    t = vit_trainer(torch, data, student, teacher, TP_B, seed=seed, model_parallel=model)
+    mesh, fcfg, qcfg = t.mesh, t.student_float_cfg, t.student_qat_cfg
+    bad = []
+    if (mesh.model, mesh.data) != (model, info.world_size // model) or fcfg.attn_kernel \
+            or qcfg.attn_kernel or qcfg.quant.weight.axis_name != "model":
+        fail(f"rank {info.rank}: the trainer is not tensor-parallel: {mesh} / {qcfg}")
+    whole = t.full_state_dict(t.student_float)
+    batches = dp_batches(torch, np, t, 2, TP_B * mesh.data, seed + 500)
+    rows = []
+    for name, cfg, fn, batch in (("float", fcfg, t.train_step_float, batches[0]),
+                                 ("qat", qcfg, t.train_step_qat, batches[1])):
+        module = VisionTransformer(cfg)
+        missing, _ = module.load_state_dict(whole, strict=False)
+        if [k for k in missing if not k.endswith(("min_val", "max_val"))]:
+            fail(f"rank {info.rank}: the whole student lacks {missing}")
+        r = tp_step_against_one_process(module.to(t.device), mesh, fn, batch, t.loss_hp,
+                                        lr=float(t.hp["lr"]), wd=float(t.hp["weight_decay"]),
+                                        timed_steps=TP_TIMED_STEPS if timed else 0)
+        r["step"] = name
+        rows.append(r)
+        for k, v in TP_LIMITS.items():
+            if k == "obs_rel" and name != "qat":
+                continue
+            if r[k] > v:
+                bad.append(f"{name} {k} {r[k]:.3e} > {v}")
+        if not r["ranks_identical"] or not r["weight_obs_equal"]:
+            bad.append(f"{name}: ranks identical {r['ranks_identical']}, weight observers "
+                       f"identical {r['weight_obs_equal']}")
+    return {"rows": rows, "bad": bad}
+
+
+def tp_rank_main(job_path):
+    """One rank of phase 13 (or of ``port_scripts/tp_bounds.py``): joins
+    the world, runs ``tp_vit`` at the job's seeds, writes
+    ``{out}/rank{r}.json``."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from qat_vit_tpu_torch.parallel import barrier, cleanup_distributed, setup_distributed
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp_plant(job.get("fault"))
+    info, dev = setup_distributed("cuda", timeout_s=TP_TIMEOUT_S)
+    out = {"rank": info.rank, "world": info.world_size, "backend": dist.get_backend(),
+           "device": str(dev)}
+    try:
+        for seed in job.get("seeds", [SEED]):
+            out[str(seed)] = tp_vit(torch, np, info, seed, job["model"],
+                                    timed=job.get("timed", True))
+            gc.collect()
+            torch.cuda.empty_cache()
+        barrier("tp_end")
+    finally:
+        cleanup_distributed()
+    with open(os.path.join(job["out"], f"rank{info.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_launch(job, n, out_dir, timeout=TP_TIMEOUT_S, env=None):
+    """Run ``job`` on ``n`` ranks of this script (TP_CHILD); each rank's
+    results and the seconds taken."""
+    from qat_vit_tpu_torch.parallel.dryrun import launch
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "job.json")
+    with open(path, "w") as f:
+        json.dump(dict(job, out=out_dir), f)
+    t0 = time.perf_counter()
+    launch([os.path.abspath(__file__), TP_CHILD, path], n, out_dir, timeout_s=timeout, env=env)
+    secs = time.perf_counter() - t0
+    results = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, secs
+
+
+def _tp_row(r):
+    return (f"{r['step']}: loss {r['loss']:.5f}, " + ", ".join(f"{k} {r[k]:.3e}" for k in TP_METRICS)
+            + f", weight observers identical {r['weight_obs_equal']}, ranks identical "
+            f"{r['ranks_identical']}")
+
+
+def phase_tensor_parallel(torch, np, fa):
+    """Tensor parallelism on the card: two ranks' ViT-S/16 TP steps against
+    one process (and four ranks' with four cards); the training CLI under
+    torchrun with ``--model-parallel 2``, its checkpoint and resume file
+    read in one process and its export served through ``Int8Predictor``."""
+    import dataclasses
+    import re
+
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+    from qat_vit_tpu_torch.models.jax_params import (
+        params_to_state_dict,
+        quant_stats_to_buffers,
+    )
+    from qat_vit_tpu_torch.models.vit import VisionTransformer
+    from qat_vit_tpu_torch.serve.predictor import Int8Predictor
+    from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint, load_metadata
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+    n_cards = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        # (a) ViT-S/16 on a (1, 2) grid sharing the card (gloo); (d) on a (2,
+        # 2) grid on NCCL with four cards
+        layouts = [("gloo", 2, {"CUDA_VISIBLE_DEVICES": "0"})]
+        if n_cards >= 4:
+            layouts.append(("nccl", 4, {"CUDA_VISIBLE_DEVICES": "0,1,2,3"}))
+        for backend, n, env in layouts:
+            results, secs = tp_launch({"model": 2}, n, os.path.join(tmp, backend), env=env)
+            bad = []
+            for res in results:
+                if res["backend"] != backend:
+                    bad.append(f"rank {res['rank']} ran on {res['backend']}")
+                r = res[str(SEED)]
+                bad += [f"rank {res['rank']}: {b}" for b in r["bad"]]
+                for row in r["rows"]:
+                    print(f"phase 13 rank {res['rank']}/{n} ({backend}, data {n // 2} x model 2) "
+                          f"ViT-S/16 TP step vs one process on the global batch of "
+                          f"{TP_B * (n // 2)}: " + _tp_row(row), flush=True)
+            r0 = results[0][str(SEED)]["rows"]
+            shards = r0[0]["shards"]["params"]
+            print(f"phase 13 ({backend}, {n} ranks) rank 0 holds qkv / proj / fc1 / fc2 "
+                  f"{[shards[f'blocks.0.{k}'] for k in ('attn.qkv.weight', 'attn.proj.weight', 'mlp.fc1.weight', 'mlp.fc2.weight')]}"
+                  f" and AdamW moments {r0[0]['shards']['moments']['blocks.0.attn.qkv.weight']}"
+                  f" of qkv; ms per step over {TP_TIMED_STEPS} steps (host clock; the ranks "
+                  f"{'share one card: a record, not a scaling figure' if backend == 'gloo' else 'one card each'}): "
+                  + "; ".join(f"{row['step']} TP {row['ms']:.2f} vs one process "
+                              f"{row['one_process_ms']:.2f}" for row in r0)
+                  + f" at a global batch of {TP_B * (n // 2)} on {card}; {secs:.1f} s", flush=True)
+            if bad:
+                fail("phase 13 TP steps: " + "; ".join(bad))
+        if n_cards < 4:
+            print(f"phase 13 (d) data 2 x model 2 on NCCL, a card a rank: not run ({n_cards} "
+                  f"card; it needs 4)", flush=True)
+
+        # (c) the training CLI under torchrun, --model-parallel 2
+        out, db = os.path.join(tmp, "cli"), os.path.join(tmp, "cli.db")
+        log = os.path.join(tmp, "torchrun.log")
+        secs = torchrun_cli(root, TP_CLI_ARGS + ["--output-dir", out, "--mlflow-uri",
+                                                 f"sqlite:///{db}", "--data-dir",
+                                                 os.path.join(tmp, "no_cifar")], log, 2)
+        with open(log) as f:
+            text = f.read()
+        wrote = {int(r) for r, _ in re.findall(r"rank (\d+) INFO \S+: wrote (\S+)", text)}
+        epochs = re.findall(r"rank (\d+)/(\d+) epoch (\d+) metrics (\{.*?\})", text)
+        by_epoch = {}
+        for rank, _, epoch, metrics in epochs:
+            by_epoch.setdefault(int(epoch), {})[int(rank)] = metrics
+        same = sorted(by_epoch) == [0, 1] and all(len(v) == 2 and len(set(v.values())) == 1
+                                                   for v in by_epoch.values())
+        missing = [f for f in ENTRY_FILES if not os.path.isfile(os.path.join(out, f))]
+        # its checkpoint in one process, strictly: the whole student, QAT when
+        # the best epoch was a QAT one (a float epoch may win the rule)
+        qcfg = cli_student_cfg(torch)
+        ckpt = load_checkpoint(os.path.join(out, "best_qat.msgpack"))
+        qat_best = bool(load_metadata(os.path.join(out, "best_qat.msgpack"))["qat_enabled"])
+        sd = params_to_state_dict(ckpt["params"])
+        sd.update(quant_stats_to_buffers(ckpt["quant_stats"]))
+        one = VisionTransformer(qcfg if qat_best else dataclasses.replace(
+            qcfg, quant=None, qat_wrapper=False)).cuda()
+        one.load_state_dict(sd, strict=True)
+        images = np.random.default_rng(SEED).integers(0, 256, (64, 32, 32, 3), np.uint8)
+        from qat_vit_tpu_torch.data.pipeline import preprocess_fn
+
+        with torch.no_grad():
+            fq_logits = one(preprocess_fn(224)(torch.from_numpy(images).cuda()))
+        # its resume file in a one-process trainer: QAT at epoch 2, one more step
+        data = synthetic_cifar10(n_train=4 * TP_B, n_test=16, seed=SEED)
+        student, teacher = vit_models(torch, SEED)
+        t = vit_trainer(torch, data, student, teacher, TP_B)
+        epoch = t.load_resume_state(os.path.join(out, "resume_state.msgpack"))
+        (batch,) = dp_batches(torch, np, t, 1, TP_B, SEED + 600)
+        loss = float(t.train_step_qat(t.state, batch, t.loss_hp)["train_loss"])
+        # its export through Int8Predictor (the preset: K2a-d and K3)
+        fa.fused_attention_qkv.launches = 0
+        logits = Int8Predictor.from_checkpoint(os.path.join(out, "best_converted.msgpack"), qcfg,
+                                               device="cuda", batch_size=64).logits(images)
+        torch.cuda.synchronize()
+        k3 = fa.fused_attention_qkv.launches
+        print(f"phase 13 the training CLI under torchrun, 2 ranks sharing the card (gloo), "
+              f"{' '.join(TP_CLI_ARGS)}: exit 0 in {secs:.1f} s; files written by ranks "
+              f"{sorted(wrote)}, missing {missing}; epoch metrics identical on the ranks {same}; "
+              f"best_qat.msgpack (a {'QAT' if qat_best else 'float'} epoch's) loaded strictly "
+              f"into one process's ViT-S/16, logits {tuple(fq_logits.shape)} finite "
+              f"{bool(torch.isfinite(fq_logits).all())}; "
+              f"resume_state.msgpack in a one-process trainer: epoch {epoch}, QAT "
+              f"{t.qat_enabled}, one more QAT step loss {loss:.5f}; best_converted.msgpack "
+              f"through Int8Predictor at batch 64: logits {logits.shape} finite "
+              f"{np.isfinite(logits).all()}, K3 launches {k3}", flush=True)
+        if (missing or wrote != {0} or not same or not torch.isfinite(fq_logits).all()
+                or epoch != 2 or not t.qat_enabled or not np.isfinite(loss)
+                or logits.shape != (64, 10) or not np.isfinite(logits).all()
+                or k3 != qcfg.depth):
+            fail("phase 13: the torchrun CLI with --model-parallel 2 or its files")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase_12_in_child(torch, artifacts):
     """Phase 12 in a fresh process of this script, on phase 10's artifacts.
     Late in one process torch.profiler drops device events (phase 8's note;
@@ -3798,6 +4113,9 @@ def main() -> None:
     if sys.argv[1:2] == [P12_CHILD]:
         phase_search_eval_tail(torch, np, fs, fa, fat, la, sys.argv[2])
         return
+    if sys.argv[1:2] == [TP_CHILD]:
+        tp_rank_main(sys.argv[2])
+        return
 
     # phase 1: environment and build
     card = card_line()
@@ -3813,6 +4131,10 @@ def main() -> None:
     if sys.argv[1:] == [P12_ONLY]:
         phase_12_alone(torch)
         print("chip_smoke: phase 12 alone (no result)", flush=True)
+        return
+    if sys.argv[1:] == [TP_ONLY]:
+        phase_tensor_parallel(torch, np, fa)
+        print("chip_smoke: phase 13 alone (no result)", flush=True)
         return
 
     kernels = phase_kernels(torch, np, fs, fa, fat, la)
@@ -3832,6 +4154,7 @@ def main() -> None:
         phase_entry_points(torch, np, fs, fa, fat, la, keep_dir=artifacts)
         phase_data_parallel(torch, np, fs, fa)
         phase_12_in_child(torch, artifacts)
+        phase_tensor_parallel(torch, np, fa)
     finally:
         shutil.rmtree(artifacts, ignore_errors=True)
 

@@ -40,6 +40,7 @@ from qat_vit_tpu_torch.ops.long_attention import (
     long_attention_train_available,
 )
 from qat_vit_tpu_torch.ops.remat import REMAT_MODES, recompute
+from qat_vit_tpu_torch.parallel.tensor import COLUMN, ROW, copy_to_model, reduce_from_model
 from qat_vit_tpu_torch.quant.modules import FakeQuantizer
 from qat_vit_tpu_torch.quant.qconfig import QConfig
 
@@ -144,7 +145,13 @@ class QuantDense(nn.Module):
 
     Fake-quant math runs in f32; the matmul and the bias add run in
     ``dtype``. ``defer_output_fq=True`` returns ``(y_raw, scale, zp)`` with
-    the output observer updated, for a kernel that applies the fake-quant."""
+    the output observer updated, for a kernel that applies the fake-quant.
+
+    Under a model axis (``parallel/tensor.shard_module``) ``tp`` is
+    ``"column"`` (the weight holds this rank's output rows; the input's
+    gradient is summed over ``tp_group``) or ``"row"`` (this rank's input
+    columns; the partial product is summed over ``tp_group`` before the
+    bias add and the output fake-quant)."""
 
     def __init__(self, in_features: int, features: int, quant: Optional[QConfig],
                  generator: Optional[torch.Generator] = None,
@@ -158,6 +165,8 @@ class QuantDense(nn.Module):
         if quant is not None:
             self.weight_fq = FakeQuantizer(quant.weight)
             self.act_fq = FakeQuantizer(quant.activation)
+        self.tp: Optional[str] = None
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor, *, observe: bool = False,
                 defer_output_fq: bool = False):
@@ -165,11 +174,18 @@ class QuantDense(nn.Module):
                          defer_output_fq=defer_output_fq)
 
     def gemm(self, x: torch.Tensor, *, observe: bool = False) -> torch.Tensor:
-        """The product alone: ``x @ fq(W)ᵀ`` in ``dtype``, no bias."""
+        """The product alone: ``x @ fq(W)ᵀ`` in ``dtype``, no bias (under a
+        model axis the whole product: a row-parallel one summed over the
+        ranks)."""
         w = self.weight
         if self.quant is not None:
             w = self.weight_fq(w, observe=observe)
-        return F.linear(x.to(self.dtype), w.to(self.dtype))
+        if self.tp == COLUMN:
+            x = copy_to_model(x, self.tp_group)
+        y = F.linear(x.to(self.dtype), w.to(self.dtype))
+        if self.tp == ROW:
+            y = reduce_from_model(y, self.tp_group)
+        return y
 
     def post(self, y: torch.Tensor, *, observe: bool = False, defer_output_fq: bool = False):
         """The bias add and the output fake-quant of :meth:`gemm`'s product."""
@@ -226,11 +242,15 @@ class Attention(nn.Module):
       backward) under ``fast_math`` and ``attn_kernel`` where it fits, with
       the qkv fake-quant outside the kernels, as the JAX module's branch;
     - otherwise the einsum path: scores in the compute dtype, softmax in it
-      under ``fast_math`` and in f32 otherwise."""
+      under ``fast_math`` and in f32 otherwise.
+
+    ``heads`` is the heads this module runs: all of ``cfg.num_heads``, or
+    under a model axis this rank's (``parallel/tensor.shard_module``)."""
 
     def __init__(self, cfg: ViTConfig, generator=None):
         super().__init__()
         self.cfg = cfg
+        self.heads = cfg.num_heads
         d = cfg.embed_dim
         self.qkv = QuantDense(d, 3 * d, cfg.quant, generator, cfg.dtype)
         self.proj = QuantDense(d, d, cfg.quant, generator, cfg.dtype)
@@ -246,13 +266,13 @@ class Attention(nn.Module):
         (K5a + K5b) or ``"einsum"``."""
         cfg = self.cfg
         kernel_ok = (cfg.fast_math and cfg.attn_kernel
-                     and attention_train_available(cfg.num_heads, cfg.head_dim, n, cfg.dtype))
+                     and attention_train_available(self.heads, cfg.head_dim, n, cfg.dtype))
         if cfg.quant is not None and cfg.fq_in_kernel and observe and kernel_ok:
             return "fq"
         if kernel_ok:
             return "kernel"
         if (cfg.fast_math and cfg.attn_kernel
-                and long_attention_train_available(cfg.num_heads, cfg.head_dim, n, cfg.dtype)):
+                and long_attention_train_available(self.heads, cfg.head_dim, n, cfg.dtype)):
             return "long"
         return "einsum"
 
@@ -269,7 +289,7 @@ class Attention(nn.Module):
     def mix(self, qkv, route: str) -> torch.Tensor:
         """Attention over :meth:`qkv_out`'s result on ``route``: ``[B, N, D]``."""
         cfg = self.cfg
-        h, hd = cfg.num_heads, cfg.head_dim
+        h, hd = self.heads, cfg.head_dim
         if route == "fq":
             act = cfg.quant.activation
             return attention_train_fq(qkv[0], qkv[1], h, hd, act.quant_min, act.quant_max)

@@ -1,12 +1,16 @@
-"""Parallelism: data parallelism over ``torch.distributed`` ranks, the rank
-helpers, and the devices of a data-parallel predictor (``parallel/mesh.py``)."""
+"""Parallelism: data and tensor parallelism over ``torch.distributed`` ranks,
+the rank helpers and the ``(data, model)`` rank grid (``parallel/mesh.py``),
+the split of the model over the model axis (``parallel/tensor.py``), and the
+devices of a data-parallel predictor."""
 
 from qat_vit_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     DistInfo,
     Mesh,
+    all_reduce_mean,
     all_reduce_minmax,
+    all_reduce_sum,
     barrier,
     cleanup_distributed,
     get_dist_info,
@@ -22,7 +26,9 @@ __all__ = [
     "MODEL_AXIS",
     "DistInfo",
     "Mesh",
+    "all_reduce_mean",
     "all_reduce_minmax",
+    "all_reduce_sum",
     "barrier",
     "cleanup_distributed",
     "get_dist_info",

@@ -1,24 +1,29 @@
-"""Data-parallel dry run over ``torch.distributed`` ranks, and its rank
-worker (the port's counterpart of ``__graft_entry__.dryrun_multichip``).
+"""Data- and tensor-parallel dry run over ``torch.distributed`` ranks, and
+its rank worker (the port's counterpart of ``__graft_entry__.dryrun_multichip``).
 
-    python -m qat_vit_tpu_torch.parallel.dryrun [N] [--device cpu]   # N ranks, default 2
+    python -m qat_vit_tpu_torch.parallel.dryrun [N] [--model K] [--device cpu]
 
-:func:`dryrun_multichip` starts ``N`` ranks (:func:`launch`, as ``torchrun``
-would: one process each, ``RANK`` / ``WORLD_SIZE`` / ``MASTER_PORT`` in the
-environment) that each, on micro models, take one float, one observing QAT
-and one observer-frozen QAT step through DDP, each held to one process's
-step on the whole global batch from the same state; run the rank-sharded
-eval; serve through a predictor with a replica per device; and take one
-detection QAT step. It prints one OK line.
+:func:`dryrun_multichip` starts ``N`` ranks (default 2; :func:`launch`, as
+``torchrun`` would: one process each, ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_PORT`` in the environment) that each, on micro models, take one
+float, one observing QAT and one observer-frozen QAT step through DDP, each
+held to one process's step on the whole global batch from the same state;
+run the rank-sharded eval; serve through a predictor with a replica per
+device; and take one detection QAT step. With ``--model K`` > 1 the ranks
+form an ``(N / K, K)`` rank grid instead and take one float and one QAT
+tensor-parallel step of the micro ViT (:func:`tp_step_against_one_process`).
+It prints one OK line.
 
 :func:`run_job` is the rank's side (``python -m
 qat_vit_tpu_torch.parallel.dryrun --job FILE``): it joins the process group
 (``setup_distributed``), runs the job's tasks in order and writes each
 rank's results under the job's ``out`` directory. Besides ``dryrun`` the
-tasks are the steps of given states and batches (``steps``), the sharded
-eval of a given state (``eval``), the rank helpers (``info``), the guard on
-QAT steps without the observers' axis (``guard``) and ``train_main`` /
-``detect_train_main`` on micro models and synthetic data (``train_main``).
+tasks are the steps of given states and batches (``steps``, and
+``tp_steps`` on a rank grid), the sharded eval of a given state
+(``eval``), the rank helpers (``info``), the guard on QAT steps without
+the observers' axis (``guard``), ``train_main`` / ``detect_train_main`` on
+micro models and synthetic data (``train_main``), the search driver
+(``search``) and the tensor-parallel dry run (``tp_dryrun``).
 
 :func:`launch` kills every rank as soon as one fails or the time limit
 passes, and raises: a lost rank fails the run instead of hanging it.
@@ -43,6 +48,7 @@ import torch.distributed as dist
 
 from qat_vit_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    MODEL_AXIS,
     all_reduce_mean,
     barrier,
     cleanup_distributed,
@@ -52,6 +58,7 @@ from qat_vit_tpu_torch.parallel.mesh import (
     setup_distributed,
     world_size,
 )
+from qat_vit_tpu_torch.parallel.tensor import gather_params, shard_module, split_params
 
 RANK_TIMEOUT_S = 600.0
 _ROOT = Path(__file__).resolve().parents[2]
@@ -194,6 +201,100 @@ def step_against_one_process(state, step_fn: Callable, shard: Dict[str, torch.Te
             "obs_rel": obs_rel, "ranks_identical": ranks_identical(mine)}
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def shard_shapes(module, optimizer) -> Dict[str, Dict[str, List[int]]]:
+    """The shapes of this rank's shards of ``module``'s split parameters
+    (``params``) and of their AdamW first moments (``moments``)."""
+    split = [(n, p) for n, p in module.named_parameters() if hasattr(p, "tp_group")]
+    return {"params": {n: list(p.shape) for n, p in split},
+            "moments": {n: list(optimizer.adamw.state[p]["exp_avg"].shape) for n, p in split}}
+
+
+def tp_step_against_one_process(module, mesh, step_fn: Callable, whole: Dict[str, torch.Tensor],
+                                loss_hp, lr=1e-3, wd=1e-4, clip=1.0,
+                                loss_key: str = "train_loss", timed_steps: int = 0
+                                ) -> Dict[str, Any]:
+    """One tensor-parallel step and one process's step, from the same state:
+    ``module`` is a whole model in its start state (the same on every rank;
+    left as it was). One process steps a copy of it on the global batch
+    ``whole`` (its observers reduce over the ranks too, exactly: every rank
+    holds the same batch); the rank steps another copy split over ``mesh``'s
+    model axis (:func:`shard_module`, DDP over the data group) on its data
+    shard. Both start with fresh AdamW moments.
+
+    Returns the readings: ``loss_rel`` (the loss averaged over the ranks),
+    ``grad_norm_rel`` (the global gradient norm before the clip),
+    ``params_rel_l2`` (every parameter after the step, gathered),
+    ``obs_rel`` (the largest relative difference of an observer's min or
+    max, weights and activations; 0 without observers), ``weight_obs_equal``
+    (the weight observers identical), ``qkv_grad_rel`` (the first block's qkv
+    weight gradient after the clip, gathered), ``ranks_identical`` (the
+    gathered parameters and observers the same on every rank), ``shards``
+    (this rank's split parameters' and AdamW moments' shapes) and the
+    step's ``loss``. With ``timed_steps`` n: ``ms``, per TP step over n more
+    steps back to back on every rank, and ``one_process_ms``, per
+    one-process step over n steps on rank 0 while the others wait, its
+    observers not reducing over the ranks, as in one process (host clock
+    from a barrier to a device sync)."""
+    from qat_vit_tpu_torch.quant.modules import FakeQuantizer
+    from qat_vit_tpu_torch.train.steps import TrainState, data_parallel, make_optimizer
+
+    sync = torch.cuda.synchronize if whole["image"].is_cuda else (lambda: None)
+
+    def timed(state, batch, mine=True):
+        barrier("timed")
+        if not mine:
+            return None
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            step_fn(state, batch, loss_hp)
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / timed_steps
+
+    one = copy.deepcopy(module)
+    one_state = TrainState(one, make_optimizer(one.parameters(), lr, wd, clip))
+    ref = step_fn(one_state, whole, loss_hp)
+    ref_norm = float(one_state.optimizer.last_grad_norm)
+    ref_sd = {k: v.clone() for k, v in one.state_dict().items()}
+    qkv = "blocks.0.attn.qkv.weight"
+    ref_grad = one.get_parameter(qkv).grad.clone()
+
+    tp = shard_module(copy.deepcopy(module), mesh)
+    state = TrainState(tp, make_optimizer(tp.parameters(), lr, wd, clip), replica=data_parallel(tp))
+    shard = shard_of(whole, mesh.data_index, mesh.data)
+    got = step_fn(state, shard, loss_hp)
+    loss = float(all_reduce_mean(got[loss_key]))
+    norm = float(state.optimizer.last_grad_norm)
+    sd = gather_params(tp.state_dict(), tp.cfg, mesh)
+    grad = gather_params({qkv: tp.get_parameter(qkv).grad}, tp.cfg, mesh)[qkv]
+    names = [n for n, _ in module.named_parameters()]
+    params, ref_params = _flat([sd[n] for n in names]), _flat([ref_sd[n] for n in names])
+    obs = [k for k in sd if k.endswith(("min_val", "max_val")) and torch.isfinite(ref_sd[k])]
+    obs_rel = max((float((sd[k] - ref_sd[k]).abs() / ref_sd[k].abs().clamp_min(1e-12))
+                   for k in obs), default=0.0)
+    ref_loss = float(ref[loss_key])
+    readings = {
+        "loss": loss, "loss_rel": abs(loss - ref_loss) / max(abs(ref_loss), 1e-12),
+        "grad_norm_rel": abs(norm - ref_norm) / max(ref_norm, 1e-30),
+        "params_rel_l2": _rel(params, ref_params), "obs_rel": obs_rel,
+        "weight_obs_equal": all(torch.equal(sd[k], ref_sd[k]) for k in obs if "weight_fq" in k),
+        "qkv_grad_rel": _rel(grad, ref_grad),
+        "ranks_identical": ranks_identical(_flat([params] + [sd[k] for k in obs])),
+        "shards": shard_shapes(tp, state.optimizer)}
+    if timed_steps:
+        readings["ms"] = timed(state, shard)
+        for m in one.modules():
+            if isinstance(m, FakeQuantizer):
+                m.cfg = dataclasses.replace(m.cfg, axis_name=None)
+        readings["one_process_ms"] = timed(one_state, whole, get_dist_info().rank == 0)
+        barrier("timed_end")
+    return readings
+
+
 def shard_of(batch: Dict[str, torch.Tensor], rank: int, world: int) -> Dict[str, torch.Tensor]:
     """Rank ``rank``'s contiguous rows of a global batch (JAX's device
     shard ``r`` under ``P("data")``)."""
@@ -204,12 +305,18 @@ def shard_of(batch: Dict[str, torch.Tensor], rank: int, world: int) -> Dict[str,
 # micro models and batches
 # ---------------------------------------------------------------------------
 
-def micro_qconfig(axis: bool = True, stride: int = 1):
+def micro_qconfig(axis: bool = True, stride: int = 1, model_axis: bool = False):
+    """The micro models' qconfig: the activation observers on the data axis
+    (``axis``) and, with ``model_axis`` (a tensor-parallel step), the weight
+    observers on the model axis."""
     from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
 
     qc = default_qat_qconfig()
-    return dataclasses.replace(qc, activation=dataclasses.replace(
+    qc = dataclasses.replace(qc, activation=dataclasses.replace(
         qc.activation, axis_name=DATA_AXIS if axis else None, observe_stride=stride))
+    if model_axis:
+        qc = dataclasses.replace(qc, weight=dataclasses.replace(qc.weight, axis_name=MODEL_AXIS))
+    return qc
 
 
 def micro_vit(qat: bool, seed: int = 0, quant=None, **cfg):
@@ -278,19 +385,28 @@ def save_state(path: str, state) -> None:
                  "hyperparams": state.optimizer.hyperparams, "step": state.step}, path)
 
 
-def load_state(path: str, state) -> None:
+def load_state(path: str, state, mesh=None) -> None:
+    """:func:`save_state`'s file into ``state``; the whole state split for
+    this rank of ``mesh`` when the module is split over its model axis."""
     from qat_vit_tpu_torch.train.steps import set_optimizer_hyperparams
 
     saved = torch.load(path, map_location="cpu", weights_only=True)
+    cfg = state.module.cfg
+
+    def split(sd):
+        return split_params(sd, cfg, mesh) if mesh is not None else sd
+
     with torch.no_grad():
-        state.module.load_state_dict(saved["module"])
+        state.module.load_state_dict(split(saved["module"]))
     set_optimizer_hyperparams(state.optimizer, **saved["hyperparams"])
     adam = state.optimizer.adamw
     adam.state.clear()
+    moments = {k: split({n: m[k] for n, m in saved["moments"].items()})
+               for k in ("exp_avg", "exp_avg_sq")}
     for name, p in state.module.named_parameters():
         if name in saved["moments"]:
-            adam.state[p] = {k: v.to(p.device) if k != "step" else v.clone()
-                             for k, v in saved["moments"][name].items()}
+            adam.state[p] = {"step": saved["moments"][name]["step"].clone(),
+                             **{k: moments[k][name].to(p.device) for k in moments}}
     state.step = int(saved["step"])
 
 
@@ -411,6 +527,86 @@ def task_eval(task, info, device) -> Dict[str, Any]:
     return out
 
 
+def task_tp_steps(task, info, device) -> Dict[str, Any]:
+    """Tensor-parallel steps of given states on the ``(data, model)`` rank
+    grid of ``task``: for each case the whole state of
+    ``{dir}/{case}_state0.pt`` (a :func:`save_state` file) is split for this
+    rank and steps on its data shard of ``{dir}/{case}_batch0.pt`` (each
+    waited for); rank 0 writes the gathered state dict, AdamW moments and
+    first-block qkv weight gradient after it, with the metrics averaged
+    over the ranks, to ``{dir}/{case}_tp{data}x{model}.pt``. Returns this
+    rank's split parameters' and moments' shapes by case. A case: ``name``,
+    ``qat``, ``lr`` / ``wd`` / ``clip``."""
+    from qat_vit_tpu_torch.train.steps import TrainState, data_parallel, make_optimizer
+
+    d, timeout_s = task["dir"], float(task.get("wait_s", RANK_TIMEOUT_S))
+    mesh = make_mesh(data=task["data"], model=task["model"])
+    out = {}
+    for case in task["cases"]:
+        qat = case["qat"]
+        quant = micro_qconfig(model_axis=True) if qat else None
+        module = shard_module(micro_vit(qat, quant=quant).module.to(device), mesh)
+        state = TrainState(module, make_optimizer(module.parameters(), case["lr"], case["wd"],
+                                                  case["clip"]), replica=data_parallel(module))
+        paths = [os.path.join(d, f"{case['name']}_{k}0.pt") for k in ("state", "batch")]
+        for path in paths:
+            wait_for(path, timeout_s)
+        load_state(paths[0], state, mesh)
+        batch = torch.load(paths[1], weights_only=True)
+        shard = {k: v.to(device) for k, v in shard_of(batch, mesh.data_index, mesh.data).items()}
+        metrics = _step_fn(False, qat, True)(state, shard, _loss_hp(False, device))
+        named = dict(module.named_parameters())
+        adam = state.optimizer.adamw.state
+        gathered = {
+            "module": gather_params(module.state_dict(), module.cfg, mesh),
+            "moments": {k: gather_params({n: adam[p][k] for n, p in named.items()}, module.cfg,
+                                         mesh) for k in ("exp_avg", "exp_avg_sq")},
+            "qkv_grad": gather_params({n: p.grad for n, p in named.items() if "qkv.weight" in n},
+                                      module.cfg, mesh),
+            "metrics": {k: float(all_reduce_mean(v)) for k, v in metrics.items()}}
+        if info.rank == 0:
+            save_atomic(gathered, os.path.join(
+                d, f"{case['name']}_tp{task['data']}x{task['model']}.pt"))
+        out[case["name"]] = dict(shard_shapes(module, state.optimizer),
+                                 ranks_identical=ranks_identical(_flat(gathered["module"].values())))
+    return out
+
+
+def task_search(task, info, device) -> Dict[str, Any]:
+    """The search driver on the micro ViT (``task["cfg"]``'s
+    ``SearchConfig`` fields; ``{rank}`` in ``output_dir`` and
+    ``mlflow_uri`` takes the rank) on synthetic data: its best value and
+    parameters."""
+    from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
+    from qat_vit_tpu_torch.search.driver import SearchConfig, run_optuna_search
+
+    cfg = {k: v.format(rank=info.rank) if isinstance(v, str) else v
+           for k, v in task["cfg"].items()}
+    data = synthetic_cifar10(n_train=task["n_train"], n_test=task["n_test"], seed=2)
+    res = run_optuna_search(SearchConfig(**cfg), data=data, prefer_optuna=False, device=device)
+    return {"best_value": res["best_value"], "best_params": res["best_params"]}
+
+
+def task_tp_dryrun(task, info, device) -> Dict[str, Any]:
+    """The tensor-parallel dry run on the ``(world / model, model)`` grid:
+    one float, one QAT and one QAT step under ``remat="dots"`` (the
+    recomputed products re-enter the collectives) of the micro ViT against
+    one process (:func:`tp_step_against_one_process`); raises on any miss."""
+    mesh = make_mesh(model=task["model"])
+    whole = to_device(micro_batch(MICRO_B * mesh.data, 0), device)
+    readings = {}
+    for name, qat, remat in (("float", False, "none"), ("qat", True, "none"),
+                             ("qat_remat_dots", True, "dots")):
+        quant = micro_qconfig(model_axis=True) if qat else None
+        module = micro_vit(qat, quant=quant, remat=remat).module.to(device)
+        readings[name] = r = tp_step_against_one_process(
+            module, mesh, _step_fn(False, qat, True), whole, _loss_hp(False, device))
+        if not (r["ranks_identical"] and r["loss_rel"] < 1e-4 and r["params_rel_l2"] < 1e-3
+                and r["obs_rel"] < 1e-6 and r["weight_obs_equal"]):
+            raise RuntimeError(f"dryrun: the {name} TP step against one process: {r}")
+    return readings
+
+
 def task_train_main(task, info, device) -> Dict[str, Any]:
     """``train_main`` (or ``detect_train_main``) on micro models and
     synthetic data; ``{rank}`` in ``output_dir`` takes the rank, so each
@@ -498,7 +694,8 @@ def task_dryrun(task, info, device) -> Dict[str, Any]:
 
 
 TASKS = {"info": task_info, "guard": task_guard, "steps": task_steps, "eval": task_eval,
-         "train_main": task_train_main, "dryrun": task_dryrun}
+         "train_main": task_train_main, "dryrun": task_dryrun, "tp_steps": task_tp_steps,
+         "search": task_search, "tp_dryrun": task_tp_dryrun}
 
 
 def run_job(job: Dict[str, Any]) -> None:
@@ -507,7 +704,8 @@ def run_job(job: Dict[str, Any]) -> None:
     kind), leave the world."""
     device = job.get("device", "cuda")
     if torch.device(device).type == "cpu":
-        torch.set_num_threads(2)  # two ranks beside the caller on a shared host
+        # several ranks beside the caller on a shared host
+        torch.set_num_threads(int(job.get("threads", 2)))
     info, device = setup_distributed(device, timeout_s=float(job.get("timeout_s",
                                                                      RANK_TIMEOUT_S)))
     try:
@@ -539,10 +737,12 @@ def run_ranks(job: Dict[str, Any], n_processes: int, *,
 
 
 def dryrun_multichip(n_processes: int = 2, device="cuda",
-                     timeout_s: float = RANK_TIMEOUT_S) -> Dict[str, Any]:
+                     timeout_s: float = RANK_TIMEOUT_S, model: int = 1) -> Dict[str, Any]:
     """The dry run on ``n_processes`` ranks (on CUDA they share the cards
-    round-robin); prints one OK line and returns rank 0's readings. The
-    kernels are built here first, so that the ranks load one library."""
+    round-robin), data-parallel, or with ``model`` > 1 tensor-parallel on
+    the ``(n_processes / model, model)`` rank grid; prints one OK line and
+    returns rank 0's readings. The kernels are built here first, so that
+    the ranks load one library."""
     if torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("dryrun_multichip: no CUDA device; pass device='cpu'")
@@ -550,6 +750,20 @@ def dryrun_multichip(n_processes: int = 2, device="cuda",
 
         _build.build()
     t0 = time.perf_counter()
+    if model > 1:
+        with tempfile.TemporaryDirectory(prefix="qvt_dryrun_") as out:
+            results = run_ranks({"device": str(device), "out": out, "timeout_s": timeout_s,
+                                 "tasks": [{"kind": "info"},
+                                           {"kind": "tp_dryrun", "model": model}]},
+                                n_processes, timeout_s=timeout_s)
+        info, r = results[0]["info"], results[0]["tp_dryrun"]
+        steps = ("float", "qat", "qat_remat_dots")
+        print(f"dryrun_multichip OK: {n_processes} ranks on {info['backend']} ({device}), a "
+              f"{n_processes // model}x{model} rank grid; {' / '.join(steps)} TP steps against "
+              "one process, loss rel " + " / ".join(f"{r[k]['loss_rel']:.2e}" for k in steps)
+              + ", params rel L2 " + " / ".join(f"{r[k]['params_rel_l2']:.2e}" for k in steps)
+              + f", weight observers identical; {time.perf_counter() - t0:.1f} s", flush=True)
+        return r
     with tempfile.TemporaryDirectory(prefix="qvt_dryrun_") as out:
         results = run_ranks({"device": str(device), "out": out, "timeout_s": timeout_s,
                              "tasks": [{"kind": "info"}, {"kind": "dryrun"}]},
@@ -570,6 +784,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("n_processes", nargs="?", type=int, default=2)
+    parser.add_argument("--model", type=int, default=1, help="the model axis (tensor parallel)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--job", help="run one rank of a job file (set by launch)")
     args = parser.parse_args(argv)
@@ -577,7 +792,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         with open(args.job) as f:
             run_job(json.load(f))
         return
-    dryrun_multichip(args.n_processes, args.device)
+    dryrun_multichip(args.n_processes, args.device, model=args.model)
 
 
 if __name__ == "__main__":

@@ -50,9 +50,11 @@ def update_moving_avg_minmax(
     axis, the batch axis at every site of the models (of this rank's shard,
     under data parallelism).
 
-    ``axis_name`` (data parallelism): the shard's min/max are reduced to the
-    global batch's over every rank before the EMA, exactly
-    (``parallel.mesh.all_reduce_minmax``)."""
+    ``axis_name`` (data or tensor parallelism): the shard's min/max are
+    reduced over every rank before the EMA, exactly
+    (``parallel.mesh.all_reduce_minmax``): to the global batch's, and under
+    a model axis to the whole tensor's of a split weight or activation (a
+    no-op for a replicated one)."""
     if stride > 1 and x.shape[0] > 1:
         x = x[: max(1, x.shape[0] // stride)]
     # min/max are order statistics: reducing in the input dtype is exact

@@ -21,11 +21,13 @@ class FakeQuantConfig:
     quant_max: int
     symmetric: bool
     averaging_constant: float = DEFAULT_AVERAGING_CONSTANT
-    # reduce the batch min/max over the data-parallel process group before
-    # the EMA (``parallel.mesh.all_reduce_minmax``, JAX's pmin/pmax over
-    # this axis): the trainer sets DATA_AXIS on activation observers when it
-    # runs in a process group; None for one process and for weight
-    # observers (every rank holds the same weights)
+    # reduce the batch min/max over every rank before the EMA
+    # (``parallel.mesh.all_reduce_minmax``, JAX's pmin/pmax): the trainer
+    # sets DATA_AXIS on activation observers when it runs in a process group,
+    # and MODEL_AXIS on weight observers under a model axis (a split weight's
+    # shards make the whole tensor; a replicated one is the same on every
+    # rank); None for one process and for weight observers under data
+    # parallelism alone
     axis_name: Optional[str] = None
     # observe only the first 1/observe_stride of the leading (batch) axis, a
     # contiguous prefix (:func:`observers.update_moving_avg_minmax`); the

@@ -53,7 +53,7 @@ from qat_vit_tpu_torch.models.registry import create_model, create_student, crea
 from qat_vit_tpu_torch.search import tpe as _tpe
 from qat_vit_tpu_torch.tracking import make_tracker
 from qat_vit_tpu_torch.train.config import DEFAULT_HPARAMS, dump_flat_yaml
-from qat_vit_tpu_torch.train.trainer import KDQATTrainer, entry_device, refuse_unported
+from qat_vit_tpu_torch.train.trainer import KDQATTrainer, entry_device
 
 logger = logging.getLogger(__name__)
 
@@ -170,7 +170,6 @@ def run_optuna_search(
     ``best_params.yaml`` holds), ``best_value``, ``best_params_path`` and
     the ``study``."""
     device = entry_device(device)
-    refuse_unported({"model_parallel": cfg.model_parallel})
     os.makedirs(cfg.output_dir, exist_ok=True)
     tracker = make_tracker(cfg.mlflow_uri, cfg.experiment)
 

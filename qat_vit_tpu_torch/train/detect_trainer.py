@@ -31,8 +31,9 @@ shares); :func:`detect_train_main` is the whole run behind the CLI's
 per process through a DDP replica, the activation observers reduce over
 the ranks and the epoch's metrics are averaged; the teacher-relative eval
 runs over the whole set on every rank, as the JAX trainer's
-``_padded_eval_batches`` (which has no rank shard). Not ported, as for
-classification: model parallelism (ROADMAP.md Queue 1, item 11) raises.
+``_padded_eval_batches`` (which has no rank shard). A model axis
+(``model_parallel`` > 1) raises JAX's ``ValueError``: detection training
+runs on pure data-parallel meshes only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -73,9 +74,9 @@ from qat_vit_tpu_torch.train.trainer import (
     epoch_metrics,
     log_epoch,
     progress,
-    refuse_unported,
     shared_teacher,
     student_qconfig,
+    trainer_mesh,
 )
 from qat_vit_tpu_torch.utils.checkpoint import BestCheckpointer, load_checkpoint, save_checkpoint
 
@@ -127,8 +128,10 @@ class DetectKDTrainer:
         teacher_cache: Optional[tuple] = None,
     ):
         self.hp = dict(hparams)
-        refuse_unported(self.hp)
+        if int(self.hp.get("model_parallel", 1)) != 1:
+            raise ValueError("detection training supports pure-DP meshes only")
         self.dist = get_dist_info()
+        self.mesh = trainer_mesh(self.hp)
         self.run = run if run is not None else NullRun()
         self.device = torch.device(device)
         seed = int(self.hp["seed"] if seed is None else seed)

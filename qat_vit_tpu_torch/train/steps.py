@@ -22,6 +22,14 @@ why DDP broadcasts no buffers. A QAT step whose activation observers lack
 the axis raises in a world > 1 (:func:`check_observer_axis`), as JAX's
 does: it would train on per-rank statistics.
 
+Tensor parallelism (a model axis, ``parallel/tensor.py``): the student's
+qkv / proj / fc1 / fc2 are split over the ranks of a model group and run
+its collectives in the forward and backward; DDP averages over the data
+group alone (none with one data rank); the clip sums the squared norms of
+the split weights' gradients over the model group and adds the replicated
+ones once (:func:`clip_by_global_norm_`); every observer reduces over the
+world.
+
 PyTorch runs eagerly, so there is nothing to compile or donate: where the
 JAX step returns a new donated state, this one updates in place: the
 backward writes ``.grad``, the optimizer rewrites parameters and moments,
@@ -38,17 +46,31 @@ import torch
 from torch import nn
 
 from qat_vit_tpu_torch.data.pipeline import preprocess_fn
-from qat_vit_tpu_torch.parallel.mesh import DATA_AXIS, is_distributed, world_size
+from qat_vit_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    all_reduce_sum,
+    is_distributed,
+    world_size,
+)
 from qat_vit_tpu_torch.quant.modules import FakeQuantizer
 from qat_vit_tpu_torch.train.losses import kd_loss, top1_correct
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, split=(), group=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: every gradient is scaled by
     ``max_norm / ‖g‖`` unless ``‖g‖ < max_norm`` (no epsilon, unlike
     ``torch.nn.utils.clip_grad_norm_``). Branch-free on the device: no host
-    sync. Returns the global norm."""
+    sync. Returns the global norm.
+
+    ``split``: under a model axis, the gradients of this rank's shards of
+    the split weights; their squared norm is summed over ``group`` and the
+    replicated ``grads`` (the same on every rank of it) count once."""
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if split:
+        sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(split))).square()
+        norm = torch.sqrt(norm.square() + all_reduce_sum(sq, group))
+        grads = list(grads) + list(split)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, factor)
     return norm
@@ -58,11 +80,16 @@ class ClipAdamW:
     """clip-by-global-norm → AdamW with torch's defaults (β = (0.9, 0.999),
     eps 1e-8, decoupled weight decay on every parameter): the reference's
     optimizer with its clip(1.0). ``learning_rate`` / ``weight_decay`` are
-    set without rebuilding (:func:`set_optimizer_hyperparams`)."""
+    set without rebuilding (:func:`set_optimizer_hyperparams`). Parameters
+    split over a model axis (marked ``tp_group`` by
+    ``parallel.tensor.shard_module``) enter the clip's norm over their
+    group."""
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float, weight_decay: float,
                  grad_clip_norm: float = 1.0):
         self.params = [p for p in params if p.requires_grad]
+        self.split = [hasattr(p, "tp_group") for p in self.params]
+        self.group = next((p.tp_group for p in self.params if hasattr(p, "tp_group")), None)
         self.max_norm = float(grad_clip_norm)
         # the global gradient norm before the last step's clip (a 0-d device
         # tensor; the gradients averaged over the ranks in a process group)
@@ -79,9 +106,10 @@ class ClipAdamW:
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if grads:
-            self.last_grad_norm = clip_by_global_norm_(grads, self.max_norm)
+        whole = [p.grad for p, s in zip(self.params, self.split) if p.grad is not None and not s]
+        split = [p.grad for p, s in zip(self.params, self.split) if p.grad is not None and s]
+        if whole or split:
+            self.last_grad_norm = clip_by_global_norm_(whole, self.max_norm, split, self.group)
         self.adamw.step()
 
 
@@ -128,21 +156,34 @@ def data_parallel(module: nn.Module) -> Optional[nn.Module]:
     is in a process group (None otherwise): gradients averaged over the
     ranks in the backward; no buffer broadcast (the observers reduce their
     own statistics, and rank 0's must not overwrite them). The wrapper
-    syncs the parameters from rank 0 once, here; every rank must call it."""
+    syncs the parameters from rank 0 once, here; every rank must call it.
+
+    A module split over a model axis (``module.mesh``) averages over its
+    data group alone, the ranks that hold the same shard (over the world,
+    DDP would broadcast rank 0's shard into the other model ranks); with one
+    data rank there is nothing to average and no wrapper."""
     if not is_distributed():
         return None
     from torch.nn.parallel import DistributedDataParallel
 
+    mesh = getattr(module, "mesh", None)
+    group = None
+    if mesh is not None and mesh.model > 1:
+        if mesh.data == 1:
+            return None
+        group = mesh.data_group
     device = next(module.parameters()).device
     return DistributedDataParallel(
         module, device_ids=[device] if device.type == "cuda" else None,
-        broadcast_buffers=False)
+        broadcast_buffers=False, process_group=group)
 
 
 def check_observer_axis(module: nn.Module) -> None:
     """Raise when a QAT step in a world > 1 would observe per-rank
     statistics: every activation observer must reduce over ``DATA_AXIS``
-    (JAX's guard in ``make_train_step(mesh=...)``)."""
+    (JAX's guard in ``make_train_step(mesh=...)``) and, under a model axis
+    (``module.mesh``), every weight observer over ``MODEL_AXIS`` (a split
+    weight's shards make the whole tensor)."""
     if world_size() == 1:
         return
     quant = getattr(getattr(module, "cfg", None), "quant", None)
@@ -152,6 +193,12 @@ def check_observer_axis(module: nn.Module) -> None:
             f"QAT train step in a world of {world_size()} ranks, but the activation observers "
             f"have axis_name={axis!r}; set FakeQuantConfig.axis_name={DATA_AXIS!r} or the "
             "observer statistics lose their global-batch semantics")
+    mesh = getattr(module, "mesh", None)
+    if mesh is not None and mesh.model > 1 and quant.weight.axis_name != MODEL_AXIS:
+        raise ValueError(
+            f"QAT train step under a model axis of {mesh.model}, but the weight observers have "
+            f"axis_name={quant.weight.axis_name!r}; set FakeQuantConfig.axis_name="
+            f"{MODEL_AXIS!r} or a split weight is quantized with its shard's statistics")
 
 
 def loss_hparams(hparams: Dict, device=None) -> Dict[str, torch.Tensor]:

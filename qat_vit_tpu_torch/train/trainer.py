@@ -42,8 +42,19 @@ DDP replica (gradients averaged before clip → AdamW); the activation
 observers reduce their min/max over the ranks; the epoch's metrics are
 averaged over the ranks with one all-reduce; eval takes the strided shard
 ``rank::world`` and sums the correct counts. Every rank trains, evaluates
-and converts; rank 0 alone writes files and tracks. Not ported: tensor
-parallelism (``model_parallel`` > 1, ROADMAP.md Queue 1, item 11) raises.
+and converts; rank 0 alone writes files and tracks.
+
+Tensor parallelism (``model_parallel`` k > 1): the world is a ``(data,
+k)`` rank grid (``parallel.make_mesh``). The student is built whole from
+the seed, as in one process, then split (``parallel/tensor.py``): each model
+rank holds its shard of qkv / proj / fc1 / fc2 and of their AdamW moments.
+The attention kernels are off under a model axis, as JAX's gate has them
+(its step runs the einsum attention there). The data shards, the image
+counts and the eval shard go by data index, so the model ranks of a data
+group take the same rows and the eval counts each data group once; every
+observer reduces over the world. Files hold the gathered tensors in the JAX
+tree, equal to one process's file of the same values; resume splits them
+again on every rank.
 """
 
 from __future__ import annotations
@@ -79,14 +90,18 @@ from qat_vit_tpu_torch.models.torch_convert import load_torch_state_dict, timm_v
 from qat_vit_tpu_torch.models.vit import VisionTransformer
 from qat_vit_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
     all_reduce_mean,
     all_reduce_sum,
     barrier,
     cleanup_distributed,
     get_dist_info,
     is_distributed,
+    make_mesh,
     setup_distributed,
 )
+from qat_vit_tpu_torch.parallel.tensor import gather_params, shard_module, split_params
 from qat_vit_tpu_torch.quant.qconfig import QConfig, default_qat_qconfig
 from qat_vit_tpu_torch.serve.int8_vit import convert_vit
 from qat_vit_tpu_torch.serve.predictor import Int8Predictor
@@ -119,11 +134,14 @@ from qat_vit_tpu_torch.utils.profiling import trace
 logger = logging.getLogger(__name__)
 
 
-def refuse_unported(hp: Dict[str, Any]) -> None:
-    """Raise on options the port does not run yet, rather than ignore them."""
-    if int(hp.get("model_parallel", 1)) != 1:
-        raise NotImplementedError("model_parallel > 1 (tensor parallelism) is not ported yet: "
-                                  "ROADMAP.md Queue 1, item 11")
+def trainer_mesh(hp: Dict[str, Any]) -> Mesh:
+    """The trainer's ``(data, model_parallel)`` rank grid: over the world in
+    a process group or with ``model_parallel`` > 1 (a model axis the world
+    does not divide raises, as JAX's mesh), else one rank."""
+    model = int(hp.get("model_parallel", 1))
+    if is_distributed() or model != 1:
+        return make_mesh(model=model)
+    return Mesh()
 
 
 def shared_teacher(teacher: Optional[ModelBundle], module: torch.nn.Module) -> ModelBundle:
@@ -134,11 +152,14 @@ def shared_teacher(teacher: Optional[ModelBundle], module: torch.nn.Module) -> M
     return ModelBundle(name="teacher", module=module, cfg=module.cfg)
 
 
-def student_qconfig(hp: Dict[str, Any]) -> QConfig:
+def student_qconfig(hp: Dict[str, Any], mesh: Optional[Mesh] = None) -> QConfig:
     """The QAT student's qconfig: ``qat_backend``'s, with ``observer_stride``
     on the activation observers (weight observers stay exact) and, in a
     process group, the data axis on them: their min/max reduce over the
-    ranks (weights are the same on every rank and take no collective)."""
+    ranks (under data parallelism weights are the same on every rank and
+    take no collective). Under a model axis (``mesh.model`` > 1) the weight
+    observers reduce too (the model axis): a split weight's min/max are the
+    whole tensor's."""
     qconfig = default_qat_qconfig(hp.get("qat_backend", "qnnpack"))
     act = {}
     stride = max(1, int(hp.get("observer_stride", 1)))
@@ -149,6 +170,9 @@ def student_qconfig(hp: Dict[str, Any]) -> QConfig:
     if act:
         qconfig = dataclasses.replace(
             qconfig, activation=dataclasses.replace(qconfig.activation, **act))
+    if mesh is not None and mesh.model > 1:
+        qconfig = dataclasses.replace(
+            qconfig, weight=dataclasses.replace(qconfig.weight, axis_name=MODEL_AXIS))
     return qconfig
 
 
@@ -188,14 +212,19 @@ def _f32(v) -> np.ndarray:
     return np.asarray(v, np.float32)
 
 
-def resume_tree(state: TrainState, qat_enabled: bool, epoch: int) -> Dict[str, Any]:
+def resume_tree(state: TrainState, qat_enabled: bool, epoch: int,
+                gather: Optional[Callable] = None) -> Dict[str, Any]:
     """The JAX package's resume tree of a trainer's state: ``params``,
     ``quant_stats`` (``{}`` before QAT), ``opt_state`` as optax's
     clip → inject_hyperparams(adamw) state (torch's ``exp_avg`` /
     ``exp_avg_sq`` / ``step`` as ``mu`` / ``nu`` / ``count``; a state with no
     step yet as count 0 and zero moments), ``step``, ``epoch`` and
-    ``qat_enabled``."""
-    sd = state.module.state_dict()
+    ``qat_enabled``. ``gather`` maps a rank's state dict (and moments, by
+    parameter name) to the whole under a model axis
+    (``parallel.tensor.gather_params``; every rank of the model group calls
+    it)."""
+    gather = gather or dict
+    sd = gather(state.module.state_dict())
     named = list(state.module.named_parameters())
     adam = state.optimizer.adamw
     slots = [adam.state.get(p) for _, p in named]
@@ -206,11 +235,11 @@ def resume_tree(state: TrainState, qat_enabled: bool, epoch: int) -> Dict[str, A
         if len(counts) != 1:
             raise ValueError(f"AdamW's parameters took different step counts: {sorted(counts)}")
         count = counts.pop()
-        mu = {n: s["exp_avg"] for (n, _), s in zip(named, slots)}
-        nu = {n: s["exp_avg_sq"] for (n, _), s in zip(named, slots)}
+        mu = gather({n: s["exp_avg"] for (n, _), s in zip(named, slots)})
+        nu = gather({n: s["exp_avg_sq"] for (n, _), s in zip(named, slots)})
     else:
         count = 0
-        mu = {n: torch.zeros_like(p) for n, p in named}
+        mu = gather({n: torch.zeros_like(p) for n, p in named})
         nu = dict(mu)
     hyper = state.optimizer.hyperparams
     hyperparams = {k: _f32(v) for k, v in _ADAM_CONSTANTS.items()}
@@ -233,14 +262,19 @@ def resume_tree(state: TrainState, qat_enabled: bool, epoch: int) -> Dict[str, A
     }
 
 
-def restore_resume_tree(state: TrainState, tree: Dict[str, Any], qat_enabled: bool) -> None:
+def restore_resume_tree(state: TrainState, tree: Dict[str, Any], qat_enabled: bool,
+                        split: Optional[Callable] = None) -> None:
     """Load a resume tree into ``state`` in place: parameters and (under QAT)
     every observer, strictly; AdamW's moments, step count, learning rate and
     weight decay. A count of 0 leaves AdamW without state, as a fresh
-    optimizer. (The file's b1, b2 and eps are AdamW's constants.)"""
+    optimizer. (The file's b1, b2 and eps are AdamW's constants.) ``split``
+    maps the whole state dict (and moments) to this rank's shard under a
+    model axis (``parallel.tensor.split_params``)."""
+    split = split or dict
     sd = params_to_state_dict(tree["params"])
     if qat_enabled:
         sd.update(quant_stats_to_buffers(tree["quant_stats"]))
+    sd = split(sd)
     state.module.load_state_dict(sd, strict=True)
     inject = tree["opt_state"]["1"]
     adam_state = inject["inner_state"]["0"]
@@ -252,8 +286,8 @@ def restore_resume_tree(state: TrainState, tree: Dict[str, Any], qat_enabled: bo
     adam = state.optimizer.adamw
     adam.state.clear()
     if count:
-        mu = params_to_state_dict(adam_state["mu"])
-        nu = params_to_state_dict(adam_state["nu"])
+        mu = split(params_to_state_dict(adam_state["mu"]))
+        nu = split(params_to_state_dict(adam_state["nu"]))
         for name, p in state.module.named_parameters():
             adam.state[p] = {"step": torch.tensor(float(count)),
                              "exp_avg": mu[name].to(p.device, p.dtype),
@@ -295,7 +329,11 @@ class KDQATTrainer:
     cache, a bare array or the ``(logits, filled-rows mask)`` pair, shared
     by reference. A ``student`` built on the ``meta`` device
     (``registry.create_architecture``) is an architecture: its weights are
-    drawn from the seed, as without ``student``."""
+    drawn from the seed, as without ``student``.
+
+    ``model_parallel`` k > 1 (in a process group whose world k divides):
+    the student is split over the model axis of :attr:`mesh` after it is
+    built and loaded whole; see the module's docstring."""
 
     def __init__(
         self,
@@ -312,8 +350,8 @@ class KDQATTrainer:
         teacher_logits=None,
     ):
         self.hp = dict(hparams)
-        refuse_unported(self.hp)
         self.dist = get_dist_info()
+        self.mesh = trainer_mesh(self.hp)
         self.run = run if run is not None else NullRun()
         self.device = torch.device(device)
         seed = int(self.hp["seed"] if seed is None else seed)
@@ -348,12 +386,16 @@ class KDQATTrainer:
         qat_dtype = torch.bfloat16 if self.hp.get("qat_amp", False) else torch.float32
         fast = bool(self.hp.get("amp_fast_math", True))
         remat = str(self.hp.get("remat", "none"))
+        # JAX's gate (trainer.py: one device, or no model axis): under a model
+        # axis the step runs the einsum attention
+        attn_kernel = self.mesh.model == 1
         self.student_float_cfg = dataclasses.replace(
             base.cfg, quant=None, qat_wrapper=False, dtype=dtype,
-            fast_math=fast and dtype == torch.bfloat16, attn_kernel=True, remat=remat)
+            fast_math=fast and dtype == torch.bfloat16, attn_kernel=attn_kernel, remat=remat)
         self.student_qat_cfg = dataclasses.replace(
-            base.cfg, quant=student_qconfig(self.hp), qat_wrapper=True, dtype=qat_dtype,
-            fast_math=fast and qat_dtype == torch.bfloat16, attn_kernel=True, remat=remat,
+            base.cfg, quant=student_qconfig(self.hp, self.mesh), qat_wrapper=True,
+            dtype=qat_dtype, fast_math=fast and qat_dtype == torch.bfloat16,
+            attn_kernel=attn_kernel, remat=remat,
             fq_in_kernel=bool(self.hp.get("fq_in_kernel", False)))
         self.student_float = self._load(VisionTransformer(self.student_float_cfg), base.module)
         if self.hp.get("student_ckpt"):
@@ -361,7 +403,10 @@ class KDQATTrainer:
             load_jax_variables(self.student_float, load_model_params(
                 self.hp["student_ckpt"], self.student_float_cfg, template=template))
             logger.info("loaded student weights from %s", self.hp["student_ckpt"])
-        self.student_qat = VisionTransformer(self.student_qat_cfg).to(self.device)
+        # built and loaded whole (the one-process weights), then split
+        shard_module(self.student_float, self.mesh)
+        self.student_qat = shard_module(VisionTransformer(self.student_qat_cfg).to(self.device),
+                                        self.mesh)
 
         # ---- optimizer + state ----
         self.state = TrainState(self.student_float,
@@ -407,11 +452,12 @@ class KDQATTrainer:
             if source == "synthetic":
                 self.run.set_tag("data_source", "synthetic")
         self.data = data
-        # batch_size is per process: each rank its shard of the same shuffle
+        # batch_size is per data rank: each its shard of the same shuffle (the
+        # model ranks of a data group take the same one)
         self.train_loader = ArrayLoader(data["train_images"], data["train_labels"],
                                         batch_size=int(self.hp["batch_size"]), shuffle=True,
-                                        seed=seed, rank=self.dist.rank,
-                                        world_size=self.dist.world_size, drop_last=True)
+                                        seed=seed, rank=self.mesh.data_index,
+                                        world_size=self.mesh.data, drop_last=True)
         self.eval_loader = ArrayLoader(data["test_images"], data["test_labels"],
                                        batch_size=int(self.hp.get("eval_batch_size", 512)),
                                        shuffle=False, drop_last=False)
@@ -438,6 +484,11 @@ class KDQATTrainer:
             raise ValueError(f"student params do not match: missing {missing}, "
                              f"unexpected {unexpected}")
         return module.to(self.device)
+
+    def full_state_dict(self, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+        """``module``'s whole state dict: under a model axis gathered from the
+        model group's shards (every rank of it must call this)."""
+        return gather_params(module.state_dict(), module.cfg, self.mesh)
 
     def _optimizer(self, module: torch.nn.Module, lr: float):
         wd = float(self.hp["weight_decay"])
@@ -515,7 +566,7 @@ class KDQATTrainer:
         self.train_loader.set_epoch(epoch)
         lazy = False
         if limit_batches:
-            planned = (limit_batches * int(self.hp["batch_size"]) * self.dist.world_size
+            planned = (limit_batches * int(self.hp["batch_size"]) * self.mesh.data
                        * max(1, int(self.hp.get("epochs", 1))))
             lazy = planned < len(self.data["train_images"]) // 2
         self._ensure_teacher_logits(lazy=lazy)
@@ -534,18 +585,19 @@ class KDQATTrainer:
                 dev_batch["teacher_logits"] = torch.from_numpy(
                     self._teacher_logits_for(batch)).to(self.device)
             device_metrics.append(self.next_step_fn()(self.state, dev_batch, self.loss_hp))
-            n_images += len(batch["label"]) * self.dist.world_size
+            n_images += len(batch["label"]) * self.mesh.data
         return epoch_metrics(device_metrics, n_images, t0)
 
     # ------------------------------------------------------------------
     def _eval_batches(self, limit_batches: int):
         """``(batch, n_real)`` over the test set: in one process the loader
-        over the whole set, and ``n_real`` its rows; in a world > 1 this
-        rank's strided shard ``rank::world`` (the JAX trainer's
-        ``_eval_shard_batches``), every rank padded to the same batch count
-        and batch size (label -1: never an argmax), and ``n_real`` the real
-        rows of the *global* batch, from the shard arithmetic."""
-        world = self.dist.world_size
+        over the whole set, and ``n_real`` its rows; with data ranks > 1 this
+        rank's strided shard ``data_index::data`` (the JAX trainer's
+        ``_eval_shard_batches``; the model ranks of a data group take the
+        same), every rank padded to the same batch count and batch size
+        (label -1: never an argmax), and ``n_real`` the real rows of the
+        *global* batch, from the shard arithmetic."""
+        world = self.mesh.data
         if world == 1:
             for i, batch in enumerate(self.eval_loader):
                 if limit_batches and i >= limit_batches:
@@ -554,7 +606,7 @@ class KDQATTrainer:
             return
         images, labels = self.data["test_images"], self.data["test_labels"]
         n, bs = len(labels), int(self.hp.get("eval_batch_size", 512))
-        shard = np.arange(n)[self.dist.rank::world]
+        shard = np.arange(n)[self.mesh.data_index::world]
         longest = -(-n // world)
         for i in range(-(-longest // bs)):
             if limit_batches and i >= limit_batches:
@@ -572,7 +624,7 @@ class KDQATTrainer:
     def evaluate(self, limit_batches: int = 0) -> float:
         """Top-1 on the test set with the current (float or fake-quant)
         student, observers frozen; in a world > 1 every rank must call it
-        (the counts are summed over the ranks)."""
+        (the counts are summed over the data group: each data group once)."""
         module = self.student_qat if self.qat_enabled else self.student_float
         correct, total = [], 0
         for batch, real in self._eval_batches(limit_batches):
@@ -583,15 +635,24 @@ class KDQATTrainer:
         self.last_eval_batches = len(correct)  # this rank's batches
         if not correct:
             return 0.0
-        return float(all_reduce_sum(torch.stack(correct).sum())) / max(total, 1)
+        return (float(all_reduce_sum(torch.stack(correct).sum(), self.mesh.data_group))
+                / max(total, 1))
 
     # ------------------------------------------------------------------
     def save_resume_state(self, path: str, epoch: int) -> str:
         """Full-state checkpoint for mid-run resume, in the JAX package's
-        tree (:func:`resume_tree`), so either package resumes it."""
-        return save_checkpoint(path, resume_tree(self.state, self.qat_enabled, epoch),
-                               {"epoch": epoch, "qat_enabled": self.qat_enabled,
-                                "kind": "resume-state"})
+        tree (:func:`resume_tree`), so either package resumes it. Under a
+        model axis every rank must call it (the tree is gathered); rank 0
+        alone writes."""
+        gather = None
+        if self.mesh.model > 1:
+            cfg = self.state.module.cfg
+            gather = lambda sd: gather_params(sd, cfg, self.mesh)  # noqa: E731
+        tree = resume_tree(self.state, self.qat_enabled, epoch, gather=gather)
+        if not self.dist.is_main_process:
+            return path
+        return save_checkpoint(path, tree, {"epoch": epoch, "qat_enabled": self.qat_enabled,
+                                            "kind": "resume-state"})
 
     def load_resume_state(self, path: str) -> int:
         """Restore a resume checkpoint (either package's); returns the epoch
@@ -606,20 +667,26 @@ class KDQATTrainer:
         epoch = int(np.asarray(raw["epoch"])) if embedded else int(meta.get("epoch", -1))
         if qat_enabled:
             self.enable_qat()
-        restore_resume_tree(self.state, raw, self.qat_enabled)
+        split = None
+        if self.mesh.model > 1:
+            cfg = self.state.module.cfg
+            split = lambda sd: split_params(sd, cfg, self.mesh)  # noqa: E731
+        restore_resume_tree(self.state, raw, self.qat_enabled, split=split)
         return epoch + 1
 
     def convert_int8(self) -> Dict[str, Any]:
-        """Observer folding → the int8 export (CPU tensors)."""
+        """Observer folding → the int8 export (CPU tensors); under a model
+        axis from the gathered weights, on every rank."""
         if not self.qat_enabled:
             raise RuntimeError("convert requires QAT to have run")
-        sd = self.student_qat.state_dict()
+        sd = self.full_state_dict(self.student_qat)
         return convert_vit(sd, sd, self.student_qat_cfg,
                            per_channel_weights=bool(self.hp.get("per_channel_weights", False)))
 
     def evaluate_int8(self, qparams=None, limit_batches: int = 0) -> float:
         """True-int8 top-1 through the serving preset on this device; in a
-        world > 1 each rank serves its shard and the counts are summed."""
+        world > 1 each rank serves its data shard and the counts are summed
+        over the data group."""
         qparams = qparams if qparams is not None else self.convert_int8()
         pred = Int8Predictor(qparams, self.student_qat_cfg,
                              batch_size=int(self.hp.get("eval_batch_size", 512)),
@@ -628,7 +695,8 @@ class KDQATTrainer:
         for batch, real in self._eval_batches(limit_batches):
             correct += int((pred.predict(batch["image"]) == batch["label"]).sum())
             total += real
-        count = all_reduce_sum(torch.tensor(correct, dtype=torch.int64, device=self.device))
+        count = all_reduce_sum(torch.tensor(correct, dtype=torch.int64, device=self.device),
+                               self.mesh.data_group)
         return int(count) / max(total, 1)
 
 
@@ -675,9 +743,9 @@ def train_main(hp: Dict[str, Any], device="cuda", **trainer_kw) -> Dict[str, Any
     place of the dataset and the registry's models.
 
     In a process group every rank calls it (on its own device): every rank
-    trains, evaluates and converts; rank 0 alone writes the files, tracks
-    and profiles; the ranks meet at ``dataset``, ``epoch`` and
-    ``epoch_end``."""
+    trains, evaluates and converts; rank 0 alone writes the files (under a
+    model axis from tensors every rank gathers), tracks and profiles; the
+    ranks meet at ``dataset``, ``epoch`` and ``epoch_end``."""
     device = entry_device(device)
     dist = get_dist_info()
     output_dir = hp["output_dir"]
@@ -733,8 +801,8 @@ def train_main(hp: Dict[str, Any], device="cuda", **trainer_kw) -> Dict[str, Any
                 save_checkpoint(os.path.join(output_dir, "best_converted.msgpack"), qparams,
                                 {"epoch": epoch, "quant_acc": quant_acc,
                                  "format": "int8-weights+qparams"})
+        sd = trainer.full_state_dict(trainer.state.module)  # every rank: a gather
         if dist.is_main_process:
-            sd = trainer.state.module.state_dict()
             best.maybe_save(
                 quant_acc,
                 {"params": state_dict_to_params(sd),
@@ -753,7 +821,7 @@ def train_main(hp: Dict[str, Any], device="cuda", **trainer_kw) -> Dict[str, Any
                         epoch + 1, epochs, tm.get("train_loss", 0.0), qat_acc, quant_acc,
                         tm["imgs_per_sec"], " [QAT]" if trainer.qat_enabled else "")
         log_epoch(dist, epoch, tm, {"qat_acc": qat_acc, "quant_acc": quant_acc})
-        if dist.is_main_process and hp.get("save_resume_state", True):
+        if hp.get("save_resume_state", True):  # every rank: a gather; rank 0 writes
             trainer.save_resume_state(os.path.join(output_dir, "resume_state.msgpack"), epoch)
         results.append(EpochResult(epoch, tm.get("train_loss", 0.0), qat_acc, quant_acc,
                                    trainer.qat_enabled, tm["imgs_per_sec"],

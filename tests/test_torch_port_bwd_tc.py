@@ -43,6 +43,18 @@ from qat_vit_tpu_torch.ops import long_attention as la
 from qat_vit_tpu_torch.ops.flash_attention import split_heads
 from qat_vit_tpu_torch.quant.fake_quant import ste_mask
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16 = torch.bfloat16
 LOG2E = np.float32(1.4426950408889634)
 TILE = 32  # keys per tile of the rows pass (BN in csrc/attention_bwd_mma.cu)

@@ -54,6 +54,18 @@ from qat_vit_tpu_torch.utils import checkpoint as tck
 from qat_vit_tpu_torch.utils import msgpack_codec as codec
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -326,7 +338,7 @@ def test_trainer_weights_from_files(tmp_path, monkeypatch):
     holding ``params``, with a key missing and one extra) load what JAX's
     ``load_model_params`` loads (the teacher cast to bf16); the trainer's
     resume file reads back into a trainer built with ``resume``;
-    ``model_parallel`` > 1 raises."""
+    ``model_parallel`` > 1 in a world of one raises JAX's mesh error."""
     from qat_vit_tpu_torch.data.cifar10 import synthetic_cifar10
     from qat_vit_tpu_torch.train import trainer as tr
 
@@ -366,7 +378,7 @@ def test_trainer_weights_from_files(tmp_path, monkeypatch):
     assert t2.load_resume_state(t2.hp["resume"]) == 1 and not t2.qat_enabled
     _same_tree(state_dict_to_params(t2.student_float.state_dict()),
                state_dict_to_params(t.student_float.state_dict()))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
         tr.KDQATTrainer(_hp(model_parallel=2), device="cpu", data=data)
 
 

@@ -40,6 +40,18 @@ from qat_vit_tpu_torch.ops import flash_attention_train as fat
 from qat_vit_tpu_torch.ops import long_attention as la
 from qat_vit_tpu_torch.ops._cuda import reference_impl
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.requires_cuda
 
 

@@ -68,6 +68,18 @@ from qat_vit_tpu_torch.serve.int8_detect import (
 )
 from qat_vit_tpu_torch.serve.int8_vit import _preset_kernel_opts, int8_apply, serving_preset
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MICRO = dict(image_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=2, mlp_ratio=2.0)
 OUTPUTS = ("pred_boxes", "logits", "objectness_logits", "class_embeds", "image_embeds")
 

@@ -41,6 +41,18 @@ from qat_vit_tpu_torch.train.config import load_hparams
 from qat_vit_tpu_torch.train.detect_trainer import DetectKDTrainer
 from tests.test_torch_port_train import _leaves, _sync_to_jax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # 3 heads of 16: the packed width 48 is not 128-lane aligned, so JAX's slab
 # kernels refuse it and both packages take their long-sequence branch
 GEO = dict(image_size=32, patch_size=8, embed_dim=48, depth=2, num_heads=3, mlp_ratio=2.0)
@@ -359,7 +371,7 @@ def test_detect_trainer_phases(long_branch):
     t4 = DetectKDTrainer(_hp(observer_interval=4, observer_stride=2), device="cpu", data=small)
     assert t4.train_step_qat_frozen is not None  # observer_interval runs
     assert t4.student_qat_cfg.quant.activation.observe_stride == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="detection training supports pure-DP meshes only"):
         DetectKDTrainer(_hp(model_parallel=2), device="cpu", data=small)
 
 

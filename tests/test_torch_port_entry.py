@@ -42,6 +42,18 @@ from qat_vit_tpu_torch.models.registry import create_model
 from qat_vit_tpu_torch.train import config
 from qat_vit_tpu_torch.train import trainer as tr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ---------------------------------------------------------------------------
 # flat YAML and the CLI flags
 # ---------------------------------------------------------------------------

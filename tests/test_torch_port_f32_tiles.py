@@ -40,6 +40,18 @@ from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT, bwd_scale_f32
 from qat_vit_tpu_torch.ops.flash_attention import split_heads
 from qat_vit_tpu_torch.quant.fake_quant import ste_mask
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = torch.float32
 IN_FQ = (0, 255)
 FQ = (4.2 / 255, 127.0)  # clips ~3% of N(0, 1)

@@ -32,6 +32,18 @@ from qat_vit_tpu_torch.ops import fused_serve as fs
 from qat_vit_tpu_torch.ops.pallas_gemm import fused_quantize_matmul, fused_quantize_matmul_available
 from qat_vit_tpu_torch.serve import int8_vit
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 M = 150  # not a multiple of the JAX kernels' 256-row tile
 IN_Q = {"scale": np.float32(0.02), "zero_point": np.float32(121.0)}
 OUT_Q = {"scale": np.float32(0.03), "zero_point": np.float32(128.0)}

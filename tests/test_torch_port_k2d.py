@@ -37,6 +37,18 @@ import torch
 from qat_vit_tpu_torch import _build
 from qat_vit_tpu_torch.ops import fused_serve as fs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTHS = [384, 576, 768, 1024, 385, 1280]
 OUT_Q = {"scale": np.float32(8.0 / 255), "zero_point": np.float32(128.0)}
 # warps per block of the register form, as csrc/ln_quantize.cu has it

@@ -49,6 +49,18 @@ from qat_vit_tpu_torch.ops._cuda import bwd_scale_f32
 from qat_vit_tpu_torch.ops.flash_attention import attention_f32_rows, split_heads
 from qat_vit_tpu_torch.ops.quantized_matmul import f32
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32, BF16 = torch.float32, torch.bfloat16
 M = 2 * 197
 # csrc/int8_gemm_wgmma.cu's K7 plan

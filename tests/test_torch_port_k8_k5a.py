@@ -44,6 +44,18 @@ from qat_vit_tpu_torch.ops import long_attention as la
 from qat_vit_tpu_torch.ops._cuda import SMEM_LIMIT
 from qat_vit_tpu_torch.ops.flash_attention import split_heads
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16, F32 = torch.bfloat16, torch.float32
 LOG2E = np.float32(1.4426950408889634)
 TILE = 64  # keys per tile of attention_q_mma.cu's passes

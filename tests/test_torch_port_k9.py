@@ -45,6 +45,18 @@ from tests.test_torch_port_short_tc import EXACT_REL_L2, short_k3
 from tests.test_torch_port_slice import _jax_interpret
 from tests.test_torch_port_slice import export  # noqa: F401 (a module fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16 = torch.bfloat16
 # (N, heads, hd, MLP): ViT-S/16 at 224, 384 and 480 px, ViT-B/16, D 480 (5 x
 # 96) with MLP 1,920, MLP 1,568 (K % 64 = 32), OWLv2's 2,305 tokens, the

@@ -57,6 +57,18 @@ from tests.test_torch_port_detect import (  # noqa: F401 (export, micro: module 
     micro,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 OUT_Q = {"scale": np.float32(0.05), "zero_point": np.float32(131.0)}
 
 

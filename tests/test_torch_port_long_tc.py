@@ -64,6 +64,18 @@ from tests.test_torch_port_detect import (  # noqa: F401 (export, micro: module 
     micro,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16 = torch.bfloat16
 LOG2E = np.float32(1.4426950408889634)
 TILE = 64  # keys per tile of the forward, query and key rows per block

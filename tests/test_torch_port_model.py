@@ -25,6 +25,18 @@ from qat_vit_tpu_torch.serve.calibrate import calibrate
 from qat_vit_tpu_torch.serve.int8_vit import convert_vit
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _leaves(tree, prefix=""):
     out = {}
     for k, v in tree.items():

@@ -33,6 +33,18 @@ from qat_vit_tpu_torch.ops.flash_attention import (
 )
 from qat_vit_tpu_torch.ops.quantized_matmul import int8_matmul, quantize_act_shifted
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 M, K, N = 150, 128, 256  # M is not a multiple of the JAX kernel's 256-row tile
 
 

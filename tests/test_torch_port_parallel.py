@@ -20,8 +20,8 @@ on a test set of odd size; the rank helpers in a world of 2; the guard on a
 QAT step whose observers lack the axis; a world of one through DDP,
 identical to no process group; ``Int8Predictor`` over a 2-device mesh
 identical to one device; the loader's rank shards; ``model_parallel`` > 1
-still refused. Every rank case runs in ONE spawn of two ranks (module
-fixture), its results under ``tmp_path``.
+refused in a world of one, as JAX's mesh refuses it. Every rank case runs in
+ONE spawn of two ranks (module fixture), its results under ``tmp_path``.
 """
 
 import dataclasses
@@ -59,8 +59,20 @@ from qat_vit_tpu_torch.serve.int8_vit import convert_vit
 from qat_vit_tpu_torch.serve.predictor import Int8Predictor
 from qat_vit_tpu_torch.train import steps
 from qat_vit_tpu_torch.train.detect_steps import make_detect_train_step
-from qat_vit_tpu_torch.train.trainer import refuse_unported
+from qat_vit_tpu_torch.train.trainer import trainer_mesh
 from tests.test_torch_port_train import _leaves, _pow2_scales, _sync_to_jax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 WORLD, B = 2, 4  # ranks, rows per rank
 LR, WD, CLIP = 1e-3, 1e-3, 0.05  # CLIP below the micro models' gradient norms
@@ -437,8 +449,11 @@ def test_loader_rank_shards_match_jax(rank):
 
 
 def test_model_parallel_still_refused():
-    """Tensor parallelism stays refused, naming ROADMAP item 11."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        refuse_unported({"model_parallel": 2})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """In a world of one a model axis of 2 is refused with JAX's mesh error
+    (the world does not divide it); a device list (the predictor's replicas)
+    carries no model axis. Tensor parallelism runs on ranks
+    (``tests/test_torch_port_tensor_parallel.py``)."""
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
+        trainer_mesh({"model_parallel": 2})
+    with pytest.raises(ValueError, match="device list"):
         make_mesh(model=2, devices=["cpu", "cpu"])

@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -27,6 +28,18 @@ from qat_vit_tpu_torch.parallel import dryrun
 from qat_vit_tpu_torch.train import trainer as tr
 from qat_vit_tpu_torch.utils.checkpoint import load_checkpoint
 from tests.test_torch_port_entry import _spec, jax_templates  # noqa: F401 (a fixture)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 B, N_TRAIN, N_TEST = 4, 64, 37
 ARTIFACTS = {"effective_hparams.yaml", "best_qat.msgpack", "best_qat.msgpack.json",

@@ -20,6 +20,18 @@ from qat_vit_tpu_torch.quant.modules import FakeQuantizer
 from qat_vit_tpu_torch.quant.qconfig import default_qat_qconfig
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _ranges(n=64, seed=0):
     """(min, max) pairs: straddling zero, one-sided, tiny, zero and uninitialized."""
     rng = np.random.default_rng(seed)

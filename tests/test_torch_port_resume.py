@@ -32,6 +32,18 @@ from qat_vit_tpu_torch.models.registry import create_model
 from qat_vit_tpu_torch.train.config import DEFAULT_HPARAMS
 from qat_vit_tpu_torch.train.trainer import KDQATTrainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B = 8
 
 

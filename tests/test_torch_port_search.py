@@ -333,10 +333,12 @@ def _hp_of(cfg):
     return hp
 
 
-def test_search_cli_and_refusals(tmp_path):
+def test_search_cli_and_refusals(tmp_path, monkeypatch):
     """``main(argv, device="cpu")`` with JAX's flags on a micro search (data
-    from a small ``cifar10.npz``); no CUDA device, ``model_parallel`` > 1
-    and an unknown flag refused."""
+    from a small ``cifar10.npz``); no CUDA device and an unknown flag
+    refused; ``model_parallel`` reaches the trainer (JAX's
+    ``search/driver.py``), which in a world of one refuses 2 with JAX's
+    mesh error: the trial fails, and no trial completes."""
     d = synthetic_cifar10(n_train=64, n_test=32, seed=2)
     (tmp_path / "data").mkdir()
     np.savez(tmp_path / "data" / "cifar10.npz", **d)
@@ -352,10 +354,25 @@ def test_search_cli_and_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_driver.run_optuna_search(cfg)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    seen = []
+
+    def trainer(hp, **kw):
+        seen.append(hp["model_parallel"])
+        try:
+            return KDQATTrainer(hp, **kw)
+        except ValueError as e:
+            seen.append(str(e))
+            raise
+
+    monkeypatch.setattr(port_driver, "KDQATTrainer", trainer)
+    with pytest.raises(ValueError, match="no completed trials"):
         port_driver.run_optuna_search(
-            port_driver.SearchConfig(micro=True, model_parallel=2,
-                                     output_dir=str(tmp_path / "y")), device="cpu")
+            port_driver.SearchConfig(micro=True, model_parallel=2, trials=1,
+                                     output_dir=str(tmp_path / "y"),
+                                     mlflow_uri=f"sqlite:///{tmp_path}/y.db"),
+            data=synthetic_cifar10(n_train=16, n_test=8, seed=2), prefer_optuna=False,
+            device="cpu")
+    assert seen == [2, "1 devices not divisible by model=2"]
     assert [f.name for f in dataclasses.fields(port_driver.SearchConfig)] == [
         f.name for f in dataclasses.fields(jax_driver.SearchConfig)]
     assert port_driver.SearchConfig().__dict__ == jax_driver.SearchConfig().__dict__

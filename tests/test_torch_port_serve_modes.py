@@ -54,6 +54,18 @@ from qat_vit_tpu_torch.serve.int8_vit import (
 )
 from qat_vit_tpu_torch.serve.predictor import Int8Predictor
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MODES = ("pallas", "mixed", "mixed_qkv", "mixed_fc1", "mixed_none")
 ATTN_IMPLS = ("xla", "pallas", "pallas_fused", "pallas_long")
 # the fused chains vs JAX: both bf16 streams, but LN statistics and softmax

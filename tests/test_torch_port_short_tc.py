@@ -46,6 +46,18 @@ from tests.test_torch_port_long_tc import Q_OUT, _qkv_do, two_pass_forward, two_
 from tests.test_torch_port_slice import _jax_interpret, _int8_close
 from tests.test_torch_port_slice import export  # noqa: F401 (a module fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF16 = torch.bfloat16
 FQ = (4.2 / 255, 127.0)  # a qkv grid whose ends clip ~3% of N(0, 1)
 IN_FQ = (0, 255)

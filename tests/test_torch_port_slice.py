@@ -44,6 +44,18 @@ from qat_vit_tpu_torch.serve.int8_vit import (
 from qat_vit_tpu_torch.serve.predictor import Int8Predictor
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _jax_interpret(fn, *args):
     """One jitted call under the Mosaic-TPU interpreter (see the deadlock
     note on ``interpret_apply`` in tests/test_fused_serve.py)."""

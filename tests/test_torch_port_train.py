@@ -41,6 +41,18 @@ from qat_vit_tpu_torch.quant.fake_quant import fake_quantize
 from qat_vit_tpu_torch.train import losses
 from qat_vit_tpu_torch.train import steps
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, N, H, HD = 3, 17, 2, 64
 QS = (4.2 / 255, 127.0)  # clips the N(0, 1) qkv beyond ~±2.1: the STE mask is not all ones
 
@@ -400,10 +412,10 @@ def test_optimizer_pieces():
     assert state.step == 1 and all(torch.equal(v, after[k]) for k, v in before.items()
                                    if k.endswith("_val"))
     assert not torch.equal(before["head.weight"], after["head.weight"])
-    from qat_vit_tpu_torch.train.trainer import refuse_unported
+    from qat_vit_tpu_torch.train.trainer import trainer_mesh
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        refuse_unported({"model_parallel": 2})
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
+        trainer_mesh({"model_parallel": 2})
 
 
 # ---------------------------------------------------------------------------
@@ -526,7 +538,7 @@ def test_trainer_smoke():
     assert t4.train_step_qat_frozen is not None  # observer_interval runs
     assert t4.student_qat_cfg.quant.activation.observe_stride == 2
     assert t4.student_qat_cfg.quant.weight.observe_stride == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
         KDQATTrainer({**hp, "model_parallel": 2}, device="cpu", data=data)
 
 

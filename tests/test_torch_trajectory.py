@@ -25,6 +25,18 @@ from qat_vit_tpu.train.steps import init_quant_stats
 
 torch = pytest.importorskip("torch")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's micro models, restored after
+    it: their ops are tiny, and under pytest-xdist every worker's default
+    threads would contend for the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LR = 0.05
 LS = 0.1
 STEPS = 6
