@@ -114,6 +114,88 @@ def synthetic_cifar10(
     }
 
 
+def synthetic_cifar10_hard(
+    n_train: int = 50_000, n_test: int = 10_000, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    """Hard deterministic stand-in for CIFAR-10 (full-scale accuracy runs).
+
+    :func:`synthetic_cifar10` is near-linearly-separable — any competent model
+    saturates it, so fp32/fake-quant/int8 accuracies would all read ~100% and
+    the int8-vs-QAT delta the reference cares about (best-model rule,
+    reference src/training/qat_trainer.py:371-388) would be unmeasurable.
+    This variant forces a genuinely tight decision boundary:
+
+    - each class is a pair of oriented color gratings whose *shift-invariant*
+      identity (frequency, orientation, channel mix) is the only reliable
+      cue — every sample gets a random circular shift, so raw pixel means
+      carry no class signal and the model must learn frequency/orientation
+      features;
+    - every sample is corrupted by a *distractor*: a random OTHER class's
+      pattern at 25–108% of the signal amplitude. Samples whose distractor
+      is nearly as strong as (or stronger than) the signal are genuinely
+      ambiguous — even the Bayes classifier errs on part of them — which
+      pins the accuracy ceiling measurably below 100% and concentrates
+      decision boundaries where int8 rounding can actually flip predictions;
+    - strong pixel noise on top.
+
+    Same shapes/dtypes as the real dataset; fully deterministic in ``seed``.
+    """
+    rng = np.random.default_rng(seed + 17)
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32) / 32.0
+
+    def grating(freq: float, theta: float, phase: float) -> np.ndarray:
+        u = xx * np.cos(theta) + yy * np.sin(theta)
+        return np.sin(2 * np.pi * freq * u + phase).astype(np.float32)
+
+    # class templates: two gratings × a fixed random channel mix each
+    templates = np.zeros((NUM_CLASSES, 32, 32, 3), np.float32)
+    for c in range(NUM_CLASSES):
+        for g in range(2):
+            freq = 2.0 + ((c * 2 + g) % 5)
+            theta = (c * 2 + g) * np.pi / (2 * NUM_CLASSES)
+            mix = rng.normal(0, 1, 3).astype(np.float32)
+            mix /= np.abs(mix).max()
+            templates[c] += grating(freq, theta, rng.uniform(0, 2 * np.pi))[
+                ..., None
+            ] * mix
+        templates[c] /= np.abs(templates[c]).max()
+
+    def make(n: int, rng: np.random.Generator):
+        labels = rng.integers(0, NUM_CLASSES, size=n).astype(np.int32)
+        distractor = (
+            labels + rng.integers(1, NUM_CLASSES, size=n).astype(np.int32)
+        ) % NUM_CLASSES
+        amp = rng.uniform(0.6, 1.2, size=n).astype(np.float32)
+        damp = amp * rng.uniform(0.25, 1.08, size=n).astype(np.float32)
+        dx = rng.integers(0, 32, size=n)
+        dy = rng.integers(0, 32, size=n)
+        imgs = np.empty((n, 32, 32, 3), np.uint8)
+        chunk = 2048
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            sig = templates[labels[s:e]] * amp[s:e, None, None, None]
+            sig += templates[distractor[s:e]] * damp[s:e, None, None, None]
+            # per-sample circular shift (cheap row-gather form of np.roll)
+            rows = (np.arange(32)[None, :] + dy[s:e, None]) % 32
+            cols = (np.arange(32)[None, :] + dx[s:e, None]) % 32
+            sig = sig[np.arange(e - s)[:, None, None],
+                      rows[:, :, None], cols[:, None, :]]
+            sig += rng.normal(0, 0.45, size=sig.shape).astype(np.float32)
+            imgs[s:e] = np.clip((sig * 0.25 + 0.5) * 255.0, 0, 255).astype(
+                np.uint8
+            )
+        return imgs, labels
+
+    train_x, train_y = make(n_train, np.random.default_rng(seed + 1))
+    test_x, test_y = make(n_test, np.random.default_rng(seed + 2))
+    return {
+        "train_images": train_x,
+        "train_labels": train_y,
+        "test_images": test_x,
+        "test_labels": test_y,
+    }
+
+
 def load_cifar10(
     data_dir: str = "./data", allow_synthetic: bool = True, seed: int = 0
 ) -> Tuple[Dict[str, np.ndarray], str]:

@@ -180,12 +180,20 @@ class QuantDense(nn.Module):
         w = self.weight
         if self.quant is not None:
             w = self.weight_fq(w, observe=observe)
+        if self.tp is None:
+            return F.linear(x.to(self.dtype), w.to(self.dtype))
+        # under a model axis the dtype's operands are multiplied as f32 (each
+        # product exact, the sums in f32; TF32 must stay off), so a row
+        # layer's partial product and a column layer's partial dx are summed
+        # over the ranks before their one rounding to dtype, as one process's
+        # GEMM accumulates in f32 and rounds once
+        x = x.to(self.dtype).float()
         if self.tp == COLUMN:
             x = copy_to_model(x, self.tp_group)
-        y = F.linear(x.to(self.dtype), w.to(self.dtype))
+        y = F.linear(x, w.to(self.dtype).float())
         if self.tp == ROW:
             y = reduce_from_model(y, self.tp_group)
-        return y
+        return y.to(self.dtype)
 
     def post(self, y: torch.Tensor, *, observe: bool = False, defer_output_fq: bool = False):
         """The bias add and the output fake-quant of :meth:`gemm`'s product."""

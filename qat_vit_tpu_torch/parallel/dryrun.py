@@ -23,7 +23,8 @@ tasks are the steps of given states and batches (``steps``, and
 (``eval``), the rank helpers (``info``), the guard on QAT steps without
 the observers' axis (``guard``), ``train_main`` / ``detect_train_main`` on
 micro models and synthetic data (``train_main``), the search driver
-(``search``) and the tensor-parallel dry run (``tp_dryrun``).
+(``search``), the tensor-parallel dry run (``tp_dryrun``) and one split
+bf16 layer of each kind (``tp_gemm``).
 
 :func:`launch` kills every rank as soon as one fails or the time limit
 passes, and raises: a lost rank fails the run instead of hanging it.
@@ -587,6 +588,45 @@ def task_search(task, info, device) -> Dict[str, Any]:
     return {"best_value": res["best_value"], "best_params": res["best_params"]}
 
 
+def task_tp_gemm(task, info, device) -> Dict[str, Any]:
+    """One bf16 layer of each split kind over a model axis of
+    ``task["model"]`` ranks, from ``x`` ``[m, k]``, the whole f32 weight
+    ``[n, k]`` and an output gradient ``[m, n]`` drawn from ``task["seed"]``:
+    the row-parallel layer's product (this rank's input columns, summed over
+    the ranks) and the column-parallel layer's input gradient (this rank's
+    output rows, ``dx`` summed over the ranks). Rank 0 writes the inputs and
+    both results to ``{dir}/tp_gemm.pt``."""
+    from qat_vit_tpu_torch.models.vit import QuantDense
+    from qat_vit_tpu_torch.parallel.tensor import COLUMN, ROW, share
+
+    mesh = make_mesh(model=task["model"])
+    m, k, n = task["m"], task["k"], task["n"]
+    gen = torch.Generator().manual_seed(task["seed"])
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16)
+    w = 0.05 * torch.randn(n, k, generator=gen)
+    dy = torch.randn(m, n, generator=gen).to(torch.bfloat16)
+
+    def layer(kind, rows, cols):
+        dense = QuantDense(cols.stop - cols.start, rows.stop - rows.start, None,
+                           dtype=torch.bfloat16, use_bias=False)
+        with torch.no_grad():
+            dense.weight.copy_(w[rows, cols])
+        dense.tp, dense.tp_group = kind, mesh.model_group
+        return dense.to(device)
+
+    lo, hi = share(k, mesh.model, mesh.model_index)
+    row = layer(ROW, slice(0, n), slice(lo, hi))
+    y_row = row.gemm(x[:, lo:hi].to(device))
+    lo, hi = share(n, mesh.model, mesh.model_index)
+    col = layer(COLUMN, slice(lo, hi), slice(0, k))
+    xg = x.to(device, copy=True).requires_grad_(True)
+    col.gemm(xg).backward(dy[:, lo:hi].to(device))
+    if info.rank == 0:
+        save_atomic({"x": x, "w": w, "dy": dy, "y_row": y_row.detach().cpu(),
+                     "dx_col": xg.grad.cpu()}, os.path.join(task["dir"], "tp_gemm.pt"))
+    return {}
+
+
 def task_tp_dryrun(task, info, device) -> Dict[str, Any]:
     """The tensor-parallel dry run on the ``(world / model, model)`` grid:
     one float, one QAT and one QAT step under ``remat="dots"`` (the
@@ -695,7 +735,7 @@ def task_dryrun(task, info, device) -> Dict[str, Any]:
 
 TASKS = {"info": task_info, "guard": task_guard, "steps": task_steps, "eval": task_eval,
          "train_main": task_train_main, "dryrun": task_dryrun, "tp_steps": task_tp_steps,
-         "search": task_search, "tp_dryrun": task_tp_dryrun}
+         "search": task_search, "tp_dryrun": task_tp_dryrun, "tp_gemm": task_tp_gemm}
 
 
 def run_job(job: Dict[str, Any]) -> None:

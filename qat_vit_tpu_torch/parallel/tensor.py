@@ -17,7 +17,9 @@ hidden)``, proj and fc2 ``(hidden, embed)``; everything else replicated).
   forward, the all-reduce of ``dx`` over the model group backward); proj and
   fc2 are row-parallel, their partial product passes
   :func:`reduce_from_model` (the all-reduce SUM forward, identity backward)
-  before the bias add and the output fake-quant. Both sum in f32.
+  before the bias add and the output fake-quant. Both sum f32 partials
+  (``models/vit.QuantDense.gemm`` multiplies a split layer's operands as
+  f32), so a bf16 layer rounds once, after the sum, as one process's GEMM.
 - **The state.** :func:`split_params` takes a rank's shard of a whole
   state dict (parameters, AdamW moments), :func:`gather_params` the whole
   back from every model rank's shard (:func:`join_params` in one process);

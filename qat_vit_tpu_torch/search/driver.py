@@ -50,8 +50,15 @@ import torch
 
 from qat_vit_tpu_torch.data.cifar10 import load_cifar10
 from qat_vit_tpu_torch.models.registry import create_model, create_student, create_teacher
+from qat_vit_tpu_torch.parallel.mesh import (
+    cleanup_distributed,
+    get_dist_info,
+    is_distributed,
+    is_main_process,
+    setup_distributed,
+)
 from qat_vit_tpu_torch.search import tpe as _tpe
-from qat_vit_tpu_torch.tracking import make_tracker
+from qat_vit_tpu_torch.tracking import NullRun, make_tracker
 from qat_vit_tpu_torch.train.config import DEFAULT_HPARAMS, dump_flat_yaml
 from qat_vit_tpu_torch.train.trainer import KDQATTrainer, entry_device
 
@@ -168,10 +175,21 @@ def run_optuna_search(
     """The search on ``device`` (a CUDA device must be present; pass
     ``device="cpu"`` for the CPU): returns ``best_params`` (what
     ``best_params.yaml`` holds), ``best_value``, ``best_params_path`` and
-    the ``study``."""
+    the ``study``.
+
+    In a process group every rank calls it and runs the same trials (the
+    studies, seeded alike, read the ranks' common eval metric, so they
+    sample and prune alike and return the same ``best_params``); rank 0
+    alone makes ``output_dir``, tracks the runs and writes
+    ``best_params.yaml``, as ``train_main`` writes."""
     device = entry_device(device)
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    tracker = make_tracker(cfg.mlflow_uri, cfg.experiment)
+    main_process = is_main_process()
+    if main_process:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        tracker = make_tracker(cfg.mlflow_uri, cfg.experiment)
+
+    def start_run(name):
+        return tracker.start_run(name) if main_process else NullRun()
 
     # data + teacher built ONCE (ref :58-80, :118-120)
     if data is None:
@@ -269,7 +287,7 @@ def run_optuna_search(
     def objective(trial) -> float:
         hp = dict(base_hp)
         hp.update(suggest_detect_hparams(trial, cfg) if detection else suggest_hparams(trial, cfg))
-        run = tracker.start_run(f"trial_{trial.number:04d}")  # ref :156
+        run = start_run(f"trial_{trial.number:04d}")  # ref :156
         run.log_params({**{k: hp[k] for k in param_keys}, "batch_size": cfg.batch_size,
                         "epochs": cfg.epochs, "qat_backend": cfg.qat_backend})
         try:
@@ -311,10 +329,11 @@ def run_optuna_search(
     out["batch_size"] = cfg.batch_size
     out["qat_backend"] = cfg.qat_backend
     best_path = os.path.join(cfg.output_dir, "best_params.yaml")
-    with open(best_path, "w") as f:
-        f.write(dump_flat_yaml(out))
+    if main_process:
+        with open(best_path, "w") as f:
+            f.write(dump_flat_yaml(out))
 
-    with tracker.start_run("optuna_best_summary") as run:  # ref :282-285
+    with start_run("optuna_best_summary") as run:  # ref :282-285
         run.log_params(out)
         run.log_metric("best_value", float(best_value))
 
@@ -325,8 +344,10 @@ def run_optuna_search(
 
 def main(argv=None, device="cuda") -> None:
     """The search CLI: one flag per ``SearchConfig`` field, as the JAX
-    package's."""
-    logging.basicConfig(level=logging.INFO)
+    package's. Under ``torchrun`` (``python -m torch.distributed.run
+    --nproc_per_node N -m qat_vit_tpu_torch.search.driver ...``) each rank
+    joins the process group on its own device, as the training CLI's ranks
+    do, runs the same trials, and rank 0 alone writes."""
     p = argparse.ArgumentParser(description="QAT hyperparameter search (PyTorch + CUDA)")
     for f in dataclasses.fields(SearchConfig):
         flag = "--" + f.name.replace("_", "-")
@@ -336,7 +357,18 @@ def main(argv=None, device="cuda") -> None:
             p.add_argument(flag, type=type(f.default), default=f.default)
     args = p.parse_args(argv)
     cfg = SearchConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(SearchConfig)})
-    run_optuna_search(cfg, device=device)
+    joined = not is_distributed()
+    if joined:
+        info, device = setup_distributed(device)
+    else:
+        info = get_dist_info()
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank {info.rank} %(levelname)s %(name)s: %(message)s")
+    try:
+        run_optuna_search(cfg, device=device)
+    finally:
+        if joined:
+            cleanup_distributed()
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -30,8 +30,10 @@ batch as:
 Each rank holds only its shard of qkv / proj / fc1 / fc2 and of their AdamW
 moments. The two-rank spawn also runs ``train_main`` (its files, written by
 rank 0 from gathered tensors, read by one process and written back
-byte-identical) and resumes it, the search driver, and the tensor-parallel
-dry run (float, QAT, and QAT under ``remat="dots"``).
+byte-identical) and resumes it, the search driver (rank 0 alone writes),
+the tensor-parallel dry run (float, QAT, and QAT under ``remat="dots"``),
+and one bf16 row- and column-parallel layer, each rounding once after the
+sum over the ranks.
 """
 
 import os
@@ -249,7 +251,9 @@ def tp_run(tmp_path_factory):
                          eval_batch_size=8, limit_train_batches=1, limit_eval_batches=1,
                          output_dir=d + "/search{rank}",
                          mlflow_uri=f"sqlite:///{d}/search{{rank}}.db")},
-                     {"kind": "tp_dryrun", "model": 2}],
+                     {"kind": "tp_dryrun", "model": 2},
+                     {"kind": "tp_gemm", "dir": d, "model": 2, "seed": 0, "m": 64, "k": 512,
+                      "n": 256}],
             (2, 2): [{"kind": "tp_steps", "dir": d, "data": 2, "model": 2, "cases": cases}]}
     ranks, errors = {}, []
 
@@ -460,3 +464,52 @@ def test_search_and_dryrun_on_two_tp_ranks(tp_run):
             g = r["tp_dryrun"][name]
             assert g["ranks_identical"] and g["weight_obs_equal"], name
             assert g["loss_rel"] <= LOSS_RTOL and g["params_rel_l2"] <= PARAM_REL_L2, (name, g)
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each element of ``t`` (f32): 2^(exponent - 7)."""
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t.abs().clamp_min(2.0 ** -126))[1] - 8)
+
+
+def test_tp_bf16_layers_round_once(tp_run):
+    """A bf16 split layer rounds once, after the sum over the model ranks
+    (2 gloo ranks): the row-parallel product equals one rounding to bf16 of
+    the f32 sum of the ranks' f32 partial products, and the column-parallel
+    layer's input gradient one rounding of the f32 sum of the ranks' f32
+    partial ``dx``; each within one bf16 ulp of one process's ``F.linear``
+    (its product, and its input gradient)."""
+    import torch.nn.functional as F
+
+    got = torch.load(os.path.join(tp_run["dir"], "tp_gemm.pt"), weights_only=True)
+    x, w, dy = got["x"], got["w"].to(torch.bfloat16), got["dy"]
+    k, n = w.shape[1], w.shape[0]
+    parts, dparts = [], []
+    for m in range(2):
+        lo, hi = tensor.share(k, 2, m)
+        parts.append(F.linear(x[:, lo:hi].float(), w[:, lo:hi].float()))
+        lo, hi = tensor.share(n, 2, m)
+        dparts.append(dy[:, lo:hi].float() @ w[lo:hi].float())
+    assert got["y_row"].dtype == got["dx_col"].dtype == torch.bfloat16
+    assert torch.equal(got["y_row"], (parts[0] + parts[1]).to(torch.bfloat16))
+    assert torch.equal(got["dx_col"], (dparts[0] + dparts[1]).to(torch.bfloat16))
+    xg = x.detach().clone().requires_grad_(True)
+    one = F.linear(xg, w)
+    one.backward(dy)
+    for tp, whole in ((got["y_row"], one.detach()), (got["dx_col"], xg.grad)):
+        assert whole.dtype == torch.bfloat16
+        a, b = tp.float(), whole.float()
+        assert ((a - b).abs() <= _bf16_ulp(torch.maximum(a.abs(), b.abs()))).all()
+
+
+def test_search_writes_from_rank_zero_alone(tp_run):
+    """The search on two ranks (``model_parallel`` 2; ``{rank}`` in its
+    ``output_dir`` and tracker path): rank 0 alone wrote its directory, its
+    tracker store and ``best_params.yaml``; both ranks return the same
+    ``best_params`` and best value."""
+    d = tp_run["dir"]
+    a, b = (r["search"] for r in tp_run["ranks"][1, 2])
+    assert a["best_params"] == b["best_params"] and a["best_value"] == b["best_value"]
+    assert os.path.isfile(os.path.join(d, "search0", "best_params.yaml"))
+    assert os.path.isfile(os.path.join(d, "search0.db"))
+    assert not os.path.exists(os.path.join(d, "search1"))
+    assert not os.path.exists(os.path.join(d, "search1.db"))
